@@ -1,0 +1,78 @@
+"""tpulbm_torch's CUDA kernels against their plain PyTorch versions, on the
+card. Every test here needs a CUDA device (marker ``cuda``) and skips
+without one. The file imports no jax, so it runs on a GPU host without jax;
+there, skip the jax-importing conftest:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+Tolerances: nvcc contracts a*b+c into FMAs where the plain PyTorch ops
+round twice, so kernel and plain differ in the last bits, growing with the
+steps of a chunk (the per-step |u| sums more than f); the gates are
+chip_smoke.py's, where the measurement behind them is noted.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tpulbm_torch.core.params import LBMParams
+from tpulbm_torch.core.state import initial_state
+from tpulbm_torch.dist.runner import make_runner
+from tpulbm_torch.ops import _build, kstep, resident
+
+F_ATOL = 5e-7
+AV_RTOL = 3e-4
+
+
+@pytest.fixture
+def case():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    p = LBMParams(nx=136, ny=200, max_iters=1, reynolds_dim=10,
+                  density=0.1, accel=0.005, omega=1.85)
+    rng = np.random.RandomState(9)
+    mask = rng.rand(p.ny, p.nx) < 0.1
+    p = p.with_free_cells(p.ny * p.nx - int(mask.sum()))
+    dev = torch.device("cuda")
+    f0 = initial_state(p, dev) * torch.tensor(
+        1 + 0.01 * rng.rand(9, p.ny, p.nx), dtype=torch.float32, device=dev)
+    return p, f0, torch.tensor(mask, device=dev)
+
+
+def _close(got, want):
+    (f_k, s_k), (f_r, s_r) = got, want
+    assert (f_k - f_r).abs().max().item() <= F_ATOL
+    assert ((s_k - s_r).abs() / s_r.abs()).max().item() <= AV_RTOL
+
+
+@pytest.mark.cuda
+def test_fused_step_chunks_match_plain(case):
+    """K1 through skew_chunk (8 steps) and kstep_chunk (3 steps), with K3."""
+    p, f0, mask = case
+    o = mask.float()
+    _close(kstep.skew_chunk(f0, o, p), kstep.skew_chunk_ref(f0, o, p))
+    _close(kstep.kstep_chunk(f0, o, p, 3), kstep.kstep_chunk_ref(f0, o, p, 3))
+
+
+@pytest.mark.cuda
+def test_resident_chunk_matches_plain_and_repeats_bitwise(case):
+    """K2 with K3; two runs give identical bytes (no float atomics)."""
+    p, f0, mask = case
+    o = mask.float()
+    got = resident.resident_chunk(f0, o, p, 64)
+    _close(got, resident.resident_chunk_ref(f0, o, p, 64))
+    again = resident.resident_chunk(f0, o, p, 64)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.cuda
+def test_cuda_runner_goes_through_the_kernels(case):
+    """The cuda backend's runner launches the kernels of its route and
+    agrees with the torch backend (canonical vs pair-symmetric: same gate)."""
+    p, f0, mask = case
+    _build.reset_launches()
+    f, av = make_runner(p, 21, "cuda", "cuda")(f0, mask)
+    assert _build.LAUNCHES["resident_chunk"] == 1
+    assert _build.LAUNCHES["reduce_partials"] == 1
+    f_r, av_r = make_runner(p, 21, "torch", "cuda")(f0, mask)
+    _close((f, av), (f_r, av_r))

@@ -1,0 +1,147 @@
+"""Build and load the CUDA kernels of ``tpulbm_torch/csrc``.
+
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared library
+with a plain C interface under ``build/tpulbm_torch/`` at the repository
+root (git-ignored); the file name carries a hash of the sources, so an edit
+rebuilds and an unchanged tree reuses the library. ``ctypes`` binds it: each
+entry point takes ``c_void_p`` pointers and the CUDA stream, ``c_int`` and
+``c_float`` scalars, and returns a ``cudaError_t`` that ``check`` turns into
+an exception. Nothing here runs at import time.
+
+Every kernel wrapper adds one to its entry of ``LAUNCHES`` where it launches
+its kernel and nowhere else, so a run can show which kernels it went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpulbm_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+# Launch counts per kernel wrapper (see the module docstring).
+LAUNCHES = {
+    "skew_chunk": 0,        # K1 launches made by ops.kstep.skew_chunk
+    "kstep_chunk": 0,       # K1 launches made by ops.kstep.kstep_chunk
+    "resident_chunk": 0,    # K2 launches made by ops.resident.resident_chunk
+    "reduce_partials": 0,   # K3 launches made by ops.kstep.reduce_partials
+}
+
+_lock = threading.Lock()
+_lib = None
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "lbm_fused_step_blocks": ([_I], _I),
+    "lbm_fused_step": ([_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P], _I),
+    "lbm_reduce_partials": ([_P, _P, _I, _I, _P], _I),
+    "lbm_resident_grid": ([_I, ctypes.POINTER(_I)], _I),
+    "lbm_resident_chunk": (
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P], _I),
+    "lbm_error_string": ([_I], ctypes.c_char_p),
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels of "
+        "tpulbm_torch cannot be built"
+    )
+
+
+def build() -> Path:
+    """Compile csrc/*.cu unless the library of this source hash exists.
+    Writes to a temporary file and renames, so concurrent builders never
+    load a half-written library. The compiler's output (``-Xptxas -v``:
+    registers, shared memory, spills per kernel) goes to ``build.log``."""
+    lib_path = BUILD_DIR / f"libtpulbm_torch_{source_hash()}.so"
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        (BUILD_DIR / "build.log").write_text(
+            " ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
+        os.replace(tmp, lib_path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, (argtypes, restype) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _lib = lib
+        return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if code != 0:
+        msg = library().lbm_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def require_cuda(*tensors) -> None:
+    """The kernels take contiguous float32 CUDA tensors on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(
+                f"CUDA kernel needs tensors on one CUDA device, got {t.device}")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(
+                f"CUDA kernel needs contiguous float32, got {t.dtype}")
+

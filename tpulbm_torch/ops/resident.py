@@ -1,0 +1,67 @@
+"""K-step chunk for small grids in one persistent launch: kernels K2 + K3.
+
+``resident_chunk`` is the counterpart of
+``tpulbm.ops.pallas_resident._kernel`` (``make_resident_step``): up to
+``RESIDENT_K`` steps per call of a grid of at most ``MAX_CELLS`` cells. K2
+(``csrc/resident.cu::lbm_resident_chunk``) is one cooperative launch with a
+grid-wide barrier between steps, its ping-pong pair held in L2; K3
+(``ops.kstep.reduce_partials``) reduces its per-block partials to the (K,)
+per-step sums of |u| over free cells.
+
+The wrapper takes the plain version (``resident_chunk_ref``) only when the
+state lies on the CPU. On a CUDA tensor it launches K2 or raises — also when
+the device refuses the cooperative launch; it never falls back to K1.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tpulbm_torch.core.params import LBMParams
+from tpulbm_torch.ops import _build, step_torch
+from tpulbm_torch.ops.kstep import check_chunk, reduce_partials
+
+# Grids up to this many cells route here (the gate of
+# tpulbm/ops/pallas_resident.py:35, kept so both packages route the four
+# decks alike); K2 itself has no size limit.
+MAX_CELLS = 100 * 1024
+# Steps per call, as tpulbm.dist.runner._make_resident_runner's k_chunk.
+RESIDENT_K = 512
+
+
+def supported(ny: int, nx: int) -> bool:
+    return ny * nx <= MAX_CELLS
+
+
+def resident_chunk_ref(f, obst_f, params: LBMParams, k: int,
+                       pair_symmetric=True):
+    """Plain version of ``resident_chunk``: k steps, raw per-step sums."""
+    return step_torch.run_sums(f, obst_f != 0, params, k, pair_symmetric)
+
+
+def resident_chunk(f, obst_f, params: LBMParams, k: int):
+    """k fused steps of the (9, ny, nx) state ``f`` over the (ny, nx) float32
+    mask ``obst_f`` (nonzero = blocked). Returns (f', sums[k])."""
+    if f.device.type == "cpu":
+        return resident_chunk_ref(f, obst_f, params, k)
+    check_chunk(f, obst_f, params, k)
+    ny, nx = params.ny, params.nx
+    lib = _build.library()
+    grid = ctypes.c_int(0)
+    _build.check(lib.lbm_resident_grid(ny * nx, ctypes.byref(grid)),
+                 "lbm_resident_grid (cooperative launch)")
+    partials = torch.empty((k, grid.value), dtype=torch.float32,
+                           device=f.device)
+    out = torch.empty_like(f)
+    scratch = torch.empty_like(f)
+    _build.LAUNCHES["resident_chunk"] += 1
+    _build.check(
+        lib.lbm_resident_chunk(
+            f.data_ptr(), obst_f.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), partials.data_ptr(), grid.value, ny, nx, k,
+            params.accel_row, params.omega, params.accel_w1,
+            params.accel_w2, torch.cuda.current_stream(f.device).cuda_stream),
+        "lbm_resident_chunk")
+    return out, reduce_partials(partials)
