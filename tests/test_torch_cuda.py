@@ -17,8 +17,9 @@ import torch
 
 from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.core.state import initial_state
+from tpulbm_torch.dist import tiers
 from tpulbm_torch.dist.runner import make_runner
-from tpulbm_torch.ops import _build, kstep, resident
+from tpulbm_torch.ops import _build, kstep, kstep_tile, resident
 
 F_ATOL = 5e-7
 AV_RTOL = 3e-4
@@ -66,13 +67,33 @@ def test_resident_chunk_matches_plain_and_repeats_bitwise(case):
 
 
 @pytest.mark.cuda
+def test_kstep_tile_chunks_match_plain_and_repeat_bitwise(case):
+    """K4 with K3: whole grid at 8 and 3 steps, and a band of rows
+    [-16, 16) around the seam holding the accelerated row ny-2."""
+    p, f0, mask = case
+    o = mask.float()
+    for k in (8, 3):
+        got = kstep_tile.tile_chunk(f0, o, p, k)
+        _close(got, kstep_tile.tile_chunk_ref(f0, o, p, k))
+        again = kstep_tile.tile_chunk(f0, o, p, k)
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    rows = torch.arange(-16, 16, device=f0.device) % p.ny
+    band, ob = f0[:, rows].contiguous(), o[rows].contiguous()
+    _close(kstep_tile.band_chunk(band, ob, p, 8, p.ny - 16),
+           kstep_tile.band_chunk_ref(band, ob, p, 8, p.ny - 16))
+
+
+@pytest.mark.cuda
 def test_cuda_runner_goes_through_the_kernels(case):
     """The cuda backend's runner launches the kernels of its route and
-    agrees with the torch backend (canonical vs pair-symmetric: same gate)."""
+    agrees with the torch backend (canonical vs pair-symmetric: same gate).
+    136 columns are off the resident gate's 128-alignment: K1, 2 x 8 + 5."""
     p, f0, mask = case
+    assert tiers.family(p.ny, p.nx, 21) == "fused"
     _build.reset_launches()
     f, av = make_runner(p, 21, "cuda", "cuda")(f0, mask)
-    assert _build.LAUNCHES["resident_chunk"] == 1
-    assert _build.LAUNCHES["reduce_partials"] == 1
+    assert _build.LAUNCHES["skew_chunk"] == 16
+    assert _build.LAUNCHES["kstep_chunk"] == 5
+    assert _build.LAUNCHES["reduce_partials"] == 3
     f_r, av_r = make_runner(p, 21, "torch", "cuda")(f0, mask)
     _close((f, av), (f_r, av_r))

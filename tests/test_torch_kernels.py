@@ -23,12 +23,13 @@ from tpulbm.core.params import LBMParams as JParams
 from tpulbm.core.state import initial_state as j_initial_state
 from tpulbm.dist.mesh import get_mesh
 from tpulbm.dist.runner import _make_resident_runner, _make_skew_runner
+from tpulbm.ops.pallas_resident import supported_hbm
 from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.core.state import initial_state
 from tpulbm_torch.dist import runner as truntime
 from tpulbm_torch.io.obstacles import read_obstacles
 from tpulbm_torch.io.params_file import read_params
-from tpulbm_torch.ops import _build, kstep, resident
+from tpulbm_torch.ops import _build, kstep, kstep_tile, resident
 
 torch.set_num_threads(2)
 
@@ -75,6 +76,20 @@ def test_resident_chunk_matches_pallas_resident():
     np.testing.assert_allclose(_scale(p, sums).numpy(), av_j, rtol=AV_RTOL)
 
 
+def test_resident_chunk_matches_pallas_resident_hbm():
+    """resident_chunk vs the HBM-edge resident kernel (_kernel_hbm), which
+    the JAX router takes for 100K-135K aligned cells: 256x512, 12 steps."""
+    p, mask = _random_case(256, 512, seed=4)
+    assert supported_hbm(256, 512)
+    n = 12
+    f_j, av_j = _jax_run(
+        _make_resident_runner(JParams(**dataclasses.asdict(p)), n), p, mask)
+    obst_f = torch.tensor(mask, dtype=torch.float32)
+    f_t, sums = resident.resident_chunk(initial_state(p), obst_f, p, n)
+    np.testing.assert_allclose(f_t.numpy(), f_j, rtol=0, atol=F_ATOL)
+    np.testing.assert_allclose(_scale(p, sums).numpy(), av_j, rtol=AV_RTOL)
+
+
 def test_skew_and_kstep_chunks_match_pallas_skew():
     """One skew_chunk (8 steps) plus a 3-step kstep_chunk vs the fused-fix
     skew runner, whose 3-step remainder runs the classic pallas_kstep
@@ -99,14 +114,20 @@ def test_skew_and_kstep_chunks_match_pallas_skew():
     ("1024x1024", 20000, [("skew", 8)] * 2500),
     ("1024x1024", 1003, [("skew", 8)] * 125 + [("kstep", 3)]),
     ("1024x1024", 5, [("kstep", 5)]),
+    ("2048x2048", 4000, [("tile", 8)] * 500),
+    ("4096x4096", 2000, [("tile", 8)] * 250),
+    ("8192x8192", 1000, [("tile", 8)] * 125),
+    ("4096x4096", 1003, [("tile", 8)] * 125 + [("tile", 3)]),
 ])
 def test_kernel_plan_routes_like_the_jax_runner(deck, n, expect):
-    """<= 100K cells -> K2 in 512-step chunks plus a remainder
-    (runner.py:1723-1730); larger grids -> K1 in 8-step chunks plus a
-    kstep remainder (runner.py:1741-1746)."""
+    """Aligned grids of <= 135K cells -> K2 in 512-step chunks plus a
+    remainder (runner.py:1723-1730); the 1-D skew's grids -> K1 in 8-step
+    chunks plus a kstep remainder (runner.py:1741-1746); the wide tiers'
+    grids (fold, 2-D skew, runner.py:1749-1777) -> K4 in 8-step chunks plus
+    a shorter one."""
     p = read_params(os.path.join(DATA, f"input_{deck}.params"))
     names = {resident.resident_chunk: "resident", truntime._skew: "skew",
-             kstep.kstep_chunk: "kstep"}
+             kstep.kstep_chunk: "kstep", kstep_tile.tile_chunk: "tile"}
     plan = truntime.kernel_plan(p, n)
     assert [(names[fn], k) for fn, k in plan] == expect
     assert sum(k for _, k in plan) == n
@@ -155,7 +176,7 @@ def test_reduce_partials_plain():
 def test_nvcc_flags_and_sources():
     """The build covers every .cu of csrc for sm_90a, without fast math."""
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-        "fused_step.cu", "resident.cu"}
+        "fused_step.cu", "kstep_tile.cu", "resident.cu"}
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags

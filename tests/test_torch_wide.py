@@ -1,0 +1,283 @@
+"""The wide-grid slice of tpulbm_torch (K4, ``ops.kstep_tile``) against the
+JAX package's wide tiers: the lane-folded skew with its seam fix, the 2-D
+skew, the 2-D K-step, the three seam fixes, the router, and the slice end to
+end through ``Simulation``.
+
+On the CPU the wrappers take their plain PyTorch versions (K4 runs only on
+the card; ``chip_smoke.py`` holds it against the same plain versions
+there). The JAX side runs its Pallas kernels in interpret mode, as its own
+CPU tests do, in the production pair-symmetric form on both sides. Every
+input is made from a seed with numpy and fed to both packages. Tolerances as
+test_torch_kernels: f atol 1e-7 and per-step av rtol 1e-4 over at most 11
+steps; measured on these inputs: at most 4.8e-8 in f and 5.8e-6 relative in
+the kernel-level sums, 1.8e-5 in the end-to-end av series (the canonical
+equilibrium of the port's plain Simulation against pair-symmetric Pallas).
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import tpulbm
+from tpulbm.core.params import LBMParams as JParams
+from tpulbm.dist import runner as jrunner
+from tpulbm.dist.mesh import get_mesh
+from tpulbm.ops import pallas_kstep2d, pallas_kstep_skew
+from tpulbm.ops import pallas_kstep_skew2d, pallas_kstep_skew_fold
+from tpulbm_torch.core.params import LBMParams
+from tpulbm_torch.core.state import initial_state
+from tpulbm_torch.dist import runner as truntime
+from tpulbm_torch.dist import tiers
+from tpulbm_torch.io.obstacles import write_obstacles
+from tpulbm_torch.io.params_file import read_params, write_params
+from tpulbm_torch.ops import kstep, kstep_tile, resident
+from tpulbm_torch.sim.simulation import Simulation
+
+torch.set_num_threads(2)
+
+F_ATOL = 1e-7
+AV_RTOL = 1e-4
+K = 8
+
+
+def _case(ny, nx, seed=3, p_block=0.1):
+    """A random mask and a 1 % perturbation of the rest state."""
+    p = LBMParams(nx=nx, ny=ny, max_iters=1, reynolds_dim=10,
+                  density=0.1, accel=0.005, omega=1.85)
+    rng = np.random.RandomState(seed)
+    mask = rng.rand(ny, nx) < p_block
+    p = p.with_free_cells(ny * nx - int(mask.sum()))
+    f0 = (initial_state(p).numpy()
+          * (1 + 0.01 * rng.rand(9, ny, nx))).astype(np.float32)
+    return p, mask, f0
+
+
+def _jp(p):
+    return JParams(**dataclasses.asdict(p))
+
+
+def _close(f, av, f_ref, av_ref):
+    np.testing.assert_allclose(np.asarray(f), np.asarray(f_ref), rtol=0,
+                               atol=F_ATOL)
+    np.testing.assert_allclose(np.asarray(av), np.asarray(av_ref),
+                               rtol=AV_RTOL)
+
+
+def _tile_run(p, mask, f0, ks):
+    """tile_chunk chunks of ks steps from f0; returns (f, av series)."""
+    obst_f = torch.tensor(mask, dtype=torch.float32)
+    f, sums = torch.tensor(f0), []
+    for k in ks:
+        f, s = kstep_tile.tile_chunk(f, obst_f, p, k)
+        assert s.shape == (k,)
+        sums.append(s)
+    av = torch.cat(sums) * torch.tensor(p.free_cells_inv, dtype=torch.float32)
+    return f.numpy(), av.numpy()
+
+
+def test_tile_chunk_matches_fold_runner():
+    """An 8-step tile_chunk plus a 3-step one vs the lane-folded skew at
+    F=2 (main kernel + unfolded seam fix per chunk, folded jnp remainder)."""
+    p, mask, f0 = _case(96, 256)
+    assert pallas_kstep_skew_fold.pick_fold(96, 256) == 2
+    n = 11
+    f_j, av_j = pallas_kstep_skew_fold.make_fold_runner(_jp(p), n)(
+        jnp.asarray(f0), jnp.asarray(mask))
+    _close(*_tile_run(p, mask, f0, [K, 3]), f_j, av_j)
+
+
+def test_tile_chunk_matches_skew2d_runner():
+    """Against the 2-D skew on 4 x 4 tiles of (24, 256) with the monolithic
+    seam fix, and its 3-step remainder."""
+    p, mask, f0 = _case(96, 1024, seed=4)
+    n = 11
+    r = jrunner._make_skew_runner(
+        _jp(p), n, get_mesh(n_devices=1),
+        maker=pallas_kstep_skew2d.make_skew2d, tile=(24, 256))
+    f_j, av_j = r(jnp.asarray(f0), jnp.asarray(mask))
+    _close(*_tile_run(p, mask, f0, [K, 3]), f_j, av_j)
+
+
+def test_tile_chunk_remainder_matches_kstep2d():
+    """A 5-step tile_chunk vs the 2-D K-step kernel (the wide grids'
+    sub-8-step remainder), whose column margins wrap the torus."""
+    p, mask, f0 = _case(48, 512, seed=5)
+    k = 5
+    assert pallas_kstep2d.supported(48, 512, k)
+    r = jrunner._make_kstep_runner(_jp(p), k, get_mesh(n_devices=1), k,
+                                   maker=pallas_kstep2d.make_kstep2d)
+    f_j, av_j = r(jnp.asarray(f0), jnp.asarray(mask))
+    _close(*_tile_run(p, mask, f0, [k]), f_j, av_j)
+
+
+def _band(f0, mask, lo, hi):
+    rows = np.arange(lo, hi) % mask.shape[0]
+    return f0[:, rows], mask[rows].astype(np.float32)
+
+
+def test_band_chunk_matches_fold_fix():
+    """band_chunk over rows [-(m+K), m+K) vs make_fold_fix (F=2), which
+    reads rows [-bh, bh) and keeps rows [-m, m) at every step: values and
+    per-step sums. The band holds the accelerated row ny-2."""
+    p, mask, f0 = _case(96, 256, seed=6)
+    F = 2
+    m = pallas_kstep_skew_fold.fix_band_half(F)
+    bh = pallas_kstep_skew_fold.fix_band_side(F)
+    ve = bh - m - K   # rows [-m, m) inside the fix's vals (fold runner)
+    band, oband = _band(f0, mask, -bh, bh)
+    fix = pallas_kstep_skew_fold.make_fold_fix(
+        p.ny, p.nx, F, p.omega, p.accel_w1, p.accel_w2)
+    scal = jnp.asarray([[p.accel_row, (p.ny - bh) % p.ny]], dtype=jnp.int32)
+    vals_j, sums_j = fix(jnp.asarray(band), jnp.asarray(oband), scal)
+    band, oband = _band(f0, mask, -(m + K), m + K)
+    vals, sums = kstep_tile.band_chunk(
+        torch.tensor(band), torch.tensor(oband), p, K, p.ny - m - K)
+    assert vals.shape == (9, 2 * m, p.nx)
+    _close(vals.numpy(), sums.numpy(),
+           np.asarray(vals_j)[:, ve:ve + 2 * m], sums_j)
+
+
+@pytest.mark.parametrize("tiled", [True, False])
+def test_band_chunk_matches_skew_fixes(tiled):
+    """band_chunk over rows [-2K, 2K) vs the seam fix of the skew tiers,
+    x-tiled (two tiles of 128 columns) and monolithic: the values of rows
+    [-K, K) after K steps. Values only: the fixes' per-step sums cover a
+    row set that slides down one row per step to complement the skewed main
+    kernel (owned_step_dy=-1, pallas_kstep_skew.py:810-814), which no
+    whole-band sum matches."""
+    p, mask, f0 = _case(96, 256, seed=7)
+    if tiled:
+        fix = pallas_kstep_skew.make_skew_fix_tiled(
+            p.nx, p.ny, p.omega, p.accel_w1, p.accel_w2, bx=128)
+    else:
+        fix = pallas_kstep_skew.make_skew_fix(
+            p.nx, p.ny, p.omega, p.accel_w1, p.accel_w2)
+    band, oband = _band(f0, mask, -2 * K, 2 * K)
+    scal = jnp.asarray([[p.accel_row, p.ny - 2 * K]], dtype=jnp.int32)
+    vals_j, _ = fix(jnp.asarray(band), jnp.asarray(oband), scal)
+    vals, sums = kstep_tile.band_chunk(
+        torch.tensor(band), torch.tensor(oband), p, K, p.ny - 2 * K)
+    assert vals.shape == (9, 2 * K, p.nx) and sums.shape == (K,)
+    np.testing.assert_allclose(vals.numpy(), np.asarray(vals_j), rtol=0,
+                               atol=F_ATOL)
+
+
+def test_band_chunk_rows_equal_the_whole_grid():
+    """A band away from the seam and the accelerated row gives, bitwise, the
+    whole-grid chunk's values on its kept rows (same plain arithmetic)."""
+    p, mask, f0 = _case(72, 160, seed=8)
+    f, _ = kstep_tile.tile_chunk(torch.tensor(f0),
+                                 torch.tensor(mask, dtype=torch.float32), p, 5)
+    band, oband = _band(f0, mask, 20, 51)
+    vals, _ = kstep_tile.band_chunk(torch.tensor(band), torch.tensor(oband),
+                                    p, 5, 20)
+    assert torch.equal(vals, f[:, 25:46])
+
+
+# (ny, nx, n_steps): the seven decks at their step counts and the shapes
+# around the tier boundaries.
+ROUTES = [
+    (128, 128, 40000), (128, 256, 40000), (256, 256, 80000),
+    (1024, 1024, 20000), (2048, 2048, 4000), (4096, 4096, 2000),
+    (8192, 8192, 1000), (256, 512, 1003), (96, 1024, 1003),
+    (72, 2048, 1003), (96, 2048, 1003), (24, 8192, 1003),
+    (1001, 1024, 1003), (1001, 1000, 1003), (100, 130, 1003),
+]
+
+
+def _jax_family(monkeypatch, ny, nx, n):
+    """The kernel family of the tier the JAX make_runner picks, spied on
+    its makers (nothing is built or compiled)."""
+    hit = []
+
+    def spy(family):
+        def fn(*a, **kw):
+            fam = family(kw) if callable(family) else family
+            hit.append(fam)
+            return lambda f, o: (f, None)
+        return fn
+
+    two_d = (pallas_kstep_skew2d.make_skew2d, pallas_kstep2d.make_kstep2d)
+    monkeypatch.setattr(jrunner, "_make_resident_runner",
+                        spy("resident"))
+    monkeypatch.setattr(
+        jrunner, "_make_skew_runner",
+        spy(lambda kw: "tile" if kw.get("maker") in two_d else "fused"))
+    monkeypatch.setattr(
+        jrunner, "_make_kstep_runner",
+        spy(lambda kw: "tile" if kw.get("maker") in two_d else "fused"))
+    monkeypatch.setattr(pallas_kstep_skew_fold, "make_fold_runner",
+                        spy("tile"))
+    monkeypatch.setattr(jrunner, "_make_kstep_bands_runner",
+                        spy("tile"))
+    monkeypatch.setattr(jrunner, "_make_xpad_runner", spy("fused"))
+    p = LBMParams(nx=nx, ny=ny, max_iters=n, reynolds_dim=10, density=0.1,
+                  accel=0.005, omega=1.85).with_free_cells(nx * ny)
+    jrunner.make_runner(_jp(p), n, get_mesh(n_devices=1), backend="pallas")
+    assert len(hit) <= 1
+    # nothing spied on: the one-step-per-call or jnp fallback, a K1 route
+    return (hit or ["fused"])[0], p
+
+
+@pytest.mark.parametrize("ny,nx,n", ROUTES)
+def test_kernel_family_matches_the_jax_router(monkeypatch, ny, nx, n):
+    """The port's route (K2 resident, K1 fused, K4 tile) is the family of
+    the JAX package's single-device tier for the same grid and steps."""
+    want, p = _jax_family(monkeypatch, ny, nx, n)
+    assert tiers.family(ny, nx, n) == want
+    fns = {resident.resident_chunk: "resident", truntime._skew: "fused",
+           kstep.kstep_chunk: "fused", kstep_tile.tile_chunk: "tile"}
+    plan = truntime.kernel_plan(p, n)
+    assert {fns[fn] for fn, _ in plan} == {want}
+    assert sum(k for _, k in plan) == n
+
+
+@pytest.mark.parametrize("ny,nx,expect", [
+    (256, 512, [("resident", 12)]),            # 131,072 cells: _kernel_hbm
+    (100, 130, [("skew", 8), ("kstep", 4)]),   # not 8/128-aligned
+    (100, 128, [("skew", 8), ("kstep", 4)]),    # ny % 8 != 0
+])
+def test_kernel_plan_resident_gate(ny, nx, expect):
+    """K2 takes the JAX resident gate, supported or supported_hbm
+    (pallas_resident.py:35-60): 8/128-aligned grids of at most 135K
+    cells, whatever the step count."""
+    p = LBMParams(nx=nx, ny=ny, max_iters=12, reynolds_dim=10, density=0.1,
+                  accel=0.005, omega=1.85)
+    names = {resident.resident_chunk: "resident", truntime._skew: "skew",
+             kstep.kstep_chunk: "kstep"}
+    assert [(names[fn], k) for fn, k in truntime.kernel_plan(p, 12)] == expect
+
+
+def test_wide_deck_end_to_end(tmp_path):
+    """A 72x2048 deck with a random mask, 11 steps: above the resident gate
+    and too wide for the 1-D skew, so the JAX router folds it (F=2) and the
+    port routes it to K4. The port's Simulation (plain oracle on the CPU)
+    and its cuda plan (through the K4 wrappers' plain versions) against the
+    JAX Simulation on the fold runner: state and av series."""
+    ny, nx, n = 72, 2048, 11
+    rng = np.random.RandomState(9)
+    mask = rng.rand(ny, nx) < 0.05
+    pf, of = tmp_path / "input.params", tmp_path / "obstacles.dat"
+    write_params(pf, LBMParams(nx=nx, ny=ny, max_iters=n, reynolds_dim=10,
+                               density=0.1, accel=0.005, omega=1.85))
+    write_obstacles(of, mask)
+    assert read_params(pf).max_iters == n
+    assert pallas_kstep_skew_fold.pick_fold(ny, nx) == 2
+
+    jsim = tpulbm.Simulation.from_files(pf, of, mesh=get_mesh(n_devices=1),
+                                        backend="pallas")
+    jres = jsim.run(n_steps=n)
+    sim = Simulation.from_files(pf, of, device="cpu")
+    res = sim.run()
+    assert sim.step_count == n and res.av_vels.shape == (n,)
+    _close(sim.f.numpy(), res.av_vels, jsim.f, jres.av_vels)
+    assert abs(res.reynolds - jres.reynolds) < 1e-4 * abs(jres.reynolds)
+
+    plan = truntime.kernel_plan(sim.params, n)
+    assert plan == [(kstep_tile.tile_chunk, K), (kstep_tile.tile_chunk, 3)]
+    f, av = truntime.run_plan(plan, initial_state(sim.params),
+                              sim.obstacles.float(), sim.params)
+    _close(f.numpy(), av.numpy(), jsim.f, jres.av_vels)

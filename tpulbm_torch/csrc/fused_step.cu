@@ -20,9 +20,9 @@
 // step at 1024^2, 2.45 TB/s, 73 % of the 3.35 TB/s peak (PERF.md).
 //
 // Left on the table: temporal blocking. Each step goes through device memory
-// once; K steps per pass over an SM-resident tile (cluster/DSMEM exchange or
-// strip-walking CTAs) would cut the bytes by up to K. One Python launch per
-// step also costs host time (a CUDA graph per chunk would remove it).
+// once; K4 (kstep_tile.cu) steps up to 8 per pass over a tile held in shared
+// memory and runs the wide grids. One Python launch per step also costs host
+// time (a CUDA graph per chunk would remove it).
 //
 // No float atomics: the per-block partials and K3's sums are fixed-order,
 // so two runs give identical bytes.
@@ -45,8 +45,8 @@ __global__ void __launch_bounds__(kThreads)
   float speed = 0.0f;
   if (i < ncells) {
     const int y = i / a.nx;
-    speed = tpulbm::lbm_cell(src, obst, dst, y, i - y * a.nx, a,
-                             tpulbm::LoadReadOnly{});
+    speed = tpulbm::grid_cell<tpulbm::LoadReadOnly>(src, obst, dst, y,
+                                                    i - y * a.nx, a);
   }
   const float s = tpulbm::block_sum(speed, warp_sums);
   if (threadIdx.x == 0) partials[blockIdx.x] = s;

@@ -1,5 +1,5 @@
 // One D2Q9-BGK lattice update of one cell, shared by the CUDA kernels of
-// tpulbm_torch (fused_step.cu, resident.cu).
+// tpulbm_torch (fused_step.cu, resident.cu, kstep_tile.cu).
 //
 // Replaces the per-step body that every TPU kernel inlines:
 // tpulbm/ops/window_step.py::fused_window_steps with accel_update and
@@ -7,14 +7,25 @@
 // that the TPU kernels run in production (window_step.py:28).
 //
 // Per cell and step: pull the nine populations from the neighbours
-// (t_k(y, x) = f_k(y - CY[k], x - CX[k]), periodic, rows growing northward);
-// apply the inflow acceleration to a pulled value whose SOURCE cell lies on
-// accel_row and is free, with the reference's knife-edge guard evaluated on
-// that source cell's f3, f6, f7 (step_jnp.py:43-66); collide, or bounce back
-// the pulled values on a blocked cell (physics.py:104-108); write the nine
-// results; return |u| (zero on a blocked cell). IEEE 1.0f/dens and sqrtf as
-// physics.py:33,112: build without --use_fast_math. nvcc's default FMA
-// contraction changes the last bits, so the port compares by tolerance.
+// (t_k(y, x) = f_k(y - CY[k], x - CX[k]), rows growing northward); apply the
+// inflow acceleration to a pulled value whose SOURCE cell lies on the
+// accelerated row and is free, with the reference's knife-edge guard
+// evaluated on that source cell's f3, f6, f7 (step_jnp.py:43-66); collide,
+// or bounce back the pulled values on a blocked cell (physics.py:104-108);
+// write the nine results; return |u| (zero on a blocked cell). IEEE
+// 1.0f/dens and sqrtf as physics.py:33,112: build without --use_fast_math.
+// nvcc's default FMA contraction changes the last bits, so the port compares
+// by tolerance.
+//
+// `lbm_cell` is generic over where the old state comes from and where the
+// new one goes. A source `s` answers, for the neighbour at (y+dy, x+dx) of
+// the cell being updated (dy, dx in {-1, 0, 1}, constants after inlining):
+//   s.f(k, dy, dx)   population k of the old state there;
+//   s.fluid(dy, dx)  that cell is not blocked;
+//   s.accel(dy)      row y+dy is the accelerated row.
+// A sink `d` takes d(k, v): the new population k of the cell.
+// `GridSrc`/`GridDst` address a (9, ny, nx) periodic grid in device memory
+// (K1, K2); kstep_tile.cu (K4) brings its own shared-memory source.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -46,71 +57,56 @@ constexpr float kW0 = 4.0f / 9.0f;
 constexpr float kW1 = 1.0f / 9.0f;
 constexpr float kW2 = 1.0f / 36.0f;
 
-// True where the source cell (sy, sx) is accelerated: it lies on accel_row,
-// is free, and stays positive in channels 3, 6, 7 after the update.
-template <class Load>
-__device__ __forceinline__ bool accel_guard(const float* __restrict__ src,
-                                            const float* __restrict__ obst,
-                                            size_t plane, int sy, int sx,
-                                            const LbmArgs& a, Load load) {
-  const size_t c = (size_t)sy * a.nx + sx;
-  if (obst[c] != 0.0f) return false;
-  return (load(src + 3 * plane + c) - a.w1 > 0.0f) &&
-         (load(src + 6 * plane + c) - a.w2 > 0.0f) &&
-         (load(src + 7 * plane + c) - a.w2 > 0.0f);
+// True where the source cell at (dy, dx) is accelerated: it is free and
+// stays positive in channels 3, 6, 7 after the update (the caller has
+// checked that it lies on the accelerated row).
+template <class Src>
+__device__ __forceinline__ bool accel_guard(const Src& s, int dy, int dx,
+                                            const LbmArgs& a) {
+  return s.fluid(dy, dx) && (s.f(3, dy, dx) - a.w1 > 0.0f) &&
+         (s.f(6, dy, dx) - a.w2 > 0.0f) && (s.f(7, dy, dx) - a.w2 > 0.0f);
 }
 
-template <class Load>
-__device__ __forceinline__ float lbm_cell(const float* __restrict__ src,
-                                          const float* __restrict__ obst,
-                                          float* __restrict__ dst, int y,
-                                          int x, const LbmArgs& a, Load load) {
-  const size_t plane = (size_t)a.ny * a.nx;
-  const int yS = (y == 0) ? a.ny - 1 : y - 1;       // row y - 1 (south)
-  const int yN = (y == a.ny - 1) ? 0 : y + 1;       // row y + 1 (north)
-  const int xW = (x == 0) ? a.nx - 1 : x - 1;       // column x - 1 (west)
-  const int xE = (x == a.nx - 1) ? 0 : x + 1;       // column x + 1 (east)
-  const size_t r = (size_t)y * a.nx, rS = (size_t)yS * a.nx,
-               rN = (size_t)yN * a.nx;
-
+template <class Src, class Dst>
+__device__ __forceinline__ float lbm_cell(const Src& s, const Dst& d,
+                                          const LbmArgs& a) {
   // Pull: channel k comes from (y - CY[k], x - CX[k]).
-  float t0 = load(src + 0 * plane + r + x);
-  float t1 = load(src + 1 * plane + r + xW);   // CX=+1
-  float t2 = load(src + 2 * plane + rS + x);   // CY=+1
-  float t3 = load(src + 3 * plane + r + xE);   // CX=-1
-  float t4 = load(src + 4 * plane + rN + x);   // CY=-1
-  float t5 = load(src + 5 * plane + rS + xW);  // (+1,+1)
-  float t6 = load(src + 6 * plane + rS + xE);  // (-1,+1)
-  float t7 = load(src + 7 * plane + rN + xE);  // (-1,-1)
-  float t8 = load(src + 8 * plane + rN + xW);  // (+1,-1)
+  float t0 = s.f(0, 0, 0);
+  float t1 = s.f(1, 0, -1);    // CX=+1
+  float t2 = s.f(2, -1, 0);    // CY=+1
+  float t3 = s.f(3, 0, +1);    // CX=-1
+  float t4 = s.f(4, +1, 0);    // CY=-1
+  float t5 = s.f(5, -1, -1);   // (+1,+1)
+  float t6 = s.f(6, -1, +1);   // (-1,+1)
+  float t7 = s.f(7, +1, +1);   // (-1,-1)
+  float t8 = s.f(8, +1, -1);   // (+1,-1)
 
   // Inflow acceleration on the source cell, before streaming
   // (d2q9-bgk.c:442-478): +w1 on 1, -w1 on 3, +w2 on 5 and 8, -w2 on 6, 7.
-  if (y == a.accel_row) {
-    if (accel_guard(src, obst, plane, y, xW, a, load)) t1 = t1 + a.w1;
-    if (accel_guard(src, obst, plane, y, xE, a, load)) t3 = t3 - a.w1;
+  if (s.accel(0)) {
+    if (accel_guard(s, 0, -1, a)) t1 = t1 + a.w1;
+    if (accel_guard(s, 0, +1, a)) t3 = t3 - a.w1;
   }
-  if (yS == a.accel_row) {
-    if (accel_guard(src, obst, plane, yS, xW, a, load)) t5 = t5 + a.w2;
-    if (accel_guard(src, obst, plane, yS, xE, a, load)) t6 = t6 - a.w2;
+  if (s.accel(-1)) {
+    if (accel_guard(s, -1, -1, a)) t5 = t5 + a.w2;
+    if (accel_guard(s, -1, +1, a)) t6 = t6 - a.w2;
   }
-  if (yN == a.accel_row) {
-    if (accel_guard(src, obst, plane, yN, xE, a, load)) t7 = t7 - a.w2;
-    if (accel_guard(src, obst, plane, yN, xW, a, load)) t8 = t8 + a.w2;
+  if (s.accel(+1)) {
+    if (accel_guard(s, +1, +1, a)) t7 = t7 - a.w2;
+    if (accel_guard(s, +1, -1, a)) t8 = t8 + a.w2;
   }
 
-  float* o = dst + r + x;
-  if (obst[r + x] != 0.0f) {
+  if (!s.fluid(0, 0)) {
     // Bounce-back writes the pulled value of the opposite direction.
-    o[0 * plane] = t0;
-    o[1 * plane] = t3;
-    o[2 * plane] = t4;
-    o[3 * plane] = t1;
-    o[4 * plane] = t2;
-    o[5 * plane] = t7;
-    o[6 * plane] = t8;
-    o[7 * plane] = t5;
-    o[8 * plane] = t6;
+    d(0, t0);
+    d(1, t3);
+    d(2, t4);
+    d(3, t1);
+    d(4, t2);
+    d(5, t7);
+    d(6, t8);
+    d(7, t5);
+    d(8, t6);
     return 0.0f;
   }
 
@@ -124,7 +120,7 @@ __device__ __forceinline__ float lbm_cell(const float* __restrict__ src,
   const float om = a.omega;
 
   const float feq0 = kW0 * (dens - h3 * usq);
-  o[0] = t0 + om * (feq0 - t0);
+  d(0, t0 + om * (feq0 - t0));
 
   // Pair-symmetric: feq_k = wb + wi, feq_opp = wb - wi.
 #define TPULBM_PAIR(K, OP, W, MU, TK, TOP)                      \
@@ -133,8 +129,8 @@ __device__ __forceinline__ float lbm_cell(const float* __restrict__ src,
     const float imu = mu * 3.0f;                                \
     const float wb = (W) * (dens + h3 * (imu * mu - usq));      \
     const float wi = (W) * imu;                                 \
-    o[(K) * plane] = TK + om * ((wb + wi) - TK);                \
-    o[(OP) * plane] = TOP + om * ((wb - wi) - TOP);             \
+    d(K, TK + om * ((wb + wi) - TK));                           \
+    d(OP, TOP + om * ((wb - wi) - TOP));                        \
   }
   TPULBM_PAIR(1, 3, kW1, mx, t1, t3)
   TPULBM_PAIR(2, 4, kW1, my, t2, t4)
@@ -143,6 +139,65 @@ __device__ __forceinline__ float lbm_cell(const float* __restrict__ src,
 #undef TPULBM_PAIR
 
   return sqrtf(usq) * densinv;
+}
+
+// The old state of a (9, ny, nx) periodic grid in device memory around
+// cell (y, x); obst is the (ny, nx) float32 mask, nonzero = blocked.
+template <class Load>
+struct GridSrc {
+  const float* __restrict__ src;
+  const float* __restrict__ obst;
+  size_t plane, r, rS, rN;   // plane size; offsets of rows y, y-1, y+1
+  int x, xW, xE;             // columns x, x-1, x+1
+  bool acc, accS, accN;      // rows y, y-1, y+1 are the accelerated row
+  Load load;
+
+  __device__ __forceinline__ GridSrc(const float* src_, const float* obst_,
+                                     int y, int x_, const LbmArgs& a)
+      : src(src_), obst(obst_), plane((size_t)a.ny * a.nx), x(x_) {
+    const int yS = (y == 0) ? a.ny - 1 : y - 1;
+    const int yN = (y == a.ny - 1) ? 0 : y + 1;
+    xW = (x == 0) ? a.nx - 1 : x - 1;
+    xE = (x == a.nx - 1) ? 0 : x + 1;
+    r = (size_t)y * a.nx;
+    rS = (size_t)yS * a.nx;
+    rN = (size_t)yN * a.nx;
+    acc = y == a.accel_row;
+    accS = yS == a.accel_row;
+    accN = yN == a.accel_row;
+  }
+  __device__ __forceinline__ size_t at(int dy, int dx) const {
+    return (dy < 0 ? rS : dy > 0 ? rN : r) + (dx < 0 ? xW : dx > 0 ? xE : x);
+  }
+  __device__ __forceinline__ float f(int k, int dy, int dx) const {
+    return load(src + k * plane + at(dy, dx));
+  }
+  __device__ __forceinline__ bool fluid(int dy, int dx) const {
+    return obst[at(dy, dx)] == 0.0f;
+  }
+  __device__ __forceinline__ bool accel(int dy) const {
+    return dy < 0 ? accS : dy > 0 ? accN : acc;
+  }
+};
+
+// Writes one cell's nine populations into a (9, rows, nx) buffer: o points
+// at the cell in plane 0, plane is rows * nx.
+struct GridDst {
+  float* o;
+  size_t plane;
+  __device__ __forceinline__ void operator()(int k, float v) const {
+    o[k * plane] = v;
+  }
+};
+
+// One step of cell (y, x) of the periodic grid, src -> dst (K1, K2).
+template <class Load>
+__device__ __forceinline__ float grid_cell(const float* __restrict__ src,
+                                           const float* __restrict__ obst,
+                                           float* __restrict__ dst, int y,
+                                           int x, const LbmArgs& a) {
+  const GridSrc<Load> s(src, obst, y, x, a);
+  return lbm_cell(s, GridDst{dst + (size_t)y * a.nx + x, s.plane}, a);
 }
 
 // Sum of v over the block in a fixed order (warp shuffles, then the warp

@@ -3,8 +3,10 @@
 //
 // Replaces: tpulbm/ops/pallas_resident.py::_kernel (make_resident_step),
 // which keeps the whole grid in VMEM and ping-pongs it there for up to 512
-// steps per call. The nearest Hopper match is a persistent kernel whose
-// ping-pong pair stays in the H100's 50 MB L2: the 128^2, 128x256 and 256^2
+// steps per call, and ::_kernel_hbm (make_resident_step_hbm), the same for
+// 100K-135K cells with the state in HBM between calls. The nearest Hopper
+// match is a persistent kernel whose ping-pong pair stays in the H100's
+// 50 MB L2: the 128^2, 128x256 and 256^2
 // decks hold at most 2 x 9 x 65536 x 4 B = 4.7 MB, so after the first step
 // the state traffic is L2 traffic. The grid is sized from
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor x the SM count (capped at
@@ -55,8 +57,8 @@ __global__ void __launch_bounds__(kThreads)
     float acc = 0.0f;
     for (int i = blockIdx.x * kThreads + threadIdx.x; i < ncells; i += stride) {
       const int y = i / a.nx;
-      acc += tpulbm::lbm_cell(src, obst, dst, y, i - y * a.nx, a,
-                              tpulbm::LoadL2{});
+      acc += tpulbm::grid_cell<tpulbm::LoadL2>(src, obst, dst, y,
+                                               i - y * a.nx, a);
     }
     const float bs = tpulbm::block_sum(acc, warp_sums);
     if (threadIdx.x == 0) partials[(size_t)s * gridDim.x + blockIdx.x] = bs;

@@ -7,15 +7,17 @@ state, ``obstacles`` the (ny, nx) bool mask, both on ``device``;
 sum of |u| over free cells times ``free_cells_inv`` (params.py:32). The
 series is read back by the caller once per runner call, never per step.
 
-Backends (the single-device routing of tpulbm/dist/runner.py:1720-1746):
+Backends (the single-device routing of tpulbm/dist/runner.py:1720-1801):
 
-- ``cuda``: the hand-written kernels. Grids of at most
-  ``resident.MAX_CELLS`` cells run ``resident.resident_chunk`` (K2) in
-  chunks of ``resident.RESIDENT_K`` steps plus a remainder, as
-  ``_make_resident_runner``; larger grids run ``kstep.skew_chunk`` (K1, 8
+- ``cuda``: the hand-written kernels, on the family that ``dist.tiers``
+  names for the grid. ``"resident"`` runs ``resident.resident_chunk`` (K2)
+  in chunks of ``resident.RESIDENT_K`` steps plus a remainder, as
+  ``_make_resident_runner``; ``"fused"`` runs ``kstep.skew_chunk`` (K1, 8
   steps) and ``kstep.kstep_chunk`` for the sub-8 remainder, as
-  ``_make_skew_runner``. K1 and K2 take any shape, so the TPU tiers'
-  8/128 alignment conditions are gone.
+  ``_make_skew_runner``; ``"tile"`` runs ``kstep_tile.tile_chunk`` (K4) in
+  8-step chunks plus one remainder chunk, as the fold, 2-D skew and 2-D
+  K-step runners. The kernels take any shape, so the TPU tiers' 8/128
+  alignment conditions only choose the route.
 - ``torch``: the plain oracle ``ops.step_torch`` (canonical equilibrium, as
   the JAX package's ``jnp`` backend), on any device.
 - ``auto``: ``cuda`` on a CUDA device, ``torch`` on the CPU.
@@ -28,7 +30,8 @@ from typing import Callable
 import torch
 
 from tpulbm_torch.core.params import LBMParams
-from tpulbm_torch.ops import kstep, resident, step_torch
+from tpulbm_torch.dist import tiers
+from tpulbm_torch.ops import kstep, kstep_tile, resident, step_torch
 
 BACKENDS = ("auto", "cuda", "torch")
 
@@ -46,17 +49,22 @@ def resolve_backend(backend: str, device) -> str:
     return backend
 
 
+def _chunks(fn, k: int, n_steps: int, rem_fn=None) -> list:
+    """[(fn, k)] * (n_steps // k) plus [(rem_fn or fn, the remainder)]."""
+    n_full, rem = divmod(n_steps, k)
+    return [(fn, k)] * n_full + ([(rem_fn or fn, rem)] if rem else [])
+
+
 def kernel_plan(params: LBMParams, n_steps: int) -> list:
     """The ``cuda`` backend's chunks: [(chunk_fn, k), ...] covering n_steps.
     Each chunk_fn(f, obst_f, params, k) returns (f', raw sums[k])."""
-    if resident.supported(params.ny, params.nx):
-        k = min(n_steps, resident.RESIDENT_K)
-        n_full, rem = divmod(n_steps, k)
-        return [(resident.resident_chunk, k)] * n_full + (
-            [(resident.resident_chunk, rem)] if rem else [])
-    n_full, rem = divmod(n_steps, kstep.SKEW_K)
-    plan = [(_skew, kstep.SKEW_K)] * n_full
-    return plan + ([(kstep.kstep_chunk, rem)] if rem else [])
+    route = tiers.family(params.ny, params.nx, n_steps)
+    if route == "resident":
+        return _chunks(resident.resident_chunk,
+                       min(n_steps, resident.RESIDENT_K), n_steps)
+    if route == "tile":
+        return _chunks(kstep_tile.tile_chunk, kstep_tile.TILE_K, n_steps)
+    return _chunks(_skew, kstep.SKEW_K, n_steps, kstep.kstep_chunk)
 
 
 def _skew(f, obst_f, params, k):

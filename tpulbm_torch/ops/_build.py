@@ -37,6 +37,8 @@ LAUNCHES = {
     "skew_chunk": 0,        # K1 launches made by ops.kstep.skew_chunk
     "kstep_chunk": 0,       # K1 launches made by ops.kstep.kstep_chunk
     "resident_chunk": 0,    # K2 launches made by ops.resident.resident_chunk
+    "tile_chunk": 0,        # K4 launches made by ops.kstep_tile.tile_chunk
+    "band_chunk": 0,        # K4 launches made by ops.kstep_tile.band_chunk
     "reduce_partials": 0,   # K3 launches made by ops.kstep.reduce_partials
 }
 
@@ -51,6 +53,10 @@ _SIGNATURES = {
     "lbm_resident_grid": ([_I, ctypes.POINTER(_I)], _I),
     "lbm_resident_chunk": (
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P], _I),
+    "lbm_kstep_tile_blocks": ([_I, _I], _I),
+    "lbm_kstep_tile_smem": ([_I], _I),
+    "lbm_kstep_tile": (
+        [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _I, _P], _I),
     "lbm_error_string": ([_I], ctypes.c_char_p),
 }
 

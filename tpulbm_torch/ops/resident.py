@@ -1,8 +1,10 @@
 """K-step chunk for small grids in one persistent launch: kernels K2 + K3.
 
 ``resident_chunk`` is the counterpart of
-``tpulbm.ops.pallas_resident._kernel`` (``make_resident_step``): up to
-``RESIDENT_K`` steps per call of a grid of at most ``MAX_CELLS`` cells. K2
+``tpulbm.ops.pallas_resident._kernel`` (``make_resident_step``) and of its
+HBM-edge variant ``_kernel_hbm`` (``make_resident_step_hbm``): up to
+``RESIDENT_K`` steps per call of a grid that ``dist.tiers`` routes here
+(8/128-aligned, at most 135K cells; K2 itself takes any shape). K2
 (``csrc/resident.cu::lbm_resident_chunk``) is one cooperative launch with a
 grid-wide barrier between steps, its ping-pong pair held in L2; K3
 (``ops.kstep.reduce_partials``) reduces its per-block partials to the (K,)
@@ -23,16 +25,8 @@ from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.ops import _build, step_torch
 from tpulbm_torch.ops.kstep import check_chunk, reduce_partials
 
-# Grids up to this many cells route here (the gate of
-# tpulbm/ops/pallas_resident.py:35, kept so both packages route the four
-# decks alike); K2 itself has no size limit.
-MAX_CELLS = 100 * 1024
 # Steps per call, as tpulbm.dist.runner._make_resident_runner's k_chunk.
 RESIDENT_K = 512
-
-
-def supported(ny: int, nx: int) -> bool:
-    return ny * nx <= MAX_CELLS
 
 
 def resident_chunk_ref(f, obst_f, params: LBMParams, k: int,

@@ -5,7 +5,8 @@ Counterpart of ``tpulbm.ops.step_jnp``: full-grid pull streaming with
 collision and bounce-back, and the |u| sum — the fused ``timestep`` +
 ``accelerate_flow`` pair of the reference (d2q9-bgk.c:442-704). It runs on
 any device. ``--backend torch`` runs it, and the plain version beside each
-CUDA kernel (``ops.kstep``, ``ops.resident``) is built on it.
+CUDA kernel (``ops.kstep``, ``ops.resident``, ``ops.kstep_tile``) is built
+on it.
 """
 
 from __future__ import annotations
@@ -27,16 +28,20 @@ def pull(f: torch.Tensor) -> list[torch.Tensor]:
 
 
 def accelerate(
-    f: torch.Tensor, obstacles: torch.Tensor, params: LBMParams
+    f: torch.Tensor, obstacles: torch.Tensor, params: LBMParams,
+    row: int | None = None,
 ) -> torch.Tensor:
     """Masked inflow acceleration of global row ny-2 (d2q9-bgk.c:442-478).
 
     Adds w1 to channel 1 and w2 to 5,8, subtracts the same from 3,6,7 — only
     where the cell is free and channels 3,6,7 stay positive after the update
-    (the knife-edge guard of d2q9-bgk.c:457-460). Returns a new tensor.
+    (the knife-edge guard of d2q9-bgk.c:457-460). ``row`` is the index of
+    that row in ``f``: ``params.accel_row`` for the whole grid, another for
+    a band of rows. Returns a new tensor.
     """
     w1, w2 = params.accel_w1, params.accel_w2
-    row = params.accel_row
+    if row is None:
+        row = params.accel_row
     fr = f[:, row]
     mask = (
         ~obstacles[row]
