@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``tpulbm_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; one CUDA device
+    python3 chip_smoke.py --cards  # only the ring over 2-4 cards (phase 7)
 
 Phases; any failure raises and exits non-zero before the result lines:
 
@@ -16,9 +17,15 @@ Phases; any failure raises and exits non-zero before the result lines:
    256x512 grid, the HBM-edge resident tier's), K1 (``skew_chunk``, 8
    steps, and ``kstep_chunk``, 3 steps, of the 1024^2 deck), K3
    (``reduce_partials``, beside ``torch.sum``), K4 (``tile_chunk``, 8 steps
-   at 2048^2 and 8192^2 and 3 steps at 2048^2; ``band_chunk`` on the
-   8192^2 seam-fix band and the 4096^2 fold-fix band) and K4 against K1 on
-   one 2048^2 chunk; plus the host cost of a launch;
+   at 2048^2 and 8192^2 and 3 steps at 2048^2; ``ring_chunk``, ring mode,
+   on a 2048-row shard of the 8192^2 deck and a 256-row shard of the
+   1024^2 deck at 8 steps and at 1 step, and on the 8192^2 seam-fix band
+   and the 4096^2 fold-fix band, cut into lo, shard and hi) and K4 against
+   K1 on one 2048^2 chunk; ``tile_chunk`` also at the shapes of the TPU
+   kernels that no main path reaches (272x8192, where the JAX router takes
+   ``_kernel_row_inner``; the bands, strips and merge kernels' test
+   shapes); plus the host cost of a launch and of a ring chunk; with two
+   or more cards, the 1024^2 ring with its shards on distinct cards;
 4. the main path, launch counts set to 0 just before each run and read
    just after: ``tpulbm_torch.cli.main`` on the four reference decks at
    their full step counts, outputs gated at 1 % against ``tests/goldens/``
@@ -31,8 +38,19 @@ Phases; any failure raises and exits non-zero before the result lines:
    1 % of the same deck run through K1; 2048^2 for 1003 steps takes the
    remainder through ``tile_chunk``, its Reynolds number within 1 % of
    the K1 route's; 1024^2 through a K4 plan against its golden at 1 %;
-5. one JSON line of the kernels, then the result line
-   ``{"ok": true, "device": {...}}``.
+5. the ring, through ``cli.main`` with ``--device-count``: the three
+   small reference decks over 2 shards, 1024^2 over 4, over 3 (uneven) and
+   over 4 with ``--backend cuda-p2p``, at their full step counts through
+   the golden gate; 8192^2 over 4 shards with ``--no-output``, its final
+   state against that of phase 4's single-device K4 run of the deck and its
+   av series within 1 %.
+   Each run logs its shard-to-card layout, MLUPS, peak device memory and
+   host microseconds per chunk (the time to issue the runner call's
+   chunks); phases 3-5 log their seconds;
+6. one JSON line of the kernels, then the result line
+   ``{"ok": true, "device": {...}}``;
+7. with ``--cards``, instead of phases 3-6: the ring with shard i on card
+   i (``phase_cards``), then the result line.
 """
 
 from __future__ import annotations
@@ -164,15 +182,16 @@ def phase_build():
 
 
 def _state(params, seed):
-    """The deck's rest state with a 1 % seeded perturbation, on the card."""
-    import numpy as np
+    """The deck's rest state with a 1 % perturbation, drawn on the card
+    from a seeded generator."""
     import torch
 
     from tpulbm_torch.core.state import initial_state
 
-    noise = np.random.RandomState(seed).rand(9, params.ny, params.nx)
-    return initial_state(params, "cuda") * torch.tensor(
-        1 + 0.01 * noise, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    noise = torch.rand((9, params.ny, params.nx), generator=gen,
+                       device="cuda")
+    return initial_state(params, "cuda") * (1 + 0.01 * noise)
 
 
 def _load_deck(deck):
@@ -186,6 +205,22 @@ def _load_deck(deck):
     mask, n_free = read_obstacles(of, p.nx, p.ny)
     obst_f = torch.tensor(mask, dtype=torch.float32, device="cuda")
     return p.with_free_cells(n_free), obst_f
+
+
+def _random_case(ny, nx, seed):
+    """A (ny, nx) grid with a seeded 10 % random mask and a perturbed
+    state, on the card."""
+    import numpy as np
+    import torch
+
+    from tpulbm_torch.core.params import LBMParams
+
+    p = LBMParams(nx=nx, ny=ny, max_iters=1, reynolds_dim=10, density=0.1,
+                  accel=0.005, omega=1.85)
+    mask = np.random.RandomState(seed).rand(ny, nx) < 0.1
+    p = p.with_free_cells(ny * nx - int(mask.sum()))
+    return p, torch.tensor(mask, dtype=torch.float32, device="cuda"), _state(
+        p, seed + 1)
 
 
 def _compare_chunk(name, kernel, plain, reps, plain_reps, bound_of):
@@ -216,6 +251,28 @@ def _compare_chunk(name, kernel, plain, reps, plain_reps, bound_of):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def _ring_check(p, o, f0, off, h, k, reps, plain_reps, what):
+    """ring_chunk against ring_chunk_ref on the shard of rows [off, off + h)
+    of the state f0 (mask o) and its k-row slabs, cut from the grid (rows
+    wrap), as the ring passes them; returns _compare_chunk's record."""
+    import torch
+
+    from tpulbm_torch.ops import kstep_tile
+
+    rows = torch.arange(off - k, off + h + k, device="cuda") % p.ny
+    band, ob = f0[:, rows].contiguous(), o[rows].contiguous()
+    lo, shard, hi = (band[:, :k].contiguous(), band[:, k:k + h].contiguous(),
+                     band[:, k + h:].contiguous())
+    del band
+    base = (off - k) % p.ny
+    return _compare_chunk(
+        f"ring_chunk K4 ring mode ({what}, {h} rows, {k} "
+        f"step{'s' if k > 1 else ''})",
+        lambda: kstep_tile.ring_chunk(lo, shard, hi, ob, p, k, base),
+        lambda: kstep_tile.ring_chunk_ref(lo, shard, hi, ob, p, k, base),
+        reps, plain_reps, band_bound(h + 2 * k, p.nx, k))
+
+
 def _free():
     import gc
 
@@ -230,6 +287,8 @@ def phase_kernels():
     import torch
 
     from tpulbm_torch.core.params import LBMParams
+    from tpulbm_torch.dist import runner, sharding
+    from tpulbm_torch.dist.mesh import get_mesh
     from tpulbm_torch.ops import kstep, kstep_tile, resident
 
     res = {}
@@ -322,17 +381,17 @@ def phase_kernels():
         lambda: kstep_tile.tile_chunk(f0, o, p, 8),
         lambda: kstep_tile.tile_chunk_ref(f0, o, p, 8), 10, 1,
         chunk_bound(p.ny * p.nx, 8))
+    # K4 ring mode at the 8192^2 deck's shard over a ring of 4, where the
+    # device sets the pace: shard 3 (rows 6144-8191, the accelerated row
+    # 8190; its hi slab wraps to rows 0-7). This is the kernels line's
+    # record.
+    res["ring_chunk"] = _ring_check(p, o, f0, 6144, 2048, 8, 20, 1,
+                                    "8192x8192 shard 3 of 4")
     # The seam band of the 2-D skew's fix at 8192^2: rows [-2K, 2K), which
-    # hold the accelerated row ny-2.
-    rows = torch.arange(-16, 16, device="cuda") % p.ny
-    band, ob = f0[:, rows].contiguous(), o[rows].contiguous()
-    base = p.ny - 16
-    res["band_chunk"] = _compare_chunk(
-        "band_chunk K4 (8192x8192 seam band, 32 rows, 8 steps)",
-        lambda: kstep_tile.band_chunk(band, ob, p, 8, base),
-        lambda: kstep_tile.band_chunk_ref(band, ob, p, 8, base), 200, 5,
-        band_bound(32, p.nx, 8))
-    del f0, band
+    # hold the accelerated row ny-2, through ring mode: lo, shard and hi
+    # cut from the band (the shard rows [-K, K) of the fix's output).
+    _ring_check(p, o, f0, p.ny - 8, 16, 8, 200, 5, "8192x8192 seam band")
+    del f0
     _free()
     # The fold fix's band at 4096^2 (F=4): rows [-(m+K), m+K), m = 14
     p, o = _load_deck("4096x4096")
@@ -342,16 +401,36 @@ def phase_kernels():
         lambda: kstep_tile.tile_chunk(f0, o, p, 8),
         lambda: kstep_tile.tile_chunk_ref(f0, o, p, 8), 20, 1,
         chunk_bound(p.ny * p.nx, 8))
-    rows = torch.arange(-22, 22, device="cuda") % p.ny
-    band, ob = f0[:, rows].contiguous(), o[rows].contiguous()
-    base = p.ny - 22
-    _compare_chunk(
-        "band_chunk K4 (4096x4096 fold band, 44 rows, 8 steps)",
-        lambda: kstep_tile.band_chunk(band, ob, p, 8, base),
-        lambda: kstep_tile.band_chunk_ref(band, ob, p, 8, base), 200, 5,
-        band_bound(44, p.nx, 8))
-    del f0, band
+    _ring_check(p, o, f0, p.ny - 14, 28, 8, 200, 5, "4096x4096 fold band")
+    del f0
     _free()
+
+    # K4 ring mode on the 1024^2 deck's shards over a ring of 4, whose
+    # calls are short enough that the host's launch path, not the card,
+    # sets their time: shard 3 (the accelerated row 1022; its hi slab wraps
+    # to rows 0-7) at 8 steps, shard 0 (its lo slab wraps to row 1023) at
+    # 1 step, the function of pallas_step._kernel.
+    p, o = _load_deck("1024x1024")
+    f0 = _state(p, SEED + 9)
+    _ring_check(p, o, f0, 768, 256, 8, 200, 5, "1024x1024 shard 3 of 4")
+    _ring_check(p, o, f0, 0, 256, 1, 200, 5, "1024x1024 shard 0 of 4")
+    del f0
+    _free()
+    # tile_chunk at the shapes of the TPU kernels no main path reaches:
+    # pallas_kstep2d._kernel_row_inner (the JAX router takes it at
+    # 272x8192, k = 8), pallas_kstep_bands._kernel and
+    # pallas_kstep_strips._kernel (their tests' grids) and the merge mode
+    # of pallas_kstep_skew._kernel (320^2, pallas_kstep_merge.py:4-9).
+    for (ny, nx), what in (((272, 8192), "_kernel_row_inner"),
+                           ((128, 512), "pallas_kstep_bands._kernel"),
+                           ((64, 256), "pallas_kstep_strips._kernel"),
+                           ((320, 320), "pallas_kstep_merge (merge mode)")):
+        p, o, f0 = _random_case(ny, nx, SEED + ny)
+        _compare_chunk(
+            f"tile_chunk K4 ({ny}x{nx}, 8 steps; the shape of {what})",
+            lambda: kstep_tile.tile_chunk(f0, o, p, 8),
+            lambda: kstep_tile.tile_chunk_ref(f0, o, p, 8), 50, 3,
+            chunk_bound(p.ny * p.nx, 8))
 
     # Host cost of the Python launch path: a grid so small that the device
     # finishes each launch long before the host issues the next one.
@@ -370,7 +449,65 @@ def phase_kernels():
     log(f"[launch] host {host_us:.2f} us per skew_chunk call (8 K1 + 1 K3 "
         f"launches, {host_us / 9:.2f} us per launch) vs device "
         f"{res['skew_chunk']['ms'] * 1e3:.2f} us per 1024^2 chunk")
+    # The same for one chunk of a 4-shard ring: slab copies, K4, K3 per
+    # shard, 200 chunks in one runner call
+    tiny = LBMParams(nx=64, ny=64, max_iters=1, reynolds_dim=1, density=0.1,
+                     accel=0.005, omega=1.85).with_free_cells(64 * 64)
+    mesh = get_mesh(4)
+    fs, obs = sharding.shard_rows(
+        _state(tiny, SEED + 10), torch.zeros((64, 64), dtype=torch.bool,
+                                             device="cuda"), mesh)
+    run = runner.make_runner(tiny, 8 * 200, "cuda", mesh=mesh)
+    run(fs, obs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(fs, obs)
+    torch.cuda.synchronize()
+    log(f"[launch] host {(time.perf_counter() - t0) / 200 * 1e6:.2f} us per "
+        f"chunk of a 4-shard ring (64x64 grid)")
+    if torch.cuda.device_count() >= 2:
+        _ring_on_cards()
+    else:
+        log("[kernel] one card: the ring with shards on distinct cards "
+            "is not run")
     return res, {deck: r["ms"] for deck, r in chunk_ms.items()}
+
+
+def _ring_on_cards():
+    """The 1024^2 ring with shard i on card i (up to 4 shards), 64 steps
+    from a perturbed state: the state within F_ATOL of the single-device K4
+    plan's on card 0 (bitwise is expected), the av series within the chunk
+    gate."""
+    import torch
+
+    from tpulbm_torch.dist import runner, sharding
+    from tpulbm_torch.dist.mesh import get_mesh
+    from tpulbm_torch.ops import kstep_tile
+
+    p, o = _load_deck("1024x1024")
+    f0 = _state(p, SEED + 11)
+    f1, av1 = runner.run_plan(
+        runner._chunks(kstep_tile.tile_chunk, kstep_tile.TILE_K, 64), f0, o,
+        p)
+    mesh = get_mesh(min(4, torch.cuda.device_count()))
+    fs, obs = sharding.shard_rows(f0, o != 0, mesh)
+    out, av = runner.make_runner(p, 64, "cuda", mesh=mesh)(fs, obs)
+    f = sharding.gather_rows(out, "cuda:0")
+    torch.cuda.synchronize()
+    err = (f - f1).abs().max().item()
+    av_rel = ((av - av1).abs() / av1.abs()).max().item()
+    log(f"[kernel] 1024x1024 ring, layout {_layout(mesh)}, 64 steps: "
+        f"max|df| vs one card {err:.3e}, state bitwise {torch.equal(f, f1)}; "
+        f"max av rel {av_rel:.3e}")
+    if not (err <= F_ATOL and av_rel <= AV_RTOL):
+        raise AssertionError("ring over cards disagrees with one card")
+
+
+def _layout(mesh):
+    names = [str(d) for d in mesh]
+    if len(set(names)) == 1:
+        return f"{names[0]} x {len(names)}"
+    return ",".join(names)
 
 
 def _run_cli(args):
@@ -422,7 +559,8 @@ def _run_wide(deck, steps, totals, chunk_ms):
     through Simulation (the CLI's own calls; it must give the same Reynolds
     bits), then the same deck on the K1 route, timed alike. chunk_ms: the
     CUDA-event time of one 8-step K4 chunk of this deck, for the device's
-    busy share of the solve."""
+    busy share of the solve. Returns the Simulation's final state, on the
+    host, and its av series: the single-device K4 route's result."""
     import numpy as np
     import torch
 
@@ -460,6 +598,7 @@ def _run_wide(deck, steps, totals, chunk_ms):
         raise AssertionError(f"{deck}: Simulation rerun: av series not "
                              f"finite or short, or Reynolds differs")
     p, obst_f = sim.params, sim.obstacles.float()
+    final = result.f.cpu()
     del sim, result
     _free()
     f_k1 = initial_state(p, "cuda")
@@ -475,6 +614,7 @@ def _run_wide(deck, steps, totals, chunk_ms):
         f"(<= {GOLDEN_TOL:g} %)")
     if not rel <= GOLDEN_TOL:
         raise AssertionError(f"{deck}: K4 and K1 av series disagree")
+    return final, av
 
 
 def phase_main_path(chunk_ms):
@@ -545,8 +685,12 @@ def phase_main_path(chunk_ms):
     if not (av.shape == (steps,) and rel <= GOLDEN_TOL):
         raise AssertionError(f"{deck} x {steps}: golden prefix check failed")
 
+    one_card = {}   # the single-device K4 result of the ring's wide deck
     for deck, steps in WIDE_DECKS:
-        _run_wide(deck, steps, totals, chunk_ms[deck])
+        final, av = _run_wide(deck, steps, totals, chunk_ms[deck])
+        if deck == RING_WIDE_RUN[0]:
+            one_card = {"f": final, "av": av}
+        del final
         _free()
 
     # The sub-8-step remainder of a wide deck: 125 x 8 + 3 steps of K4,
@@ -603,6 +747,180 @@ def phase_main_path(chunk_ms):
         f"max diff {rel:.3g} % (<= {GOLDEN_TOL:g} %)")
     if not (av.shape == ref.shape and rel <= GOLDEN_TOL):
         raise AssertionError(f"{deck} on K4: golden check failed")
+    return totals, one_card
+
+
+# The ring through the CLI: (deck, steps, --device-count, extra arguments).
+# The small decks run over 2 shards: on one card the ring's host path sets
+# their pace, and 4 shards would double the script's time for them.
+RING_RUNS = [
+    ("128x128", 40000, 2, []),
+    ("128x256", 40000, 2, []),
+    ("256x256", 80000, 2, []),
+    ("1024x1024", 20000, 4, []),
+    ("1024x1024", 20000, 3, []),                          # 342/341/341 rows
+    ("1024x1024", 20000, 4, ["--backend", "cuda-p2p"]),
+]
+RING_WIDE_RUN = ("8192x8192", 1000, 4)
+
+
+@contextlib.contextmanager
+def _watch_simulation(seen):
+    """Record the Simulation that cli.main builds (seen["sim"]) and the
+    host seconds its runner calls take to return (seen["issue_s"]): the
+    runners issue their chunks without waiting for the card, which the
+    caller's readback of the av series then does."""
+    from tpulbm_torch.sim.simulation import Simulation
+
+    run, make = Simulation.run, Simulation._runner
+    seen["issue_s"] = 0.0
+
+    def watched_run(self, *a, **kw):
+        seen["sim"] = self
+        return run(self, *a, **kw)
+
+    def watched_runner(self, n_steps):
+        inner = make(self, n_steps)
+
+        def timed(*a):
+            t0 = time.perf_counter()
+            out = inner(*a)
+            seen["issue_s"] += time.perf_counter() - t0
+            return out
+
+        return timed
+
+    Simulation.run, Simulation._runner = watched_run, watched_runner
+    try:
+        yield
+    finally:
+        Simulation.run, Simulation._runner = run, make
+
+
+def _ring_cli(deck, steps, n, extra, totals, out=None):
+    """One ring run through cli.main: launches (ring_chunk and K3 only),
+    MLUPS, peak device memory, host us per chunk, layout. Returns (the
+    Simulation, Reynolds number)."""
+    import torch
+
+    from tpulbm_torch.dist.sharding import ring_rows
+    from tpulbm_torch.ops import _build, kstep_tile
+
+    pf, of = deck_files(deck)
+    args = [pf, of, "--device-count", str(n), *extra]
+    args += ["--out-dir", out] if out else ["--no-output"]
+    log(f"[ring] python -m tpulbm_torch {deck} {' '.join(args[2:])} "
+        f"({steps} steps)")
+    seen = {}
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    with _watch_simulation(seen):
+        reynolds, elapsed = _run_cli(args)
+    counts = dict(_build.LAUNCHES)
+    _check_launches(deck, counts, ["ring_chunk", "reduce_partials"],
+                    ["skew_chunk", "kstep_chunk", "resident_chunk",
+                     "tile_chunk"])
+    for key, v in counts.items():
+        totals[key] += v
+    sim = seen["sim"]
+    rows, _ = ring_rows(sim.params.ny, n)
+    k = min(kstep_tile.TILE_K, min(rows))
+    chunks = -(-steps // k)
+    log(f"[ring] {deck} over {n} shards ({'/'.join(map(str, rows))} rows), "
+        f"layout {_layout(sim.mesh)}: Reynolds {reynolds:.12E}, "
+        f"{elapsed:.3f} s, {sim.params.nx * sim.params.ny * steps / elapsed / 1e6:.1f} "
+        f"MLUPS, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, {chunks} "
+        f"chunks of {k} steps, host {seen['issue_s'] / chunks * 1e6:.1f} us "
+        f"per chunk, solve {elapsed / chunks * 1e6:.1f} us per chunk")
+    return sim, reynolds
+
+
+def _ring_golden(deck, steps, n, extra, totals):
+    """A reference deck over n shards through cli.main, its outputs
+    through the golden gate."""
+    from tpulbm_torch.validation import check
+
+    golden = os.path.join(ROOT, "tests", "goldens")
+    out = os.path.join(OUT, f"ring_{deck}_{n}{''.join(extra)}")
+    sim, _ = _ring_cli(deck, steps, n, extra, totals, out)
+    assert sim.params.max_iters == steps, (deck, sim.params.max_iters)
+    del sim
+    av_ref = os.path.join(golden, f"{deck}.av_vels.dat")
+    fs_ref = os.path.join(golden, f"{deck}.final_state.dat")
+    av_out = os.path.join(out, "av_vels.dat")
+    av_ok, av = check.check_av_vels(av_ref, av_out, GOLDEN_TOL,
+                                    verbose=False)
+    msg, fs_ok = f"av_vels max diff {av.max_diff_pcnt:.3g} %", True
+    if os.path.exists(fs_ref):
+        fs_ok, _, fs = check.check_results(
+            av_ref, fs_ref, av_out, os.path.join(out, "final_state.dat"),
+            GOLDEN_TOL, verbose=False)
+        msg += f", final_state max diff {fs.max_diff_pcnt:.3g} %"
+    log(f"[ring] {deck} over {n} shards: golden ({GOLDEN_TOL:g} %): {msg}")
+    if not (av_ok and fs_ok):
+        raise AssertionError(f"{deck} over {n} shards: golden check failed")
+    _free()
+
+
+def _ring_busy():
+    """Device time against wall time of 50 chunks of the 1024^2 ring over
+    4 shards, from a torch.profiler trace: the sum of the device events'
+    self time (kernels and copies) over the wall time of the runner call
+    and its readback. Off the main path: its launches are not counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpulbm_torch.dist import runner, sharding
+    from tpulbm_torch.dist.mesh import get_mesh
+
+    p, o = _load_deck("1024x1024")
+    mesh = get_mesh(4)
+    fs, obs = sharding.shard_rows(_state(p, SEED + 12), o != 0, mesh)
+    run = runner.make_runner(p, 400, "cuda", mesh=mesh)
+    run(fs, obs)[1].cpu()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(fs, obs)[1].cpu()
+        wall = time.perf_counter() - t0
+    device_us = sum(e.self_device_time_total for e in prof.key_averages())
+    log(f"[ring] 1024x1024 over 4 shards, 50 chunks under torch.profiler: "
+        f"wall {wall * 1e3:.3f} ms, device time {device_us / 1e3:.3f} ms, "
+        f"busy {100 * device_us / 1e6 / wall:.1f} %")
+
+
+def phase_ring(one_card):
+    """The ring's main path (see the module docstring). one_card: the final
+    state (on the host) and av series of phase 4's single-device K4 run of
+    the wide deck."""
+    import numpy as np
+    import torch
+
+    from tpulbm_torch.ops import _build
+
+    totals = dict.fromkeys(_build.LAUNCHES, 0)
+    for deck, steps, n, extra in RING_RUNS:
+        _ring_golden(deck, steps, n, extra, totals)
+    _ring_busy()
+
+    # 8192^2 over 4 shards, full width and steps, against one card's K4
+    deck, steps, n = RING_WIDE_RUN
+    sim, _ = _ring_cli(deck, steps, n, [], totals)
+    f_ring, av_ring = sim.f, sim.av_vels.copy()
+    del sim
+    f_one = one_card["f"].to(f_ring.device)
+    diff = (f_ring - f_one).abs().max().item()
+    same = torch.equal(f_ring, f_one)
+    rel = _max_rel_pct(av_ring, one_card["av"])
+    log(f"[ring] {deck} over {n} shards vs one card (phase 4's K4 run): "
+        f"max|df| {diff:.3e} (<= {F_ATOL:g}), state bitwise {same}; av max "
+        f"diff {rel:.3g} % (<= {GOLDEN_TOL:g} %)")
+    if not (diff <= F_ATOL and rel <= GOLDEN_TOL
+            and np.isfinite(av_ring).all() and av_ring.shape == (steps,)):
+        raise AssertionError(f"{deck} over {n} shards disagrees with one card")
+    del f_ring, f_one
+    _free()
     return totals
 
 
@@ -623,21 +941,75 @@ KERNELS = [
      "tpulbm/ops/pallas_kstep_skew_fold.py:497, "
      "tpulbm/ops/pallas_kstep_skew2d.py:112, "
      "tpulbm/ops/pallas_kstep_skew.py:751, tpulbm/ops/pallas_kstep2d.py:79"),
-    ("band_chunk", "lbm_kstep_tile (K4, band_chunk: band mode, the seam "
-     "fixes' function; off the single-device path)",
+    ("ring_chunk", "lbm_kstep_tile (K4, ring_chunk: ring mode, the per-shard "
+     "body of the 1-D ring and the seam fixes' function)",
      "tpulbm_torch/csrc/kstep_tile.cu",
+     "tpulbm/ops/pallas_kstep_skew.py:94, tpulbm/ops/pallas_kstep_skew.py:641, "
+     "tpulbm/ops/pallas_kstep_skew.py:751, tpulbm/ops/pallas_kstep.py:79, "
+     "tpulbm/ops/pallas_kstep_skew_fold.py:118, "
      "tpulbm/ops/pallas_kstep_skew_fold.py:497, "
-     "tpulbm/ops/pallas_kstep_skew.py:751, "
-     "tpulbm/ops/pallas_kstep_skew.py:641"),
+     "tpulbm/ops/pallas_kstep_skew2d.py:112, tpulbm/ops/pallas_kstep2d.py:79, "
+     "tpulbm/ops/pallas_kstep_bands.py:118, tpulbm/ops/pallas_step.py:55, "
+     "tpulbm/ops/pallas_kstep_rdma.py:65, "
+     "tpulbm/ops/pallas_resident_rdma.py:63"),
 ]
 
 
-def main() -> int:
+def phase_cards():
+    """The ring with its shards on distinct cards (``--cards``; needs two
+    or more): the kernel-phase check of ``_ring_on_cards``, the 1024^2
+    deck over the cards (over twice as many shards, two a card, with
+    ``--backend cuda-p2p``; and over 3) and 128^2 through the golden gate,
+    and 8192^2 over 4 shards."""
+    import torch
+
+    from tpulbm_torch.ops import _build
+
+    if torch.cuda.device_count() < 2:
+        raise SystemExit("chip_smoke --cards: needs two or more CUDA devices")
+    _ring_on_cards()
+    n = min(4, torch.cuda.device_count())
+    totals = dict.fromkeys(_build.LAUNCHES, 0)
+    for deck, steps, shards, extra in (
+            ("1024x1024", 20000, n, []),
+            ("1024x1024", 20000, 2 * n, ["--backend", "cuda-p2p"]),
+            ("1024x1024", 20000, 3, []), ("128x128", 40000, n, [])):
+        _ring_golden(deck, steps, shards, extra, totals)
+    deck, steps, _ = RING_WIDE_RUN
+    _ring_cli(deck, steps, n, [], totals)
+    _free()
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--cards", action="store_true",
+        help="run only the ring with its shards on distinct cards (needs "
+             "two or more CUDA devices)")
+    args = parser.parse_args(argv)
     sys.path.insert(0, ROOT)
     kind = phase_device()
     phase_build()
+    if args.cards:
+        phase_cards()
+        import torch
+
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    t0 = time.perf_counter()
     measured, chunk_ms = phase_kernels()
-    launches = phase_main_path(chunk_ms)
+    t1 = time.perf_counter()
+    log(f"[time] kernel phase {t1 - t0:.1f} s")
+    launches, one_card = phase_main_path(chunk_ms)
+    t2 = time.perf_counter()
+    log(f"[time] single-device main path {t2 - t1:.1f} s")
+    for key, v in phase_ring(one_card).items():
+        launches[key] += v
+    log(f"[time] ring main path {time.perf_counter() - t2:.1f} s")
     import torch
 
     kernels = [{"name": name, "route": "cuda", "source": source,

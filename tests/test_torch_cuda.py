@@ -68,8 +68,10 @@ def test_resident_chunk_matches_plain_and_repeats_bitwise(case):
 
 @pytest.mark.cuda
 def test_kstep_tile_chunks_match_plain_and_repeat_bitwise(case):
-    """K4 with K3: whole grid at 8 and 3 steps, and a band of rows
-    [-16, 16) around the seam holding the accelerated row ny-2."""
+    """K4 with K3: whole grid at 8 and 3 steps, and ring mode on a band of
+    rows [-16, 16) around the seam holding the accelerated row ny-2, cut
+    into lo, shard and hi (the seam fixes' function), against the plain
+    band chunk."""
     p, f0, mask = case
     o = mask.float()
     for k in (8, 3):
@@ -79,7 +81,9 @@ def test_kstep_tile_chunks_match_plain_and_repeat_bitwise(case):
         assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
     rows = torch.arange(-16, 16, device=f0.device) % p.ny
     band, ob = f0[:, rows].contiguous(), o[rows].contiguous()
-    _close(kstep_tile.band_chunk(band, ob, p, 8, p.ny - 16),
+    lo, shard, hi = (band[:, :8].contiguous(), band[:, 8:-8].contiguous(),
+                     band[:, -8:].contiguous())
+    _close(kstep_tile.ring_chunk(lo, shard, hi, ob, p, 8, p.ny - 16),
            kstep_tile.band_chunk_ref(band, ob, p, 8, p.ny - 16))
 
 
@@ -97,3 +101,54 @@ def test_cuda_runner_goes_through_the_kernels(case):
     assert _build.LAUNCHES["reduce_partials"] == 3
     f_r, av_r = make_runner(p, 21, "torch", "cuda")(f0, mask)
     _close((f, av), (f_r, av_r))
+
+
+@pytest.mark.cuda
+def test_ring_chunk_matches_plain_and_repeats_bitwise(case):
+    """K4 ring mode on a 100-row shard whose band holds the accelerated
+    row at k = 8, and on a 49-row shard at k = 1, against the plain
+    version, one launch each."""
+    p, f0, mask = case
+    o = mask.float()
+    for k, off, h in ((8, 100, 100), (1, 150, 49)):
+        rows = torch.arange(off - k, off + h + k, device=f0.device) % p.ny
+        band, ob = f0[:, rows].contiguous(), o[rows].contiguous()
+        lo, shard, hi = (band[:, :k].contiguous(),
+                         band[:, k:k + h].contiguous(),
+                         band[:, k + h:].contiguous())
+        base = (off - k) % p.ny
+        want = kstep_tile.ring_chunk_ref(lo, shard, hi, ob, p, k, base)
+        _build.reset_launches()
+        got = kstep_tile.ring_chunk(lo, shard, hi, ob, p, k, base)
+        _close(got, want)
+        assert _build.LAUNCHES["ring_chunk"] == 1
+        again = kstep_tile.ring_chunk(lo, shard, hi, ob, p, k, base)
+        assert torch.equal(got[0], again[0])
+        assert torch.equal(got[1], again[1])
+
+
+@pytest.mark.cuda
+def test_ring_runners_give_the_single_device_state(case):
+    """The cuda and cuda-p2p rings (the same ring) over 3 shards (uneven)
+    and 4 shards, 21 steps: one ring_chunk launch per shard and chunk, the
+    state bitwise equal to the single-device K4 plan's, the av series
+    within the chunk gate; cuda-p2p on one shard warns and runs the
+    single-device route."""
+    from tpulbm_torch.dist import sharding
+    from tpulbm_torch.dist.mesh import get_mesh
+    from tpulbm_torch.dist.runner import run_plan
+
+    p, f0, mask = case
+    plan = [(kstep_tile.tile_chunk, 8)] * 2 + [(kstep_tile.tile_chunk, 5)]
+    f1, av1 = run_plan(plan, f0, mask.float(), p)
+    for backend in ("cuda", "cuda-p2p"):
+        for n in (3, 4):
+            mesh = get_mesh(n)
+            fs, obs = sharding.shard_rows(f0, mask, mesh)
+            _build.reset_launches()
+            out, av = make_runner(p, 21, backend, mesh=mesh)(fs, obs)
+            assert _build.LAUNCHES["ring_chunk"] == 3 * n
+            assert torch.equal(sharding.gather_rows(out, "cuda"), f1)
+            assert ((av - av1).abs() / av1.abs()).max().item() <= AV_RTOL
+    f, av = make_runner(p, 21, "cuda-p2p", mesh=get_mesh(1))(f0, mask)
+    assert torch.equal(f, f1)

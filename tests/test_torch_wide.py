@@ -118,8 +118,17 @@ def _band(f0, mask, lo, hi):
     return f0[:, rows], mask[rows].astype(np.float32)
 
 
+def _band_chunk(band, oband, p, k, row_base):
+    """The seam fixes' function through ring_chunk: k steps of the band
+    whose row 0 is global row row_base, cut into lo (k rows), shard and hi
+    (k rows); its rows [k, rows - k) after k steps and their sums."""
+    band = torch.tensor(band)
+    return kstep_tile.ring_chunk(band[:, :k], band[:, k:-k], band[:, -k:],
+                                 torch.tensor(oband), p, k, row_base)
+
+
 def test_band_chunk_matches_fold_fix():
-    """band_chunk over rows [-(m+K), m+K) vs make_fold_fix (F=2), which
+    """ring_chunk over rows [-(m+K), m+K) vs make_fold_fix (F=2), which
     reads rows [-bh, bh) and keeps rows [-m, m) at every step: values and
     per-step sums. The band holds the accelerated row ny-2."""
     p, mask, f0 = _case(96, 256, seed=6)
@@ -133,8 +142,7 @@ def test_band_chunk_matches_fold_fix():
     scal = jnp.asarray([[p.accel_row, (p.ny - bh) % p.ny]], dtype=jnp.int32)
     vals_j, sums_j = fix(jnp.asarray(band), jnp.asarray(oband), scal)
     band, oband = _band(f0, mask, -(m + K), m + K)
-    vals, sums = kstep_tile.band_chunk(
-        torch.tensor(band), torch.tensor(oband), p, K, p.ny - m - K)
+    vals, sums = _band_chunk(band, oband, p, K, p.ny - m - K)
     assert vals.shape == (9, 2 * m, p.nx)
     _close(vals.numpy(), sums.numpy(),
            np.asarray(vals_j)[:, ve:ve + 2 * m], sums_j)
@@ -142,7 +150,7 @@ def test_band_chunk_matches_fold_fix():
 
 @pytest.mark.parametrize("tiled", [True, False])
 def test_band_chunk_matches_skew_fixes(tiled):
-    """band_chunk over rows [-2K, 2K) vs the seam fix of the skew tiers,
+    """ring_chunk over rows [-2K, 2K) vs the seam fix of the skew tiers,
     x-tiled (two tiles of 128 columns) and monolithic: the values of rows
     [-K, K) after K steps. Values only: the fixes' per-step sums cover a
     row set that slides down one row per step to complement the skewed main
@@ -158,33 +166,35 @@ def test_band_chunk_matches_skew_fixes(tiled):
     band, oband = _band(f0, mask, -2 * K, 2 * K)
     scal = jnp.asarray([[p.accel_row, p.ny - 2 * K]], dtype=jnp.int32)
     vals_j, _ = fix(jnp.asarray(band), jnp.asarray(oband), scal)
-    vals, sums = kstep_tile.band_chunk(
-        torch.tensor(band), torch.tensor(oband), p, K, p.ny - 2 * K)
+    vals, sums = _band_chunk(band, oband, p, K, p.ny - 2 * K)
     assert vals.shape == (9, 2 * K, p.nx) and sums.shape == (K,)
     np.testing.assert_allclose(vals.numpy(), np.asarray(vals_j), rtol=0,
                                atol=F_ATOL)
 
 
 def test_band_chunk_rows_equal_the_whole_grid():
-    """A band away from the seam and the accelerated row gives, bitwise, the
-    whole-grid chunk's values on its kept rows (same plain arithmetic)."""
+    """ring_chunk on a band away from the seam and the accelerated row
+    gives, bitwise, the whole-grid chunk's values on its kept rows (same
+    plain arithmetic)."""
     p, mask, f0 = _case(72, 160, seed=8)
     f, _ = kstep_tile.tile_chunk(torch.tensor(f0),
                                  torch.tensor(mask, dtype=torch.float32), p, 5)
     band, oband = _band(f0, mask, 20, 51)
-    vals, _ = kstep_tile.band_chunk(torch.tensor(band), torch.tensor(oband),
-                                    p, 5, 20)
+    vals, _ = _band_chunk(band, oband, p, 5, 20)
     assert torch.equal(vals, f[:, 25:46])
 
 
 # (ny, nx, n_steps): the seven decks at their step counts and the shapes
-# around the tier boundaries.
+# around the tier boundaries. 272x8192 at 16 steps reaches the 2-D K-step
+# tier with exact_all=True, i.e. pallas_kstep2d._kernel_row_inner
+# (tpulbm/dist/runner.py:208-222,1785-1794).
 ROUTES = [
     (128, 128, 40000), (128, 256, 40000), (256, 256, 80000),
     (1024, 1024, 20000), (2048, 2048, 4000), (4096, 4096, 2000),
     (8192, 8192, 1000), (256, 512, 1003), (96, 1024, 1003),
     (72, 2048, 1003), (96, 2048, 1003), (24, 8192, 1003),
     (1001, 1024, 1003), (1001, 1000, 1003), (100, 130, 1003),
+    (272, 8192, 16),
 ]
 
 
@@ -233,6 +243,18 @@ def test_kernel_family_matches_the_jax_router(monkeypatch, ny, nx, n):
     plan = truntime.kernel_plan(p, n)
     assert {fns[fn] for fn, _ in plan} == {want}
     assert sum(k for _, k in plan) == n
+
+
+def test_row_inner_grid_routes_to_k4(monkeypatch):
+    """At 272x8192 and 16 steps the JAX router builds the 2-D K-step tier
+    with exact_all=True at k = 8, whose tile passes the row_inner test of
+    _make_kstep_runner (tpulbm/dist/runner.py:215-221): the grid runs
+    pallas_kstep2d._kernel_row_inner. The port sends it to K4."""
+    want, _ = _jax_family(monkeypatch, 272, 8192, 16)
+    tile = pallas_kstep2d.pick_tile(272, 8192)
+    assert want == "tile" and tile is not None
+    assert tile[0] >= pallas_kstep2d._MY + K and 272 // tile[0] >= 2
+    assert tiers.family(272, 8192, 16) == "tile"
 
 
 @pytest.mark.parametrize("ny,nx,expect", [

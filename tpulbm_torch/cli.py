@@ -5,7 +5,9 @@
 The same positional arguments, result block (Reynolds number, wall/user/
 system time — d2q9-bgk.c:409-416) and exit codes as ``python -m tpulbm``;
 writes reference-format final_state.dat and av_vels.dat into --out-dir.
-One device.
+``--device-count N`` runs a 1-D ring of N row shards (``dist.mesh``), one
+per visible card by default; ``--device cpu --device-count 4`` runs four
+CPU shards on the plain versions of the kernels.
 """
 
 from __future__ import annotations
@@ -27,10 +29,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out-dir", default=".", help="output directory")
     p.add_argument(
         "--backend",
-        choices=["auto", "cuda", "torch"],
+        choices=["auto", "cuda", "torch", "cuda-p2p"],
         default="auto",
         help="compute path: the hand-written CUDA kernels, the plain PyTorch "
-             "oracle, or auto (cuda on a CUDA device, torch on the CPU)",
+             "oracle, cuda-p2p (the in-kernel-RDMA variant's name: the cuda "
+             "ring on N >= 2 shards, the single-device route with a warning "
+             "on one), or auto (cuda on a CUDA device, torch on the CPU)",
+    )
+    p.add_argument(
+        "--device-count",
+        type=int,
+        default=None,
+        help="number of shards in the 1-D ring (default: all visible CUDA "
+             "devices; 1 on the CPU); shard i runs on cuda:(i %% count)",
     )
     p.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",
@@ -65,6 +76,7 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
+    from tpulbm_torch.dist.mesh import get_mesh
     from tpulbm_torch.io.obstacles import ObstacleFileError
     from tpulbm_torch.io.params_file import ParamFileError
     from tpulbm_torch.sim.simulation import Simulation
@@ -73,9 +85,10 @@ def main(argv=None) -> int:
         return die("--device cuda, but no CUDA device is available "
                    "(torch.cuda.is_available() is false)")
     try:
+        mesh = get_mesh(n_devices=args.device_count, device=args.device)
         sim = Simulation.from_files(
             args.paramfile, args.obstaclefile, backend=args.backend,
-            device=args.device,
+            device=args.device, mesh=mesh,
         )
     except FileNotFoundError as e:
         return die(f"could not open input file: {e.filename}")

@@ -1,0 +1,48 @@
+"""The devices of the 1-D ring.
+
+Counterpart of ``tpulbm.dist.mesh.get_mesh``: the reference's process
+topology is a 1-D ring of MPI ranks over grid rows (d2q9-bgk.c:244-247,
+834-862). The port's ring is one process that drives a list of shards, one
+per entry of the device list ``get_mesh`` returns; the halo slabs move by
+tensor copies (peer copies between cards). ``--mesh-shape`` (the 2-D
+torus) has no counterpart yet.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import List, Optional
+
+import torch
+
+
+def get_mesh(n_devices: Optional[int] = None,
+             device="cuda") -> List[torch.device]:
+    """The ordered devices of a ring of ``n_devices`` shards. On ``cuda``
+    shard i sits on ``cuda:(i % torch.cuda.device_count())``, and the
+    default is one shard per visible card; on ``cpu`` every shard is on the
+    CPU, and the default is one shard. When shards share a card, one line
+    on stderr says so."""
+    kind = torch.device(device).type
+    if kind == "cpu":
+        n = 1 if n_devices is None else n_devices
+        _check_count(n)
+        return [torch.device("cpu")] * n
+    if kind != "cuda":
+        raise ValueError(f"a ring runs on cuda or cpu, not {device}")
+    count = torch.cuda.device_count()
+    if count == 0:
+        raise ValueError("no CUDA device is visible")
+    n = count if n_devices is None else n_devices
+    _check_count(n)
+    if n > count:
+        print(f"tpulbm_torch: {n} shards on {count} CUDA device(s): shard i "
+              f"runs on cuda:(i % {count}), so shards share cards",
+              file=sys.stderr, flush=True)
+    return [torch.device("cuda", i % count) for i in range(n)]
+
+
+def _check_count(n: int) -> None:
+    if n < 1:
+        raise ValueError(f"a ring needs at least one shard, got {n}")
+

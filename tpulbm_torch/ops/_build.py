@@ -38,7 +38,7 @@ LAUNCHES = {
     "kstep_chunk": 0,       # K1 launches made by ops.kstep.kstep_chunk
     "resident_chunk": 0,    # K2 launches made by ops.resident.resident_chunk
     "tile_chunk": 0,        # K4 launches made by ops.kstep_tile.tile_chunk
-    "band_chunk": 0,        # K4 launches made by ops.kstep_tile.band_chunk
+    "ring_chunk": 0,        # K4 launches made by ops.kstep_tile.ring_chunk
     "reduce_partials": 0,   # K3 launches made by ops.kstep.reduce_partials
 }
 
@@ -55,8 +55,9 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P], _I),
     "lbm_kstep_tile_blocks": ([_I, _I], _I),
     "lbm_kstep_tile_smem": ([_I], _I),
-    "lbm_kstep_tile": (
-        [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _I, _P], _I),
+    "lbm_kstep_tile": ([_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P], _I),
+    "lbm_kstep_tile_ring": (
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _I, _P], _I),
     "lbm_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -138,6 +139,14 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = library().lbm_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def on_device(t: torch.Tensor):
+    """Context that makes ``t``'s card the current device: the C entry
+    points set their kernel's attributes and launch on the current device,
+    so every launch of a tensor on another card than the current one runs
+    inside it."""
+    return torch.cuda.device(t.device)
 
 
 def require_cuda(*tensors) -> None:

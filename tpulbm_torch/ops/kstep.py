@@ -62,13 +62,14 @@ def reduce_partials(partials: torch.Tensor) -> torch.Tensor:
     _build.require_cuda(partials)
     lib = _build.library()
     k, nblocks = partials.shape
-    out = torch.empty(k, dtype=torch.float32, device=partials.device)
-    _build.LAUNCHES["reduce_partials"] += 1
-    _build.check(
-        lib.lbm_reduce_partials(
-            partials.data_ptr(), out.data_ptr(), k, nblocks,
-            torch.cuda.current_stream(partials.device).cuda_stream),
-        "lbm_reduce_partials")
+    with _build.on_device(partials):
+        out = torch.empty(k, dtype=torch.float32, device=partials.device)
+        _build.LAUNCHES["reduce_partials"] += 1
+        _build.check(
+            lib.lbm_reduce_partials(
+                partials.data_ptr(), out.data_ptr(), k, nblocks,
+                torch.cuda.current_stream(partials.device).cuda_stream),
+            "lbm_reduce_partials")
     return out
 
 

@@ -12,10 +12,14 @@ them by ``free_cells_inv``.
   ``_fix_kernel`` (2048^2, 4096^2), ``pallas_kstep_skew2d._kernel`` with
   ``pallas_kstep_skew._fix_tiled_kernel`` (8192^2) and
   ``pallas_kstep2d._kernel`` (their sub-8-step remainder).
-- ``band_chunk`` runs a band of rows that does not wrap: the function of
-  the seam fixes (``pallas_kstep_skew_fold._fix_kernel``,
-  ``pallas_kstep_skew._fix_kernel`` and ``_fix_tiled_kernel``), and the
-  per-shard body of a multi-device ring.
+- ``ring_chunk`` runs one shard of the 1-D ring (``dist.runner``): the band
+  of its rows and the k-row slabs of its two neighbours, passed as three
+  tensors. It computes what every ring tier of the JAX package computes on
+  a device between two slab exchanges (the skew, fold, 2-D skew, K-step,
+  bands and in-kernel-exchange kernels, and ``pallas_step._kernel`` at
+  k = 1). A band of rows around a seam, cut into lo, shard and hi, gives
+  the function of the seam fixes (``pallas_kstep_skew_fold._fix_kernel``,
+  ``pallas_kstep_skew._fix_kernel`` and ``_fix_tiled_kernel``).
 
 Each wrapper takes its plain PyTorch version (``*_ref``, built on
 ``ops.step_torch``) only when the state lies on the CPU. On a CUDA tensor it
@@ -27,11 +31,13 @@ from __future__ import annotations
 import torch
 
 from tpulbm_torch.core import physics
+from tpulbm_torch.core.lattice import CX, CY, NSPEEDS
 from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.ops import _build, step_torch
 from tpulbm_torch.ops.kstep import check_chunk, reduce_partials
 
 TILE_K = 8   # most steps per launch
+TILE = 32    # rows (and columns) of a CTA's owned tile, kTile of the source
 
 
 def tile_chunk_ref(f, obst_f, params: LBMParams, k: int, pair_symmetric=True):
@@ -41,9 +47,11 @@ def tile_chunk_ref(f, obst_f, params: LBMParams, k: int, pair_symmetric=True):
 
 def band_chunk_ref(band, obst_band, params: LBMParams, k: int, row_base: int,
                    pair_symmetric=True):
-    """Plain version of ``band_chunk``. The band's rows wrap inside the band
-    here, which spoils at most s rows at each end by step s: the kept rows
-    [k, rows - k) never see it."""
+    """k steps of the (9, h + 2k, nx) ``band`` whose row 0 is global row
+    ``row_base``: its rows [k, k + h) after k steps and their per-step sums,
+    a plain reference for ``ring_chunk`` on the band cut into lo, shard and
+    hi. The band's rows wrap inside the band here, which spoils at most s
+    rows at each end by step s: the kept rows never see it."""
     rows = band.shape[1]
     h = rows - 2 * k
     blocked = obst_band != 0
@@ -60,6 +68,31 @@ def band_chunk_ref(band, obst_band, params: LBMParams, k: int, row_base: int,
     return f[:, k:k + h].contiguous(), torch.stack(sums)
 
 
+def ring_chunk_ref(lo, shard, hi, obst_band, params: LBMParams, k: int,
+                   row_base: int, pair_symmetric=True):
+    """Plain version of ``ring_chunk``. The band lo + shard + hi shrinks by
+    one row at each end per step: the rows whose pull would reach past the
+    band are dropped, so no row wraps and the last step leaves the shard's
+    rows."""
+    h = shard.shape[1]
+    blocked = obst_band != 0
+    f, sums = torch.cat([lo, shard, hi], dim=1), []
+    for s in range(k):
+        rows = f.shape[1]                  # h + 2(k - s); row 0 is band row s
+        b = blocked[s:s + rows]
+        for j in range(rows):
+            if (row_base + s + j) % params.ny == params.accel_row:
+                f = step_torch.accelerate(f, b, params, row=j)
+        pulled = [torch.roll(f[q, 1 - CY[q]:rows - 1 - CY[q]], CX[q], dims=1)
+                  for q in range(NSPEEDS)]
+        out, speed = physics.collide(pulled, b[1:rows - 1], params.omega,
+                                     pair_symmetric)
+        f = torch.stack(out)
+        own = k - s - 1                    # the shard's first row in f
+        sums.append(speed[own:own + h].sum(dtype=torch.float32))
+    return f, torch.stack(sums)
+
+
 def tile_chunk(f, obst_f, params: LBMParams, k: int):
     """k <= TILE_K fused steps of the (9, ny, nx) state ``f`` over the
     (ny, nx) float32 mask ``obst_f`` (nonzero = blocked). Returns
@@ -67,48 +100,67 @@ def tile_chunk(f, obst_f, params: LBMParams, k: int):
     if f.device.type == "cpu":
         return tile_chunk_ref(f, obst_f, params, k)
     check_chunk(f, obst_f, params, k)
-    return _launch(f, obst_f, params, k, params.ny, 0, 0, "tile_chunk")
-
-
-def band_chunk(band, obst_band, params: LBMParams, k: int, row_base: int):
-    """k <= TILE_K steps of the (9, h + 2k, nx) ``band`` whose row 0 is
-    global row ``row_base`` of the (ny, nx) grid, over its float32 mask
-    ``obst_band``. Rows do not wrap, columns do. Returns (the (9, h, nx)
-    band rows [k, k + h) after k steps, sums[k] of |u| over those rows)."""
-    if band.device.type == "cpu":
-        return band_chunk_ref(band, obst_band, params, k, row_base)
-    _build.require_cuda(band, obst_band)
-    rows = band.shape[1]
-    if (band.shape != (9, rows, params.nx)
-            or obst_band.shape != (rows, params.nx)):
-        raise ValueError(
-            f"band {tuple(band.shape)} / mask {tuple(obst_band.shape)} do "
-            f"not match a band of the ({params.ny}, {params.nx}) grid")
-    if rows <= 2 * k or not 0 <= row_base < params.ny:
-        raise ValueError(
-            f"band of {rows} rows from row {row_base} cannot keep rows "
-            f"after {k} steps")
-    return _launch(band, obst_band, params, k, rows - 2 * k, rows, row_base,
-                   "band_chunk")
-
-
-def _launch(src, obst_f, params: LBMParams, k: int, out_rows: int,
-            band_rows: int, row_base: int, counter: str):
     if not 1 <= k <= TILE_K:
         raise ValueError(f"K4 takes 1 to {TILE_K} steps, got {k}")
     lib = _build.library()
-    nblocks = lib.lbm_kstep_tile_blocks(out_rows, params.nx)
-    partials = torch.empty((k, nblocks), dtype=torch.float32,
-                           device=src.device)
-    out = torch.empty((9, out_rows, params.nx), dtype=torch.float32,
-                      device=src.device)
-    _build.LAUNCHES[counter] += 1
-    _build.check(
-        lib.lbm_kstep_tile(
-            src.data_ptr(), obst_f.data_ptr(), out.data_ptr(),
-            partials.data_ptr(), params.ny, params.nx, params.accel_row,
-            params.omega, params.accel_w1, params.accel_w2, k, band_rows,
-            row_base, torch.cuda.current_stream(src.device).cuda_stream),
-        f"lbm_kstep_tile ({k} steps, {lib.lbm_kstep_tile_smem(k)} B of "
-        f"dynamic shared memory)")
-    return out, reduce_partials(partials)
+    with _build.on_device(f):
+        out, partials = _outputs(lib, f, k, params.ny, params.nx)
+        _build.LAUNCHES["tile_chunk"] += 1
+        _build.check(
+            lib.lbm_kstep_tile(
+                f.data_ptr(), obst_f.data_ptr(), out.data_ptr(),
+                partials.data_ptr(), params.ny, params.nx, params.accel_row,
+                params.omega, params.accel_w1, params.accel_w2, k,
+                torch.cuda.current_stream(f.device).cuda_stream),
+            _what(lib, k))
+        return out, reduce_partials(partials)
+
+
+def ring_chunk(lo, shard, hi, obst_band, params: LBMParams, k: int,
+               row_base: int):
+    """k <= TILE_K steps of the (9, h, nx) ``shard`` of the ring, whose band
+    of h + 2k rows is ``lo`` (9, k, nx: the previous shard's last rows),
+    the shard and ``hi`` (9, k, nx: the next shard's first rows); band row
+    0 is global row ``row_base`` of the (ny, nx) grid and ``obst_band`` the
+    band's (h + 2k, nx) float32 mask. Columns wrap, rows do not. Returns
+    (the (9, h, nx) shard after k steps, sums[k] of |u| over its rows)."""
+    if shard.device.type == "cpu":
+        return ring_chunk_ref(lo, shard, hi, obst_band, params, k, row_base)
+    _build.require_cuda(lo, shard, hi, obst_band)
+    h, nx = shard.shape[1], params.nx
+    if (not 1 <= k <= TILE_K or shard.shape != (9, h, nx)
+            or lo.shape != (9, k, nx) or hi.shape != (9, k, nx)
+            or obst_band.shape != (h + 2 * k, nx)
+            or not 0 <= row_base < params.ny):
+        raise ValueError(
+            f"ring chunk of {k} steps: slabs {tuple(lo.shape)}, "
+            f"{tuple(hi.shape)}, shard {tuple(shard.shape)}, mask "
+            f"{tuple(obst_band.shape)}, row {row_base} do not fit the "
+            f"({params.ny}, {nx}) grid")
+    lib = _build.library()
+    with _build.on_device(shard):
+        out, partials = _outputs(lib, shard, k, h, nx)
+        _build.LAUNCHES["ring_chunk"] += 1
+        _build.check(
+            lib.lbm_kstep_tile_ring(
+                lo.data_ptr(), shard.data_ptr(), hi.data_ptr(),
+                obst_band.data_ptr(), out.data_ptr(), partials.data_ptr(),
+                params.ny, nx, params.accel_row, params.omega,
+                params.accel_w1, params.accel_w2, k, h, row_base,
+                torch.cuda.current_stream(shard.device).cuda_stream),
+            _what(lib, k))
+        return out, reduce_partials(partials)
+
+
+def _outputs(lib, src, k: int, out_rows: int, nx: int):
+    """(out (9, out_rows, nx), partials (k, nblocks)) on src's device."""
+    nblocks = lib.lbm_kstep_tile_blocks(out_rows, nx)
+    return (torch.empty((9, out_rows, nx), dtype=torch.float32,
+                        device=src.device),
+            torch.empty((k, nblocks), dtype=torch.float32, device=src.device))
+
+
+def _what(lib, k: int) -> str:
+    return (f"lbm_kstep_tile ({k} steps, {lib.lbm_kstep_tile_smem(k)} B of "
+            f"dynamic shared memory)")
+
