@@ -8,42 +8,48 @@ Phases; any failure raises and exits non-zero before the result lines:
 
 1. the device: ``torch.cuda.is_available()``, its name, and nvidia-smi's
    name and power limit;
-2. build: nvcc compiles ``tpulbm_torch/csrc/*.cu`` (``ops._build``);
+2. build: nvcc compiles ``tpulbm_torch/csrc/*.cu`` (``ops._build``; K4's
+   shared memory and CTAs per SM are logged);
 3. each kernel against its plain PyTorch version on the card, on the same
    inputs (made from a seed with numpy), at the shapes the main path gives
    it, with CUDA-event times of both, a bitwise rerun and the bound (the
    least time the H100 could take for the same work): K2
    (``resident_chunk``, one 512-step chunk of the 128^2 deck and of a
    256x512 grid, the HBM-edge resident tier's), K1 (``skew_chunk``, 8
-   steps, and ``kstep_chunk``, 3 steps, of the 1024^2 deck), K3
-   (``reduce_partials``, beside ``torch.sum``), K4 (``tile_chunk``, 8 steps
-   at 2048^2 and 8192^2 and 3 steps at 2048^2; ``ring_chunk``, ring mode,
-   on a 2048-row shard of the 8192^2 deck and a 256-row shard of the
-   1024^2 deck at 8 steps and at 1 step, and on the 8192^2 seam-fix band
-   and the 4096^2 fold-fix band, cut into lo, shard and hi) and K4 against
-   K1 on one 2048^2 chunk; ``tile_chunk`` also at the shapes of the TPU
-   kernels that no main path reaches (272x8192, where the JAX router takes
-   ``_kernel_row_inner``; the bands, strips and merge kernels' test
+   steps, and ``kstep_chunk``, 3 steps, of the 1024^2 deck), K4
+   (``tile_chunk``, 8 steps at 2048^2 and 8192^2 and 3 steps at 2048^2;
+   ``ring_chunk``, ring mode, on a 2048-row shard of the 8192^2 deck and a
+   256-row shard of the 1024^2 deck at 8 steps and at 1 step, and on the
+   8192^2 seam-fix band and the 4096^2 fold-fix band, cut into lo, shard
+   and hi) and K4 against K1 on one 2048^2 chunk (state bitwise). Every
+   chunk kernel's in-kernel sums (the former K3, now each stepping
+   kernel's epilogue) are held against ``reduce_partials_ref`` of the same
+   launch's partials, and the ticket counter is read back at 0 after every
+   launch; the epilogue is timed as K1's last launch less its first,
+   beside ``torch.sum``. ``tile_chunk`` also runs at the shapes of the
+   TPU kernels that no main path reaches (272x8192, where the JAX router
+   takes ``_kernel_row_inner``; the bands, strips and merge kernels' test
    shapes); plus the host cost of a launch and of a ring chunk; with two
    or more cards, the 1024^2 ring with its shards on distinct cards;
 4. the main path, launch counts set to 0 just before each run and read
-   just after: ``tpulbm_torch.cli.main`` on the four reference decks at
-   their full step counts, outputs gated at 1 % against ``tests/goldens/``
-   by the port's ``validation.check``; one more 1024^2 run of 1003 steps
-   takes the sub-8-step remainder through ``kstep_chunk``. The wide decks
-   (2048^2, 4096^2, 8192^2) through ``cli.main`` with ``--no-output``
-   (8192^2's final_state.dat would be 67M lines) at their full step
-   counts, on K4: launches, MLUPS, peak device memory; their av series,
-   from a ``Simulation`` rerun that gives the same Reynolds bits, within
-   1 % of the same deck run through K1; 2048^2 for 1003 steps takes the
-   remainder through ``tile_chunk``, its Reynolds number within 1 % of
-   the K1 route's; 1024^2 through a K4 plan against its golden at 1 %;
+   just after (every chunk's sums reduced in-kernel, no second-pass entry
+   point): ``tpulbm_torch.cli.main`` on the four reference decks at their
+   full step counts, outputs gated at 1 % against ``tests/goldens/`` by the
+   port's ``validation.check``; one more 1024^2 run of 1003 steps takes the
+   sub-8-step remainder through ``kstep_chunk``. The wide decks (2048^2,
+   4096^2, 8192^2) through ``cli.main`` with ``--no-output`` (8192^2's
+   final_state.dat would be 67M lines) at their full step counts, on K4:
+   launches, MLUPS, peak device memory; their av series, from a
+   ``Simulation`` rerun that gives the same Reynolds bits, within 1 % of
+   the same deck run through K1; 2048^2 for 1003 steps takes the remainder
+   through ``tile_chunk``, its Reynolds number within 1 % of the K1
+   route's; 1024^2 through a K4 plan against its golden at 1 %;
 5. the ring, through ``cli.main`` with ``--device-count``: the three
    small reference decks over 2 shards, 1024^2 over 4, over 3 (uneven) and
    over 4 with ``--backend cuda-p2p``, at their full step counts through
    the golden gate; 8192^2 over 4 shards with ``--no-output``, its final
-   state against that of phase 4's single-device K4 run of the deck and its
-   av series within 1 %.
+   state bitwise that of phase 4's single-device K4 run of the deck and
+   its av series within 1 %.
    Each run logs its shard-to-card layout, MLUPS, peak device memory and
    host microseconds per chunk (the time to issue the runner call's
    chunks); phases 3-5 log their seconds;
@@ -87,7 +93,7 @@ WIDE_REMAINDER_RUN = ("2048x2048", 1003)
 # step: df 3.7e-9, sums bitwise equal.
 F_ATOL = 5e-7          # max |f_kernel - f_plain| over a chunk
 AV_RTOL = 3e-4         # max relative difference of the per-step sums
-K3_RTOL = 1e-6         # reduce_partials vs torch.sum, relative (1.2e-7)
+K3_RTOL = 1e-6         # in-kernel sums vs their partials' torch.sum (1.2e-7)
 GOLDEN_TOL = 1.0       # percent, the reference's gate
 
 # Bounds: the least time the card could take for a call's work, the larger
@@ -174,6 +180,10 @@ def phase_build():
     t0 = time.perf_counter()
     _build.library()
     log(f"[build] {time.perf_counter() - t0:.2f} s -> {_build.build()}")
+    for k in (8, 3):
+        log(f"[build] K4 at k = {k}: {_build.library().lbm_kstep_tile_smem(k)} "
+            f"B of dynamic shared memory, "
+            f"{_build.library().lbm_kstep_tile_ctas_per_sm(k)} CTA(s) per SM")
     log_path = _build.BUILD_DIR / "build.log"
     if log_path.exists():
         for line in log_path.read_text().splitlines():
@@ -223,25 +233,48 @@ def _random_case(ny, nx, seed):
         p, seed + 1)
 
 
+def _check_epilogue(name, sums, partials):
+    """The fused epilogue of a stepping launch: its sums against
+    reduce_partials_ref of the same launch's partials (K3_RTOL), and the
+    ticket counter back at 0. Returns the max relative difference."""
+    import torch
+
+    from tpulbm_torch.ops import _build, kstep
+
+    torch.cuda.synchronize()
+    want = kstep.reduce_partials_ref(partials)
+    rel = ((sums - want).abs() / want.abs()).max().item()
+    ticket = _build.ticket_counter(sums.device).item()
+    if not (rel <= K3_RTOL and ticket == 0):
+        raise AssertionError(f"{name}: in-kernel sums off their partials by "
+                             f"{rel:.3e}, or ticket counter {ticket}")
+    return rel
+
+
 def _compare_chunk(name, kernel, plain, reps, plain_reps, bound_of):
     """Kernel vs plain on the same inputs: max|df|, max relative difference
     of the per-step sums, bitwise rerun, CUDA-event ms of both, the bound
-    ((ms, "bytes" | "operations")). Returns the record of the kernels JSON
-    line."""
+    ((ms, "bytes" | "operations")). kernel() returns (f, sums, partials):
+    the sums are also held against the partials (_check_epilogue). Returns
+    the record of the kernels JSON line."""
     import torch
 
-    f_k, s_k = kernel()
+    f_k, s_k, parts = kernel()
     f_r, s_r = plain()
     torch.cuda.synchronize()
     err = (f_k - f_r).abs().max().item()
     av_rel = ((s_k - s_r).abs() / s_r.abs()).max().item()
-    f_k2, s_k2 = kernel()
+    k3_rel = _check_epilogue(name, s_k, parts)
+    f_k2, s_k2, _ = kernel()
     same = torch.equal(f_k, f_k2) and torch.equal(s_k, s_k2)
+    _check_epilogue(name, s_k2, parts)
+    del parts
     ms = cuda_ms(kernel, reps)
     plain_ms = cuda_ms(plain, plain_reps)
     bound_ms, bound_by = bound_of
     log(f"[kernel] {name}: max|df| {err:.3e} (<= {F_ATOL:g}), max av rel "
-        f"{av_rel:.3e} (<= {AV_RTOL:g}), rerun bitwise {same}; "
+        f"{av_rel:.3e} (<= {AV_RTOL:g}), rerun bitwise {same}, in-kernel "
+        f"sums vs their partials rel {k3_rel:.3e} (<= {K3_RTOL:g}); "
         f"{ms:.4f} ms vs plain {plain_ms:.4f} ms per chunk; bound "
         f"{bound_ms:.4f} ms ({bound_by}), bound/kernel "
         f"{100 * bound_ms / ms:.1f} %")
@@ -249,6 +282,49 @@ def _compare_chunk(name, kernel, plain, reps, plain_reps, bound_of):
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def _epilogue_record(p, f0, o):
+    """The in-kernel reduction of a K1 chunk at p's grid, k = 8: its sums
+    against its partials, and its time, the chunk's last launch (which
+    reduces rows 6 and 7, the last behind the ticket) less its first (which
+    reduces nothing), in turns."""
+    import torch
+
+    from tpulbm_torch.ops import _build, kstep
+
+    lib, k = _build.library(), kstep.SKEW_K
+    _, sums, parts = kstep._fused_steps(f0, o, p, k, "skew_chunk")
+    rel = _check_epilogue("K1 epilogue", sums, parts)
+    err = (sums - kstep.reduce_partials_ref(parts)).abs().max().item()
+    nblocks = parts.shape[1]
+    out, scratch = torch.empty_like(f0), torch.empty(k, device="cuda")
+    ticket = _build.ticket_counter("cuda").data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(step):
+        _build.check(lib.lbm_fused_step(
+            f0.data_ptr(), o.data_ptr(), out.data_ptr(), parts.data_ptr(),
+            step, k, scratch.data_ptr(), ticket, p.ny, p.nx, p.accel_row,
+            p.omega, p.accel_w1, p.accel_w2, stream), "lbm_fused_step")
+
+    turns = [cuda_ms(lambda: launch(step), 200)
+             for step in (0, k - 1, k - 1, 0)]
+    ms = (turns[1] + turns[2] - turns[0] - turns[3]) / 2
+    torch.cuda.synchronize()
+    if _build.ticket_counter("cuda").item() != 0:
+        raise AssertionError("K1 epilogue: ticket counter not reset")
+    plain_ms = cuda_ms(lambda: kstep.reduce_partials_ref(parts), 200)
+    lib_ms = cuda_ms(lambda: torch.sum(parts, dim=1), 200)
+    bound_ms, bound_by = bound(4 * (k * nblocks + k), k * (nblocks - 1))
+    log(f"[kernel] in-kernel sums (former K3) of a K1 chunk ({k}x{nblocks} "
+        f"partials): max abs {err:.3e}, rel {rel:.3e} (<= {K3_RTOL:g}); "
+        f"last launch less the first {ms:.4f} ms (turns "
+        f"{', '.join(f'{t:.4f}' for t in turns)} ms: step 0, 7, 7, 0) vs "
+        f"plain {plain_ms:.4f} ms, torch.sum {lib_ms:.4f} ms; bound "
+        f"{bound_ms:.5f} ms ({bound_by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
 
 def _ring_check(p, o, f0, off, h, k, reps, plain_reps, what):
@@ -268,7 +344,7 @@ def _ring_check(p, o, f0, off, h, k, reps, plain_reps, what):
     return _compare_chunk(
         f"ring_chunk K4 ring mode ({what}, {h} rows, {k} "
         f"step{'s' if k > 1 else ''})",
-        lambda: kstep_tile.ring_chunk(lo, shard, hi, ob, p, k, base),
+        lambda: kstep_tile._ring_launch(lo, shard, hi, ob, p, k, base),
         lambda: kstep_tile.ring_chunk_ref(lo, shard, hi, ob, p, k, base),
         reps, plain_reps, band_bound(h + 2 * k, p.nx, k))
 
@@ -298,7 +374,7 @@ def phase_kernels():
     f0 = _state(p, SEED)
     res["resident_chunk"] = _compare_chunk(
         f"resident_chunk K2 (128x128, {k} steps)",
-        lambda: resident.resident_chunk(f0, o, p, k),
+        lambda: resident._resident_launch(f0, o, p, k),
         lambda: resident.resident_chunk_ref(f0, o, p, k), 10, 1,
         chunk_bound(p.ny * p.nx, k))
     # The HBM-edge resident tier's shape (100K-135K aligned cells)
@@ -310,7 +386,7 @@ def phase_kernels():
     f0 = _state(p, SEED + 5)
     _compare_chunk(
         f"resident_chunk K2 (256x512, {k} steps)",
-        lambda: resident.resident_chunk(f0, o, p, k),
+        lambda: resident._resident_launch(f0, o, p, k),
         lambda: resident.resident_chunk_ref(f0, o, p, k), 10, 1,
         chunk_bound(p.ny * p.nx, k))
 
@@ -318,59 +394,41 @@ def phase_kernels():
     f0 = _state(p, SEED + 1)
     res["skew_chunk"] = _compare_chunk(
         "skew_chunk K1 (1024x1024, 8 steps)",
-        lambda: kstep.skew_chunk(f0, o, p),
+        lambda: kstep._fused_steps(f0, o, p, 8, "skew_chunk"),
         lambda: kstep.skew_chunk_ref(f0, o, p), 50, 3,
         chunk_bound(p.ny * p.nx, 8))
     res["kstep_chunk"] = _compare_chunk(
         "kstep_chunk K1 (1024x1024, 3 steps)",
-        lambda: kstep.kstep_chunk(f0, o, p, 3),
+        lambda: kstep._fused_steps(f0, o, p, 3, "kstep_chunk"),
         lambda: kstep.kstep_chunk_ref(f0, o, p, 3), 50, 3,
         chunk_bound(p.ny * p.nx, 3))
-    # K3 at the 1024^2 chunk's shape: (8, nblocks of one K1 launch). Its
-    # plain version is itself one PyTorch call, torch.sum, timed as both.
-    nblocks = -(-p.ny * p.nx // 256)
-    parts = torch.tensor(
-        np.random.RandomState(SEED + 2).rand(kstep.SKEW_K, nblocks),
-        dtype=torch.float32, device="cuda")
-    got = kstep.reduce_partials(parts)
-    want = kstep.reduce_partials_ref(parts)
-    k3_err = (got - want).abs().max().item()
-    k3_rel = ((got - want).abs() / want.abs()).max().item()
-    k3_ms = cuda_ms(lambda: kstep.reduce_partials(parts), 200)
-    k3_plain = cuda_ms(lambda: kstep.reduce_partials_ref(parts), 200)
-    k3_lib = cuda_ms(lambda: torch.sum(parts, dim=1), 200)
-    k3_bound, k3_by = bound(4 * (kstep.SKEW_K * nblocks + kstep.SKEW_K),
-                            kstep.SKEW_K * (nblocks - 1))
-    log(f"[kernel] reduce_partials K3 ({kstep.SKEW_K}x{nblocks}): max abs "
-        f"{k3_err:.3e}, rel {k3_rel:.3e} (<= {K3_RTOL:g}); {k3_ms:.4f} ms vs "
-        f"plain {k3_plain:.4f} ms, torch.sum {k3_lib:.4f} ms; bound "
-        f"{k3_bound:.5f} ms ({k3_by})")
-    if not k3_rel <= K3_RTOL:
-        raise AssertionError("reduce_partials disagrees with torch.sum")
-    res["reduce_partials"] = {
-        "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain,
-        "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": k3_lib}
-
+    # The former K3, now the epilogue of K1's launches, at the 1024^2
+    # chunk's shape (8, nblocks), its plain version and torch.sum on the
+    # same partials beside it.
+    res["reduce_partials"] = _epilogue_record(p, f0, o)
     # K4 at the wide decks' shapes: whole grid (8 steps, and the 3-step
     # remainder) and the seam bands of the TPU tiers it replaces.
     p, o = _load_deck("2048x2048")
     f0 = _state(p, SEED + 6)
     chunk_ms["2048x2048"] = _compare_chunk(
         "tile_chunk K4 (2048x2048, 8 steps)",
-        lambda: kstep_tile.tile_chunk(f0, o, p, 8),
+        lambda: kstep_tile._tile_launch(f0, o, p, 8),
         lambda: kstep_tile.tile_chunk_ref(f0, o, p, 8), 50, 2,
         chunk_bound(p.ny * p.nx, 8))
     _compare_chunk(
         "tile_chunk K4 (2048x2048, 3 steps)",
-        lambda: kstep_tile.tile_chunk(f0, o, p, 3),
+        lambda: kstep_tile._tile_launch(f0, o, p, 3),
         lambda: kstep_tile.tile_chunk_ref(f0, o, p, 3), 50, 2,
         chunk_bound(p.ny * p.nx, 3))
     f4, s4 = kstep_tile.tile_chunk(f0, o, p, 8)
     f1, s1 = kstep.skew_chunk(f0, o, p)
+    same = torch.equal(f4, f1)
     log(f"[kernel] tile_chunk K4 vs skew_chunk K1 (2048x2048, 8 steps, same "
         f"input): max|df| {(f4 - f1).abs().max().item():.3e}, state bitwise "
-        f"{torch.equal(f4, f1)}; max sums rel "
+        f"{same}; max sums rel "
         f"{((s4 - s1).abs() / s1.abs()).max().item():.3e}")
+    if not same:
+        raise AssertionError("K4's state differs from K1's on the same input")
     del f0, f4, f1
     _free()
 
@@ -378,7 +436,7 @@ def phase_kernels():
     f0 = _state(p, SEED + 7)
     res["tile_chunk"] = chunk_ms["8192x8192"] = _compare_chunk(
         "tile_chunk K4 (8192x8192, 8 steps)",
-        lambda: kstep_tile.tile_chunk(f0, o, p, 8),
+        lambda: kstep_tile._tile_launch(f0, o, p, 8),
         lambda: kstep_tile.tile_chunk_ref(f0, o, p, 8), 10, 1,
         chunk_bound(p.ny * p.nx, 8))
     # K4 ring mode at the 8192^2 deck's shard over a ring of 4, where the
@@ -398,7 +456,7 @@ def phase_kernels():
     f0 = _state(p, SEED + 8)
     chunk_ms["4096x4096"] = _compare_chunk(
         "tile_chunk K4 (4096x4096, 8 steps)",
-        lambda: kstep_tile.tile_chunk(f0, o, p, 8),
+        lambda: kstep_tile._tile_launch(f0, o, p, 8),
         lambda: kstep_tile.tile_chunk_ref(f0, o, p, 8), 20, 1,
         chunk_bound(p.ny * p.nx, 8))
     _ring_check(p, o, f0, p.ny - 14, 28, 8, 200, 5, "4096x4096 fold band")
@@ -428,7 +486,7 @@ def phase_kernels():
         p, o, f0 = _random_case(ny, nx, SEED + ny)
         _compare_chunk(
             f"tile_chunk K4 ({ny}x{nx}, 8 steps; the shape of {what})",
-            lambda: kstep_tile.tile_chunk(f0, o, p, 8),
+            lambda: kstep_tile._tile_launch(f0, o, p, 8),
             lambda: kstep_tile.tile_chunk_ref(f0, o, p, 8), 50, 3,
             chunk_bound(p.ny * p.nx, 8))
 
@@ -446,10 +504,10 @@ def phase_kernels():
         kstep.skew_chunk(ft, ot, tiny)
     torch.cuda.synchronize()
     host_us = (time.perf_counter() - t0) / n * 1e6
-    log(f"[launch] host {host_us:.2f} us per skew_chunk call (8 K1 + 1 K3 "
-        f"launches, {host_us / 9:.2f} us per launch) vs device "
+    log(f"[launch] host {host_us:.2f} us per skew_chunk call (8 K1 "
+        f"launches, {host_us / 8:.2f} us per launch) vs device "
         f"{res['skew_chunk']['ms'] * 1e3:.2f} us per 1024^2 chunk")
-    # The same for one chunk of a 4-shard ring: slab copies, K4, K3 per
+    # The same for one chunk of a 4-shard ring: slab copies and K4 per
     # shard, 200 chunks in one runner call
     tiny = LBMParams(nx=64, ny=64, max_iters=1, reynolds_dim=1, density=0.1,
                      accel=0.005, omega=1.85).with_free_cells(64 * 64)
@@ -528,6 +586,13 @@ def _run_cli(args):
 
 
 def _check_launches(deck, counts, needed, absent=()):
+    """Every kernel of `needed` launched, none of `absent`; the chunks'
+    sums all reduced in-kernel: one reduction per chunk (a K2 or K4 launch,
+    8 K1 launches, and one K1 remainder chunk per runner call), and the
+    library has no second-pass entry point (lbm_reduce_partials) to
+    launch."""
+    from tpulbm_torch.ops import _build
+
     log(f"    launches: {counts}")
     missing = [k for k in needed if counts[k] <= 0]
     if missing:
@@ -535,6 +600,14 @@ def _check_launches(deck, counts, needed, absent=()):
     stray = [k for k in absent if counts[k]]
     if stray:
         raise AssertionError(f"{deck}: launches of {stray} off its route")
+    chunks = (counts["resident_chunk"] + counts["tile_chunk"]
+              + counts["ring_chunk"] + counts["skew_chunk"] // 8
+              + (counts["kstep_chunk"] > 0))
+    if counts["reduce_partials"] != chunks:
+        raise AssertionError(f"{deck}: {counts['reduce_partials']} in-kernel "
+                             f"reductions for {chunks} chunks")
+    if hasattr(_build.library(), "lbm_reduce_partials"):
+        raise AssertionError("the library still has lbm_reduce_partials")
 
 
 def _max_rel_pct(av, ref):
@@ -798,7 +871,7 @@ def _watch_simulation(seen):
 
 
 def _ring_cli(deck, steps, n, extra, totals, out=None):
-    """One ring run through cli.main: launches (ring_chunk and K3 only),
+    """One ring run through cli.main: launches (ring_chunk only),
     MLUPS, peak device memory, host us per chunk, layout. Returns (the
     Simulation, Reynolds number)."""
     import torch
@@ -916,7 +989,7 @@ def phase_ring(one_card):
     log(f"[ring] {deck} over {n} shards vs one card (phase 4's K4 run): "
         f"max|df| {diff:.3e} (<= {F_ATOL:g}), state bitwise {same}; av max "
         f"diff {rel:.3g} % (<= {GOLDEN_TOL:g} %)")
-    if not (diff <= F_ATOL and rel <= GOLDEN_TOL
+    if not (same and rel <= GOLDEN_TOL
             and np.isfinite(av_ring).all() and av_ring.shape == (steps,)):
         raise AssertionError(f"{deck} over {n} shards disagrees with one card")
     del f_ring, f_one
@@ -933,8 +1006,10 @@ KERNELS = [
      "tpulbm_torch/csrc/fused_step.cu", "tpulbm/ops/pallas_kstep_skew.py:94"),
     ("kstep_chunk", "lbm_fused_step (K1, kstep_chunk)",
      "tpulbm_torch/csrc/fused_step.cu", "tpulbm/ops/pallas_kstep.py:79"),
-    ("reduce_partials", "lbm_reduce_partials (K3)",
-     "tpulbm_torch/csrc/fused_step.cu", "tpulbm/ops/window_step.py:384"),
+    ("reduce_partials", "reduce_row / reduce_rows (the former K3 "
+     "lbm_reduce_partials, now the epilogue of K1, K2 and K4; launches "
+     "count the chunks it reduced)",
+     "tpulbm_torch/csrc/lbm_cell.cuh", "tpulbm/ops/window_step.py:384"),
     ("tile_chunk", "lbm_kstep_tile (K4, tile_chunk: whole grid)",
      "tpulbm_torch/csrc/kstep_tile.cu",
      "tpulbm/ops/pallas_kstep_skew_fold.py:118, "

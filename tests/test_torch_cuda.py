@@ -23,6 +23,7 @@ from tpulbm_torch.ops import _build, kstep, kstep_tile, resident
 
 F_ATOL = 5e-7
 AV_RTOL = 3e-4
+K3_RTOL = 1e-6
 
 
 @pytest.fixture
@@ -46,18 +47,26 @@ def _close(got, want):
     assert ((s_k - s_r).abs() / s_r.abs()).max().item() <= AV_RTOL
 
 
+def _counter_is_zero(device):
+    """The last block of every launch resets the ticket counter."""
+    assert _build.ticket_counter(device).item() == 0
+
+
 @pytest.mark.cuda
 def test_fused_step_chunks_match_plain(case):
-    """K1 through skew_chunk (8 steps) and kstep_chunk (3 steps), with K3."""
+    """K1 through skew_chunk (8 steps) and kstep_chunk (3 steps), with the
+    chunk's sums from the last launch's epilogue."""
     p, f0, mask = case
     o = mask.float()
     _close(kstep.skew_chunk(f0, o, p), kstep.skew_chunk_ref(f0, o, p))
     _close(kstep.kstep_chunk(f0, o, p, 3), kstep.kstep_chunk_ref(f0, o, p, 3))
+    _counter_is_zero(f0.device)
 
 
 @pytest.mark.cuda
 def test_resident_chunk_matches_plain_and_repeats_bitwise(case):
-    """K2 with K3; two runs give identical bytes (no float atomics)."""
+    """K2 with its epilogue; two runs give identical bytes (no float
+    atomics)."""
     p, f0, mask = case
     o = mask.float()
     got = resident.resident_chunk(f0, o, p, 64)
@@ -68,7 +77,8 @@ def test_resident_chunk_matches_plain_and_repeats_bitwise(case):
 
 @pytest.mark.cuda
 def test_kstep_tile_chunks_match_plain_and_repeat_bitwise(case):
-    """K4 with K3: whole grid at 8 and 3 steps, and ring mode on a band of
+    """K4 with its epilogue: whole grid at 8 and 3 steps (its state at 8
+    steps bitwise K1's), and ring mode on a band of
     rows [-16, 16) around the seam holding the accelerated row ny-2, cut
     into lo, shard and hi (the seam fixes' function), against the plain
     band chunk."""
@@ -79,6 +89,10 @@ def test_kstep_tile_chunks_match_plain_and_repeat_bitwise(case):
         _close(got, kstep_tile.tile_chunk_ref(f0, o, p, k))
         again = kstep_tile.tile_chunk(f0, o, p, k)
         assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+        _counter_is_zero(f0.device)
+    # K4's state is K1's, bitwise (the same cell arithmetic)
+    assert torch.equal(kstep_tile.tile_chunk(f0, o, p, 8)[0],
+                       kstep.skew_chunk(f0, o, p)[0])
     rows = torch.arange(-16, 16, device=f0.device) % p.ny
     band, ob = f0[:, rows].contiguous(), o[rows].contiguous()
     lo, shard, hi = (band[:, :8].contiguous(), band[:, 8:-8].contiguous(),
@@ -98,9 +112,43 @@ def test_cuda_runner_goes_through_the_kernels(case):
     f, av = make_runner(p, 21, "cuda", "cuda")(f0, mask)
     assert _build.LAUNCHES["skew_chunk"] == 16
     assert _build.LAUNCHES["kstep_chunk"] == 5
+    # in-kernel reductions, one per chunk (two 8-step chunks, one of 5)
     assert _build.LAUNCHES["reduce_partials"] == 3
+    assert not hasattr(_build.library(), "lbm_reduce_partials")
     f_r, av_r = make_runner(p, 21, "torch", "cuda")(f0, mask)
     _close((f, av), (f_r, av_r))
+
+
+@pytest.mark.cuda
+def test_fused_sums_reduce_the_partials_and_reset_the_counter(case):
+    """Each stepping kernel's epilogue: the returned sums are its partials
+    reduced (within K3_RTOL of reduce_partials_ref, bitwise on a rerun),
+    and the ticket counter reads 0 after every launch."""
+    p, f0, mask = case
+    o = mask.float()
+    rows = torch.arange(40 - 8, 40 + 37 + 8, device=f0.device) % p.ny
+    band, ob = f0[:, rows].contiguous(), o[rows].contiguous()
+    lo, shard, hi = (band[:, :8].contiguous(), band[:, 8:-8].contiguous(),
+                     band[:, -8:].contiguous())
+    launches = [
+        lambda: kstep._fused_steps(f0, o, p, 8, "skew_chunk"),
+        lambda: kstep._fused_steps(f0, o, p, 3, "kstep_chunk"),
+        lambda: resident._resident_launch(f0, o, p, 64),
+        lambda: kstep_tile._tile_launch(f0, o, p, 8),
+        lambda: kstep_tile._tile_launch(f0, o, p, 3),
+        lambda: kstep_tile._ring_launch(lo, shard, hi, ob, p, 8, 32),
+    ]
+    _counter_is_zero(f0.device)
+    for launch in launches:
+        _, sums, partials = launch()
+        torch.cuda.synchronize()
+        _counter_is_zero(f0.device)
+        want = kstep.reduce_partials_ref(partials)
+        assert ((sums - want).abs() / want.abs()).max().item() <= K3_RTOL
+        _, again, _ = launch()
+        torch.cuda.synchronize()
+        _counter_is_zero(f0.device)
+        assert torch.equal(sums, again)
 
 
 @pytest.mark.cuda
@@ -125,6 +173,7 @@ def test_ring_chunk_matches_plain_and_repeats_bitwise(case):
         again = kstep_tile.ring_chunk(lo, shard, hi, ob, p, k, base)
         assert torch.equal(got[0], again[0])
         assert torch.equal(got[1], again[1])
+        _counter_is_zero(f0.device)
 
 
 @pytest.mark.cuda

@@ -166,11 +166,59 @@ def test_cuda_backend_never_falls_back_to_cpu():
     assert truntime.resolve_backend("auto", "cuda") == "cuda"
 
 
+# The stepping kernels' epilogue (csrc/lbm_cell.cuh::reduce_row and
+# reduce_rows, the former K3): its sums against the plain version within
+# chip_smoke.py's K3_RTOL (float32 sums of up to 65,536 partials in another
+# order; measured 1.2e-7 on the card).
+K3_RTOL = 1e-6
+
+
+def _shfl_tree(v):
+    """Lane 0 of the __shfl_down_sync tree over the last axis (32 lanes); a
+    lane whose source lane is past 31 reads its own value."""
+    for off in (16, 8, 4, 2, 1):
+        v = v + np.concatenate([v[..., off:], v[..., 32 - off:]], axis=-1)
+    return v[..., 0]
+
+
+def epilogue_model(partials: np.ndarray, block_threads: int) -> np.ndarray:
+    """The epilogue's fixed order in numpy float32, per row: thread i < 256
+    sums j = i, i + 256, ... in order (threads past 256 hold 0), warp trees,
+    then one warp's tree over the warp sums (lanes past the block's warps
+    hold 0). A block of any size gives the same bits."""
+    k, n = partials.shape
+    acc = np.zeros((k, block_threads), np.float32)
+    for j in range(0, n, 256):
+        cols = partials[:, j:j + 256]
+        acc[:, :cols.shape[1]] += cols
+    warps = _shfl_tree(acc.reshape(k, block_threads // 32, 32))
+    lanes = np.zeros((k, 32), np.float32)
+    lanes[:, :warps.shape[1]] = warps
+    return _shfl_tree(lanes)
+
+
 def test_reduce_partials_plain():
+    """The epilogue's plain version: one float32 sum per row."""
     parts = torch.tensor(np.random.RandomState(1).rand(5, 77),
                          dtype=torch.float32)
-    np.testing.assert_allclose(kstep.reduce_partials(parts).numpy(),
-                               parts.numpy().sum(axis=1), rtol=1e-6)
+    got = kstep.reduce_partials_ref(parts)
+    assert got.dtype == torch.float32 and got.shape == (5,)
+    np.testing.assert_allclose(got.numpy(), parts.numpy().sum(axis=1),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("k,n", [(8, 4096), (8, 65536), (3, 1000), (1, 7)])
+def test_epilogue_order_matches_the_plain_sum(k, n):
+    """The epilogue's fixed order against reduce_partials_ref within
+    K3_RTOL at the partials' shapes of the main path (K1 at 1024^2, K4 at
+    8192^2, a ragged remainder); bitwise the same on a rerun and for blocks
+    of 256 (K1, K2) and 768 threads (K4)."""
+    parts = np.random.RandomState(k + n).rand(k, n).astype(np.float32)
+    got = epilogue_model(parts, 256)
+    want = kstep.reduce_partials_ref(torch.tensor(parts)).numpy()
+    np.testing.assert_allclose(got, want, rtol=K3_RTOL)
+    assert np.array_equal(got, epilogue_model(parts, 256))
+    assert np.array_equal(got, epilogue_model(parts, 768))
 
 
 def test_nvcc_flags_and_sources():
@@ -181,3 +229,35 @@ def test_nvcc_flags_and_sources():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     assert len(_build.source_hash()) == 16
+
+
+def test_kernel_ab_imports_another_tree_beside_this_one():
+    """tools.kernel_ab imports another tree's ops modules beside this
+    process's (here this tree again, from its root): distinct module
+    objects with their own build module, this process's modules put back,
+    and the other tree's chunk functions giving this tree's results on a
+    CPU grid (their plain versions)."""
+    import sys
+
+    from tpulbm_torch.tools import kernel_ab
+
+    def ours():
+        return {n: m for n, m in sys.modules.items()
+                if n.startswith("tpulbm_torch")}
+
+    before = ours()
+    other = kernel_ab.import_tree(kernel_ab.ROOT)
+    assert ours() == before
+    assert set(other) == set(kernel_ab.OPS)
+    assert other["kstep_tile"] is not kstep_tile
+    assert other["kstep_tile"]._build is other["_build"] is not _build
+    p, mask = _random_case(40, 70, seed=5)
+    f0 = initial_state(p) * (1 + 0.01 * torch.tensor(
+        np.random.RandomState(6).rand(9, p.ny, p.nx), dtype=torch.float32))
+    o = torch.tensor(mask, dtype=torch.float32)
+    for mine, theirs in ((kstep_tile.tile_chunk(f0, o, p, 3),
+                          other["kstep_tile"].tile_chunk(f0, o, p, 3)),
+                         (kstep.skew_chunk(f0, o, p),
+                          other["kstep"].skew_chunk(f0, o, p))):
+        assert torch.equal(mine[0], theirs[0])
+        assert torch.equal(mine[1], theirs[1])

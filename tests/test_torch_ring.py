@@ -137,7 +137,10 @@ def test_ring_chunk_ref_matches_band_chunk_ref(k, off, h):
     """The plain ring chunk (a band that shrinks a row per side and step)
     against the plain band chunk (a band that wraps inside itself) on the
     same rows: state and sums bitwise. The bands at off 60 and 90 hold the
-    accelerated row ny-2 = 94 and the seam."""
+    accelerated row ny-2 = 94 and the seam. Both take each step's sum
+    through kstep_tile.rows_sum, on a fresh contiguous copy of the same
+    rows, so the compared sums are one reduction of the same values; the
+    assertion names which of the two outputs differs."""
     p = LBMParams(nx=56, ny=96, max_iters=1, reynolds_dim=10, density=0.1,
                   accel=0.005, omega=1.85)
     rng = np.random.RandomState(k + off)
@@ -152,7 +155,10 @@ def test_ring_chunk_ref_matches_band_chunk_ref(k, off, h):
                                  band[:, k + h:], ob, p, k, base)
     f_b, s_b = kstep_tile.band_chunk_ref(band, ob, p, k, base)
     assert f.shape == (9, h, p.nx) and s.shape == (k,)
-    assert torch.equal(f, f_b) and torch.equal(s, s_b)
+    assert torch.equal(f, f_b), (
+        f"state: {int((f != f_b).sum())} values differ, max "
+        f"{(f - f_b).abs().max().item():.3e}")
+    assert torch.equal(s, s_b), f"sums: {s.tolist()} vs {s_b.tolist()}"
 
 
 def test_ring_chunk_one_step_is_a_step_with_halos():
@@ -173,7 +179,7 @@ def test_ring_chunk_one_step_is_a_step_with_halos():
         _, speed = physics.collide(
             step_torch.pull(step_torch.accelerate(f0, obst, p)), obst,
             p.omega, True)
-        assert torch.equal(s[0], speed[off:off + h].sum(dtype=torch.float32))
+        assert torch.equal(s[0], kstep_tile.rows_sum(speed, off, h))
 
 
 @pytest.mark.parametrize("n_shards,n_steps", [(2, 200), (4, 200), (8, 200),

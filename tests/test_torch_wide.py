@@ -27,13 +27,15 @@ from tpulbm.dist import runner as jrunner
 from tpulbm.dist.mesh import get_mesh
 from tpulbm.ops import pallas_kstep2d, pallas_kstep_skew
 from tpulbm.ops import pallas_kstep_skew2d, pallas_kstep_skew_fold
+from tpulbm_torch.core import physics
+from tpulbm_torch.core.lattice import CX, CY
 from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.core.state import initial_state
 from tpulbm_torch.dist import runner as truntime
 from tpulbm_torch.dist import tiers
 from tpulbm_torch.io.obstacles import write_obstacles
 from tpulbm_torch.io.params_file import read_params, write_params
-from tpulbm_torch.ops import kstep, kstep_tile, resident
+from tpulbm_torch.ops import kstep, kstep_tile, resident, step_torch
 from tpulbm_torch.sim.simulation import Simulation
 
 torch.set_num_threads(2)
@@ -303,3 +305,137 @@ def test_wide_deck_end_to_end(tmp_path):
     f, av = truntime.run_plan(plan, initial_state(sim.params),
                               sim.obstacles.float(), sim.params)
     _close(f.numpy(), av.numpy(), jsim.f, jres.av_vels)
+
+
+# An eager model of K4's schedule (csrc/kstep_tile.cu): persistent CTAs
+# walking the 32 x 32 tiles in a fixed stride, each tile's window loaded
+# with its row and column wraps (ring mode: the row's buffer, lo, shard or
+# hi, and blocked zeros past the band; its first column a multiple of 4, kx
+# = k rounded up to 4 columns left of the tile), k steps on the shrinking
+# rectangle whose results are all computed before any is written back (the
+# register write-back), the last step's owned cells to the output, and the
+# per-tile partials in the kernel's order (a thread's three cells t + 768 j
+# in turn, warp trees, then one warp's tree over the 24 warp sums), in the
+# column of the tile's index. Plain float32 arithmetic, so its state is bitwise the
+# plain chunks'; its sums differ from theirs only by the summation order.
+K4_THREADS, K4_CELLS, K4_TILE, K4_GRID = 768, 3, 32, 5
+
+
+def _shfl_tree(v):
+    """Lane 0 of the __shfl_down_sync tree over the last axis (32 lanes)."""
+    for off in (16, 8, 4, 2, 1):
+        v = v + torch.cat([v[..., off:], v[..., 32 - off:]], dim=-1)
+    return v[..., 0]
+
+
+def _k4_partial(speed_owned):
+    """A tile-step's partial from the window's |u| of its owned cells (0
+    elsewhere), in the kernel's order."""
+    x = torch.zeros(K4_CELLS * K4_THREADS)
+    x[:speed_owned.numel()] = speed_owned.flatten()
+    acc = torch.zeros(K4_THREADS)
+    for j in range(K4_CELLS):
+        acc = acc + x[j * K4_THREADS:(j + 1) * K4_THREADS]
+    warps = _shfl_tree(acc.reshape(K4_THREADS // 32, 32))
+    return _shfl_tree(torch.cat([warps, torch.zeros(32 - warps.numel())]))
+
+
+def _k4_model(p, k, out_rows, row_of, obst_of, accel_of):
+    """K4 on a grid of out_rows output rows. row_of(y0, wy) -> (9, nx)
+    populations of window row wy of tile-row y0, or None past a ring's
+    band; obst_of(y0, wy) -> (nx,) mask; accel_of(y0, wy) -> the row is the
+    accelerated row. Returns (out, (k, ntiles) partials)."""
+    kx = (k + 3) // 4 * 4
+    nx, wh, w, cm = p.nx, K4_TILE + 2 * k, K4_TILE + 2 * kx, kx - k
+    tiles_x = -(-nx // K4_TILE)
+    ntiles = tiles_x * -(-out_rows // K4_TILE)
+    out = torch.full((9, out_rows, nx), float("nan"))
+    partials = torch.full((k, ntiles), float("nan"))
+    walked = []
+    for cta in range(min(K4_GRID, ntiles)):
+        for tile in range(cta, ntiles, K4_GRID):
+            walked.append(tile)
+            y0, x0 = tile // tiles_x * K4_TILE, tile % tiles_x * K4_TILE
+            cols = torch.arange(x0 - kx, x0 - kx + w) % nx
+            win = torch.zeros((9, wh, w))
+            blocked = torch.ones((wh, w), dtype=torch.bool)
+            accel = []
+            for wy in range(wh):
+                row = row_of(y0, wy)
+                if row is not None:
+                    win[:, wy] = row[:, cols]
+                    blocked[wy] = obst_of(y0, wy)[cols] != 0
+                    if accel_of(y0, wy):
+                        accel.append(wy)
+            own = torch.zeros((wh, w), dtype=torch.bool)
+            own[k:k + min(K4_TILE, out_rows - y0),
+                kx:kx + min(K4_TILE, nx - x0)] = True
+            for s in range(k):
+                lo, hi = s + 1, wh - s - 1
+                xlo, xhi = cm + s + 1, w - cm - s - 1
+                g = win
+                for wy in accel:
+                    g = step_torch.accelerate(g, blocked, p, row=wy)
+                pulled = [g[q, lo - CY[q]:hi - CY[q], xlo - CX[q]:xhi - CX[q]]
+                          for q in range(9)]
+                new, speed = physics.collide(
+                    pulled, blocked[lo:hi, xlo:xhi], p.omega, True)
+                win = win.clone()
+                win[:, lo:hi, xlo:xhi] = torch.stack(new)
+                owned = torch.zeros((wh, w))
+                owned[lo:hi, xlo:xhi] = speed
+                partials[s, tile] = _k4_partial(torch.where(own, owned, 0.0))
+            rows = min(K4_TILE, out_rows - y0)
+            cs = min(K4_TILE, nx - x0)
+            out[:, y0:y0 + rows, x0:x0 + cs] = win[:, k:k + rows, kx:kx + cs]
+    assert sorted(walked) == list(range(ntiles))
+    return out, partials
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_k4_schedule_model_whole_grid(k):
+    """The model of K4's whole-grid schedule on a ragged 70x90 grid (2 x 2
+    full tiles and ragged edges) whose accelerated row is in the last
+    tile-row, against tile_chunk_ref: state bitwise; the per-tile partials
+    reduced (the epilogue's plain version) within 1e-6 of the plain sums."""
+    p, mask, f0 = _case(70, 90, seed=10 + k)
+    f, o = torch.tensor(f0), torch.tensor(mask, dtype=torch.float32)
+    out, partials = _k4_model(
+        p, k, p.ny, lambda y0, wy: f[:, (y0 - k + wy) % p.ny],
+        lambda y0, wy: o[(y0 - k + wy) % p.ny],
+        lambda y0, wy: (y0 - k + wy) % p.ny == p.accel_row)
+    f_r, s_r = kstep_tile.tile_chunk_ref(f, o, p, k)
+    assert torch.equal(out, f_r)
+    np.testing.assert_allclose(kstep.reduce_partials_ref(partials).numpy(),
+                               s_r.numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_k4_schedule_model_ring(k):
+    """The model of K4's ring mode on a 37-row shard of a 96x90 grid whose
+    band holds the accelerated row and whose hi slab wraps to rows 0..k-1:
+    each window row read from lo, the shard or hi, rows past the band
+    blocked zeros; against ring_chunk_ref, as the whole-grid test."""
+    p, mask, f0 = _case(96, 90, seed=20 + k)
+    off, h = 59, 37
+    rows = torch.arange(off - k, off + h + k) % p.ny
+    band = torch.tensor(f0)[:, rows]
+    ob = torch.tensor(mask, dtype=torch.float32)[rows]
+    lo, shard, hi = band[:, :k], band[:, k:k + h], band[:, k + h:]
+    base = (off - k) % p.ny
+
+    def row_of(y0, wy):
+        sr = y0 + wy
+        if sr >= h + 2 * k:
+            return None
+        return (lo[:, sr] if sr < k else shard[:, sr - k] if sr < k + h
+                else hi[:, sr - k - h])
+
+    out, partials = _k4_model(
+        p, k, h, row_of, lambda y0, wy: ob[y0 + wy],
+        lambda y0, wy: (y0 + wy < h + 2 * k
+                        and (base + y0 + wy) % p.ny == p.accel_row))
+    f_r, s_r = kstep_tile.ring_chunk_ref(lo, shard, hi, ob, p, k, base)
+    assert torch.equal(out, f_r)
+    np.testing.assert_allclose(kstep.reduce_partials_ref(partials).numpy(),
+                               s_r.numpy(), rtol=1e-6)

@@ -1,6 +1,6 @@
 // K4 lbm_kstep_tile: k <= 8 D2Q9-BGK steps in one launch, temporally
-// blocked in shared memory, plus the per-block partial |u| sums of each
-// step (reduced by K3, fused_step.cu).
+// blocked in shared memory, and the chunk's per-step sums of |u| (the last
+// CTA to finish reduces the per-tile partials).
 //
 // Whole-grid mode replaces five TPU kernels that all compute this function,
 // k fused steps per pass over device memory with a per-step sum of |u| over
@@ -38,29 +38,64 @@
 // which needs no order and leaves no seam: on one card the whole-grid pass
 // is the whole function.
 //
-// Design. Each CTA owns a kTile x kTile tile of the output. It loads the
-// tile's window, (kTile + 2k)^2 cells of the nine populations and the mask,
-// into dynamic shared memory once; steps it k times there between two
-// buffers (every thread reads step s before any writes step s + 1: the
-// barrier of the per-step block sum separates them), computing a square
-// that shrinks by one cell per side and step, since window-edge values go
-// stale one cell per step; and writes the last step, which is exactly the
-// owned tile, straight to the output. Tiles past a ragged grid edge mask
-// the cells they do not own, so any shape runs.
+// Design. The output is cut into 32 x 32 owned tiles. A tile's window is
+// its 32 + 2k rows by 32 + 2kx columns, kx = k rounded up to a multiple of
+// 4: the nine populations and the mask. Stepped k times in shared memory,
+// the window's computed rectangle shrinks by one cell per side and step
+// (window-edge values go stale one cell per step; the kx - k columns at each
+// side beyond the k-cell margin are loaded and never computed), and the last
+// step's rectangle is exactly the owned tile, written straight to the
+// output. Tiles past a ragged grid edge mask the cells they do not own, so
+// any shape runs.
+//   Persistent CTAs: the grid is cudaOccupancyMaxActiveBlocksPerMultiprocessor
+//     x the SM count (at most one CTA a tile); CTA b walks tiles b, b + grid,
+//     ... Each tile's k partials go to column `tile` of the (k, ntiles)
+//     partials, so the sums do not depend on which CTA ran which tile.
+//   Two stages: while a CTA steps one tile in one stage, the next tile's
+//     window lands in the other by cp.async (async_copy.cuh), 16 B a copy
+//     where every 4-column segment of a window row is contiguous and 16-B
+//     aligned (nx % 4 == 0 and 16-B aligned tensors: the window's first
+//     column 32 bx - kx is a multiple of 4 for every k), else 4 B.
+//     Not TMA: a TMA descriptor holds its tensor's address, and every
+//     chunk steps new tensors (a new output each chunk, new slabs on the
+//     ring), so each launch would encode descriptors on the host through
+//     the driver API, and the periodic wrap in x and y and ring mode's
+//     three row sources would cut an edge tile's box into up to six. Each
+//     thread's row and column wraps are computed once per window row and
+//     column segment: no division or modulo per element.
+//   State in registers: one shared copy of the window's state. Thread t
+//     owns window cells t + j * 768 (j < 3), their coordinates computed once
+//     per launch; at each step it computes those of its cells that lie in
+//     the step's rectangle into registers, and after a barrier writes them
+//     back (then a second barrier, before the next step reads). The last
+//     step goes to device memory. A thread adds the |u| of its owned cells
+//     into one register per step, warps sum by shuffles and one warp per
+//     step sums the warp sums once per tile: no block-wide sum per step.
+//   Shared memory: a stage is 10 planes of the window (the mask as float,
+//     nonzero = blocked), 92,160 B at k = 8 and 60,800 B at k = 3; two
+//     stages, 184,320 B and 121,600 B of dynamic shared memory, so one CTA
+//     of 768 threads (24 warps, 80 registers a thread) per SM. At k = 8 a
+//     thread's three cells fill the 48 x 48 window exactly; 512 and 640
+//     threads measured slower and 1024 spill (PERF.md). A 48 x 48 owned
+//     tile would recompute 1.32x where 32 x 32 recomputes 1.51x (12,336
+//     updates for 8,192 owned cells at k = 8), but its one stage (147 KB)
+//     leaves no room for a second: the load would not overlap (PERF.md).
+//   One instance per k (1 to 8) and mode, so that every shared-memory
+//     offset is a constant: one instance for any k took 1.14-1.16x the time
+//     at k = 8, and a k = 3 instance 0.89x that one's time (PERF.md). The
+//     dynamic shared-memory limit and the grid size are set once per
+//     instance and device.
 //
-// Two addressing modes, two template instances of one kernel body:
+// Two addressing modes, template instances of one kernel body:
 //   whole grid: src is the (9, ny, nx) grid, out distinct; window rows and
 //     columns wrap modulo (ny, nx);
 //   ring (kRing): the band of h + 2k rows is lo (9, k, nx), the shard mid
-//     (9, h, nx) and hi (9, k, nx), in three buffers (a row's pointer is
-//     picked at the window load: no copy of the shard into a band); band
-//     row 0 is global row row_base; out (9, h, nx) is the shard after k
-//     steps. Band rows do not wrap (rows past the band are filled as
-//     blocked cells, outside the owned cells' reach); columns wrap modulo
-//     nx.
-// In the whole-grid instance the per-row buffer choice would cost
-// registers and a few per cent of K4's time on the wide decks, hence two
-// instances.
+//     (9, h, nx) and hi (9, k, nx), in three buffers (a row's buffer is
+//     picked once per window row at the load: no copy of the shard into a
+//     band); band row 0 is global row row_base; out (9, h, nx) is the shard
+//     after k steps. Band rows do not wrap (rows past the band are filled
+//     as blocked cells, outside the owned cells' reach); columns wrap
+//     modulo nx.
 // The inflow acceleration picks a source cell by its GLOBAL row,
 // (row_base + source row) mod ny, with the knife-edge guard of lbm_cell.
 //
@@ -68,37 +103,50 @@
 // populations and the mask in once, the nine populations out once, 9.5 B
 // a cell-step. Its ~94 fp32 operations a cell update are less: so the
 // bound is bytes, 1.52 ms a chunk (0.19 ms a step) at 8192^2 at 3.35 TB/s.
-// This design adds work the function does not need: at k = 8 a 32 x 32
-// tile computes 12,336 cell updates for 8,192 owned ones (x1.51 recompute
-// of the window's margins), and every update moves about 80 B through
-// shared memory. Those are the costs a faster version cuts (larger tiles,
-// fewer shared-memory round trips), not the bound. This first version
-// spends 168 KB of shared memory at k = 8, so one CTA of 512 threads per
-// SM, and does not overlap a tile's load with the previous tile's steps;
-// measured times against the bound are in PERF.md. In ring mode the
-// function reads the band (h + 2k rows of populations and mask) and writes
-// the h shard rows: bytes again; a shard of a small grid is a launch of few
-// CTAs, so on the ring the host's launch path, not this bound, sets the
-// pace below the widest decks (PERF.md).
+// The design adds work the function does not need: the 1.51x recompute,
+// and about 80 B of shared-memory traffic per update (nine loads, a mask
+// load, nine stores). In ring mode the function reads the band (h + 2k
+// rows of populations and mask) and writes the h shard rows: bytes again; a
+// shard of a small grid is a launch of few CTAs, so on the ring the host's
+// launch path, not this bound, sets the pace below the widest decks
+// (PERF.md).
 //
-// Per-step sums are per-CTA partials in a fixed order, (k, nblocks) floats,
-// reduced by K3; no float atomics, so two runs give identical bytes.
+// Per-step sums: per-tile partials in a fixed order, (k, ntiles) floats,
+// reduced by the last CTA (lbm_cell.cuh::last_ticket, reduce_rows); no float
+// atomics, so two runs give identical bytes.
 
 #include <cuda_runtime.h>
 
+#include "async_copy.cuh"
 #include "lbm_cell.cuh"
 
 namespace {
 
-constexpr int kTile = 32;    // owned tile edge, cells
-constexpr int kMaxK = 8;     // steps per launch
-constexpr int kThreads = 512;
+constexpr int kTile = 32;                      // owned tile edge, cells
+constexpr int kMaxK = 8;                       // steps per launch
+constexpr int kMaxW = kTile + 2 * kMaxK;       // window edge at kMaxK
+constexpr int kThreads = 768;                  // 48^2 = 3 x 768
+constexpr int kWarps = kThreads / 32;
+// Window cells a thread owns: t + j * kThreads, j < kCells
+constexpr int kCells = kMaxW * kMaxW / kThreads;
+// The load: kSegLanes threads a window row, kRowSlots rows at a time
+constexpr int kSegLanes = 16;
+constexpr int kRowSlots = kThreads / kSegLanes;
+constexpr int kMaxSegs = (kMaxW + kSegLanes - 1) / kSegLanes;  // 4-B mode
+constexpr int kPlanes = 10;                    // nine populations, mask
+constexpr int kMaxDevices = 64;
+static_assert(kCells * kThreads == kMaxW * kMaxW && kMaxK % 4 == 0,
+              "the threads' cells fill the largest window");
+static_assert(kMaxK <= kWarps && kMaxK <= tpulbm::kMaxEpilogueRows &&
+                  kThreads >= tpulbm::kReduceThreads,
+              "one warp per step sums the warp sums");
 
 // Rows of one launch. Whole grid: out_rows = ny, window row 0 of tile-row
 // ty is grid row 32 ty - k (mod ny). Ring: out_rows = h, window row 0 of
 // tile-row ty is band row 32 ty; band row sr is lo's row sr (sr < k), the
 // shard's row sr - k or hi's row sr - k - h; row_base is the global row of
-// band row 0.
+// band row 0. Both: window column 0 of tile-column bx is grid column
+// 32 bx - col_margin(k) (mod nx).
 struct TileArgs {
   int k;
   int out_rows;
@@ -110,151 +158,304 @@ __device__ __forceinline__ int wrap(int v, int n) {
   return v < 0 ? v + n : v;
 }
 
-// The step-s state of the window in shared memory around window cell
-// c = wy * w + wx (planes of w * w floats; mask 1 = blocked; acc_rows[wy]
-// = 1 where window row wy is the accelerated row).
+// The step-s state of a stage around window cell c (planes of `plane`
+// floats, rows of w, plane 9 the mask, nonzero = blocked; bit dy + 1 of acc
+// set where row wy + dy of the window is the accelerated row).
 struct TileSrc {
   const float* buf;
-  const unsigned char* mask;
-  const unsigned char* acc_rows;
-  int plane, w, c, wy;
+  int plane, w, c;
+  unsigned acc;
   __device__ __forceinline__ float f(int k, int dy, int dx) const {
     return buf[k * plane + c + dy * w + dx];
   }
   __device__ __forceinline__ bool fluid(int dy, int dx) const {
-    return mask[c + dy * w + dx] == 0;
+    return buf[9 * plane + c + dy * w + dx] == 0.0f;
   }
   __device__ __forceinline__ bool accel(int dy) const {
-    return acc_rows[wy + dy] != 0;
+    return (acc >> (dy + 1)) & 1u;
   }
 };
 
-struct TileDst {
-  float* o;
-  int plane;
-  __device__ __forceinline__ void operator()(int k, float v) const {
-    o[k * plane] = v;
-  }
-};
+// Window columns left and right of the owned tile: k rounded up to a
+// multiple of 4, so that a window row starts at a multiple of 4 columns.
+__host__ __device__ constexpr int col_margin(int k) { return (k + 3) & ~3; }
 
-template <bool kRing>
+// Floats of one stage: 10 planes of (32 + 2k) x (32 + 2 col_margin(k)), a
+// multiple of 4.
+__host__ __device__ constexpr int stage_floats(int k) {
+  return kPlanes * (kTile + 2 * k) * (kTile + 2 * col_margin(k));
+}
+
+template <bool kRing, int kK>
 __global__ void __launch_bounds__(kThreads, 1)
     kstep_tile_kernel(const float* __restrict__ src_lo,
                       const float* __restrict__ src_mid,
                       const float* __restrict__ src_hi,
                       const float* __restrict__ obst, float* __restrict__ out,
-                      float* __restrict__ partials, tpulbm::LbmArgs a,
-                      TileArgs t) {
-  extern __shared__ float smem[];
-  __shared__ float warp_sums[kThreads / 32];
-  const int w = kTile + 2 * t.k;   // window edge
-  const int plane = w * w;
-  float* cur = smem;
-  float* nxt = smem + 9 * plane;
-  unsigned char* mask = reinterpret_cast<unsigned char*>(smem + 18 * plane);
-  unsigned char* acc_rows = mask + plane;
-
-  const int y0 = blockIdx.y * kTile, x0 = blockIdx.x * kTile;
-  const int src_rows = kRing ? t.out_rows + 2 * t.k : a.ny;
-
-  for (int i = threadIdx.x; i < plane; i += kThreads) {
-    const int wy = i / w, wx = i - wy * w;
-    // sr: row of the source rows (band or grid); r: its row in buf
-    int sr, r, rows;
-    const float* buf = src_mid;
-    if constexpr (kRing) {
-      sr = y0 + wy;
-      r = sr - t.k, rows = t.out_rows;
-      if (r < 0) {
-        buf = src_lo, r = sr, rows = t.k;
-      } else if (r >= t.out_rows) {
-        buf = src_hi, r -= t.out_rows, rows = t.k;
-      }
-    } else {
-      sr = r = wrap(y0 - t.k + wy, a.ny), rows = a.ny;
-    }
-    const bool in = !kRing || sr < src_rows;
-    const int col = wrap(x0 - t.k + wx, a.nx);
-    const size_t g = (size_t)r * a.nx + col;
-    const size_t bplane = (size_t)rows * a.nx;
-    for (int q = 0; q < 9; ++q)
-      cur[q * plane + i] = in ? __ldg(buf + q * bplane + g) : 0.0f;
-    mask[i] = in ? (__ldg(obst + (size_t)sr * a.nx + col) != 0.0f) : 1;
-  }
-  for (int wy = threadIdx.x; wy < w; wy += kThreads) {
-    const int sr = kRing ? y0 + wy : wrap(y0 - t.k + wy, a.ny);
-    acc_rows[wy] =
-        sr < src_rows && wrap(t.row_base + sr, a.ny) == a.accel_row;
-  }
-  __syncthreads();
-
-  const int own_rows = min(kTile, t.out_rows - y0);
-  const int own_cols = min(kTile, a.nx - x0);
+                      float* __restrict__ partials, float* __restrict__ sums,
+                      unsigned int* counter, tpulbm::LbmArgs a, TileArgs t,
+                      int vec16) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float warp_sums[kMaxK][kWarps];
+  __shared__ unsigned char acc_rows[2][kMaxW];
+  constexpr int k = kK;
+  const int kx = col_margin(k);
+  const int wh = kTile + 2 * k;    // window rows
+  const int w = kTile + 2 * kx;    // window columns
+  const int cm = kx - k;           // columns a side that no step computes
+  const int plane = wh * w;
+  const int sfloats = stage_floats(k);
+  const int tiles_x = (a.nx + kTile - 1) / kTile;
+  const int ntiles = tiles_x * ((t.out_rows + kTile - 1) / kTile);
+  const int src_rows = kRing ? t.out_rows + 2 * k : a.ny;
   const size_t oplane = (size_t)t.out_rows * a.nx;
-  const int nblocks = gridDim.x * gridDim.y;
-  const int block = blockIdx.y * gridDim.x + blockIdx.x;
-  for (int s = 0; s < t.k; ++s) {
-    // State s+1 on the square [lo, lo + n)^2 from state s on the square one
-    // cell wider; on the last step the square is the owned tile.
-    const int lo = s + 1, n = w - 2 * lo;
-    const bool last = s == t.k - 1;
-    float acc = 0.0f;
-    for (int i = threadIdx.x; i < n * n; i += kThreads) {
-      const int ry = i / n;
-      const int wy = lo + ry, wx = lo + i - ry * n;
-      const int oy = wy - t.k, ox = wx - t.k;   // owned-tile coordinates
-      const bool owned = oy >= 0 && oy < own_rows && ox >= 0 && ox < own_cols;
-      const TileSrc ts{cur, mask, acc_rows, plane, w, wy * w + wx, wy};
-      if (last) {
-        if (owned)
-          acc += tpulbm::lbm_cell(
-              ts,
-              tpulbm::GridDst{out + (size_t)(y0 + oy) * a.nx + x0 + ox, oplane},
-              a);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  // This thread's window cells, fixed for the launch; a cell past the
+  // window gets a row outside every step's rectangle.
+  int cy[kCells], cx[kCells];
+#pragma unroll
+  for (int j = 0; j < kCells; ++j) {
+    const int c = threadIdx.x + j * kThreads;
+    cy[j] = c < plane ? c / w : -kMaxW;
+    cx[j] = c - (c / w) * w;
+  }
+
+  // This thread's part of the window load: column segments sl + 16 m of
+  // seg_w columns, window rows threadIdx.x / 16 + 32 i.
+  const int sl = threadIdx.x & (kSegLanes - 1);
+  const int seg_w = vec16 ? 4 : 1;
+
+  // Issues the copy of tile `tile`'s window into stage `st`.
+  auto issue = [&](int tile, int st) {
+    const int ty = tile / tiles_x;
+    const int y0 = ty * kTile, x0 = (tile - ty * tiles_x) * kTile;
+    float* stage = smem + st * sfloats;
+    int wcol[kMaxSegs], gcol[kMaxSegs];
+#pragma unroll
+    for (int m = 0; m < kMaxSegs; ++m) {
+      wcol[m] = (sl + kSegLanes * m) * seg_w;
+      gcol[m] = wrap(x0 - kx + wcol[m], a.nx);
+    }
+    for (int wy = threadIdx.x / kSegLanes; wy < wh; wy += kRowSlots) {
+      // sr: the row in the source rows (band or grid); r: its row in buf
+      int sr, r, rows;
+      const float* buf = src_mid;
+      if constexpr (kRing) {
+        sr = y0 + wy;
+        r = sr - k, rows = t.out_rows;
+        if (r < 0) {
+          buf = src_lo, r = sr, rows = k;
+        } else if (r >= t.out_rows) {
+          buf = src_hi, r -= t.out_rows, rows = k;
+        }
       } else {
-        const float speed =
-            tpulbm::lbm_cell(ts, TileDst{nxt + wy * w + wx, plane}, a);
-        if (owned) acc += speed;
+        sr = r = wrap(y0 - k + wy, a.ny), rows = a.ny;
+      }
+      const bool in = !kRing || sr < src_rows;
+      if (sl == 0)
+        acc_rows[st][wy] =
+            in && wrap(t.row_base + sr, a.ny) == a.accel_row;
+      const size_t bplane = (size_t)rows * a.nx;
+      const float* grow = buf + (size_t)r * a.nx;
+      const float* mrow = obst + (size_t)sr * a.nx;
+      float* drow = stage + wy * w;
+#pragma unroll
+      for (int m = 0; m < kMaxSegs; ++m) {
+        if (wcol[m] >= w) break;
+        float* d = drow + wcol[m];
+        if (!in) {
+          for (int e = 0; e < seg_w; ++e) {
+            for (int q = 0; q < 9; ++q) d[q * plane + e] = 0.0f;
+            d[9 * plane + e] = 1.0f;
+          }
+        } else if (vec16) {
+          for (int q = 0; q < 9; ++q)
+            tpulbm::cp_async16(d + q * plane, grow + q * bplane + gcol[m]);
+          tpulbm::cp_async16(d + 9 * plane, mrow + gcol[m]);
+        } else {
+          for (int q = 0; q < 9; ++q)
+            tpulbm::cp_async4(d + q * plane, grow + q * bplane + gcol[m]);
+          tpulbm::cp_async4(d + 9 * plane, mrow + gcol[m]);
+        }
       }
     }
-    const float bsum = tpulbm::block_sum(acc, warp_sums);
-    if (threadIdx.x == 0) partials[(size_t)s * nblocks + block] = bsum;
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
+  };
+
+  int st = 0;
+  if (blockIdx.x < ntiles) issue(blockIdx.x, 0);
+  tpulbm::cp_async_commit();
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    // The next tile's window flies while this one steps; stage st ^ 1 was
+    // released by the barrier that ended the previous tile.
+    if (tile + gridDim.x < ntiles) issue(tile + gridDim.x, st ^ 1);
+    tpulbm::cp_async_commit();
+    tpulbm::cp_async_wait<1>();
+    __syncthreads();
+
+    float* stage = smem + st * sfloats;
+    const int ty = tile / tiles_x;
+    const int y0 = ty * kTile, x0 = (tile - ty * tiles_x) * kTile;
+    const int own_rows = min(kTile, t.out_rows - y0);
+    const int own_cols = min(kTile, a.nx - x0);
+    bool owned[kCells];
+    unsigned acc3[kCells];
+#pragma unroll
+    for (int j = 0; j < kCells; ++j) {
+      const int oy = cy[j] - k, ox = cx[j] - kx;
+      owned[j] = oy >= 0 && oy < own_rows && ox >= 0 && ox < own_cols;
+      acc3[j] = cy[j] >= 1 && cy[j] < wh - 1
+                    ? acc_rows[st][cy[j] - 1] | acc_rows[st][cy[j]] << 1 |
+                          acc_rows[st][cy[j] + 1] << 2
+                    : 0u;
+    }
+
+#pragma unroll 1
+    for (int s = 0; s < k; ++s) {
+      // State s + 1 on the rectangle of rows [lo, wh - lo) and columns
+      // [cm + lo, w - cm - lo) from state s on the one a cell wider; on the
+      // last step it is the owned tile.
+      const int lo = s + 1, hi = wh - lo, xlo = cm + lo, xhi = w - xlo;
+      float res[kCells][9];
+      bool act[kCells];
+      float acc = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kCells; ++j) {
+        act[j] = cy[j] >= lo && cy[j] < hi && cx[j] >= xlo && cx[j] < xhi;
+        if (act[j]) {
+          const int c = threadIdx.x + j * kThreads;
+          const float speed = tpulbm::lbm_cell(
+              TileSrc{stage, plane, w, c, acc3[j]}, tpulbm::RegDst{res[j]}, a);
+          if (owned[j]) acc += speed;
+        }
+      }
+      for (int off = 16; off > 0; off >>= 1)
+        acc += __shfl_down_sync(0xffffffffu, acc, off);
+      if (lane == 0) warp_sums[s][warp] = acc;
+      if (s == k - 1) {
+#pragma unroll
+        for (int j = 0; j < kCells; ++j) {
+          if (owned[j]) {
+            float* o = out + (size_t)(y0 + cy[j] - k) * a.nx + x0 + cx[j] - kx;
+#pragma unroll
+            for (int q = 0; q < 9; ++q) o[q * oplane] = res[j][q];
+          }
+        }
+      } else {
+        __syncthreads();   // every read of state s is done
+#pragma unroll
+        for (int j = 0; j < kCells; ++j) {
+          if (act[j]) {
+            const int c = threadIdx.x + j * kThreads;
+#pragma unroll
+            for (int q = 0; q < 9; ++q) stage[q * plane + c] = res[j][q];
+          }
+        }
+        __syncthreads();   // state s + 1 is complete
+      }
+    }
+
+    // The tile's partials: warp s sums step s's warp sums in a fixed order.
+    __syncthreads();
+    if (warp < k) {
+      float v = lane < kWarps ? warp_sums[warp][lane] : 0.0f;
+      for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_down_sync(0xffffffffu, v, off);
+      if (lane == 0) partials[(size_t)warp * ntiles + tile] = v;
+    }
+    __syncthreads();   // stage st and warp_sums are free
+    st ^= 1;
   }
+  tpulbm::cp_async_wait<0>();
+  if (tpulbm::last_ticket(counter))
+    tpulbm::reduce_rows(counter, partials, sums, k, ntiles);
 }
 
-// Dynamic shared memory of a k-step launch, bytes.
-int smem_bytes(int k) {
-  const int w = kTile + 2 * k;
-  return 18 * w * w * (int)sizeof(float) + w * w + w;
+// Dynamic shared memory of a k-step launch, bytes: two stages.
+int smem_bytes(int k) { return 2 * stage_floats(k) * (int)sizeof(float); }
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+
+// The persistent grid of an instance on the current device (CTAs a SM x
+// SMs), its shared-memory limit set on first use.
+template <bool kRing, int kK>
+cudaError_t configure(int* grid_cap) {
+  static int cap[kMaxDevices];   // per device, 0 until configured
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!cap[dev]) {
+    int sms = 0, per_sm = 0;
+    e = cudaFuncSetAttribute(kstep_tile_kernel<kRing, kK>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes(kK));
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kstep_tile_kernel<kRing, kK>, kThreads, smem_bytes(kK));
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cap[dev] = per_sm * sms;
+  }
+  *grid_cap = cap[dev];
+  return cudaSuccess;
 }
 
 // Launches on the current device.
-template <bool kRing>
+template <bool kRing, int kK>
 int launch(const float* src_lo, const float* src_mid, const float* src_hi,
-           const float* obst, float* out, float* partials,
-           const tpulbm::LbmArgs& a, const TileArgs& t, cudaStream_t stream) {
+           const float* obst, float* out, float* partials, float* sums,
+           unsigned int* counter, const tpulbm::LbmArgs& a, const TileArgs& t,
+           cudaStream_t stream) {
+  int cap = 0;
+  cudaError_t e = configure<kRing, kK>(&cap);
+  if (e != cudaSuccess) return (int)e;
+  const int ntiles = ((a.nx + kTile - 1) / kTile) *
+                     ((t.out_rows + kTile - 1) / kTile);
+  const int grid = ntiles < cap ? ntiles : cap;
+  const bool vec16 = a.nx % 4 == 0 && aligned16(src_mid) &&
+                     aligned16(obst) &&
+                     (!kRing || (aligned16(src_lo) && aligned16(src_hi)));
+  kstep_tile_kernel<kRing, kK><<<grid, kThreads, smem_bytes(kK), stream>>>(
+      src_lo, src_mid, src_hi, obst, out, partials, sums, counter, a, t,
+      vec16 ? 1 : 0);
+  return (int)cudaGetLastError();
+}
+
+// The instances of a mode, by k - 1.
+using LaunchFn = int (*)(const float*, const float*, const float*,
+                         const float*, float*, float*, float*, unsigned int*,
+                         const tpulbm::LbmArgs&, const TileArgs&,
+                         cudaStream_t);
+template <bool kRing>
+constexpr LaunchFn kLaunch[kMaxK] = {
+    launch<kRing, 1>, launch<kRing, 2>, launch<kRing, 3>, launch<kRing, 4>,
+    launch<kRing, 5>, launch<kRing, 6>, launch<kRing, 7>, launch<kRing, 8>};
+constexpr cudaError_t (*kConfigure[kMaxK])(int*) = {
+    configure<false, 1>, configure<false, 2>, configure<false, 3>,
+    configure<false, 4>, configure<false, 5>, configure<false, 6>,
+    configure<false, 7>, configure<false, 8>};
+
+template <bool kRing>
+int launch_k(const float* src_lo, const float* src_mid, const float* src_hi,
+             const float* obst, float* out, float* partials, float* sums,
+             unsigned int* counter, const tpulbm::LbmArgs& a,
+             const TileArgs& t, cudaStream_t stream) {
   if (t.k < 1 || t.k > kMaxK || t.out_rows < 1)
     return (int)cudaErrorInvalidValue;
-  const int smem = smem_bytes(t.k);
-  cudaError_t e = cudaFuncSetAttribute(
-      kstep_tile_kernel<kRing>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((a.nx + kTile - 1) / kTile,
-                  (t.out_rows + kTile - 1) / kTile);
-  kstep_tile_kernel<kRing><<<grid, kThreads, smem, stream>>>(
-      src_lo, src_mid, src_hi, obst, out, partials, a, t);
-  return (int)cudaGetLastError();
+  return kLaunch<kRing>[t.k - 1](src_lo, src_mid, src_hi, obst, out,
+                                  partials, sums, counter, a, t, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// CTAs of a K4 launch whose output has `rows` rows: the row length of its
+// Tiles of a K4 launch whose output has `rows` rows: the row length of its
 // partials.
 int lbm_kstep_tile_blocks(int rows, int nx) {
   return ((rows + kTile - 1) / kTile) * ((nx + kTile - 1) / kTile);
@@ -262,34 +463,48 @@ int lbm_kstep_tile_blocks(int rows, int nx) {
 
 int lbm_kstep_tile_smem(int k) { return smem_bytes(k); }
 
+// CTAs of a whole-grid k-step launch that one SM of the current device
+// holds at once; a negative CUDA error code on failure.
+int lbm_kstep_tile_ctas_per_sm(int k) {
+  if (k < 1 || k > kMaxK) return -(int)cudaErrorInvalidValue;
+  int cap = 0, sms = 0, dev = 0;
+  cudaError_t e = kConfigure[k - 1](&cap);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return e == cudaSuccess ? cap / sms : -(int)e;
+}
+
 // k steps (1 <= k <= 8) of the whole grid: src and out (9, ny, nx),
 // distinct; obst the (ny, nx) float32 mask, nonzero = blocked; partials
-// (k, lbm_kstep_tile_blocks(ny, nx)) floats. Returns cudaGetLastError(),
-// or the error of setting the shared memory size. Launches on the current
-// device.
+// (k, lbm_kstep_tile_blocks(ny, nx)) floats; sums the k per-step sums;
+// counter a zeroed unsigned int of this device, left zeroed. Returns
+// cudaGetLastError(), or the error of configuring the kernel. Launches on
+// the current device.
 int lbm_kstep_tile(const float* src, const float* obst, float* out,
-                   float* partials, int ny, int nx, int accel_row,
-                   float omega, float w1, float w2, int k,
-                   cudaStream_t stream) {
+                   float* partials, float* sums, unsigned int* counter, int ny,
+                   int nx, int accel_row, float omega, float w1, float w2,
+                   int k, cudaStream_t stream) {
   const tpulbm::LbmArgs a{ny, nx, accel_row, omega, w1, w2};
   const TileArgs t{k, ny, 0};
-  return launch<false>(nullptr, src, nullptr, obst, out, partials, a, t,
-                       stream);
+  return launch_k<false>(nullptr, src, nullptr, obst, out, partials, sums,
+                         counter, a, t, stream);
 }
 
 // Ring mode: k steps of the (9, h, nx) shard whose band of h + 2k rows is
 // lo (9, k, nx), shard, hi (9, k, nx), band row 0 being global row
 // row_base; obst is the (h + 2k, nx) float32 mask of the band. Writes out
-// (9, h, nx) and partials (k, lbm_kstep_tile_blocks(h, nx)). Returns as
-// lbm_kstep_tile.
+// (9, h, nx), partials (k, lbm_kstep_tile_blocks(h, nx)) and sums (k).
+// Returns as lbm_kstep_tile.
 int lbm_kstep_tile_ring(const float* lo, const float* shard, const float* hi,
                         const float* obst, float* out, float* partials,
-                        int ny, int nx, int accel_row, float omega, float w1,
-                        float w2, int k, int h, int row_base,
-                        cudaStream_t stream) {
+                        float* sums, unsigned int* counter, int ny, int nx,
+                        int accel_row, float omega, float w1, float w2, int k,
+                        int h, int row_base, cudaStream_t stream) {
   const tpulbm::LbmArgs a{ny, nx, accel_row, omega, w1, w2};
   const TileArgs t{k, h, row_base};
-  return launch<true>(lo, shard, hi, obst, out, partials, a, t, stream);
+  return launch_k<true>(lo, shard, hi, obst, out, partials, sums, counter, a,
+                        t, stream);
 }
 
 }  // extern "C"

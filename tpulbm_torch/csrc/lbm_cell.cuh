@@ -25,7 +25,8 @@
 //   s.accel(dy)      row y+dy is the accelerated row.
 // A sink `d` takes d(k, v): the new population k of the cell.
 // `GridSrc`/`GridDst` address a (9, ny, nx) periodic grid in device memory
-// (K1, K2); kstep_tile.cu (K4) brings its own shared-memory source.
+// (K1, K2); kstep_tile.cu (K4) brings its own shared-memory source;
+// `RegDst` keeps the results in registers (K1, K4).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -190,7 +191,7 @@ struct GridDst {
   }
 };
 
-// One step of cell (y, x) of the periodic grid, src -> dst (K1, K2).
+// One step of cell (y, x) of the periodic grid, src -> dst (K2).
 template <class Load>
 __device__ __forceinline__ float grid_cell(const float* __restrict__ src,
                                            const float* __restrict__ obst,
@@ -217,5 +218,129 @@ __device__ __forceinline__ float block_sum(float v, float* warp_sums) {
   __syncthreads();
   return v;
 }
+
+// The chunk's per-step sums from its (k, n) per-block partials, in a fixed
+// order (the function of tpulbm/ops/window_step.py:384, which sums |u| in
+// the stepping kernel's body). Row s is summed by a virtual block of
+// kReduceThreads threads, thread i taking j = i, i + kReduceThreads, ...,
+// then block_sum; threads at or past kReduceThreads add zeros, which leave
+// block_sum's bits alone, so any blockDim.x that is a multiple of 32 and at
+// least kReduceThreads gives the same bits (those of the former second-pass
+// kernel, K3, which ran 256 threads a row). Partials are read through L2:
+// they come from other blocks of this launch or from earlier launches. A
+// thread issues kReduceBatch loads before it adds them, in order: added as
+// they arrive, each load's latency would be paid one after another.
+constexpr int kReduceThreads = 256;
+constexpr int kReduceBatch = 4;
+
+__device__ __forceinline__ void reduce_row(const float* partials, float* sums,
+                                           int s, int n, float* warp_sums) {
+  const float* row = partials + (size_t)s * n;
+  float v = 0.0f;
+  if (threadIdx.x < kReduceThreads) {
+    int j = threadIdx.x;
+    for (; j + (kReduceBatch - 1) * kReduceThreads < n;
+         j += kReduceBatch * kReduceThreads) {
+      float x[kReduceBatch];
+#pragma unroll
+      for (int u = 0; u < kReduceBatch; ++u)
+        x[u] = __ldcg(row + j + u * kReduceThreads);
+#pragma unroll
+      for (int u = 0; u < kReduceBatch; ++u) v += x[u];
+    }
+    for (; j < n; j += kReduceThreads) v += __ldcg(row + j);
+  }
+  v = block_sum(v, warp_sums);
+  if (threadIdx.x == 0) sums[s] = v;
+}
+
+// The fused epilogue of a stepping launch: every thread of every block
+// calls last_ticket once its block's partials are written; where it returns
+// true (one block) the launch's rows are reduced, and the counter is reset.
+// No float atomics: reruns give the same bits.
+//
+// last_ticket: after a barrier one thread of each block fences and draws a
+// ticket of `counter` (the release pattern of CUTLASS's semaphore); true in
+// every thread of the block that draws the last one, which fences again
+// before it reads the other blocks' partials. Ends with a barrier.
+// The counter (one zeroed unsigned int per device, ops/_build.py) is shared
+// by every launch on the device, so launches that use it must be ordered:
+// they are, since every wrapper launches on the device's current stream.
+// A launch that faults midway leaves it non-zero and spoils the next
+// launch's ticket; the on-card tests and chip_smoke.py read it back.
+__device__ __forceinline__ bool last_ticket(unsigned int* counter) {
+  __shared__ int is_last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    is_last = atomicAdd(counter, 1u) == gridDim.x * gridDim.y - 1;
+  }
+  __syncthreads();
+  if (is_last) __threadfence();
+  return is_last;
+}
+
+// reduce_rows, in the last block of a launch of k <= kMaxEpilogueRows steps
+// (K4): rows [0, k) of the (k, n) partials into sums[0, k) in reduce_row's
+// order, all rows at once (k independent chains of loads), and the counter
+// back to 0. blockDim.x must be at least max(kReduceThreads, 32 k) and at
+// most 1024.
+constexpr int kMaxEpilogueRows = 8;
+
+__device__ __forceinline__ void reduce_rows(unsigned int* counter,
+                                            const float* partials,
+                                            float* sums, int k, int n) {
+  __shared__ float warp_sums[kMaxEpilogueRows][32];
+  float v[kMaxEpilogueRows];
+#pragma unroll
+  for (int s = 0; s < kMaxEpilogueRows; ++s) v[s] = 0.0f;
+  if (threadIdx.x < kReduceThreads) {
+    int j = threadIdx.x;
+    for (; j + (kReduceBatch - 1) * kReduceThreads < n;
+         j += kReduceBatch * kReduceThreads) {
+      float x[kReduceBatch][kMaxEpilogueRows];
+#pragma unroll
+      for (int u = 0; u < kReduceBatch; ++u)
+#pragma unroll
+        for (int s = 0; s < kMaxEpilogueRows; ++s)
+          x[u][s] = s < k ? __ldcg(partials + (size_t)s * n + j +
+                                   u * kReduceThreads)
+                          : 0.0f;
+#pragma unroll
+      for (int u = 0; u < kReduceBatch; ++u)
+#pragma unroll
+        for (int s = 0; s < kMaxEpilogueRows; ++s) v[s] += x[u][s];
+    }
+    for (; j < n; j += kReduceThreads)
+#pragma unroll
+      for (int s = 0; s < kMaxEpilogueRows; ++s)
+        if (s < k) v[s] += __ldcg(partials + (size_t)s * n + j);
+  }
+  // block_sum of each row: the warp trees, then warp s sums row s's warp
+  // sums (the lanes past the block's warps add zeros, as block_sum's do)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int s = 0; s < kMaxEpilogueRows; ++s) {
+    for (int off = 16; off > 0; off >>= 1)
+      v[s] += __shfl_down_sync(0xffffffffu, v[s], off);
+    if (lane == 0 && s < k) warp_sums[s][warp] = v[s];
+  }
+  __syncthreads();
+  if (warp < k) {
+    float x = lane < (int)(blockDim.x >> 5) ? warp_sums[warp][lane] : 0.0f;
+    for (int off = 16; off > 0; off >>= 1)
+      x += __shfl_down_sync(0xffffffffu, x, off);
+    if (lane == 0) sums[warp] = x;
+  }
+  if (threadIdx.x == 0) *counter = 0u;
+}
+
+// The nine new populations of one cell, into registers.
+struct RegDst {
+  float* r;
+  __device__ __forceinline__ void operator()(int k, float v) const {
+    r[k] = v;
+  }
+};
 
 }  // namespace tpulbm

@@ -27,8 +27,12 @@
 // one K1 launch per step from Python the grid barrier wins about 4x on these
 // decks; against K1 in a CUDA graph it is unmeasured (PERF.md).
 //
-// Per-step sums are per-block partials in a fixed order, reduced by K3
-// (fused_step.cu); no float atomics.
+// Per-step sums: each block writes its partial of step s to row s of the
+// (k, grid) partials; after the last grid-wide barrier the blocks reduce
+// the rows in K3's fixed order (lbm_cell.cuh::reduce_row), row s by block
+// s mod grid, into sums[s]. The cooperative launch needs no ticket, and
+// spreading the rows over the blocks keeps the 512 rows of a full chunk
+// from serialising on one block. No float atomics.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -44,8 +48,8 @@ constexpr int kThreads = 256;
 __global__ void __launch_bounds__(kThreads)
     resident_kernel(const float* __restrict__ f_in,
                     const float* __restrict__ obst, float* out, float* scratch,
-                    float* __restrict__ partials, int k_steps,
-                    tpulbm::LbmArgs a) {
+                    float* __restrict__ partials, float* __restrict__ sums,
+                    int k_steps, tpulbm::LbmArgs a) {
   __shared__ float warp_sums[kThreads / 32];
   cg::grid_group grid = cg::this_grid();
   const int ncells = a.ny * a.nx;
@@ -65,6 +69,8 @@ __global__ void __launch_bounds__(kThreads)
     grid.sync();
     src = dst;
   }
+  for (int s = blockIdx.x; s < k_steps; s += gridDim.x)
+    tpulbm::reduce_row(partials, sums, s, gridDim.x, warp_sums);
 }
 
 }  // namespace
@@ -94,16 +100,16 @@ int lbm_resident_grid(int ncells, int* grid_out) {
 
 // k_steps steps f_in -> out, using scratch as the other half of the
 // ping-pong (all three distinct (9, ny, nx) buffers). partials: (k_steps,
-// grid) floats. grid must come from lbm_resident_grid. Returns the launch's
-// error code.
+// grid) floats; sums: the k_steps per-step sums. grid must come from
+// lbm_resident_grid. Returns the launch's error code.
 int lbm_resident_chunk(const float* f_in, const float* obst, float* out,
-                       float* scratch, float* partials, int grid, int ny,
-                       int nx, int k_steps, int accel_row, float omega,
+                       float* scratch, float* partials, float* sums, int grid,
+                       int ny, int nx, int k_steps, int accel_row, float omega,
                        float w1, float w2, cudaStream_t stream) {
   tpulbm::LbmArgs a{ny, nx, accel_row, omega, w1, w2};
-  void* args[] = {(void*)&f_in,    (void*)&obst,     (void*)&out,
-                  (void*)&scratch, (void*)&partials, (void*)&k_steps,
-                  (void*)&a};
+  void* args[] = {(void*)&f_in,     (void*)&obst,     (void*)&out,
+                  (void*)&scratch,  (void*)&partials, (void*)&sums,
+                  (void*)&k_steps,  (void*)&a};
   cudaError_t e = cudaLaunchCooperativeKernel((const void*)resident_kernel,
                                               dim3(grid), dim3(kThreads), args,
                                               0, stream);

@@ -10,6 +10,13 @@ an exception. Nothing here runs at import time.
 
 Every kernel wrapper adds one to its entry of ``LAUNCHES`` where it launches
 its kernel and nowhere else, so a run can show which kernels it went through.
+
+The stepping kernels reduce a chunk's per-step sums themselves; K1 and K4
+find the block that finishes last by tickets (``csrc/lbm_cell.cuh::
+last_ticket``) on one zeroed ``unsigned int`` per device: ``ticket_counter``
+makes it once and caches it. Launches that share it must be ordered, which holds because every
+wrapper launches on the device's current stream; the last block resets it,
+so a launch that faults midway leaves it non-zero.
 """
 
 from __future__ import annotations
@@ -39,25 +46,31 @@ LAUNCHES = {
     "resident_chunk": 0,    # K2 launches made by ops.resident.resident_chunk
     "tile_chunk": 0,        # K4 launches made by ops.kstep_tile.tile_chunk
     "ring_chunk": 0,        # K4 launches made by ops.kstep_tile.ring_chunk
-    "reduce_partials": 0,   # K3 launches made by ops.kstep.reduce_partials
+    # Chunks whose per-step sums the stepping kernels' epilogue reduced
+    # (one per K1 chunk, K2 launch and K4 launch): the former K3 pass
+    "reduce_partials": 0,
 }
 
 _lock = threading.Lock()
 _lib = None
+_counters: dict = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "lbm_fused_step_blocks": ([_I], _I),
-    "lbm_fused_step": ([_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P], _I),
-    "lbm_reduce_partials": ([_P, _P, _I, _I, _P], _I),
+    "lbm_fused_step": (
+        [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _F, _F, _F, _P], _I),
     "lbm_resident_grid": ([_I, ctypes.POINTER(_I)], _I),
     "lbm_resident_chunk": (
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P], _I),
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P], _I),
     "lbm_kstep_tile_blocks": ([_I, _I], _I),
     "lbm_kstep_tile_smem": ([_I], _I),
-    "lbm_kstep_tile": ([_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P], _I),
+    "lbm_kstep_tile_ctas_per_sm": ([_I], _I),
+    "lbm_kstep_tile": (
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P], _I),
     "lbm_kstep_tile_ring": (
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _I, _P], _I),
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _I,
+         _P], _I),
     "lbm_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -147,6 +160,18 @@ def on_device(t: torch.Tensor):
     so every launch of a tensor on another card than the current one runs
     inside it."""
     return torch.cuda.device(t.device)
+
+
+def ticket_counter(device) -> torch.Tensor:
+    """The zeroed int32 ticket counter of a CUDA device (see the module
+    docstring), made on first use and cached."""
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    with _lock:
+        if index not in _counters:
+            _counters[index] = torch.zeros(1, dtype=torch.int32,
+                                           device=f"cuda:{index}")
+        return _counters[index]
 
 
 def require_cuda(*tensors) -> None:

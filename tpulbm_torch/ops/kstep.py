@@ -1,14 +1,14 @@
-"""K-step chunks for grids in device memory: kernels K1 + K3.
+"""K-step chunks for grids in device memory: kernel K1.
 
 ``skew_chunk`` (K = ``SKEW_K`` = 8) is the counterpart of
 ``tpulbm.ops.pallas_kstep_skew._kernel``, the 1024^2 deck's tier;
 ``kstep_chunk`` (K < 8) of ``tpulbm.ops.pallas_kstep._kernel``, which takes
 the remainder when the step count is not a multiple of 8. Both run K1
 (``csrc/fused_step.cu::lbm_fused_step``) K times, ping-ponging two buffers
-allocated once per chunk, then K3 (``lbm_reduce_partials``) once to turn the
-(K, nblocks) per-block partials into the (K,) per-step sums of |u| over
-free cells. The sums stay on the device; the caller scales them by
-``free_cells_inv``.
+allocated once per chunk; the last launch also turns the chunk's (K,
+nblocks) per-block partials into its (K,) per-step sums of |u| over free
+cells (the fused epilogue, ``reduce_partials_ref`` its plain version). The
+sums stay on the device; the caller scales them by ``free_cells_inv``.
 
 Each wrapper takes its plain PyTorch version (``*_ref``, built on
 ``ops.step_torch``) only when the state lies on the CPU. On a CUDA tensor it
@@ -36,7 +36,8 @@ def kstep_chunk_ref(f, obst_f, params: LBMParams, k: int, pair_symmetric=True):
 
 
 def reduce_partials_ref(partials: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``reduce_partials``."""
+    """Plain version of the stepping kernels' epilogue: a chunk's (K,
+    nblocks) per-block partials to its (K,) per-step sums."""
     return partials.sum(dim=1, dtype=torch.float32)
 
 
@@ -45,32 +46,14 @@ def skew_chunk(f, obst_f, params: LBMParams):
     float32 mask ``obst_f`` (nonzero = blocked). Returns (f', sums[SKEW_K])."""
     if f.device.type == "cpu":
         return skew_chunk_ref(f, obst_f, params)
-    return _fused_steps(f, obst_f, params, SKEW_K, "skew_chunk")
+    return _fused_steps(f, obst_f, params, SKEW_K, "skew_chunk")[:2]
 
 
 def kstep_chunk(f, obst_f, params: LBMParams, k: int):
     """k fused steps (the sub-SKEW_K remainder); as ``skew_chunk``."""
     if f.device.type == "cpu":
         return kstep_chunk_ref(f, obst_f, params, k)
-    return _fused_steps(f, obst_f, params, k, "kstep_chunk")
-
-
-def reduce_partials(partials: torch.Tensor) -> torch.Tensor:
-    """(K, nblocks) float32 partials -> (K,) sums, fixed order (K3)."""
-    if partials.device.type == "cpu":
-        return reduce_partials_ref(partials)
-    _build.require_cuda(partials)
-    lib = _build.library()
-    k, nblocks = partials.shape
-    with _build.on_device(partials):
-        out = torch.empty(k, dtype=torch.float32, device=partials.device)
-        _build.LAUNCHES["reduce_partials"] += 1
-        _build.check(
-            lib.lbm_reduce_partials(
-                partials.data_ptr(), out.data_ptr(), k, nblocks,
-                torch.cuda.current_stream(partials.device).cuda_stream),
-            "lbm_reduce_partials")
-    return out
+    return _fused_steps(f, obst_f, params, k, "kstep_chunk")[:2]
 
 
 def check_chunk(f, obst_f, params: LBMParams, k: int) -> None:
@@ -87,24 +70,33 @@ def check_chunk(f, obst_f, params: LBMParams, k: int) -> None:
 
 
 def _fused_steps(f, obst_f, params: LBMParams, k: int, counter: str):
+    """K1 k times on a CUDA state: (f', sums[k], the (k, nblocks) partials
+    that the last launch reduced into sums). The chunk wrappers drop the
+    partials; ``chip_smoke.py`` holds the sums against
+    ``reduce_partials_ref`` of them."""
     check_chunk(f, obst_f, params, k)
     ny, nx = params.ny, params.nx
     lib = _build.library()
-    nblocks = lib.lbm_fused_step_blocks(ny * nx)
-    partials = torch.empty((k, nblocks), dtype=torch.float32, device=f.device)
-    out = torch.empty_like(f)
-    scratch = torch.empty_like(f) if k > 1 else out
-    stream = torch.cuda.current_stream(f.device).cuda_stream
-    bufs = (out.data_ptr(), scratch.data_ptr())
-    src, obst, row0 = f.data_ptr(), obst_f.data_ptr(), partials.data_ptr()
-    for s in range(k):
-        dst = bufs[(k - 1 - s) % 2]  # the last step lands in out
-        _build.LAUNCHES[counter] += 1
-        _build.check(
-            lib.lbm_fused_step(
-                src, obst, dst, row0 + 4 * nblocks * s, ny, nx,
-                params.accel_row, params.omega, params.accel_w1,
-                params.accel_w2, stream),
-            "lbm_fused_step")
-        src = dst
-    return out, reduce_partials(partials)
+    with _build.on_device(f):
+        nblocks = lib.lbm_fused_step_blocks(ny * nx)
+        partials = torch.empty((k, nblocks), dtype=torch.float32,
+                               device=f.device)
+        sums = torch.empty(k, dtype=torch.float32, device=f.device)
+        out = torch.empty_like(f)
+        scratch = torch.empty_like(f) if k > 1 else out
+        stream = torch.cuda.current_stream(f.device).cuda_stream
+        ticket = _build.ticket_counter(f.device).data_ptr()
+        bufs = (out.data_ptr(), scratch.data_ptr())
+        src, obst = f.data_ptr(), obst_f.data_ptr()
+        for s in range(k):
+            dst = bufs[(k - 1 - s) % 2]  # the last step lands in out
+            _build.LAUNCHES[counter] += 1
+            _build.check(
+                lib.lbm_fused_step(
+                    src, obst, dst, partials.data_ptr(), s, k,
+                    sums.data_ptr(), ticket, ny, nx, params.accel_row,
+                    params.omega, params.accel_w1, params.accel_w2, stream),
+                "lbm_fused_step")
+            src = dst
+        _build.LAUNCHES["reduce_partials"] += 1
+    return out, sums, partials

@@ -1,11 +1,13 @@
-"""K-step chunks temporally blocked in shared memory: kernels K4 + K3.
+"""K-step chunks temporally blocked in shared memory: kernel K4.
 
 K4 (``csrc/kstep_tile.cu::lbm_kstep_tile``) advances up to ``TILE_K`` steps
-in one launch: each CTA loads its tile's window once, steps it in shared
-memory and writes the owned tile once. K3 (``ops.kstep.reduce_partials``)
-turns its (k, nblocks) per-CTA partials into the (k,) per-step sums of |u|
-over the owned free cells. The sums stay on the device; the caller scales
-them by ``free_cells_inv``.
+in one launch: persistent CTAs walk the 32 x 32 tiles, each loading a tile's
+window once (the next one's while it steps this one), stepping it in shared
+memory and writing the owned tile once. The last CTA to finish turns the
+(k, ntiles) per-tile partials into the (k,) per-step sums of |u| over the
+owned free cells (``ops.kstep.reduce_partials_ref`` is the plain version of
+that epilogue). The sums stay on the device; the caller scales them by
+``free_cells_inv``.
 
 - ``tile_chunk`` runs the whole periodic grid: the counterpart of the wide
   tiers of the JAX package, ``pallas_kstep_skew_fold._kernel`` with its
@@ -34,15 +36,22 @@ from tpulbm_torch.core import physics
 from tpulbm_torch.core.lattice import CX, CY, NSPEEDS
 from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.ops import _build, step_torch
-from tpulbm_torch.ops.kstep import check_chunk, reduce_partials
+from tpulbm_torch.ops.kstep import check_chunk
 
 TILE_K = 8   # most steps per launch
-TILE = 32    # rows (and columns) of a CTA's owned tile, kTile of the source
 
 
 def tile_chunk_ref(f, obst_f, params: LBMParams, k: int, pair_symmetric=True):
     """Plain version of ``tile_chunk``: k steps, raw per-step sums."""
     return step_torch.run_sums(f, obst_f != 0, params, k, pair_symmetric)
+
+
+def rows_sum(speed, first: int, h: int):
+    """The float32 sum of |u| over rows [first, first + h) of ``speed``: a
+    step's sum in the plain band and ring chunks, taken on a fresh
+    contiguous (h, nx) copy, so that both reduce the same values in the same
+    layout."""
+    return speed[first:first + h].clone().sum(dtype=torch.float32)
 
 
 def band_chunk_ref(band, obst_band, params: LBMParams, k: int, row_base: int,
@@ -64,7 +73,7 @@ def band_chunk_ref(band, obst_band, params: LBMParams, k: int, row_base: int,
         out, speed = physics.collide(
             step_torch.pull(f), blocked, params.omega, pair_symmetric)
         f = torch.stack(out)
-        sums.append(speed[k:k + h].sum(dtype=torch.float32))
+        sums.append(rows_sum(speed, k, h))
     return f[:, k:k + h].contiguous(), torch.stack(sums)
 
 
@@ -89,7 +98,7 @@ def ring_chunk_ref(lo, shard, hi, obst_band, params: LBMParams, k: int,
                                      pair_symmetric)
         f = torch.stack(out)
         own = k - s - 1                    # the shard's first row in f
-        sums.append(speed[own:own + h].sum(dtype=torch.float32))
+        sums.append(rows_sum(speed, own, h))
     return f, torch.stack(sums)
 
 
@@ -99,21 +108,30 @@ def tile_chunk(f, obst_f, params: LBMParams, k: int):
     (f', sums[k])."""
     if f.device.type == "cpu":
         return tile_chunk_ref(f, obst_f, params, k)
+    return _tile_launch(f, obst_f, params, k)[:2]
+
+
+def _tile_launch(f, obst_f, params: LBMParams, k: int):
+    """K4 whole grid on a CUDA state: (f', sums[k], the (k, ntiles)
+    partials that its epilogue reduced into sums)."""
     check_chunk(f, obst_f, params, k)
     if not 1 <= k <= TILE_K:
         raise ValueError(f"K4 takes 1 to {TILE_K} steps, got {k}")
     lib = _build.library()
     with _build.on_device(f):
-        out, partials = _outputs(lib, f, k, params.ny, params.nx)
+        out, partials, sums = _outputs(lib, f, k, params.ny, params.nx)
         _build.LAUNCHES["tile_chunk"] += 1
+        _build.LAUNCHES["reduce_partials"] += 1
         _build.check(
             lib.lbm_kstep_tile(
                 f.data_ptr(), obst_f.data_ptr(), out.data_ptr(),
-                partials.data_ptr(), params.ny, params.nx, params.accel_row,
-                params.omega, params.accel_w1, params.accel_w2, k,
+                partials.data_ptr(), sums.data_ptr(),
+                _build.ticket_counter(f.device).data_ptr(), params.ny,
+                params.nx, params.accel_row, params.omega, params.accel_w1,
+                params.accel_w2, k,
                 torch.cuda.current_stream(f.device).cuda_stream),
             _what(lib, k))
-        return out, reduce_partials(partials)
+    return out, sums, partials
 
 
 def ring_chunk(lo, shard, hi, obst_band, params: LBMParams, k: int,
@@ -126,6 +144,13 @@ def ring_chunk(lo, shard, hi, obst_band, params: LBMParams, k: int,
     (the (9, h, nx) shard after k steps, sums[k] of |u| over its rows)."""
     if shard.device.type == "cpu":
         return ring_chunk_ref(lo, shard, hi, obst_band, params, k, row_base)
+    return _ring_launch(lo, shard, hi, obst_band, params, k, row_base)[:2]
+
+
+def _ring_launch(lo, shard, hi, obst_band, params: LBMParams, k: int,
+                 row_base: int):
+    """K4 ring mode on CUDA tensors: (the shard after k steps, sums[k], the
+    (k, ntiles) partials that its epilogue reduced into sums)."""
     _build.require_cuda(lo, shard, hi, obst_band)
     h, nx = shard.shape[1], params.nx
     if (not 1 <= k <= TILE_K or shard.shape != (9, h, nx)
@@ -139,25 +164,30 @@ def ring_chunk(lo, shard, hi, obst_band, params: LBMParams, k: int,
             f"({params.ny}, {nx}) grid")
     lib = _build.library()
     with _build.on_device(shard):
-        out, partials = _outputs(lib, shard, k, h, nx)
+        out, partials, sums = _outputs(lib, shard, k, h, nx)
         _build.LAUNCHES["ring_chunk"] += 1
+        _build.LAUNCHES["reduce_partials"] += 1
         _build.check(
             lib.lbm_kstep_tile_ring(
                 lo.data_ptr(), shard.data_ptr(), hi.data_ptr(),
                 obst_band.data_ptr(), out.data_ptr(), partials.data_ptr(),
-                params.ny, nx, params.accel_row, params.omega,
-                params.accel_w1, params.accel_w2, k, h, row_base,
+                sums.data_ptr(),
+                _build.ticket_counter(shard.device).data_ptr(), params.ny,
+                nx, params.accel_row, params.omega, params.accel_w1,
+                params.accel_w2, k, h, row_base,
                 torch.cuda.current_stream(shard.device).cuda_stream),
             _what(lib, k))
-        return out, reduce_partials(partials)
+    return out, sums, partials
 
 
 def _outputs(lib, src, k: int, out_rows: int, nx: int):
-    """(out (9, out_rows, nx), partials (k, nblocks)) on src's device."""
-    nblocks = lib.lbm_kstep_tile_blocks(out_rows, nx)
+    """(out (9, out_rows, nx), partials (k, ntiles), sums (k,)) on src's
+    device."""
+    ntiles = lib.lbm_kstep_tile_blocks(out_rows, nx)
     return (torch.empty((9, out_rows, nx), dtype=torch.float32,
                         device=src.device),
-            torch.empty((k, nblocks), dtype=torch.float32, device=src.device))
+            torch.empty((k, ntiles), dtype=torch.float32, device=src.device),
+            torch.empty(k, dtype=torch.float32, device=src.device))
 
 
 def _what(lib, k: int) -> str:

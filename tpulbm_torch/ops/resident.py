@@ -1,4 +1,4 @@
-"""K-step chunk for small grids in one persistent launch: kernels K2 + K3.
+"""K-step chunk for small grids in one persistent launch: kernel K2.
 
 ``resident_chunk`` is the counterpart of
 ``tpulbm.ops.pallas_resident._kernel`` (``make_resident_step``) and of its
@@ -6,9 +6,10 @@ HBM-edge variant ``_kernel_hbm`` (``make_resident_step_hbm``): up to
 ``RESIDENT_K`` steps per call of a grid that ``dist.tiers`` routes here
 (8/128-aligned, at most 135K cells; K2 itself takes any shape). K2
 (``csrc/resident.cu::lbm_resident_chunk``) is one cooperative launch with a
-grid-wide barrier between steps, its ping-pong pair held in L2; K3
-(``ops.kstep.reduce_partials``) reduces its per-block partials to the (K,)
-per-step sums of |u| over free cells.
+grid-wide barrier between steps, its ping-pong pair held in L2; after the
+last barrier its blocks reduce the per-block partials to the (K,) per-step
+sums of |u| over free cells (``ops.kstep.reduce_partials_ref`` is the plain
+version of that epilogue).
 
 The wrapper takes the plain version (``resident_chunk_ref``) only when the
 state lies on the CPU. On a CUDA tensor it launches K2 or raises — also when
@@ -23,7 +24,7 @@ import torch
 
 from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.ops import _build, step_torch
-from tpulbm_torch.ops.kstep import check_chunk, reduce_partials
+from tpulbm_torch.ops.kstep import check_chunk
 
 # Steps per call, as tpulbm.dist.runner._make_resident_runner's k_chunk.
 RESIDENT_K = 512
@@ -40,22 +41,32 @@ def resident_chunk(f, obst_f, params: LBMParams, k: int):
     mask ``obst_f`` (nonzero = blocked). Returns (f', sums[k])."""
     if f.device.type == "cpu":
         return resident_chunk_ref(f, obst_f, params, k)
+    return _resident_launch(f, obst_f, params, k)[:2]
+
+
+def _resident_launch(f, obst_f, params: LBMParams, k: int):
+    """K2 on a CUDA state: (f', sums[k], the (k, grid) partials that its
+    epilogue reduced into sums)."""
     check_chunk(f, obst_f, params, k)
     ny, nx = params.ny, params.nx
     lib = _build.library()
-    grid = ctypes.c_int(0)
-    _build.check(lib.lbm_resident_grid(ny * nx, ctypes.byref(grid)),
-                 "lbm_resident_grid (cooperative launch)")
-    partials = torch.empty((k, grid.value), dtype=torch.float32,
-                           device=f.device)
-    out = torch.empty_like(f)
-    scratch = torch.empty_like(f)
-    _build.LAUNCHES["resident_chunk"] += 1
-    _build.check(
-        lib.lbm_resident_chunk(
-            f.data_ptr(), obst_f.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), partials.data_ptr(), grid.value, ny, nx, k,
-            params.accel_row, params.omega, params.accel_w1,
-            params.accel_w2, torch.cuda.current_stream(f.device).cuda_stream),
-        "lbm_resident_chunk")
-    return out, reduce_partials(partials)
+    with _build.on_device(f):
+        grid = ctypes.c_int(0)
+        _build.check(lib.lbm_resident_grid(ny * nx, ctypes.byref(grid)),
+                     "lbm_resident_grid (cooperative launch)")
+        partials = torch.empty((k, grid.value), dtype=torch.float32,
+                               device=f.device)
+        sums = torch.empty(k, dtype=torch.float32, device=f.device)
+        out = torch.empty_like(f)
+        scratch = torch.empty_like(f)
+        _build.LAUNCHES["resident_chunk"] += 1
+        _build.LAUNCHES["reduce_partials"] += 1
+        _build.check(
+            lib.lbm_resident_chunk(
+                f.data_ptr(), obst_f.data_ptr(), out.data_ptr(),
+                scratch.data_ptr(), partials.data_ptr(), sums.data_ptr(),
+                grid.value, ny, nx, k, params.accel_row, params.omega,
+                params.accel_w1, params.accel_w2,
+                torch.cuda.current_stream(f.device).cuda_stream),
+            "lbm_resident_chunk")
+    return out, sums, partials
