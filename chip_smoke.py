@@ -8,15 +8,19 @@ Phases; any failure raises and exits non-zero before the result lines:
 
 1. the device: ``torch.cuda.is_available()``, its name, and nvidia-smi's
    name and power limit;
-2. build: nvcc compiles ``tpulbm_torch/csrc/*.cu`` (``ops._build``; K4's
-   shared memory and CTAs per SM are logged);
+2. build: nvcc compiles ``tpulbm_torch/csrc/*.cu``, one process a source
+   (``ops._build``; K4's shared memory and CTAs per SM, K5's cluster
+   size, shared memory a CTA and most active clusters are logged);
 3. each kernel against its plain PyTorch version on the card, on the same
    inputs (made from a seed with numpy), at the shapes the main path gives
    it, with CUDA-event times of both, a bitwise rerun and the bound (the
-   least time the H100 could take for the same work): K2
-   (``resident_chunk``, one 512-step chunk of the 128^2 deck and of a
-   256x512 grid, the HBM-edge resident tier's), K1 (``skew_chunk``, 8
-   steps, and ``kstep_chunk``, 3 steps, of the 1024^2 deck), K4
+   least time the H100 could take for the same work): K5
+   (``cluster_resident_chunk``) and K2 ``resident_chunk`` on the same
+   inputs, one 512-step chunk of each small deck's shape, K5's state
+   bitwise K2's; K2 also on a 256x512 grid, the HBM-edge resident tier's;
+   K4 ``tile_chunk`` and K1 (``skew_chunk``, 8 steps, and
+   ``kstep_chunk``, 3 steps) on the same 1024^2 inputs, K4's state bitwise
+   K1's; K4
    (``tile_chunk``, 8 steps at 2048^2 and 8192^2 and 3 steps at 2048^2;
    ``ring_chunk``, ring mode, on a 2048-row shard of the 8192^2 deck and a
    256-row shard of the 1024^2 deck at 8 steps and at 1 step, and on the
@@ -35,15 +39,17 @@ Phases; any failure raises and exits non-zero before the result lines:
    just after (every chunk's sums reduced in-kernel, no second-pass entry
    point): ``tpulbm_torch.cli.main`` on the four reference decks at their
    full step counts, outputs gated at 1 % against ``tests/goldens/`` by the
-   port's ``validation.check``; one more 1024^2 run of 1003 steps takes the
-   sub-8-step remainder through ``kstep_chunk``. The wide decks (2048^2,
+   port's ``validation.check``, each through the kernel its route names
+   (K5 at 128^2, K2 at 128x256 and 256^2, K4 at 1024^2; no K1 launch); one
+   more 1024^2 run of 1003 steps takes the sub-8-step remainder through
+   K4. The wide decks (2048^2,
    4096^2, 8192^2) through ``cli.main`` with ``--no-output`` (8192^2's
    final_state.dat would be 67M lines) at their full step counts, on K4:
    launches, MLUPS, peak device memory; their av series, from a
    ``Simulation`` rerun that gives the same Reynolds bits, within 1 % of
    the same deck run through K1; 2048^2 for 1003 steps takes the remainder
    through ``tile_chunk``, its Reynolds number within 1 % of the K1
-   route's; 1024^2 through a K4 plan against its golden at 1 %;
+   route's;
 5. the ring, through ``cli.main`` with ``--device-count``: the three
    small reference decks over 2 shards, 1024^2 over 4, over 3 (uneven) and
    over 4 with ``--backend cuda-p2p``, at their full step counts through
@@ -184,6 +190,17 @@ def phase_build():
         log(f"[build] K4 at k = {k}: {_build.library().lbm_kstep_tile_smem(k)} "
             f"B of dynamic shared memory, "
             f"{_build.library().lbm_kstep_tile_ctas_per_sm(k)} CTA(s) per SM")
+    from tpulbm_torch.ops import cluster
+
+    lib = _build.library()
+    for deck, (ny, nx) in (("128x128", (128, 128)), ("128x256", (128, 256)),
+                           ("256x256", (256, 256))):
+        cells = cluster.resident_cells(ny, nx)
+        log(f"[build] K5 at {deck}: a cluster of {cluster.RESIDENT_CLUSTER} "
+            f"CTAs, {cells} cells a thread, "
+            f"{lib.lbm_cluster_resident_smem()} B of dynamic shared memory a "
+            f"CTA, at most {lib.lbm_cluster_resident_clusters(cells)} "
+            f"cluster(s) active")
     log_path = _build.BUILD_DIR / "build.log"
     if log_path.exists():
         for line in log_path.read_text().splitlines():
@@ -251,16 +268,25 @@ def _check_epilogue(name, sums, partials):
     return rel
 
 
+def _plain(plain, plain_reps):
+    """The plain version's result and its CUDA-event ms, for _compare_chunk
+    (one plain result held against several kernels)."""
+    return plain(), cuda_ms(plain, plain_reps)
+
+
 def _compare_chunk(name, kernel, plain, reps, plain_reps, bound_of):
     """Kernel vs plain on the same inputs: max|df|, max relative difference
     of the per-step sums, bitwise rerun, CUDA-event ms of both, the bound
     ((ms, "bytes" | "operations")). kernel() returns (f, sums, partials):
-    the sums are also held against the partials (_check_epilogue). Returns
-    the record of the kernels JSON line."""
+    the sums are also held against the partials (_check_epilogue). plain:
+    the plain version, or its _plain result. Returns the record of the
+    kernels JSON line."""
     import torch
 
+    if callable(plain):
+        plain = _plain(plain, plain_reps)
+    (f_r, s_r), plain_ms = plain
     f_k, s_k, parts = kernel()
-    f_r, s_r = plain()
     torch.cuda.synchronize()
     err = (f_k - f_r).abs().max().item()
     av_rel = ((s_k - s_r).abs() / s_r.abs()).max().item()
@@ -270,7 +296,6 @@ def _compare_chunk(name, kernel, plain, reps, plain_reps, bound_of):
     _check_epilogue(name, s_k2, parts)
     del parts
     ms = cuda_ms(kernel, reps)
-    plain_ms = cuda_ms(plain, plain_reps)
     bound_ms, bound_by = bound_of
     log(f"[kernel] {name}: max|df| {err:.3e} (<= {F_ATOL:g}), max av rel "
         f"{av_rel:.3e} (<= {AV_RTOL:g}), rerun bitwise {same}, in-kernel "
@@ -365,18 +390,40 @@ def phase_kernels():
     from tpulbm_torch.core.params import LBMParams
     from tpulbm_torch.dist import runner, sharding
     from tpulbm_torch.dist.mesh import get_mesh
-    from tpulbm_torch.ops import kstep, kstep_tile, resident
+    from tpulbm_torch.ops import cluster, kstep, kstep_tile, resident
 
     res = {}
     chunk_ms = {}   # K4 8-step chunk records of the wide decks
     k = resident.RESIDENT_K
-    p, o = _load_deck("128x128")
-    f0 = _state(p, SEED)
-    res["resident_chunk"] = _compare_chunk(
-        f"resident_chunk K2 (128x128, {k} steps)",
-        lambda: resident._resident_launch(f0, o, p, k),
-        lambda: resident.resident_chunk_ref(f0, o, p, k), 10, 1,
-        chunk_bound(p.ny * p.nx, k))
+    # K5 and K2 on the small decks' shapes, 512 steps, against one plain
+    # result: K5's state bitwise K2's, their times in one call.
+    for deck, seed in (("128x128", SEED), ("128x256", SEED + 13),
+                       ("256x256", SEED + 14)):
+        p, o = _load_deck(deck)
+        f0 = _state(p, seed)
+        plain = _plain(lambda: resident.resident_chunk_ref(f0, o, p, k), 1)
+        bound_of = chunk_bound(p.ny * p.nx, k)
+        k5 = _compare_chunk(
+            f"cluster_resident_chunk K5 ({deck}, {k} steps)",
+            lambda: cluster._resident_launch(f0, o, p, k), plain, 10, 1,
+            bound_of)
+        k2 = _compare_chunk(
+            f"resident_chunk K2 ({deck}, {k} steps)",
+            lambda: resident._resident_launch(f0, o, p, k), plain, 10, 1,
+            bound_of)
+        f5 = cluster._resident_launch(f0, o, p, k)[0]
+        same = torch.equal(f5, resident._resident_launch(f0, o, p, k)[0])
+        log(f"[kernel] K5 vs K2 ({deck}, {k} steps, same input): "
+            f"{k5['ms']:.4f} vs {k2['ms']:.4f} ms, K5/K2 "
+            f"{k5['ms'] / k2['ms']:.3f}; state bitwise K2's {same}; route: "
+            f"{'K5' if cluster.resident_route(p.ny, p.nx) else 'K2'}")
+        if not same:
+            raise AssertionError(f"K5's state differs from K2's at {deck}")
+        if deck == "128x128":
+            res["cluster_resident"] = k5
+        if deck == "256x256":
+            res["resident_chunk"] = k2
+        del f0, f5, plain
     # The HBM-edge resident tier's shape (100K-135K aligned cells)
     p = LBMParams(nx=512, ny=256, max_iters=1, reynolds_dim=10, density=0.1,
                   accel=0.005, omega=1.85)
@@ -392,16 +439,28 @@ def phase_kernels():
 
     p, o = _load_deck("1024x1024")
     f0 = _state(p, SEED + 1)
-    res["skew_chunk"] = _compare_chunk(
-        "skew_chunk K1 (1024x1024, 8 steps)",
-        lambda: kstep._fused_steps(f0, o, p, 8, "skew_chunk"),
-        lambda: kstep.skew_chunk_ref(f0, o, p), 50, 3,
-        chunk_bound(p.ny * p.nx, 8))
-    res["kstep_chunk"] = _compare_chunk(
-        "kstep_chunk K1 (1024x1024, 3 steps)",
-        lambda: kstep._fused_steps(f0, o, p, 3, "kstep_chunk"),
-        lambda: kstep.kstep_chunk_ref(f0, o, p, 3), 50, 3,
-        chunk_bound(p.ny * p.nx, 3))
+    # K4 and K1 at 1024^2, 8 and 3 steps, against one plain result: K4's
+    # state bitwise K1's.
+    for kk, name in ((8, "skew_chunk"), (3, "kstep_chunk")):
+        plain = _plain(lambda: kstep.kstep_chunk_ref(f0, o, p, kk), 3)
+        bound_of = chunk_bound(p.ny * p.nx, kk)
+        k4 = _compare_chunk(
+            f"tile_chunk K4 (1024x1024, {kk} steps)",
+            lambda: kstep_tile._tile_launch(f0, o, p, kk), plain, 50, 3,
+            bound_of)
+        k1 = _compare_chunk(
+            f"{name} K1 (1024x1024, {kk} steps)",
+            lambda: kstep._fused_steps(f0, o, p, kk, name), plain, 50, 3,
+            bound_of)
+        same = torch.equal(kstep_tile._tile_launch(f0, o, p, kk)[0],
+                           kstep._fused_steps(f0, o, p, kk, name)[0])
+        log(f"[kernel] K4 vs K1 (1024x1024, {kk} steps, same input): "
+            f"{k4['ms']:.4f} vs {k1['ms']:.4f} ms, K4/K1 "
+            f"{k4['ms'] / k1['ms']:.3f}; state bitwise K1's {same}")
+        if not same:
+            raise AssertionError("K4's state differs from K1's at 1024^2")
+        res[name] = k1
+        del plain
     # The former K3, now the epilogue of K1's launches, at the 1024^2
     # chunk's shape (8, nblocks), its plain version and torch.sum on the
     # same partials beside it.
@@ -601,7 +660,8 @@ def _check_launches(deck, counts, needed, absent=()):
     if stray:
         raise AssertionError(f"{deck}: launches of {stray} off its route")
     chunks = (counts["resident_chunk"] + counts["tile_chunk"]
-              + counts["ring_chunk"] + counts["skew_chunk"] // 8
+              + counts["ring_chunk"] + counts["cluster_resident"]
+              + counts["skew_chunk"] // 8
               + (counts["kstep_chunk"] > 0))
     if counts["reduce_partials"] != chunks:
         raise AssertionError(f"{deck}: {counts['reduce_partials']} in-kernel "
@@ -653,7 +713,8 @@ def _run_wide(deck, steps, totals, chunk_ms):
     counts = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     _check_launches(deck, counts, ["tile_chunk", "reduce_partials"],
-                    ["skew_chunk", "kstep_chunk", "resident_chunk"])
+                    ["skew_chunk", "kstep_chunk", "resident_chunk",
+                     "cluster_resident"])
     for k, v in counts.items():
         totals[k] += v
     mlups = p.nx * p.ny * steps / elapsed / 1e6
@@ -692,15 +753,18 @@ def _run_wide(deck, steps, totals, chunk_ms):
 
 def phase_main_path(chunk_ms):
     import numpy as np
-    import torch
 
     from tpulbm_torch.core.state import initial_state
     from tpulbm_torch.diag.observables import calc_reynolds
     from tpulbm_torch.dist import runner, tiers
     from tpulbm_torch.io.params_file import read_params
-    from tpulbm_torch.ops import _build, kstep_tile
+    from tpulbm_torch.ops import _build, cluster, kstep_tile, resident
     from tpulbm_torch.validation import check
 
+    # The launch counter of each chunk function of the cuda route
+    counter = {cluster.cluster_resident_chunk: "cluster_resident",
+               kstep_tile.tile_chunk: "tile_chunk",
+               resident.resident_chunk: "resident_chunk"}
     totals = dict.fromkeys(_build.LAUNCHES, 0)
     golden = os.path.join(ROOT, "tests", "goldens")
     for deck, steps, fs_golden in DECKS:
@@ -712,10 +776,14 @@ def phase_main_path(chunk_ms):
         _build.reset_launches()
         reynolds, elapsed = _run_cli([pf, of, "--out-dir", out])
         counts = dict(_build.LAUNCHES)
-        route = tiers.family(p.ny, p.nx, steps)
-        _check_launches(deck, counts, [
-            "resident_chunk" if route == "resident" else "skew_chunk",
-            "reduce_partials"])
+        route = {counter[fn] for fn, _ in runner.kernel_plan(p, steps)}
+        _check_launches(deck, counts, [*route, "reduce_partials"],
+                        [c for c in ("cluster_resident", "resident_chunk",
+                                     "skew_chunk", "kstep_chunk",
+                                     "tile_chunk")
+                         if c not in route])
+        log(f"    route ({tiers.family(p.ny, p.nx, steps)} family): "
+            f"{', '.join(sorted(route))}")
         for k, v in counts.items():
             totals[k] += v
         av_ok, av = check.check_av_vels(
@@ -744,8 +812,11 @@ def phase_main_path(chunk_ms):
     _build.reset_launches()
     _run_cli([pf, of, "--out-dir", out, "--max-iters", str(steps)])
     counts = dict(_build.LAUNCHES)
-    _check_launches(deck, counts,
-                    ["skew_chunk", "kstep_chunk", "reduce_partials"])
+    _check_launches(deck, counts, ["tile_chunk", "reduce_partials"],
+                    ["skew_chunk", "kstep_chunk"])
+    if counts["tile_chunk"] != -(-steps // kstep_tile.TILE_K):
+        raise AssertionError(f"{deck} x {steps}: {counts['tile_chunk']} "
+                             f"tile_chunk launches")
     for k, v in counts.items():
         totals[k] += v
     av = np.loadtxt(os.path.join(out, "av_vels.dat"), usecols=[1])
@@ -795,31 +866,6 @@ def phase_main_path(chunk_ms):
     del f_k1
     _free()
 
-    # 1024^2 through a K4 plan: the golden K4 can be held against. The CLI
-    # routes 1024^2 to K1, so this run is off the main path: its launches
-    # are checked here and left out of the totals of the kernels line.
-    deck, steps = "1024x1024", 20000
-    p, obst_f = _load_deck(deck)
-    log(f"[main] {deck} through a K4 plan ({steps} steps)")
-    plan = runner._chunks(kstep_tile.tile_chunk, kstep_tile.TILE_K, steps)
-    f0 = initial_state(p, "cuda")
-    torch.cuda.synchronize()
-    _build.reset_launches()
-    tic = time.time()
-    f, av = runner.run_plan(plan, f0, obst_f, p)
-    av = av.cpu().numpy()
-    elapsed = time.time() - tic
-    counts = dict(_build.LAUNCHES)
-    _check_launches(deck, counts, ["tile_chunk", "reduce_partials"],
-                    ["skew_chunk", "kstep_chunk"])
-    ref = np.loadtxt(os.path.join(golden, f"{deck}.av_vels.dat"),
-                     usecols=[1])
-    rel = _max_rel_pct(av, ref)
-    log(f"[main] {deck} on K4: {elapsed:.3f} s, "
-        f"{p.nx * p.ny * steps / elapsed / 1e6:.1f} MLUPS; golden av_vels "
-        f"max diff {rel:.3g} % (<= {GOLDEN_TOL:g} %)")
-    if not (av.shape == ref.shape and rel <= GOLDEN_TOL):
-        raise AssertionError(f"{deck} on K4: golden check failed")
     return totals, one_card
 
 
@@ -892,7 +938,7 @@ def _ring_cli(deck, steps, n, extra, totals, out=None):
     counts = dict(_build.LAUNCHES)
     _check_launches(deck, counts, ["ring_chunk", "reduce_partials"],
                     ["skew_chunk", "kstep_chunk", "resident_chunk",
-                     "tile_chunk"])
+                     "tile_chunk", "cluster_resident"])
     for key, v in counts.items():
         totals[key] += v
     sim = seen["sim"]
@@ -999,19 +1045,23 @@ def phase_ring(one_card):
 
 KERNELS = [
     # (counter, name, source, replaces)
+    ("cluster_resident", "lbm_cluster_chunk (K5)",
+     "tpulbm_torch/csrc/cluster.cu", "tpulbm/ops/pallas_resident.py:63"),
     ("resident_chunk", "lbm_resident_chunk (K2)",
      "tpulbm_torch/csrc/resident.cu",
      "tpulbm/ops/pallas_resident.py:63, tpulbm/ops/pallas_resident.py:107"),
-    ("skew_chunk", "lbm_fused_step (K1, skew_chunk)",
+    ("skew_chunk", "lbm_fused_step (K1, skew_chunk; off the route, the "
+     "one-step reference of K4)",
      "tpulbm_torch/csrc/fused_step.cu", "tpulbm/ops/pallas_kstep_skew.py:94"),
-    ("kstep_chunk", "lbm_fused_step (K1, kstep_chunk)",
+    ("kstep_chunk", "lbm_fused_step (K1, kstep_chunk; off the route)",
      "tpulbm_torch/csrc/fused_step.cu", "tpulbm/ops/pallas_kstep.py:79"),
     ("reduce_partials", "reduce_row / reduce_rows (the former K3 "
-     "lbm_reduce_partials, now the epilogue of K1, K2 and K4; launches "
+     "lbm_reduce_partials, now the epilogue of K1, K2, K4 and K5; launches "
      "count the chunks it reduced)",
      "tpulbm_torch/csrc/lbm_cell.cuh", "tpulbm/ops/window_step.py:384"),
     ("tile_chunk", "lbm_kstep_tile (K4, tile_chunk: whole grid)",
      "tpulbm_torch/csrc/kstep_tile.cu",
+     "tpulbm/ops/pallas_kstep_skew.py:94, tpulbm/ops/pallas_kstep.py:79, "
      "tpulbm/ops/pallas_kstep_skew_fold.py:118, "
      "tpulbm/ops/pallas_kstep_skew_fold.py:497, "
      "tpulbm/ops/pallas_kstep_skew2d.py:112, "

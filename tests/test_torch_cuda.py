@@ -19,7 +19,7 @@ from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.core.state import initial_state
 from tpulbm_torch.dist import tiers
 from tpulbm_torch.dist.runner import make_runner
-from tpulbm_torch.ops import _build, kstep, kstep_tile, resident
+from tpulbm_torch.ops import _build, cluster, kstep, kstep_tile, resident
 
 F_ATOL = 5e-7
 AV_RTOL = 3e-4
@@ -105,13 +105,15 @@ def test_kstep_tile_chunks_match_plain_and_repeat_bitwise(case):
 def test_cuda_runner_goes_through_the_kernels(case):
     """The cuda backend's runner launches the kernels of its route and
     agrees with the torch backend (canonical vs pair-symmetric: same gate).
-    136 columns are off the resident gate's 128-alignment: K1, 2 x 8 + 5."""
+    136 columns are off the resident gate's 128-alignment: the fused
+    family, K4, 2 x 8 + 5 steps, and no K1 launch."""
     p, f0, mask = case
     assert tiers.family(p.ny, p.nx, 21) == "fused"
     _build.reset_launches()
     f, av = make_runner(p, 21, "cuda", "cuda")(f0, mask)
-    assert _build.LAUNCHES["skew_chunk"] == 16
-    assert _build.LAUNCHES["kstep_chunk"] == 5
+    assert _build.LAUNCHES["tile_chunk"] == 3
+    assert _build.LAUNCHES["skew_chunk"] == _build.LAUNCHES["kstep_chunk"] == 0
+    _counter_is_zero(f0.device)
     # in-kernel reductions, one per chunk (two 8-step chunks, one of 5)
     assert _build.LAUNCHES["reduce_partials"] == 3
     assert not hasattr(_build.library(), "lbm_reduce_partials")
@@ -137,6 +139,7 @@ def test_fused_sums_reduce_the_partials_and_reset_the_counter(case):
         lambda: kstep_tile._tile_launch(f0, o, p, 8),
         lambda: kstep_tile._tile_launch(f0, o, p, 3),
         lambda: kstep_tile._ring_launch(lo, shard, hi, ob, p, 8, 32),
+        lambda: cluster._resident_launch(f0, o, p, 64),
     ]
     _counter_is_zero(f0.device)
     for launch in launches:
@@ -149,6 +152,24 @@ def test_fused_sums_reduce_the_partials_and_reset_the_counter(case):
         torch.cuda.synchronize()
         _counter_is_zero(f0.device)
         assert torch.equal(sums, again)
+
+
+@pytest.mark.cuda
+def test_cluster_chunks_match_plain_and_repeat_bitwise(case):
+    """K5 against the plain version over 16 CTAs for 64 steps: its state
+    bitwise K2's, reruns bitwise, one launch counted a call, the ticket
+    counter (which K5 does not use) still 0."""
+    p, f0, mask = case
+    o = mask.float()
+    assert cluster.resident_fits(p.ny, p.nx)
+    _build.reset_launches()
+    got = cluster.cluster_resident_chunk(f0, o, p, 64)
+    assert _build.LAUNCHES["cluster_resident"] == 1
+    _close(got, cluster.cluster_resident_chunk_ref(f0, o, p, 64))
+    again = cluster.cluster_resident_chunk(f0, o, p, 64)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert torch.equal(got[0], resident.resident_chunk(f0, o, p, 64)[0])
+    _counter_is_zero(f0.device)
 
 
 @pytest.mark.cuda

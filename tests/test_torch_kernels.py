@@ -29,7 +29,7 @@ from tpulbm_torch.core.state import initial_state
 from tpulbm_torch.dist import runner as truntime
 from tpulbm_torch.io.obstacles import read_obstacles
 from tpulbm_torch.io.params_file import read_params
-from tpulbm_torch.ops import _build, kstep, kstep_tile, resident
+from tpulbm_torch.ops import _build, cluster, kstep, kstep_tile, resident
 
 torch.set_num_threads(2)
 
@@ -108,26 +108,50 @@ def test_skew_and_kstep_chunks_match_pallas_skew():
                                rtol=AV_RTOL)
 
 
+def test_tile_chunks_match_pallas_skew():
+    """The fused family's route: an 8-step tile_chunk (K4) plus a 3-step
+    one vs the fused-fix skew runner, whose 3-step remainder runs
+    pallas_kstep._kernel, on a 128x128 random mask."""
+    p, mask = _random_case(128, 128)
+    n = 11
+    f_j, av_j = _jax_run(
+        _make_skew_runner(JParams(**dataclasses.asdict(p)), n,
+                          get_mesh(n_devices=1)), p, mask)
+    obst_f = torch.tensor(mask, dtype=torch.float32)
+    f, s8 = kstep_tile.tile_chunk(initial_state(p), obst_f, p, 8)
+    f, s3 = kstep_tile.tile_chunk(f, obst_f, p, 3)
+    np.testing.assert_allclose(f.numpy(), f_j, rtol=0, atol=F_ATOL)
+    np.testing.assert_allclose(_scale(p, torch.cat([s8, s3])).numpy(), av_j,
+                               rtol=AV_RTOL)
+
+
 @pytest.mark.parametrize("deck,n,expect", [
-    ("128x128", 40000, [("resident", 512)] * 78 + [("resident", 64)]),
+    ("128x128", 40000, [("k5_resident", 512)] * 78 + [("k5_resident", 64)]),
     ("256x256", 1030, [("resident", 512)] * 2 + [("resident", 6)]),
-    ("1024x1024", 20000, [("skew", 8)] * 2500),
-    ("1024x1024", 1003, [("skew", 8)] * 125 + [("kstep", 3)]),
-    ("1024x1024", 5, [("kstep", 5)]),
+    ("1024x1024", 20000, [("tile", 8)] * 2500),
+    ("1024x1024", 1003, [("tile", 8)] * 125 + [("tile", 3)]),
+    ("1024x1024", 5, [("tile", 5)]),
     ("2048x2048", 4000, [("tile", 8)] * 500),
     ("4096x4096", 2000, [("tile", 8)] * 250),
     ("8192x8192", 1000, [("tile", 8)] * 125),
     ("4096x4096", 1003, [("tile", 8)] * 125 + [("tile", 3)]),
+    ((256, 512), 1030, [("resident", 512)] * 2 + [("resident", 6)]),
 ])
 def test_kernel_plan_routes_like_the_jax_runner(deck, n, expect):
-    """Aligned grids of <= 135K cells -> K2 in 512-step chunks plus a
-    remainder (runner.py:1723-1730); the 1-D skew's grids -> K1 in 8-step
-    chunks plus a kstep remainder (runner.py:1741-1746); the wide tiers'
-    grids (fold, 2-D skew, runner.py:1749-1777) -> K4 in 8-step chunks plus
-    a shorter one."""
-    p = read_params(os.path.join(DATA, f"input_{deck}.params"))
-    names = {resident.resident_chunk: "resident", truntime._skew: "skew",
-             kstep.kstep_chunk: "kstep", kstep_tile.tile_chunk: "tile"}
+    """Aligned grids of <= 135K cells (runner.py:1723-1730) -> K5 where
+    cluster.resident_route (128^2), else K2 (256^2; 256x512, the
+    _kernel_hbm shape beyond one cluster), in 512-step chunks plus a
+    remainder; the 1-D skew's grids (runner.py:1741-1746) and the wide
+    tiers' grids (fold, 2-D skew, runner.py:1749-1777) -> K4 in 8-step
+    chunks plus a shorter one."""
+    if isinstance(deck, tuple):
+        p = LBMParams(nx=deck[1], ny=deck[0], max_iters=n, reynolds_dim=10,
+                      density=0.1, accel=0.005, omega=1.85)
+    else:
+        p = read_params(os.path.join(DATA, f"input_{deck}.params"))
+    names = {resident.resident_chunk: "resident",
+             kstep_tile.tile_chunk: "tile",
+             cluster.cluster_resident_chunk: "k5_resident"}
     plan = truntime.kernel_plan(p, n)
     assert [(names[fn], k) for fn, k in plan] == expect
     assert sum(k for _, k in plan) == n
@@ -224,7 +248,7 @@ def test_epilogue_order_matches_the_plain_sum(k, n):
 def test_nvcc_flags_and_sources():
     """The build covers every .cu of csrc for sm_90a, without fast math."""
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-        "fused_step.cu", "kstep_tile.cu", "resident.cu"}
+        "cluster.cu", "fused_step.cu", "kstep_tile.cu", "resident.cu"}
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags

@@ -35,7 +35,7 @@ from tpulbm_torch.dist import runner as truntime
 from tpulbm_torch.dist import tiers
 from tpulbm_torch.io.obstacles import write_obstacles
 from tpulbm_torch.io.params_file import read_params, write_params
-from tpulbm_torch.ops import kstep, kstep_tile, resident, step_torch
+from tpulbm_torch.ops import cluster, kstep, kstep_tile, resident, step_torch
 from tpulbm_torch.sim.simulation import Simulation
 
 torch.set_num_threads(2)
@@ -230,20 +230,23 @@ def _jax_family(monkeypatch, ny, nx, n):
                   accel=0.005, omega=1.85).with_free_cells(nx * ny)
     jrunner.make_runner(_jp(p), n, get_mesh(n_devices=1), backend="pallas")
     assert len(hit) <= 1
-    # nothing spied on: the one-step-per-call or jnp fallback, a K1 route
+    # nothing spied on: the one-step-per-call or jnp fallback, the fused
+    # family
     return (hit or ["fused"])[0], p
 
 
 @pytest.mark.parametrize("ny,nx,n", ROUTES)
 def test_kernel_family_matches_the_jax_router(monkeypatch, ny, nx, n):
-    """The port's route (K2 resident, K1 fused, K4 tile) is the family of
-    the JAX package's single-device tier for the same grid and steps."""
+    """The port's route (K5 or K2 for the resident family, K4 for the fused
+    and tile families) follows the family of the JAX package's
+    single-device tier for the same grid and steps."""
     want, p = _jax_family(monkeypatch, ny, nx, n)
     assert tiers.family(ny, nx, n) == want
-    fns = {resident.resident_chunk: "resident", truntime._skew: "fused",
-           kstep.kstep_chunk: "fused", kstep_tile.tile_chunk: "tile"}
+    fns = {"resident": {resident.resident_chunk,
+                        cluster.cluster_resident_chunk},
+           "fused": {kstep_tile.tile_chunk}, "tile": {kstep_tile.tile_chunk}}
     plan = truntime.kernel_plan(p, n)
-    assert {fns[fn] for fn, _ in plan} == {want}
+    assert {fn for fn, _ in plan} <= fns[want]
     assert sum(k for _, k in plan) == n
 
 
@@ -261,17 +264,18 @@ def test_row_inner_grid_routes_to_k4(monkeypatch):
 
 @pytest.mark.parametrize("ny,nx,expect", [
     (256, 512, [("resident", 12)]),            # 131,072 cells: _kernel_hbm
-    (100, 130, [("skew", 8), ("kstep", 4)]),   # not 8/128-aligned
-    (100, 128, [("skew", 8), ("kstep", 4)]),    # ny % 8 != 0
+    (100, 130, [("tile", 8), ("tile", 4)]),   # not 8/128-aligned
+    (100, 128, [("tile", 8), ("tile", 4)]),   # ny % 8 != 0
 ])
 def test_kernel_plan_resident_gate(ny, nx, expect):
-    """K2 takes the JAX resident gate, supported or supported_hbm
-    (pallas_resident.py:35-60): 8/128-aligned grids of at most 135K
-    cells, whatever the step count."""
+    """The resident family takes the JAX resident gate, supported or
+    supported_hbm (pallas_resident.py:35-60): 8/128-aligned grids of at
+    most 135K cells, whatever the step count (here K2: 256x512 is beyond
+    one cluster); the others go to the fused family, K4."""
     p = LBMParams(nx=nx, ny=ny, max_iters=12, reynolds_dim=10, density=0.1,
                   accel=0.005, omega=1.85)
-    names = {resident.resident_chunk: "resident", truntime._skew: "skew",
-             kstep.kstep_chunk: "kstep"}
+    names = {resident.resident_chunk: "resident",
+             kstep_tile.tile_chunk: "tile"}
     assert [(names[fn], k) for fn, k in truntime.kernel_plan(p, 12)] == expect
 
 

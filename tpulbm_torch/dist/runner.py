@@ -25,14 +25,18 @@ mesh[0], in shard order, and scaled by ``free_cells_inv`` (the deferred
 Backends (the single-device routing of tpulbm/dist/runner.py:1720-1801):
 
 - ``cuda``: the hand-written kernels, on the family that ``dist.tiers``
-  names for the grid. ``"resident"`` runs ``resident.resident_chunk`` (K2)
-  in chunks of ``resident.RESIDENT_K`` steps plus a remainder, as
-  ``_make_resident_runner``; ``"fused"`` runs ``kstep.skew_chunk`` (K1, 8
-  steps) and ``kstep.kstep_chunk`` for the sub-8 remainder, as
-  ``_make_skew_runner``; ``"tile"`` runs ``kstep_tile.tile_chunk`` (K4) in
-  8-step chunks plus one remainder chunk, as the fold, 2-D skew and 2-D
-  K-step runners. The kernels take any shape, so the TPU tiers' 8/128
-  alignment conditions only choose the route.
+  names for the grid. ``"resident"`` runs ``cluster.cluster_resident_chunk``
+  (K5) where ``cluster.resident_route`` (128^2), else
+  ``resident.resident_chunk`` (K2: 128x256, 256^2, where K5 measured no
+  faster, and the 100K-135K-cell shapes beyond one cluster), in chunks of
+  ``resident.RESIDENT_K`` steps plus a remainder, as
+  ``_make_resident_runner``; ``"fused"`` (``_make_skew_runner``) and
+  ``"tile"`` (the fold, 2-D skew and 2-D K-step runners) run
+  ``kstep_tile.tile_chunk`` (K4) in 8-step chunks plus one remainder chunk.
+  The kernels take any shape, so the TPU tiers' 8/128 alignment conditions
+  only choose the route. K1 (``kstep.skew_chunk``, ``kstep.kstep_chunk``)
+  is on no route: it is the one-pass-per-step kernel that ``chip_smoke.py``
+  holds K4 against.
 - ``torch``: the plain oracle ``ops.step_torch`` (canonical equilibrium, as
   the JAX package's ``jnp`` backend), on any device.
 - ``auto``: ``cuda`` on a CUDA device, ``torch`` on the CPU.
@@ -58,7 +62,7 @@ import torch
 from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.dist import tiers
 from tpulbm_torch.dist.sharding import ring_rows
-from tpulbm_torch.ops import kstep, kstep_tile, resident, step_torch
+from tpulbm_torch.ops import cluster, kstep, kstep_tile, resident, step_torch
 
 BACKENDS = ("auto", "cuda", "torch", "cuda-p2p")
 
@@ -87,14 +91,15 @@ def kernel_plan(params: LBMParams, n_steps: int) -> list:
     Each chunk_fn(f, obst_f, params, k) returns (f', raw sums[k])."""
     route = tiers.family(params.ny, params.nx, n_steps)
     if route == "resident":
-        return _chunks(resident.resident_chunk,
-                       min(n_steps, resident.RESIDENT_K), n_steps)
-    if route == "tile":
-        return _chunks(kstep_tile.tile_chunk, kstep_tile.TILE_K, n_steps)
-    return _chunks(_skew, kstep.SKEW_K, n_steps, kstep.kstep_chunk)
+        fn = (cluster.cluster_resident_chunk
+              if cluster.resident_route(params.ny, params.nx)
+              else resident.resident_chunk)
+        return _chunks(fn, min(n_steps, resident.RESIDENT_K), n_steps)
+    return _chunks(kstep_tile.tile_chunk, kstep_tile.TILE_K, n_steps)
 
 
 def _skew(f, obst_f, params, k):
+    """K1's 8-step chunk as a plan's chunk function (off every route)."""
     return kstep.skew_chunk(f, obst_f, params)
 
 

@@ -2,15 +2,19 @@
 routes it.
 
 ``family(ny, nx, n_steps)`` follows the single-device order of
-``tpulbm.dist.runner.make_runner`` (runner.py:1720-1801) and maps each of
-its tiers to the port's kernel that computes the same function:
+``tpulbm.dist.runner.make_runner`` (runner.py:1720-1801) and names the
+family of its tier; ``dist.runner.kernel_plan`` maps each family to the
+port's kernel that computes the same function:
 
-- ``"resident"`` (K2): the VMEM-resident tiers, ``pallas_resident._kernel``
-  and its HBM-edge variant ``_kernel_hbm``;
-- ``"fused"`` (K1): the 1-D skew and 1-D K-step tiers, and every fallback
-  below the 2-D tiers (padded rows, extended columns, one step per call);
-- ``"tile"`` (K4): the wide tiers, the lane-folded skew, the 2-D skew, the
-  2-D K-step and the band-major K-step.
+- ``"resident"``: the VMEM-resident tiers, ``pallas_resident._kernel`` and
+  its HBM-edge variant ``_kernel_hbm``: K5 where
+  ``ops.cluster.resident_route`` (one cluster holds the grid, and K5 was
+  measured faster than K2 there), else K2;
+- ``"fused"``: the 1-D skew and 1-D K-step tiers, and every fallback below
+  the 2-D tiers (padded rows, extended columns, one step per call): K4 (K1
+  computes the same function one step a launch, and stays off the route);
+- ``"tile"``: the wide tiers, the lane-folded skew, the 2-D skew, the 2-D
+  K-step and the band-major K-step: K4.
 
 The predicates are copies of the JAX package's, in plain integer Python
 (the port imports nothing of ``tpulbm``). Their budgets are TPU VMEM

@@ -1,22 +1,24 @@
 """Build and load the CUDA kernels of ``tpulbm_torch/csrc``.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared library
-with a plain C interface under ``build/tpulbm_torch/`` at the repository
-root (git-ignored); the file name carries a hash of the sources, so an edit
-rebuilds and an unchanged tree reuses the library. ``ctypes`` binds it: each
-entry point takes ``c_void_p`` pointers and the CUDA stream, ``c_int`` and
-``c_float`` scalars, and returns a ``cudaError_t`` that ``check`` turns into
-an exception. Nothing here runs at import time.
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` into an object file, one
+``nvcc`` a source, all started together, and links them into one shared
+library with a plain C interface under ``build/tpulbm_torch/`` at the
+repository root (git-ignored); the file name carries a hash of the sources,
+so an edit rebuilds and an unchanged tree reuses the library. ``ctypes``
+binds it: each entry point takes ``c_void_p`` pointers and the CUDA stream,
+``c_int`` and ``c_float`` scalars, and returns a ``cudaError_t`` that
+``check`` turns into an exception. Nothing here runs at import time.
 
 Every kernel wrapper adds one to its entry of ``LAUNCHES`` where it launches
 its kernel and nowhere else, so a run can show which kernels it went through.
 
 The stepping kernels reduce a chunk's per-step sums themselves; K1 and K4
-find the block that finishes last by tickets (``csrc/lbm_cell.cuh::
-last_ticket``) on one zeroed ``unsigned int`` per device: ``ticket_counter``
-makes it once and caches it. Launches that share it must be ordered, which holds because every
-wrapper launches on the device's current stream; the last block resets it,
-so a launch that faults midway leaves it non-zero.
+find the block that finishes last by tickets
+(``csrc/lbm_cell.cuh::last_ticket``) on one zeroed ``unsigned int`` per
+device: ``ticket_counter`` makes it once and caches it. Launches that share
+it must be ordered, which holds because every wrapper launches on the
+device's current stream; the last block resets it, so a launch that faults
+midway leaves it non-zero.
 """
 
 from __future__ import annotations
@@ -34,10 +36,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpulbm_torch"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 # Launch counts per kernel wrapper (see the module docstring).
 LAUNCHES = {
@@ -46,8 +47,9 @@ LAUNCHES = {
     "resident_chunk": 0,    # K2 launches made by ops.resident.resident_chunk
     "tile_chunk": 0,        # K4 launches made by ops.kstep_tile.tile_chunk
     "ring_chunk": 0,        # K4 launches made by ops.kstep_tile.ring_chunk
+    "cluster_resident": 0,  # K5 launches made by cluster_resident_chunk
     # Chunks whose per-step sums the stepping kernels' epilogue reduced
-    # (one per K1 chunk, K2 launch and K4 launch): the former K3 pass
+    # (one per K1 chunk and K2, K4 or K5 launch): the former K3 pass
     "reduce_partials": 0,
 }
 
@@ -71,6 +73,10 @@ _SIGNATURES = {
     "lbm_kstep_tile_ring": (
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _I,
          _P], _I),
+    "lbm_cluster_resident_smem": ([], _I),
+    "lbm_cluster_resident_clusters": ([_I], _I),
+    "lbm_cluster_resident": (
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P], _I),
     "lbm_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -107,29 +113,38 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu unless the library of this source hash exists.
-    Writes to a temporary file and renames, so concurrent builders never
-    load a half-written library. The compiler's output (``-Xptxas -v``:
+    """Compile csrc/*.cu unless the library of this source hash exists:
+    one ``nvcc -c`` a source, all at once, then one link. Writes to a
+    temporary file and renames, so concurrent builders never load a
+    half-written library. The compilers' output (``-Xptxas -v``:
     registers, shared memory, spills per kernel) goes to ``build.log``."""
     lib_path = BUILD_DIR / f"libtpulbm_torch_{source_hash()}.so"
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        (BUILD_DIR / "build.log").write_text(
-            " ".join(cmd) + "\n" + res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{p.stem}.o" for p in sorted(CSRC.glob("*.cu"))]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                 str(CSRC / f"{o.stem}.cu")] for o in objs]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        outs = [p.communicate()[0] for p in procs]
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(Path(tmp) / "lib.so"),
+                *map(str, objs)]
+        log = "".join(" ".join(c) + "\n" + o for c, o in zip(cmds, outs))
+        failed = [(c, p.returncode) for c, p in zip(cmds, procs)
+                  if p.returncode]
+        if not failed:
+            res = subprocess.run(link, capture_output=True, text=True)
+            log += " ".join(link) + "\n" + res.stdout + res.stderr
+            if res.returncode:
+                failed = [(link, res.returncode)]
+        (BUILD_DIR / "build.log").write_text(log)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0][1]}):\n{log}")
+        os.replace(Path(tmp) / "lib.so", lib_path)
     return lib_path
 
 

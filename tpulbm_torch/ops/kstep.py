@@ -10,6 +10,11 @@ nblocks) per-block partials into its (K,) per-step sums of |u| over free
 cells (the fused epilogue, ``reduce_partials_ref`` its plain version). The
 sums stay on the device; the caller scales them by ``free_cells_inv``.
 
+Its role: no route takes K1; ``dist.runner.kernel_plan`` sends these
+tiers to K4 (``ops.kstep_tile.tile_chunk``). K1 is the one-pass-per-step
+kernel, the simplest of the port, that ``chip_smoke.py`` holds the
+temporally blocked K4 against, state bitwise.
+
 Each wrapper takes its plain PyTorch version (``*_ref``, built on
 ``ops.step_torch``) only when the state lies on the CPU. On a CUDA tensor it
 launches the kernel or raises; any other device raises.

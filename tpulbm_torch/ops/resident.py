@@ -11,6 +11,12 @@ last barrier its blocks reduce the per-block partials to the (K,) per-step
 sums of |u| over free cells (``ops.kstep.reduce_partials_ref`` is the plain
 version of that epilogue).
 
+Its role since K5: ``dist.runner.kernel_plan`` sends a resident grid to
+K5 (``ops.cluster``) where ``cluster.resident_route`` holds
+(128^2), and here otherwise: 128x256 and 256^2, where K5 measured no
+faster on the H100, and the 100K-135K-cell shapes of ``_kernel_hbm``
+(256x512), beyond one cluster.
+
 The wrapper takes the plain version (``resident_chunk_ref``) only when the
 state lies on the CPU. On a CUDA tensor it launches K2 or raises — also when
 the device refuses the cooperative launch; it never falls back to K1.

@@ -3,19 +3,21 @@
     python -m tpulbm_torch.tools.kernel_ab BASE [--match "3 steps"]
 
 BASE is the root of another copy of the repository: an earlier commit
-unpacked by ``git archive`` (``git archive 272ddcb | tar -x -C build/ab/base``;
+unpacked by ``git archive`` (``git archive ac3136d | tar -x -C build/ab/base``;
 ``build/`` is git-ignored) or an edited copy. Its ``tpulbm_torch`` package is
 imported beside this one, with its own wrappers, C signatures and build
-directory, and both kernel libraries are built at once. Each case calls the
-same public chunk function of both trees (``resident_chunk``,
-``skew_chunk``, ``tile_chunk``, ``ring_chunk``, as the main path calls them,
-sums included) on the same input, a perturbed rest state drawn from a seed
-on the card, at the shapes of the main path; the states must be bitwise
-equal and the sums within 3e-4 (the trees may sum the same partials in
-another order). Times are CUDA-event ms a call, in turns base, this, this,
-base, and the device time a call from ``torch.profiler`` (kernels, copies
-and fills), which leaves out the host's launch path: below ~0.1 ms a call
-the events time the host. Prints the card's name and power limit, one line
+directory, and both kernel libraries are built at once. Each case calls a
+public chunk function of each side (``resident_chunk``, ``skew_chunk``,
+``tile_chunk``, ``ring_chunk``, as the main path calls them, sums
+included; this tree's K5 ``cluster_resident_chunk`` against the base
+tree's K2, and this tree's K4 ``tile_chunk`` at 1024^2 against the base
+tree's K1 chunks, where each took the route from them) on the same input,
+a perturbed rest state drawn from a seed on the card, at the shapes of the
+main path; the states must be bitwise equal and the sums within 3e-4 (the
+kernels may sum the same values in another order). Times are CUDA-event ms
+a call, in turns base, this, this, base, and the device time a call from
+``torch.profiler`` (kernels, copies and fills), which leaves out the host's
+launch path: below ~0.1 ms a call the events time the host. Prints the card's name and power limit, one line
 per case (``--match``: only the cases whose label holds the text), then
 one JSON line of the cases. Exits 1 if a case disagrees.
 Needs a CUDA device.
@@ -38,20 +40,20 @@ from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.core.state import initial_state
 from tpulbm_torch.io.obstacles import read_obstacles
 from tpulbm_torch.io.params_file import read_params
-from tpulbm_torch.ops import _build, kstep, kstep_tile, resident
+from tpulbm_torch.ops import _build, cluster, kstep, kstep_tile, resident
 
 ROOT = Path(__file__).resolve().parents[2]
 PKG = "tpulbm_torch"
-OPS = ("_build", "kstep", "kstep_tile", "resident")
+OPS = ("_build", "cluster", "kstep", "kstep_tile", "resident")
 SEED = 20260
 SUMS_RTOL = 3e-4
 
 
 def import_tree(root: Path) -> dict:
-    """The ``ops`` modules of the package under ``root`` (OPS), imported
-    beside this process's own: this package's entries of ``sys.modules``
-    are set aside for the import and put back after it, so the other
-    tree's modules keep their own globals."""
+    """The ``ops`` modules of the package under ``root`` (those of OPS that
+    it has), imported beside this process's own: this package's entries of
+    ``sys.modules`` are set aside for the import and put back after it, so
+    the other tree's modules keep their own globals."""
     def loaded():
         return {n: m for n, m in sys.modules.items()
                 if n == PKG or n.startswith(PKG + ".")}
@@ -61,7 +63,8 @@ def import_tree(root: Path) -> dict:
         del sys.modules[name]
     sys.path.insert(0, str(root))
     try:
-        mods = {m: importlib.import_module(f"{PKG}.ops.{m}") for m in OPS}
+        mods = {m: importlib.import_module(f"{PKG}.ops.{m}") for m in OPS
+                if (root / PKG / "ops" / f"{m}.py").exists()}
     finally:
         sys.path.remove(str(root))
         for name in loaded():
@@ -139,8 +142,35 @@ def _ring_args(p, o, f, off, h, k):
 
 
 def cases():
-    """(label, ops module, function, arguments) at the main path's shapes,
-    grouped by input so that one grid is on the card at a time."""
+    """(label, (side, ops module, function, arguments) of the base and of
+    this tree) at the main path's shapes, grouped by input so that one grid
+    is on the card at a time; side "base" or "this"."""
+    for label, mod, fn, args in _same_cases():
+        yield label, ("base", mod, fn, args), ("this", mod, fn, args)
+    yield from _route_cases()
+
+
+def _route_cases():
+    """This tree's kernels against the base tree's kernels that the same
+    route ran there (``--match route``)."""
+    rk = resident.RESIDENT_K
+    for deck, seed in (("128x128", SEED), ("128x256", SEED + 13),
+                       ("256x256", SEED + 14)):
+        p, o, f = _deck(deck, seed)
+        yield (f"route: K5 {deck}, 512 steps vs base K2",
+               ("base", "resident", "resident_chunk", (f, o, p, rk)),
+               ("this", "cluster", "cluster_resident_chunk", (f, o, p, rk)))
+    p, o, f = _deck("1024x1024", SEED + 1)
+    for k, fn, args in ((8, "skew_chunk", (f, o, p)),
+                        (3, "kstep_chunk", (f, o, p, 3))):
+        yield (f"route: K4 1024x1024, {k} steps vs base K1",
+               ("base", "kstep", fn, args),
+               ("this", "kstep_tile", "tile_chunk", (f, o, p, k)))
+
+
+def _same_cases():
+    """(label, ops module, function, arguments): one function of both
+    trees."""
     k = kstep_tile.TILE_K
     p, o, f = _deck("128x128", SEED)
     yield ("K2 128x128, 512 steps", "resident", "resident_chunk",
@@ -171,19 +201,19 @@ def cases():
     yield ("K4 128x512, 8 steps", "kstep_tile", "tile_chunk", (f, o, p, k))
 
 
-def run_case(label, base_fn, this_fn, args):
-    f_b, s_b = base_fn(*args)
-    f_t, s_t = this_fn(*args)
+def run_case(label, base_fn, base_args, this_fn, this_args):
+    f_b, s_b = base_fn(*base_args)
+    f_t, s_t = this_fn(*this_args)
     torch.cuda.synchronize()
     same = torch.equal(f_b, f_t)
     rel = ((s_t - s_b).abs() / s_b.abs()).max().item()
     del f_b, f_t
-    reps = min(400, max(5, int(40 / max(cuda_ms(lambda: this_fn(*args),
-                                                 3), 1e-3))))
-    ms = [cuda_ms(lambda fn=fn: fn(*args), reps)
-          for fn in (base_fn, this_fn, this_fn, base_fn)]
-    dev = [device_ms(lambda fn=fn: fn(*args), reps)
-           for fn in (base_fn, this_fn)]
+    reps = min(400, max(5, int(40 / max(
+        cuda_ms(lambda: this_fn(*this_args), 3), 1e-3))))
+    turns = ((base_fn, base_args), (this_fn, this_args))
+    ms = [cuda_ms(lambda fn=fn, a=a: fn(*a), reps)
+          for fn, a in (turns[0], turns[1], turns[1], turns[0])]
+    dev = [device_ms(lambda fn=fn, a=a: fn(*a), reps) for fn, a in turns]
     base, this = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
     print(f"[ab] {label}: base {ms[0]:.4f} / {ms[3]:.4f} ms, this "
           f"{ms[1]:.4f} / {ms[2]:.4f} ms (turns base, this, this, base; "
@@ -211,19 +241,21 @@ def main(argv=None) -> int:
                          text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     base = import_tree(args.base)
-    this = {"_build": _build, "kstep": kstep, "kstep_tile": kstep_tile,
-            "resident": resident}
+    this = {"_build": _build, "cluster": cluster, "kstep": kstep,
+            "kstep_tile": kstep_tile, "resident": resident}
+    sides = {"base": base, "this": this}
     with ThreadPoolExecutor(2) as pool:
         for lib in pool.map(lambda b: b.library(),
                             (base["_build"], _build)):
             print(f"[ab] built {lib._name}", flush=True)
     records = []
-    for label, mod, fn, fargs in cases():
+    for case in cases():
+        label, (bs, bmod, bfn, bargs), (ts, tmod, tfn, targs) = case
         if args.match not in label:
             continue
-        records.append(run_case(label, getattr(base[mod], fn),
-                                getattr(this[mod], fn), fargs))
-        del fargs
+        records.append(run_case(label, getattr(sides[bs][bmod], bfn), bargs,
+                                getattr(sides[ts][tmod], tfn), targs))
+        del case, bargs, targs
         torch.cuda.empty_cache()
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "base": str(args.base), "cases": records}), flush=True)
