@@ -110,7 +110,8 @@ def test_cuda_runner_goes_through_the_kernels(case):
     p, f0, mask = case
     assert tiers.family(p.ny, p.nx, 21) == "fused"
     _build.reset_launches()
-    f, av = make_runner(p, 21, "cuda", "cuda")(f0, mask)
+    # a runner takes its input over, so each gets a copy
+    f, av = make_runner(p, 21, "cuda", "cuda")(f0.clone(), mask)
     assert _build.LAUNCHES["tile_chunk"] == 3
     assert _build.LAUNCHES["skew_chunk"] == _build.LAUNCHES["kstep_chunk"] == 0
     _counter_is_zero(f0.device)
@@ -210,7 +211,8 @@ def test_ring_runners_give_the_single_device_state(case):
 
     p, f0, mask = case
     plan = [(kstep_tile.tile_chunk, 8)] * 2 + [(kstep_tile.tile_chunk, 5)]
-    f1, av1 = run_plan(plan, f0, mask.float(), p)
+    # a run takes its input over: its third chunk writes where the first read
+    f1, av1 = run_plan(plan, f0.clone(), mask.float(), p)
     for backend in ("cuda", "cuda-p2p"):
         for n in (3, 4):
             mesh = get_mesh(n)
@@ -220,5 +222,64 @@ def test_ring_runners_give_the_single_device_state(case):
             assert _build.LAUNCHES["ring_chunk"] == 3 * n
             assert torch.equal(sharding.gather_rows(out, "cuda"), f1)
             assert ((av - av1).abs() / av1.abs()).max().item() <= AV_RTOL
-    f, av = make_runner(p, 21, "cuda-p2p", mesh=get_mesh(1))(f0, mask)
+    f, av = make_runner(p, 21, "cuda-p2p", mesh=get_mesh(1))(f0.clone(), mask)
     assert torch.equal(f, f1)
+
+
+@pytest.mark.cuda
+def test_torus_chunk_matches_plain_and_the_whole_grid(case):
+    """K4 torus mode on a 100 x 68 block whose band holds the accelerated
+    row (k = 8), a 37 x 45 block off the 16-byte copies (k = 3) and a block
+    of the k = 8 kernel at the grid's corner, against torus_chunk_ref; one
+    launch each, reruns bitwise, the ticket counter back at 0, the sums
+    the partials' (K3_RTOL); and the blocks of a 2 x 2 cut of the grid after
+    one chunk bitwise the whole grid's tile_chunk."""
+    p, f0, mask = case
+    o = mask.float()
+    for k, i0, j0, h, w in ((8, 100, 36, 100, 68), (3, 20, 7, 37, 45),
+                            (8, 0, 0, 100, 68)):
+        args = kstep_tile.torus_pieces(f0, o, i0, j0, h, w, k)
+        want = kstep_tile.torus_chunk_ref(*args[:6], p, k, args[6])
+        _build.reset_launches()
+        got = kstep_tile.torus_chunk(*args[:6], p, k, args[6])
+        assert _build.LAUNCHES["torus_chunk"] == 1
+        _close(got, want)
+        again = kstep_tile.torus_chunk(*args[:6], p, k, args[6])
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+        _counter_is_zero(f0.device)
+        _, sums, partials = kstep_tile._torus_launch(*args[:6], p, k, args[6])
+        torch.cuda.synchronize()
+        want = kstep.reduce_partials_ref(partials)
+        assert ((sums - want).abs() / want.abs()).max().item() <= K3_RTOL
+        _counter_is_zero(f0.device)
+    whole = kstep_tile.tile_chunk(f0, o, p, 8)[0]
+    for i0 in (0, 100):
+        for j0 in (0, 68):
+            args = kstep_tile.torus_pieces(f0, o, i0, j0, 100, 68, 8)
+            block = kstep_tile.torus_chunk(*args[:6], p, 8, args[6])[0]
+            assert torch.equal(block, whole[:, i0:i0 + 100, j0:j0 + 68])
+
+
+@pytest.mark.cuda
+def test_torus_runner_gives_the_single_device_state(case):
+    """The cuda torus over 2x2 and 4x2 blocks, 21 steps: one torus_chunk
+    launch per block and chunk, the state bitwise the single-device K4
+    plan's, the av series within the chunk gate; cuda-p2p refuses a 2-D
+    mesh."""
+    from tpulbm_torch.dist import sharding
+    from tpulbm_torch.dist.mesh import get_mesh_2d
+    from tpulbm_torch.dist.runner import run_plan
+
+    p, f0, mask = case
+    plan = [(kstep_tile.tile_chunk, 8)] * 2 + [(kstep_tile.tile_chunk, 5)]
+    f1, av1 = run_plan(plan, f0.clone(), mask.float(), p)
+    for dy, dx in ((2, 2), (4, 2)):
+        mesh = get_mesh_2d(dy, dx)
+        fs, obs = sharding.shard_blocks(f0, mask, mesh)
+        _build.reset_launches()
+        out, av = make_runner(p, 21, "cuda", mesh=mesh)(fs, obs)
+        assert _build.LAUNCHES["torus_chunk"] == 3 * dy * dx
+        assert torch.equal(sharding.gather_blocks(out, dy, dx, "cuda"), f1)
+        assert ((av - av1).abs() / av1.abs()).max().item() <= AV_RTOL
+    with pytest.raises(ValueError, match="cuda-p2p"):
+        make_runner(p, 21, "cuda-p2p", mesh=get_mesh_2d(2, 2))

@@ -2,12 +2,15 @@
 
     python -m tpulbm_torch <paramfile> <obstaclefile> [options]
 
-The same positional arguments, result block (Reynolds number, wall/user/
-system time — d2q9-bgk.c:409-416) and exit codes as ``python -m tpulbm``;
-writes reference-format final_state.dat and av_vels.dat into --out-dir.
-``--device-count N`` runs a 1-D ring of N row shards (``dist.mesh``), one
-per visible card by default; ``--device cpu --device-count 4`` runs four
-CPU shards on the plain versions of the kernels.
+The same positional arguments, options, result block (Reynolds number,
+wall/user/system time — d2q9-bgk.c:409-416), messages and exit codes as
+``python -m tpulbm``; writes reference-format final_state.dat and
+av_vels.dat into --out-dir. ``--device-count N`` runs a 1-D ring of N row
+shards (``dist.mesh``), one per visible card by default; ``--mesh-shape
+DYxDX`` a 2-D torus of dy x dx blocks; ``--device cpu --device-count 4``
+runs four CPU shards on the plain versions of the kernels. Checkpoints are
+the JAX package's npz files (``sim.checkpoint``); ``--multihost`` and
+``--ckpt-backend orbax`` have no counterpart yet.
 """
 
 from __future__ import annotations
@@ -44,6 +47,14 @@ def build_parser() -> argparse.ArgumentParser:
              "devices; 1 on the CPU); shard i runs on cuda:(i %% count)",
     )
     p.add_argument(
+        "--mesh-shape",
+        default=None,
+        metavar="DYxDX",
+        help="2-D torus mesh: shard BOTH grid axes, e.g. 2x4 "
+             "(overrides --device-count); block (i, j) runs on "
+             "cuda:((i * DX + j) %% count)",
+    )
+    p.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",
         help="device to run on (default cuda; fails if no GPU is visible)",
     )
@@ -54,11 +65,41 @@ def build_parser() -> argparse.ArgumentParser:
         "--chunk", type=int, default=None,
         help="steps per runner call (the av series is read back per call)",
     )
+    p.add_argument(
+        "--checkpoint-every", type=int, default=None,
+        help="save a checkpoint every N steps",
+    )
+    p.add_argument(
+        "--checkpoint-dir", default=None, help="checkpoint directory"
+    )
+    p.add_argument(
+        "--ckpt-backend", choices=("npz",), default="npz",
+        help="checkpoint storage: npz (single atomic file, the JAX "
+             "package's format)",
+    )
+    p.add_argument(
+        "--resume", default=None,
+        help="checkpoint file or directory to resume from",
+    )
+    p.add_argument(
+        "--profile-dir", default=None,
+        help="capture a torch.profiler trace of the step loop into this dir",
+    )
     p.add_argument("--progress", action="store_true")
     p.add_argument(
         "--no-output", action="store_true",
         help="skip writing final_state.dat/av_vels.dat (like PROFILE builds "
              "of the reference, d2q9-bgk.c:419-421)",
+    )
+    p.add_argument(
+        "--metrics-file", default=None,
+        help="append one JSON line per chunk (step, av_vel, wall time, "
+             "throughput) — live observability for dashboards",
+    )
+    p.add_argument(
+        "--debug", action="store_true",
+        help="print av_velocity and total_density each chunk (the reference's "
+             "DEBUG block, d2q9-bgk.c:380-393)",
     )
     return p
 
@@ -76,16 +117,26 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from tpulbm_torch.dist.mesh import get_mesh
+    from tpulbm_torch.dist.mesh import get_mesh, get_mesh_2d
     from tpulbm_torch.io.obstacles import ObstacleFileError
     from tpulbm_torch.io.params_file import ParamFileError
     from tpulbm_torch.sim.simulation import Simulation
+    from tpulbm_torch.utils.profiling import trace_region
 
     if args.device == "cuda" and not torch.cuda.is_available():
         return die("--device cuda, but no CUDA device is available "
                    "(torch.cuda.is_available() is false)")
     try:
-        mesh = get_mesh(n_devices=args.device_count, device=args.device)
+        if args.mesh_shape:
+            dy, sep, dx = args.mesh_shape.partition("x")
+            if not sep or not dy.isdigit() or not dx.isdigit():
+                return die(
+                    f"--mesh-shape must be DYxDX (e.g. 2x4), "
+                    f"got {args.mesh_shape!r}"
+                )
+            mesh = get_mesh_2d(int(dy), int(dx), device=args.device)
+        else:
+            mesh = get_mesh(n_devices=args.device_count, device=args.device)
         sim = Simulation.from_files(
             args.paramfile, args.obstaclefile, backend=args.backend,
             device=args.device, mesh=mesh,
@@ -97,11 +148,24 @@ def main(argv=None) -> int:
     if args.max_iters is not None:
         sim.params = dataclasses.replace(sim.params, max_iters=args.max_iters)
         sim.av_vels = np.zeros((args.max_iters,), dtype=np.float32)
+    if args.resume:
+        try:
+            sim.restore_checkpoint(args.resume)
+        except (FileNotFoundError, ValueError) as e:
+            return die(f"cannot resume: {e}")
 
     sim.settle()
     tic = time.time()
     try:
-        result = sim.run(chunk=args.chunk, progress=args.progress)
+        with trace_region("mainloop", args.profile_dir):
+            result = sim.run(
+                chunk=args.chunk,
+                checkpoint_every=args.checkpoint_every,
+                checkpoint_dir=args.checkpoint_dir,
+                progress=args.progress,
+                debug=args.debug,
+                metrics_file=args.metrics_file,
+            )
     except (ValueError, FloatingPointError) as e:
         return die(str(e))
     toc = time.time()

@@ -26,10 +26,15 @@
 //   pallas_kstep_rdma.py::_kernel and pallas_resident_rdma.py::_kernel,
 //     whose slab exchange runs inside the kernel: here the slabs are
 //     copied before the launch (dist/runner.py).
+// Torus mode is the per-block body of the 2-D torus (k steps of one block
+// given its neighbours' k-column and corner-carrying k-row slabs, and the
+// per-step sum over the block's cells): pallas_kstep.py::_kernel with
+// x_halo=True (dist/runner.py::_make_runner_2d_kstep of the JAX package).
 // A seam fix's function (a band of rows around a seam, stepped without
 // wrapping) is ring mode's on the band cut into lo, shard and hi.
-// Every shard takes ring mode, whatever its shape: the TPU tiers' VMEM
-// and alignment predicates choose among TPU schedules and have no
+// Every shard takes ring mode and every block torus mode, whatever its
+// shape: the TPU tiers' VMEM and alignment predicates (the torus's w >= 128
+// and supported_x_halo among them) choose among TPU schedules and have no
 // counterpart here.
 // The folds, skews and seam fixes exist because a Pallas grid runs its
 // programs in order on one core and hands slabs from one to the next; the
@@ -86,16 +91,30 @@
 //     dynamic shared-memory limit and the grid size are set once per
 //     instance and device.
 //
-// Two addressing modes, template instances of one kernel body:
+// Three addressing modes (Mode), template instances of one kernel body:
 //   whole grid: src is the (9, ny, nx) grid, out distinct; window rows and
 //     columns wrap modulo (ny, nx);
-//   ring (kRing): the band of h + 2k rows is lo (9, k, nx), the shard mid
+//   ring: the band of h + 2k rows is lo (9, k, nx), the shard mid
 //     (9, h, nx) and hi (9, k, nx), in three buffers (a row's buffer is
 //     picked once per window row at the load: no copy of the shard into a
 //     band); band row 0 is global row row_base; out (9, h, nx) is the shard
 //     after k steps. Band rows do not wrap (rows past the band are filled
 //     as blocked cells, outside the owned cells' reach); columns wrap
 //     modulo nx.
+//   torus: the band of h + 2k rows and w + 2kx columns of an (h, w) block
+//     (kx = col_margin(k)). Its rows [k, k + h) are three pieces side by
+//     side, xlo (9, h, kx) | mid (9, h, w) | xhi (9, h, kx), whose k valid
+//     columns sit next to the block (xlo's last k, xhi's first k; the
+//     others are padding that no step reads); its first and last k rows
+//     are lo and hi (9, k, w + 2kx), the row neighbours' slabs of their
+//     x-extended bands, corners included. A column's piece is picked once
+//     per column segment at the load, a row's buffer once per window row:
+//     no copy of the block into a band. obst is the band's
+//     (h + 2k, w + 2kx) mask. Neither rows nor columns wrap: window cells
+//     past the band on any side are filled as blocked cells, outside the
+//     owned cells' reach. out (9, h, w) is the block after k steps. kx is a
+//     multiple of 4, so with w % 4 == 0 every 4-column segment of a window
+//     row lies inside one piece, 16-B aligned.
 // The inflow acceleration picks a source cell by its GLOBAL row,
 // (row_base + source row) mod ny, with the knife-edge guard of lbm_cell.
 //
@@ -141,15 +160,31 @@ static_assert(kMaxK <= kWarps && kMaxK <= tpulbm::kMaxEpilogueRows &&
                   kThreads >= tpulbm::kReduceThreads,
               "one warp per step sums the warp sums");
 
-// Rows of one launch. Whole grid: out_rows = ny, window row 0 of tile-row
-// ty is grid row 32 ty - k (mod ny). Ring: out_rows = h, window row 0 of
-// tile-row ty is band row 32 ty; band row sr is lo's row sr (sr < k), the
-// shard's row sr - k or hi's row sr - k - h; row_base is the global row of
-// band row 0. Both: window column 0 of tile-column bx is grid column
-// 32 bx - col_margin(k) (mod nx).
+enum class Mode { kGrid, kRing, kTorus };
+
+// The buffers a window is loaded from: mid alone (whole grid), lo | mid |
+// hi in rows (ring), and xlo | mid | xhi in columns between lo and hi
+// (torus).
+struct Sources {
+  const float* lo;
+  const float* mid;
+  const float* hi;
+  const float* xlo;
+  const float* xhi;
+};
+
+// The output of one launch, (9, out_rows, out_cols). Whole grid: out_rows =
+// ny, window row 0 of tile-row ty is grid row 32 ty - k (mod ny). Ring and
+// torus: out_rows = h, window row 0 of tile-row ty is band row 32 ty; band
+// row sr is lo's row sr (sr < k), mid's row sr - k or hi's row sr - k - h;
+// row_base is the global row of band row 0. Whole grid and ring: out_cols =
+// nx, window column 0 of tile-column bx is grid column 32 bx - col_margin(k)
+// (mod nx). Torus: out_cols = w, window column 0 of tile-column bx is band
+// column 32 bx.
 struct TileArgs {
   int k;
   int out_rows;
+  int out_cols;
   int row_base;
 };
 
@@ -186,15 +221,12 @@ __host__ __device__ constexpr int stage_floats(int k) {
   return kPlanes * (kTile + 2 * k) * (kTile + 2 * col_margin(k));
 }
 
-template <bool kRing, int kK>
+template <Mode kMode, int kK>
 __global__ void __launch_bounds__(kThreads, 1)
-    kstep_tile_kernel(const float* __restrict__ src_lo,
-                      const float* __restrict__ src_mid,
-                      const float* __restrict__ src_hi,
-                      const float* __restrict__ obst, float* __restrict__ out,
-                      float* __restrict__ partials, float* __restrict__ sums,
-                      unsigned int* counter, tpulbm::LbmArgs a, TileArgs t,
-                      int vec16) {
+    kstep_tile_kernel(Sources src, const float* __restrict__ obst,
+                      float* __restrict__ out, float* __restrict__ partials,
+                      float* __restrict__ sums, unsigned int* counter,
+                      tpulbm::LbmArgs a, TileArgs t, int vec16) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float warp_sums[kMaxK][kWarps];
   __shared__ unsigned char acc_rows[2][kMaxW];
@@ -205,10 +237,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int cm = kx - k;           // columns a side that no step computes
   const int plane = wh * w;
   const int sfloats = stage_floats(k);
-  const int tiles_x = (a.nx + kTile - 1) / kTile;
+  const int tiles_x = (t.out_cols + kTile - 1) / kTile;
   const int ntiles = tiles_x * ((t.out_rows + kTile - 1) / kTile);
-  const int src_rows = kRing ? t.out_rows + 2 * k : a.ny;
-  const size_t oplane = (size_t)t.out_rows * a.nx;
+  const int band_rows = t.out_rows + 2 * k;        // ring and torus
+  const int band_cols = t.out_cols + 2 * kx;       // torus
+  const size_t oplane = (size_t)t.out_rows * t.out_cols;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
   // This thread's window cells, fixed for the launch; a cell past the
@@ -231,52 +264,77 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int ty = tile / tiles_x;
     const int y0 = ty * kTile, x0 = (tile - ty * tiles_x) * kTile;
     float* stage = smem + st * sfloats;
+    // wcol: the segment's first window column; gcol: its grid column
+    // (whole grid, ring) or band column (torus)
     int wcol[kMaxSegs], gcol[kMaxSegs];
 #pragma unroll
     for (int m = 0; m < kMaxSegs; ++m) {
       wcol[m] = (sl + kSegLanes * m) * seg_w;
-      gcol[m] = wrap(x0 - kx + wcol[m], a.nx);
+      gcol[m] = kMode == Mode::kTorus ? x0 + wcol[m]
+                                      : wrap(x0 - kx + wcol[m], a.nx);
     }
     for (int wy = threadIdx.x / kSegLanes; wy < wh; wy += kRowSlots) {
-      // sr: the row in the source rows (band or grid); r: its row in buf
-      int sr, r, rows;
-      const float* buf = src_mid;
-      if constexpr (kRing) {
+      // sr: the row in the source rows (band or grid); r: its row in buf,
+      // a buffer of `rows` rows of row_w columns
+      int sr, r, rows, row_w = a.nx;
+      const float* buf = src.mid;
+      bool mid_row = true;
+      if constexpr (kMode == Mode::kGrid) {
+        sr = r = wrap(y0 - k + wy, a.ny), rows = a.ny;
+      } else {
         sr = y0 + wy;
         r = sr - k, rows = t.out_rows;
         if (r < 0) {
-          buf = src_lo, r = sr, rows = k;
+          buf = src.lo, r = sr, rows = k, mid_row = false;
         } else if (r >= t.out_rows) {
-          buf = src_hi, r -= t.out_rows, rows = k;
+          buf = src.hi, r -= t.out_rows, rows = k, mid_row = false;
         }
-      } else {
-        sr = r = wrap(y0 - k + wy, a.ny), rows = a.ny;
+        if (kMode == Mode::kTorus && !mid_row) row_w = band_cols;
       }
-      const bool in = !kRing || sr < src_rows;
+      const bool in = kMode == Mode::kGrid || sr < band_rows;
       if (sl == 0)
         acc_rows[st][wy] =
             in && wrap(t.row_base + sr, a.ny) == a.accel_row;
-      const size_t bplane = (size_t)rows * a.nx;
-      const float* grow = buf + (size_t)r * a.nx;
-      const float* mrow = obst + (size_t)sr * a.nx;
+      const float* mrow =
+          obst + (size_t)sr * (kMode == Mode::kTorus ? band_cols : a.nx);
       float* drow = stage + wy * w;
 #pragma unroll
       for (int m = 0; m < kMaxSegs; ++m) {
         if (wcol[m] >= w) break;
         float* d = drow + wcol[m];
-        if (!in) {
+        // g: the segment's first cell in plane 0 of its buffer, planes
+        // bplane floats apart; null where the segment lies past the band.
+        // Whole grid and ring rows, and the torus's lo and hi rows, are
+        // one buffer; a middle torus row is xlo | mid | xhi.
+        const float* g = nullptr;
+        size_t bplane = (size_t)rows * row_w;
+        const int c = gcol[m];
+        if (!in || (kMode == Mode::kTorus && c >= band_cols)) {
+        } else if (kMode != Mode::kTorus || !mid_row) {
+          g = buf + (size_t)r * row_w + c;
+        } else if (c < kx) {
+          g = src.xlo + (size_t)r * kx + c;
+          bplane = (size_t)t.out_rows * kx;
+        } else if (c < kx + t.out_cols) {
+          g = src.mid + (size_t)r * t.out_cols + (c - kx);
+          bplane = oplane;
+        } else {
+          g = src.xhi + (size_t)r * kx + (c - kx - t.out_cols);
+          bplane = (size_t)t.out_rows * kx;
+        }
+        if (!g) {
           for (int e = 0; e < seg_w; ++e) {
             for (int q = 0; q < 9; ++q) d[q * plane + e] = 0.0f;
             d[9 * plane + e] = 1.0f;
           }
         } else if (vec16) {
           for (int q = 0; q < 9; ++q)
-            tpulbm::cp_async16(d + q * plane, grow + q * bplane + gcol[m]);
-          tpulbm::cp_async16(d + 9 * plane, mrow + gcol[m]);
+            tpulbm::cp_async16(d + q * plane, g + q * bplane);
+          tpulbm::cp_async16(d + 9 * plane, mrow + c);
         } else {
           for (int q = 0; q < 9; ++q)
-            tpulbm::cp_async4(d + q * plane, grow + q * bplane + gcol[m]);
-          tpulbm::cp_async4(d + 9 * plane, mrow + gcol[m]);
+            tpulbm::cp_async4(d + q * plane, g + q * bplane);
+          tpulbm::cp_async4(d + 9 * plane, mrow + c);
         }
       }
     }
@@ -297,7 +355,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int ty = tile / tiles_x;
     const int y0 = ty * kTile, x0 = (tile - ty * tiles_x) * kTile;
     const int own_rows = min(kTile, t.out_rows - y0);
-    const int own_cols = min(kTile, a.nx - x0);
+    const int own_cols = min(kTile, t.out_cols - x0);
     bool owned[kCells];
     unsigned acc3[kCells];
 #pragma unroll
@@ -336,7 +394,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int j = 0; j < kCells; ++j) {
           if (owned[j]) {
-            float* o = out + (size_t)(y0 + cy[j] - k) * a.nx + x0 + cx[j] - kx;
+            float* o = out + (size_t)(y0 + cy[j] - k) * t.out_cols + x0 +
+                       cx[j] - kx;
 #pragma unroll
             for (int q = 0; q < 9; ++q) o[q * oplane] = res[j][q];
           }
@@ -380,7 +439,7 @@ bool aligned16(const void* p) {
 
 // The persistent grid of an instance on the current device (CTAs a SM x
 // SMs), its shared-memory limit set on first use.
-template <bool kRing, int kK>
+template <Mode kMode, int kK>
 cudaError_t configure(int* grid_cap) {
   static int cap[kMaxDevices];   // per device, 0 until configured
   int dev = 0;
@@ -389,14 +448,14 @@ cudaError_t configure(int* grid_cap) {
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!cap[dev]) {
     int sms = 0, per_sm = 0;
-    e = cudaFuncSetAttribute(kstep_tile_kernel<kRing, kK>,
+    e = cudaFuncSetAttribute(kstep_tile_kernel<kMode, kK>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_bytes(kK));
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kstep_tile_kernel<kRing, kK>, kThreads, smem_bytes(kK));
+          &per_sm, kstep_tile_kernel<kMode, kK>, kThreads, smem_bytes(kK));
     if (e != cudaSuccess) return e;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     cap[dev] = per_sm * sms;
@@ -406,59 +465,59 @@ cudaError_t configure(int* grid_cap) {
 }
 
 // Launches on the current device.
-template <bool kRing, int kK>
-int launch(const float* src_lo, const float* src_mid, const float* src_hi,
-           const float* obst, float* out, float* partials, float* sums,
-           unsigned int* counter, const tpulbm::LbmArgs& a, const TileArgs& t,
-           cudaStream_t stream) {
+template <Mode kMode, int kK>
+int launch(const Sources& src, const float* obst, float* out,
+           float* partials, float* sums, unsigned int* counter,
+           const tpulbm::LbmArgs& a, const TileArgs& t, cudaStream_t stream) {
   int cap = 0;
-  cudaError_t e = configure<kRing, kK>(&cap);
+  cudaError_t e = configure<kMode, kK>(&cap);
   if (e != cudaSuccess) return (int)e;
-  const int ntiles = ((a.nx + kTile - 1) / kTile) *
+  const int ntiles = ((t.out_cols + kTile - 1) / kTile) *
                      ((t.out_rows + kTile - 1) / kTile);
   const int grid = ntiles < cap ? ntiles : cap;
-  const bool vec16 = a.nx % 4 == 0 && aligned16(src_mid) &&
-                     aligned16(obst) &&
-                     (!kRing || (aligned16(src_lo) && aligned16(src_hi)));
-  kstep_tile_kernel<kRing, kK><<<grid, kThreads, smem_bytes(kK), stream>>>(
-      src_lo, src_mid, src_hi, obst, out, partials, sums, counter, a, t,
-      vec16 ? 1 : 0);
+  bool vec16 = t.out_cols % 4 == 0 && aligned16(src.mid) && aligned16(obst);
+  if (kMode != Mode::kGrid)
+    vec16 = vec16 && aligned16(src.lo) && aligned16(src.hi);
+  if (kMode == Mode::kTorus)
+    vec16 = vec16 && aligned16(src.xlo) && aligned16(src.xhi);
+  kstep_tile_kernel<kMode, kK><<<grid, kThreads, smem_bytes(kK), stream>>>(
+      src, obst, out, partials, sums, counter, a, t, vec16 ? 1 : 0);
   return (int)cudaGetLastError();
 }
 
 // The instances of a mode, by k - 1.
-using LaunchFn = int (*)(const float*, const float*, const float*,
-                         const float*, float*, float*, float*, unsigned int*,
-                         const tpulbm::LbmArgs&, const TileArgs&,
-                         cudaStream_t);
-template <bool kRing>
+using LaunchFn = int (*)(const Sources&, const float*, float*, float*,
+                         float*, unsigned int*, const tpulbm::LbmArgs&,
+                         const TileArgs&, cudaStream_t);
+template <Mode kMode>
 constexpr LaunchFn kLaunch[kMaxK] = {
-    launch<kRing, 1>, launch<kRing, 2>, launch<kRing, 3>, launch<kRing, 4>,
-    launch<kRing, 5>, launch<kRing, 6>, launch<kRing, 7>, launch<kRing, 8>};
+    launch<kMode, 1>, launch<kMode, 2>, launch<kMode, 3>, launch<kMode, 4>,
+    launch<kMode, 5>, launch<kMode, 6>, launch<kMode, 7>, launch<kMode, 8>};
 constexpr cudaError_t (*kConfigure[kMaxK])(int*) = {
-    configure<false, 1>, configure<false, 2>, configure<false, 3>,
-    configure<false, 4>, configure<false, 5>, configure<false, 6>,
-    configure<false, 7>, configure<false, 8>};
+    configure<Mode::kGrid, 1>, configure<Mode::kGrid, 2>,
+    configure<Mode::kGrid, 3>, configure<Mode::kGrid, 4>,
+    configure<Mode::kGrid, 5>, configure<Mode::kGrid, 6>,
+    configure<Mode::kGrid, 7>, configure<Mode::kGrid, 8>};
 
-template <bool kRing>
-int launch_k(const float* src_lo, const float* src_mid, const float* src_hi,
-             const float* obst, float* out, float* partials, float* sums,
-             unsigned int* counter, const tpulbm::LbmArgs& a,
-             const TileArgs& t, cudaStream_t stream) {
-  if (t.k < 1 || t.k > kMaxK || t.out_rows < 1)
+template <Mode kMode>
+int launch_k(const Sources& src, const float* obst, float* out,
+             float* partials, float* sums, unsigned int* counter,
+             const tpulbm::LbmArgs& a, const TileArgs& t,
+             cudaStream_t stream) {
+  if (t.k < 1 || t.k > kMaxK || t.out_rows < 1 || t.out_cols < 1)
     return (int)cudaErrorInvalidValue;
-  return kLaunch<kRing>[t.k - 1](src_lo, src_mid, src_hi, obst, out,
-                                  partials, sums, counter, a, t, stream);
+  return kLaunch<kMode>[t.k - 1](src, obst, out, partials, sums, counter, a,
+                                 t, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Tiles of a K4 launch whose output has `rows` rows: the row length of its
-// partials.
-int lbm_kstep_tile_blocks(int rows, int nx) {
-  return ((rows + kTile - 1) / kTile) * ((nx + kTile - 1) / kTile);
+// Tiles of a K4 launch whose output has `rows` rows of `cols` columns: the
+// row length of its partials.
+int lbm_kstep_tile_blocks(int rows, int cols) {
+  return ((rows + kTile - 1) / kTile) * ((cols + kTile - 1) / kTile);
 }
 
 int lbm_kstep_tile_smem(int k) { return smem_bytes(k); }
@@ -486,9 +545,10 @@ int lbm_kstep_tile(const float* src, const float* obst, float* out,
                    int nx, int accel_row, float omega, float w1, float w2,
                    int k, cudaStream_t stream) {
   const tpulbm::LbmArgs a{ny, nx, accel_row, omega, w1, w2};
-  const TileArgs t{k, ny, 0};
-  return launch_k<false>(nullptr, src, nullptr, obst, out, partials, sums,
-                         counter, a, t, stream);
+  const TileArgs t{k, ny, nx, 0};
+  const Sources s{nullptr, src, nullptr, nullptr, nullptr};
+  return launch_k<Mode::kGrid>(s, obst, out, partials, sums, counter, a, t,
+                               stream);
 }
 
 // Ring mode: k steps of the (9, h, nx) shard whose band of h + 2k rows is
@@ -502,9 +562,32 @@ int lbm_kstep_tile_ring(const float* lo, const float* shard, const float* hi,
                         int accel_row, float omega, float w1, float w2, int k,
                         int h, int row_base, cudaStream_t stream) {
   const tpulbm::LbmArgs a{ny, nx, accel_row, omega, w1, w2};
-  const TileArgs t{k, h, row_base};
-  return launch_k<true>(lo, shard, hi, obst, out, partials, sums, counter, a,
-                        t, stream);
+  const TileArgs t{k, h, nx, row_base};
+  const Sources s{lo, shard, hi, nullptr, nullptr};
+  return launch_k<Mode::kRing>(s, obst, out, partials, sums, counter, a, t,
+                               stream);
+}
+
+// Torus mode: k steps of the (9, h, w) block of the (ny, nx) grid whose
+// band of h + 2k rows and w + 2kx columns (kx = col_margin(k)) is lo
+// (9, k, w + 2kx) over xlo (9, h, kx) | block | xhi (9, h, kx) over hi
+// (9, k, w + 2kx), band row 0 being global row row_base; obst is the band's
+// (h + 2k, w + 2kx) float32 mask. xlo's last k and xhi's first k columns
+// are the column neighbours' cells; the band's first and last kx - k
+// columns are padding that no step reads. Writes out (9, h, w), partials
+// (k, lbm_kstep_tile_blocks(h, w)) and sums (k). Returns as lbm_kstep_tile.
+int lbm_kstep_tile_torus(const float* lo, const float* xlo,
+                         const float* block, const float* xhi,
+                         const float* hi, const float* obst, float* out,
+                         float* partials, float* sums, unsigned int* counter,
+                         int ny, int nx, int accel_row, float omega, float w1,
+                         float w2, int k, int h, int w, int row_base,
+                         cudaStream_t stream) {
+  const tpulbm::LbmArgs a{ny, nx, accel_row, omega, w1, w2};
+  const TileArgs t{k, h, w, row_base};
+  const Sources s{lo, block, hi, xlo, xhi};
+  return launch_k<Mode::kTorus>(s, obst, out, partials, sums, counter, a, t,
+                                stream);
 }
 
 }  // extern "C"

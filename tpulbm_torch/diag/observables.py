@@ -35,18 +35,27 @@ def velocity_field(f: torch.Tensor):
     return u_x, u_y, torch.sqrt(u_x * u_x + u_y * u_y)
 
 
+def speed_sum(f: torch.Tensor, obstacles: torch.Tensor) -> torch.Tensor:
+    """The float32 sum of |u| over the free cells of ``f``: av_velocity
+    before its scale, which the shards of a ring or torus take alone."""
+    _, _, u = velocity_field(f)
+    return torch.where(obstacles, torch.zeros_like(u), u).sum(
+        dtype=torch.float32)
+
+
 def av_velocity(f: torch.Tensor, obstacles: torch.Tensor,
                 params: LBMParams) -> torch.Tensor:
-    _, _, u = velocity_field(f)
-    tot_u = torch.where(obstacles, torch.zeros_like(u), u).sum(
-        dtype=torch.float32)
-    return tot_u * _f32(params.free_cells_inv, f)
+    return speed_sum(f, obstacles) * _f32(params.free_cells_inv, f)
+
+
+def reynolds_of(av: torch.Tensor, params: LBMParams) -> torch.Tensor:
+    """The Reynolds number of the average velocity ``av``."""
+    return av * _f32(params.reynolds_dim, av) / _f32(params.viscosity, av)
 
 
 def calc_reynolds(f: torch.Tensor, obstacles: torch.Tensor,
                   params: LBMParams) -> torch.Tensor:
-    av = av_velocity(f, obstacles, params)
-    return av * _f32(params.reynolds_dim, f) / _f32(params.viscosity, f)
+    return reynolds_of(av_velocity(f, obstacles, params), params)
 
 
 def total_density(f: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,12 @@
-"""The devices of the 1-D ring.
+"""The devices of the 1-D ring and of the 2-D torus.
 
-Counterpart of ``tpulbm.dist.mesh.get_mesh``: the reference's process
-topology is a 1-D ring of MPI ranks over grid rows (d2q9-bgk.c:244-247,
-834-862). The port's ring is one process that drives a list of shards, one
-per entry of the device list ``get_mesh`` returns; the halo slabs move by
-tensor copies (peer copies between cards). ``--mesh-shape`` (the 2-D
-torus) has no counterpart yet.
+Counterpart of ``tpulbm.dist.mesh``: the reference's process topology is a
+1-D ring of MPI ranks over grid rows (d2q9-bgk.c:244-247,834-862). The
+port's ring is one process that drives a list of shards, one per entry of
+the device list ``get_mesh`` returns; the halo slabs move by tensor copies
+(peer copies between cards). ``get_mesh_2d`` is the counterpart of
+``tpulbm.dist.mesh.get_mesh_2d`` (``--mesh-shape DYxDX``): a dy x dx nested
+list of devices, one per block of the torus, which the same process drives.
 """
 
 from __future__ import annotations
@@ -40,6 +41,30 @@ def get_mesh(n_devices: Optional[int] = None,
               f"runs on cuda:(i % {count}), so shards share cards",
               file=sys.stderr, flush=True)
     return [torch.device("cuda", i % count) for i in range(n)]
+
+
+def get_mesh_2d(dy: int, dx: int, device="cuda") -> List[List[torch.device]]:
+    """The dy x dx devices of a torus: block (i, j) sits on
+    ``cuda:((i * dx + j) % torch.cuda.device_count())``; on ``cpu`` every
+    block is on the CPU. When blocks share a card, one line on stderr says
+    so."""
+    if dy < 1 or dx < 1:
+        raise ValueError(f"a torus needs at least one block a side, got "
+                         f"{dy}x{dx}")
+    kind = torch.device(device).type
+    if kind == "cpu":
+        return [[torch.device("cpu")] * dx for _ in range(dy)]
+    if kind != "cuda":
+        raise ValueError(f"a torus runs on cuda or cpu, not {device}")
+    count = torch.cuda.device_count()
+    if count == 0:
+        raise ValueError("no CUDA device is visible")
+    if dy * dx > count:
+        print(f"tpulbm_torch: {dy}x{dx} blocks on {count} CUDA device(s): "
+              f"block (i, j) runs on cuda:((i * {dx} + j) % {count}), so "
+              f"blocks share cards", file=sys.stderr, flush=True)
+    return [[torch.device("cuda", (i * dx + j) % count) for j in range(dx)]
+            for i in range(dy)]
 
 
 def _check_count(n: int) -> None:

@@ -1,4 +1,5 @@
-"""The step-loop runners: one device, and the 1-D ring of shards.
+"""The step-loop runners: one device, the 1-D ring of shards, and the 2-D
+torus of blocks.
 
 ``make_runner(params, n_steps, backend, device, mesh=None)`` returns, on one
 device, ``runner(f, obstacles) -> (f', av_vels)``: ``f`` the (9, ny, nx)
@@ -21,6 +22,32 @@ per-step sums on its own device; they are added once after the loop, on
 mesh[0], in shard order, and scaled by ``free_cells_inv`` (the deferred
 ``psum`` of runner.py:1884-1887, d2q9-bgk.c:367-374). Shards follow
 ``decompose_rows``, so any ny runs without padding.
+
+With a 2-D ``mesh`` (``dist.mesh.get_mesh_2d``, a dy x dx nested list) it
+returns the torus runner, ``runner(blocks, obst_blocks) -> (blocks',
+av_vels)``: the row-major lists of blocks of ``dist.sharding.shard_blocks``,
+block (i, j) on mesh[i][j]; ``av_vels`` on mesh[0][0]. It is the
+counterpart of ``_make_runner_2d_kstep`` and, on the ``torch`` backend, of
+the per-step ``_make_runner_2d`` (tpulbm/dist/runner.py:1213-1321,
+1550-1624). Every chunk of k <= 8 steps runs the two-phase exchange of
+runner.py:1255-1281: first each block's x slabs (the left neighbour's last k
+columns, the right neighbour's first k), then its y slabs, the last and
+first k rows of its row neighbours' x-extended bands (xlo | block | xhi), so
+the corner cells ride along; then one ``kstep_tile.torus_chunk`` (K4 torus
+mode) steps each block. k is the least of 8, h, w and the steps left. The
+raw per-step sums stay on each block's device and are added once after the
+loop, on mesh[0][0], in row-major block order, and scaled by
+``free_cells_inv`` (the deferred ``psum(psum(av, ay), ax)`` of
+runner.py:1307). The torus keeps the JAX package's even split. K4 takes
+any block width, so the TPU's ``w >= 128`` / ``supported_x_halo`` gate
+(runner.py:1532-1544), which picks between the Pallas and jnp tori there,
+chooses no route here: every block takes torus mode.
+
+Every runner takes ownership of its input, as the JAX runners do with
+``donate_argnums=0``: a chunk writes its state into the storage that the
+chunk before it read (``ops.kstep.output``), so a run holds two states,
+the least with K4, whose output must lie apart from its source. The
+caller must not read its input after the call.
 
 Backends (the single-device routing of tpulbm/dist/runner.py:1720-1801):
 
@@ -58,10 +85,11 @@ import sys
 from typing import Callable, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.dist import tiers
-from tpulbm_torch.dist.sharding import ring_rows
+from tpulbm_torch.dist.sharding import block_shape, ring_rows
 from tpulbm_torch.ops import cluster, kstep, kstep_tile, resident, step_torch
 
 BACKENDS = ("auto", "cuda", "torch", "cuda-p2p")
@@ -103,11 +131,22 @@ def _skew(f, obst_f, params, k):
     return kstep.skew_chunk(f, obst_f, params)
 
 
+# The chunk functions of kernel_plan, which write into a given ``out``
+# (K1's, off every route, allocate their own).
+_TAKE_OUT = (kstep_tile.tile_chunk, resident.resident_chunk,
+             cluster.cluster_resident_chunk)
+
+
 def run_plan(plan, f, obst_f, params: LBMParams):
-    """Run the chunks of ``plan`` from state ``f``; returns (f', av_vels)."""
-    sums = []
+    """Run the chunks of ``plan`` from state ``f``, which the run takes
+    over: each chunk of the routes writes into the storage that the chunk
+    before it read. Returns (f', av_vels)."""
+    sums, spare = [], None
     for chunk_fn, k in plan:
-        f, s = chunk_fn(f, obst_f, params, k)
+        if chunk_fn in _TAKE_OUT:
+            spare, (f, s) = f, chunk_fn(f, obst_f, params, k, out=spare)
+        else:
+            f, s = chunk_fn(f, obst_f, params, k)
         sums.append(s)
     free_inv = torch.tensor(params.free_cells_inv, dtype=torch.float32,
                             device=f.device)
@@ -116,6 +155,17 @@ def run_plan(plan, f, obst_f, params: LBMParams):
 
 def make_runner(params: LBMParams, n_steps: int, backend: str = "auto",
                 device="cuda", mesh: Sequence | None = None) -> Callable:
+    if mesh is not None and isinstance(mesh[0], (list, tuple)):
+        if backend == "cuda-p2p":
+            # as the JAX package refuses pallas-rdma (runner.py:1646-1650)
+            raise ValueError(
+                "backend='cuda-p2p' is not available on a 2-D mesh "
+                "(use 'cuda', 'torch' or 'auto')")
+        mesh = [[torch.device(d) for d in row] for row in mesh]
+        backend = resolve_backend(backend, mesh[0][0])
+        return make_torus_runner(
+            params, n_steps, mesh,
+            _plain_torus if backend == "torch" else kstep_tile.torus_chunk)
     if mesh is not None and len(mesh) > 1:
         mesh = [torch.device(d) for d in mesh]
         backend = resolve_backend(backend, mesh[0])
@@ -155,11 +205,33 @@ def make_runner(params: LBMParams, n_steps: int, backend: str = "auto",
     return runner
 
 
-def _plain_ring(lo, shard, hi, obst_band, params, k, row_base):
+def _plain_ring(lo, shard, hi, obst_band, params, k, row_base, out=None):
     """The ``torch`` backend's shard step: the plain ring chunk with the
     canonical equilibrium, as ``step_torch.run_steps``."""
-    return kstep_tile.ring_chunk_ref(lo, shard, hi, obst_band, params, k,
-                                     row_base, pair_symmetric=False)
+    f, sums = kstep_tile.ring_chunk_ref(lo, shard, hi, obst_band, params, k,
+                                        row_base, pair_symmetric=False)
+    return kstep.into(out, f), sums
+
+
+def _plain_torus(xlo, block, xhi, ylo, yhi, obst_band, params, k, row_base,
+                 out=None):
+    """The ``torch`` backend's block step: the plain torus chunk with the
+    canonical equilibrium, as ``step_torch.run_steps``."""
+    f, sums = kstep_tile.torus_chunk_ref(xlo, block, xhi, ylo, yhi,
+                                         obst_band, params, k, row_base,
+                                         pair_symmetric=False)
+    return kstep.into(out, f), sums
+
+
+def _deferred_sum(sums, device, params: LBMParams):
+    """The per-device lists of raw per-step sums, added on ``device`` in
+    list order and scaled by ``free_cells_inv``."""
+    av = None
+    for s in sums:
+        s = torch.cat(s).to(device)
+        av = s if av is None else av + s
+    return av * torch.tensor(params.free_cells_inv, dtype=torch.float32,
+                             device=device)
 
 
 def _copy_slabs(k: int, shards, mesh):
@@ -175,9 +247,9 @@ def make_ring_runner(params: LBMParams, n_steps: int,
                      mesh: Sequence[torch.device],
                      chunk_fn: Callable) -> Callable:
     """The ring runner over ``mesh`` (see the module docstring).
-    ``chunk_fn(lo, shard, hi, obst_band, params, k, row_base)`` steps one
-    shard: ``kstep_tile.ring_chunk`` (which takes its plain version on CPU
-    tensors) or ``_plain_ring``."""
+    ``chunk_fn(lo, shard, hi, obst_band, params, k, row_base, out)`` steps
+    one shard: ``kstep_tile.ring_chunk`` (which takes its plain version on
+    CPU tensors) or ``_plain_ring``."""
     mesh = list(mesh)
     n, ny, nx = len(mesh), params.ny, params.nx
     rows, offsets = ring_rows(ny, n)
@@ -203,23 +275,103 @@ def make_ring_runner(params: LBMParams, n_steps: int,
                      obst_shards[(d - 1) % n][-k_max:], obst_shards[d],
                      obst_shards[(d + 1) % n][:k_max])])
                  for d in range(n)]
-        shards = list(shards)
+        shards, spares = list(shards), [None] * n
         sums = [[] for _ in range(n)]
         for k in plan:
             new = []
             for d, (lo, hi) in enumerate(_copy_slabs(k, shards, mesh)):
                 band = masks[d][k_max - k:k_max + rows[d] + k]
                 f, s = chunk_fn(lo, shards[d], hi, band, params, k,
-                                (offsets[d] - k) % ny)
+                                (offsets[d] - k) % ny, out=spares[d])
                 new.append(f)
                 sums[d].append(s)
-            shards = new
-        av = None
-        for d in range(n):   # the deferred reduction, in shard order
-            s = torch.cat(sums[d]).to(mesh[0])
-            av = s if av is None else av + s
-        free_inv = torch.tensor(params.free_cells_inv, dtype=torch.float32,
-                                device=mesh[0])
-        return shards, av * free_inv
+            spares, shards = shards, new
+        return shards, _deferred_sum(sums, mesh[0], params)
+
+    return runner
+
+
+def _torus_halos(g, k: int, dy: int, dx: int, devs):
+    """The two-phase exchange of a chunk of k steps over the row-major
+    blocks ``g`` (states (9, h, w) or masks (h, w)) of a dy x dx torus:
+    [(xlo, xhi, ylo, yhi)] per block, on its device. x first: xlo holds the
+    left neighbour's last k columns in its last k of col_margin(k), xhi the
+    right neighbour's first k in its first (the rest zeros). Then y, from
+    the row neighbours' x-extended bands xlo | block | xhi: ylo their last k
+    rows, yhi their first k, corners included."""
+    kx = kstep_tile.col_margin(k)
+    x = []
+    for b, dev in enumerate(devs):
+        i, j = divmod(b, dx)
+        left, right = g[i * dx + (j - 1) % dx], g[i * dx + (j + 1) % dx]
+        x.append((F.pad(left[..., -k:], (kx - k, 0)).to(dev),
+                  F.pad(right[..., :k], (0, kx - k)).to(dev)))
+    halos = []
+    for b, dev in enumerate(devs):
+        i, j = divmod(b, dx)
+        up, down = ((i - 1) % dy) * dx + j, ((i + 1) % dy) * dx + j
+        ylo = torch.cat([x[up][0][..., -k:, :], g[up][..., -k:, :],
+                         x[up][1][..., -k:, :]], dim=-1).to(dev)
+        yhi = torch.cat([x[down][0][..., :k, :], g[down][..., :k, :],
+                         x[down][1][..., :k, :]], dim=-1).to(dev)
+        halos.append((*x[b], ylo, yhi))
+    return halos
+
+
+def make_torus_runner(params: LBMParams, n_steps: int,
+                      mesh2d: Sequence[Sequence[torch.device]],
+                      chunk_fn: Callable) -> Callable:
+    """The torus runner over the dy x dx ``mesh2d`` (see the module
+    docstring). ``chunk_fn(xlo, block, xhi, ylo, yhi, obst_band, params, k,
+    row_base, out)`` steps one block: ``kstep_tile.torus_chunk`` (which
+    takes its plain version on CPU tensors) or ``_plain_torus``."""
+    dy, dx = len(mesh2d), len(mesh2d[0])
+    devs = [torch.device(d) for row in mesh2d for d in row]
+    if len(devs) != dy * dx:
+        raise ValueError(f"a torus mesh is a full dy x dx grid, got rows of "
+                         f"{[len(row) for row in mesh2d]}")
+    n, ny, nx = dy * dx, params.ny, params.nx
+    h, w = block_shape(ny, nx, dy, dx)
+    if n_steps < 1:
+        raise ValueError(f"torus runner of {n_steps} steps")
+    plan = [k for _, k in _chunks(None, min(kstep_tile.TILE_K, h, w,
+                                            n_steps), n_steps)]
+
+    def runner(blocks, obst_blocks):
+        if len(blocks) != n or len(obst_blocks) != n:
+            raise ValueError(f"torus runner over {dy}x{dx} blocks got "
+                             f"{len(blocks)} and {len(obst_blocks)}")
+        for b, (f, o) in enumerate(zip(blocks, obst_blocks)):
+            if (f.shape != (9, h, w) or o.shape != (h, w)
+                    or f.device != devs[b] or o.device != devs[b]):
+                raise ValueError(
+                    f"block {b}: state {tuple(f.shape)} on {f.device}, mask "
+                    f"{tuple(o.shape)} on {o.device}; the torus wants "
+                    f"({h}, {w}) blocks of the ({ny}, {nx}) grid on "
+                    f"{devs[b]}")
+        # Each block's (h + 2k, w + 2 col_margin(k)) mask band, for each k
+        # of the plan: the same exchange on the float masks
+        # (the float blocks are freed before the first chunk)
+        obst_f = [o.to(torch.float32) for o in obst_blocks]
+        masks = {}
+        for k in set(plan):
+            masks[k] = [torch.cat([ylo, torch.cat([xlo, o, xhi], dim=-1),
+                                   yhi], dim=-2)
+                        for o, (xlo, xhi, ylo, yhi) in zip(
+                            obst_f, _torus_halos(obst_f, k, dy, dx, devs))]
+        del obst_f
+        blocks, spares = list(blocks), [None] * n
+        sums = [[] for _ in range(n)]
+        for k in plan:
+            new = []
+            for b, (xlo, xhi, ylo, yhi) in enumerate(
+                    _torus_halos(blocks, k, dy, dx, devs)):
+                f, s = chunk_fn(xlo, blocks[b], xhi, ylo, yhi, masks[k][b],
+                                params, k, (b // dx * h - k) % ny,
+                                out=spares[b])
+                new.append(f)
+                sums[b].append(s)
+            spares, blocks = blocks, new
+        return blocks, _deferred_sum(sums, devs[0], params)
 
     return runner

@@ -47,6 +47,7 @@ LAUNCHES = {
     "resident_chunk": 0,    # K2 launches made by ops.resident.resident_chunk
     "tile_chunk": 0,        # K4 launches made by ops.kstep_tile.tile_chunk
     "ring_chunk": 0,        # K4 launches made by ops.kstep_tile.ring_chunk
+    "torus_chunk": 0,       # K4 launches made by ops.kstep_tile.torus_chunk
     "cluster_resident": 0,  # K5 launches made by cluster_resident_chunk
     # Chunks whose per-step sums the stepping kernels' epilogue reduced
     # (one per K1 chunk and K2, K4 or K5 launch): the former K3 pass
@@ -73,6 +74,9 @@ _SIGNATURES = {
     "lbm_kstep_tile_ring": (
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _I,
          _P], _I),
+    "lbm_kstep_tile_torus": (
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I,
+         _I, _I, _I, _P], _I),
     "lbm_cluster_resident_smem": ([], _I),
     "lbm_cluster_resident_clusters": ([_I], _I),
     "lbm_cluster_resident": (

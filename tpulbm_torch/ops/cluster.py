@@ -27,7 +27,7 @@ import torch
 
 from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.ops import _build, step_torch
-from tpulbm_torch.ops.kstep import check_chunk
+from tpulbm_torch.ops.kstep import check_chunk, into, output
 
 RESIDENT_CLUSTER = 16     # CTAs of the cluster (non-portable size)
 RESIDENT_MAX_K = 512      # steps of a launch
@@ -81,16 +81,18 @@ def cluster_resident_chunk_ref(f, obst_f, params: LBMParams, k: int,
     return step_torch.run_sums(f, obst_f != 0, params, k, pair_symmetric)
 
 
-def cluster_resident_chunk(f, obst_f, params: LBMParams, k: int):
+def cluster_resident_chunk(f, obst_f, params: LBMParams, k: int, out=None):
     """k (at most 512) fused steps of the (9, ny, nx) state ``f`` over the
     (ny, nx) float32 mask ``obst_f`` (nonzero = blocked), the grid held in
-    one cluster. Returns (f', sums[k])."""
+    one cluster. Returns (f', sums[k]); f' is ``out`` where given
+    (``ops.kstep.output``)."""
     if f.device.type == "cpu":
-        return cluster_resident_chunk_ref(f, obst_f, params, k)
-    return _resident_launch(f, obst_f, params, k)[:2]
+        f, sums = cluster_resident_chunk_ref(f, obst_f, params, k)
+        return into(out, f), sums
+    return _resident_launch(f, obst_f, params, k, out)[:2]
 
 
-def _resident_launch(f, obst_f, params: LBMParams, k: int):
+def _resident_launch(f, obst_f, params: LBMParams, k: int, out=None):
     """K5 on a CUDA state: (f', sums[k], the (k, RESIDENT_CLUSTER) partials
     that its epilogue reduced into sums)."""
     check_chunk(f, obst_f, params, k)
@@ -105,7 +107,7 @@ def _resident_launch(f, obst_f, params: LBMParams, k: int):
         if n < 1:
             _build.check(-n, f"K5: no cluster of {RESIDENT_CLUSTER} CTAs "
                              f"runs on {f.device}")
-        out = torch.empty_like(f)
+        out = output(out, f, f.shape)
         partials = torch.empty((k, RESIDENT_CLUSTER), dtype=torch.float32,
                                device=f.device)
         sums = torch.empty(k, dtype=torch.float32, device=f.device)

@@ -61,6 +61,34 @@ def kstep_chunk(f, obst_f, params: LBMParams, k: int):
     return _fused_steps(f, obst_f, params, k, "kstep_chunk")[:2]
 
 
+def output(out, src: torch.Tensor, shape) -> torch.Tensor:
+    """Where a chunk writes its state: ``out``, checked to be a contiguous
+    float32 tensor of ``shape`` on ``src``'s device apart from ``src``, or
+    a new tensor. The runners pass the storage that the chunk before
+    released, so that a run holds two states (the JAX runners donate their
+    input alike)."""
+    shape = tuple(shape)
+    if out is None:
+        return torch.empty(shape, dtype=torch.float32, device=src.device)
+    if (tuple(out.shape) != shape or out.dtype != torch.float32
+            or out.device != src.device or not out.is_contiguous()
+            or out.data_ptr() == src.data_ptr()):
+        raise ValueError(
+            f"out {tuple(out.shape)} {out.dtype} on {out.device} cannot take "
+            f"a chunk's {shape} state from {src.device} (contiguous float32, "
+            f"apart from the source)")
+    return out
+
+
+def into(out, f: torch.Tensor) -> torch.Tensor:
+    """A plain version's result ``f``, copied into ``out`` where given, as
+    the kernels write theirs."""
+    if out is None:
+        return f
+    out.copy_(f)
+    return out
+
+
 def check_chunk(f, obst_f, params: LBMParams, k: int) -> None:
     """What the chunk kernels take: contiguous float32 CUDA tensors of the
     grid's shapes on one device, and at least one step."""

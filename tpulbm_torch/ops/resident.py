@@ -30,7 +30,7 @@ import torch
 
 from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.ops import _build, step_torch
-from tpulbm_torch.ops.kstep import check_chunk
+from tpulbm_torch.ops.kstep import check_chunk, into, output
 
 # Steps per call, as tpulbm.dist.runner._make_resident_runner's k_chunk.
 RESIDENT_K = 512
@@ -42,15 +42,17 @@ def resident_chunk_ref(f, obst_f, params: LBMParams, k: int,
     return step_torch.run_sums(f, obst_f != 0, params, k, pair_symmetric)
 
 
-def resident_chunk(f, obst_f, params: LBMParams, k: int):
+def resident_chunk(f, obst_f, params: LBMParams, k: int, out=None):
     """k fused steps of the (9, ny, nx) state ``f`` over the (ny, nx) float32
-    mask ``obst_f`` (nonzero = blocked). Returns (f', sums[k])."""
+    mask ``obst_f`` (nonzero = blocked). Returns (f', sums[k]); f' is
+    ``out`` where given (``ops.kstep.output``)."""
     if f.device.type == "cpu":
-        return resident_chunk_ref(f, obst_f, params, k)
-    return _resident_launch(f, obst_f, params, k)[:2]
+        f, sums = resident_chunk_ref(f, obst_f, params, k)
+        return into(out, f), sums
+    return _resident_launch(f, obst_f, params, k, out)[:2]
 
 
-def _resident_launch(f, obst_f, params: LBMParams, k: int):
+def _resident_launch(f, obst_f, params: LBMParams, k: int, out=None):
     """K2 on a CUDA state: (f', sums[k], the (k, grid) partials that its
     epilogue reduced into sums)."""
     check_chunk(f, obst_f, params, k)
@@ -63,7 +65,7 @@ def _resident_launch(f, obst_f, params: LBMParams, k: int):
         partials = torch.empty((k, grid.value), dtype=torch.float32,
                                device=f.device)
         sums = torch.empty(k, dtype=torch.float32, device=f.device)
-        out = torch.empty_like(f)
+        out = output(out, f, f.shape)
         scratch = torch.empty_like(f)
         _build.LAUNCHES["resident_chunk"] += 1
         _build.LAUNCHES["reduce_partials"] += 1

@@ -1,19 +1,32 @@
-"""High-level simulation driver, on one device or a ring of shards.
+"""The high-level simulation, on one device, a ring of shards or a torus of
+blocks.
 
 Counterpart of ``tpulbm.sim.simulation``: initialise from a parameter deck
 and an obstacle file, run the step loop in chunks (the av series is read
-back once per chunk), then expose the final state, the av_vels series and
+back once per chunk, so checkpoints, progress, debug lines and metrics can
+come between chunks), then expose the final state, the av_vels series and
 the Reynolds number, and write the reference's output files. With a
 ``mesh`` of N >= 2 devices (``dist.mesh.get_mesh``) the state and the mask
 are held as the row shards of ``dist.sharding.shard_rows`` and stepped by
-the ring runner; ``f``, ``reynolds()`` and ``write_outputs()`` gather the
-shards on the first device.
+the ring runner; with a 2-D ``mesh`` (``dist.mesh.get_mesh_2d``) as the
+blocks of ``dist.sharding.shard_blocks``, stepped by the torus runner.
+``f`` gathers them on the first device at each read; ``reynolds()``,
+``average_velocity()`` and the debug lines add per-shard sums there, in
+shard order; ``write_outputs()`` gathers the output planes and a checkpoint
+the state on the host. So a ring or torus holds two states at most, as one
+device does; a checkpoint restores onto any mesh.
+
+A runner call takes ownership of the state it is handed (its storage holds
+a later chunk's output, as the JAX runners donate theirs): ``run`` keeps no
+reference to the shards during the call.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
+import sys
 import time
 from typing import Optional
 
@@ -22,21 +35,47 @@ import torch
 
 from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.core.state import initial_state
-from tpulbm_torch.diag.observables import calc_reynolds, output_fields
+from tpulbm_torch.diag.observables import (
+    output_fields,
+    reynolds_of,
+    speed_sum,
+    total_density,
+)
 from tpulbm_torch.dist.runner import make_runner, resolve_backend
-from tpulbm_torch.dist.sharding import gather_rows, shard_rows
+from tpulbm_torch.dist.sharding import (
+    block_shape,
+    gather_blocks,
+    gather_rows,
+    shard_blocks,
+    shard_rows,
+)
 from tpulbm_torch.io.obstacles import read_obstacles
 from tpulbm_torch.io.params_file import read_params
 from tpulbm_torch.io.writers import write_av_vels, write_final_state
+from tpulbm_torch.sim import checkpoint as ckpt
 
 
 @dataclasses.dataclass
 class SimulationResult:
+    """A run's result. ``f`` is the simulation's state after the run, read
+    when asked for (gathered on the first device on a ring or torus). The
+    next ``run`` or restore of the same Simulation takes that state over, as
+    a JAX runner's donation deletes its input: ``f`` then raises."""
+
     params: LBMParams
-    f: torch.Tensor
     av_vels: np.ndarray
     reynolds: float
     elapsed_s: float
+    sim: "Simulation" = dataclasses.field(repr=False)
+    epoch: int = dataclasses.field(repr=False)
+
+    @property
+    def f(self) -> torch.Tensor:
+        if self.sim.epoch != self.epoch:
+            raise RuntimeError(
+                "this result's state was taken over by a later run or "
+                "restore of its Simulation; read f before that")
+        return self.sim.f
 
 
 class Simulation:
@@ -53,22 +92,24 @@ class Simulation:
                 params.nx * params.ny - int(np.asarray(obstacles).sum())
             )
         self.params = params
-        self.mesh = ([torch.device(device)] if mesh is None
-                     else [torch.device(d) for d in mesh])
-        self.device = self.mesh[0]
+        if mesh is not None and isinstance(mesh[0], (list, tuple)):
+            self.mesh = [[torch.device(d) for d in row] for row in mesh]
+            self.device = self.mesh[0][0]
+            block_shape(params.ny, params.nx, len(mesh), len(mesh[0]))
+        else:
+            self.mesh = ([torch.device(device)] if mesh is None
+                         else [torch.device(d) for d in mesh])
+            self.device = self.mesh[0]
         self.backend = resolve_backend(backend, self.device)
         self.obstacles = torch.as_tensor(
             np.asarray(obstacles, dtype=bool), device=self.device)
-        f = initial_state(params, self.device)
-        if len(self.mesh) > 1:
-            self.shards, self.obst_shards = shard_rows(f, self.obstacles,
-                                                       self.mesh)
-        else:
-            self.shards, self.obst_shards = [f], [self.obstacles]
-        self._gathered = None
+        self.shards, self.obst_shards = self._shard(
+            initial_state(params, self.device))
+        self.epoch = 0   # counts the runner calls and restores
         self.step_count = 0
         self.av_vels = np.zeros((params.max_iters,), dtype=np.float32)
         self._runners = {}
+        self._async_ckpt = ckpt.AsyncCheckpointer()
 
     @classmethod
     def from_files(
@@ -85,14 +126,43 @@ class Simulation:
                    device=device, mesh=mesh)
 
     @property
+    def torus(self) -> bool:
+        return isinstance(self.mesh[0], list)
+
+    def _shard(self, f: torch.Tensor):
+        """(state shards, mask shards) of the full state ``f`` for the mesh:
+        one of each on one device, row shards on a ring, blocks on a
+        torus."""
+        if self.torus:
+            return shard_blocks(f, self.obstacles, self.mesh)
+        if len(self.mesh) > 1:
+            return shard_rows(f, self.obstacles, self.mesh)
+        return [f], [self.obstacles]
+
+    def _gather(self, shards, device) -> torch.Tensor:
+        """Per-shard tensors (states or (h, w) planes) as one on ``device``:
+        the one shard itself on one device."""
+        if len(shards) == 1:
+            return shards[0]
+        if self.torus:
+            return gather_blocks(shards, len(self.mesh), len(self.mesh[0]),
+                                 device)
+        return gather_rows(shards, device)
+
+    def _shard_sum(self, fn) -> torch.Tensor:
+        """fn(state shard, mask shard), a float32 scalar, added over the
+        shards on the first device in shard order."""
+        total = None
+        for f, o in zip(self.shards, self.obst_shards):
+            s = fn(f, o).to(self.device)
+            total = s if total is None else total + s
+        return total
+
+    @property
     def f(self) -> torch.Tensor:
-        """The (9, ny, nx) state on the first device: on a ring, the shards
-        gathered once after each runner call."""
-        if len(self.shards) == 1:
-            return self.shards[0]
-        if self._gathered is None:
-            self._gathered = gather_rows(self.shards, self.device)
-        return self._gathered
+        """The (9, ny, nx) state on the first device: on a ring or torus, a
+        new gather of the shards at each read."""
+        return self._gather(self.shards, self.device)
 
     def settle(self) -> None:
         """Finish set-up before a timed region: wait for the uploads and,
@@ -102,9 +172,12 @@ class Simulation:
             from tpulbm_torch.ops import _build
 
             _build.library()
-        for dev in set(self.mesh):
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+        self._sync()
+
+    def _sync(self) -> None:
+        for f in self.shards:
+            if f.device.type == "cuda":
+                torch.cuda.synchronize(f.device)
 
     def _runner(self, n_steps: int):
         if n_steps not in self._runners:
@@ -113,18 +186,55 @@ class Simulation:
                 device=self.device, mesh=self.mesh)
         return self._runners[n_steps]
 
+    def _advance(self, n_steps: int):
+        """One runner call of n_steps; returns the av series on the host.
+        The runner takes the shards over: none is held here meanwhile."""
+        shards, self.shards = self.shards, []
+        self.epoch += 1
+        if len(shards) == 1 and not self.torus:
+            f, av = self._runner(n_steps)(shards.pop(), self.obstacles)
+            shards = [f]
+        else:
+            shards, av = self._runner(n_steps)(shards, self.obst_shards)
+        self.shards = shards
+        return av.cpu().numpy()
+
     @staticmethod
-    def _plan_chunks(total: int, chunk: int) -> list:
-        """Chunk sizes covering ``total`` steps: full chunks and one
-        remainder, so at most two runners are built per run."""
-        n_full, rem = divmod(total, chunk)
-        return [chunk] * n_full + ([rem] if rem else [])
+    def _plan_chunks(start: int, total: int, chunk: int,
+                     cadence: Optional[int]) -> list:
+        """Chunk sizes covering ``[start, start + total)`` such that every
+        multiple of ``cadence`` inside the range ends a chunk (so periodic
+        checkpoints actually fire, including after a mid-cadence resume).
+
+        At most two distinct sizes (the main chunk + one remainder) when
+        ``start`` sits on a cadence boundary, so at most two runners are
+        built per run; a mid-cadence resume adds one alignment head.
+        """
+        sizes = []
+        pos = start
+        end = start + total
+        if cadence:
+            head = min((-pos) % cadence, end - pos)
+            if head:
+                sizes.append(min(head, chunk))
+                pos += sizes[-1]
+        while pos < end:
+            n = min(chunk, end - pos)
+            if cadence:
+                n = min(n, (-pos) % cadence or cadence)
+            sizes.append(n)
+            pos += n
+        return sizes
 
     def run(
         self,
         n_steps: Optional[int] = None,
         chunk: Optional[int] = None,
+        checkpoint_every: Optional[int] = None,
+        checkpoint_dir: Optional[str] = None,
         progress: bool = False,
+        debug: bool = False,
+        metrics_file: Optional[str] = None,
     ) -> SimulationResult:
         """Advance ``n_steps`` (default: the deck's maxIters minus steps
         already taken), returning the accumulated result."""
@@ -135,58 +245,121 @@ class Simulation:
                 f"run of {total} steps would exceed the deck's maxIters="
                 f"{self.params.max_iters} (already at step {self.step_count})"
             )
-        chunk = max(1, min(total if chunk is None else chunk, total))
+        if checkpoint_every and not checkpoint_dir:
+            raise ValueError("checkpoint_every requires checkpoint_dir")
+        if chunk is None:
+            chunk = total if checkpoint_every is None else checkpoint_every
+            if metrics_file and chunk == total:
+                chunk = max(1, min(total, 1000))
+        chunk = max(1, min(chunk, total))
+        if metrics_file:
+            parent = os.path.dirname(metrics_file)
+            if parent:
+                os.makedirs(parent, exist_ok=True)
+        metrics_fp = open(metrics_file, "a") if metrics_file else None
+        plan = self._plan_chunks(
+            self.step_count, total, chunk, checkpoint_every
+        )
         t0 = time.perf_counter()
-        for n in self._plan_chunks(total, chunk):
-            if len(self.mesh) > 1:
-                self._gathered = None
-                self.shards, av = self._runner(n)(self.shards,
-                                                  self.obst_shards)
-            else:
-                f, av = self._runner(n)(self.shards[0], self.obstacles)
-                self.shards = [f]
-            av_np = av.cpu().numpy()
-            if not np.isfinite(av_np[-1]):
-                # Divergence check, the runtime form of the reference's
-                # disabled FP traps (d2q9-bgk.c:60,195): BGK goes unstable
-                # for omega near 2 or too strong a forcing. Bookkeeping
-                # advances through the last finite step first.
-                bad = int(np.argmax(~np.isfinite(av_np)))
-                self.av_vels[self.step_count : self.step_count + bad] = (
-                    av_np[:bad])
-                self.step_count += bad
-                raise FloatingPointError(
-                    f"simulation diverged (non-finite average velocity "
-                    f"at step {self.step_count}); check omega "
-                    f"({self.params.omega}) and accel ({self.params.accel})"
-                )
-            self.av_vels[self.step_count : self.step_count + n] = av_np
-            self.step_count += n
-            if progress:
-                print(
-                    f"step {self.step_count}/{self.params.max_iters} "
-                    f"av_vel={av_np[-1]:.6E}",
-                    flush=True,
-                )
-        reyn = self.reynolds()
+        done = 0
+        try:
+            for n in plan:
+                av_np = self._advance(n)
+                if not np.isfinite(av_np[-1]):
+                    # Divergence check, the runtime form of the reference's
+                    # disabled FP traps (d2q9-bgk.c:60,195): BGK goes
+                    # unstable for omega near 2 or too strong a forcing.
+                    # Bookkeeping advances through the last finite step
+                    # first (the state itself is past the divergence).
+                    bad = int(np.argmax(~np.isfinite(av_np)))
+                    self.av_vels[self.step_count : self.step_count + bad] = (
+                        av_np[:bad])
+                    self.step_count += bad
+                    raise FloatingPointError(
+                        f"simulation diverged (non-finite average velocity "
+                        f"at step {self.step_count}); check omega "
+                        f"({self.params.omega}) and accel "
+                        f"({self.params.accel})"
+                    )
+                self.av_vels[self.step_count : self.step_count + n] = av_np
+                self.step_count += n
+                done += n
+                if progress:
+                    print(
+                        f"step {self.step_count}/{self.params.max_iters} "
+                        f"av_vel={av_np[-1]:.6E}",
+                        flush=True,
+                    )
+                if debug:
+                    # The reference's DEBUG block (d2q9-bgk.c:380-393).
+                    density = self._shard_sum(lambda f, _: total_density(f))
+                    print(f"==timestep: {self.step_count - 1}==")
+                    print(f"av velocity: {av_np[-1]:.12E}")
+                    print(f"tot density: {float(density):.12E}", flush=True)
+                if metrics_fp is not None:
+                    wall = max(time.perf_counter() - t0, 1e-9)
+                    metrics_fp.write(json.dumps({
+                        "step": self.step_count,
+                        "av_vel": float(av_np[-1]),
+                        "wall_s": round(wall, 4),
+                        # this run's steps over this run's wall time
+                        "steps_per_s": round(done / wall, 2),
+                    }) + "\n")
+                    metrics_fp.flush()
+                if checkpoint_every and checkpoint_dir and (
+                    self.step_count % checkpoint_every == 0
+                    or done >= total
+                ):
+                    # the write overlaps the next chunk on a thread, from a
+                    # host copy (the next chunk reuses the state's storage)
+                    self._async_ckpt.submit(
+                        checkpoint_dir, self.step_count, self._host_state(),
+                        self.av_vels, self.params,
+                    )
+        finally:
+            # join the in-flight checkpoint (surfacing its errors) and close
+            # the metrics file even when a chunk raised
+            try:
+                self._async_ckpt.wait()
+            except Exception as ckpt_err:
+                if sys.exc_info()[1] is None:
+                    raise
+                # don't mask the in-flight exception with the write failure
+                print(f"warning: async checkpoint failed: {ckpt_err}",
+                      file=sys.stderr)
+            if metrics_fp is not None:
+                metrics_fp.close()
+        self._sync()
+        elapsed = time.perf_counter() - t0
         return SimulationResult(
             params=self.params,
-            f=self.f,
             av_vels=self.av_vels[: self.step_count].copy(),
-            reynolds=reyn,
-            elapsed_s=time.perf_counter() - t0,
+            reynolds=self.reynolds(),
+            elapsed_s=elapsed,
+            sim=self,
+            epoch=self.epoch,
         )
 
     # -- observables ------------------------------------------------------
+    def _av_velocity(self) -> torch.Tensor:
+        return self._shard_sum(speed_sum) * torch.tensor(
+            self.params.free_cells_inv, dtype=torch.float32,
+            device=self.device)
+
     def reynolds(self) -> float:
-        return float(calc_reynolds(self.f, self.obstacles, self.params))
+        return float(reynolds_of(self._av_velocity(), self.params))
+
+    def average_velocity(self) -> float:
+        return float(self._av_velocity())
 
     # -- persistence ------------------------------------------------------
     def write_outputs(self, out_dir: str | os.PathLike = ".") -> None:
         """Write final_state.dat + av_vels.dat; the output planes are
-        computed on the device and read back once."""
-        fields = [a.cpu().numpy() for a in output_fields(
-            self.f, self.obstacles, self.params.density)]
+        computed on each shard's device and read back once."""
+        planes = [output_fields(f, o, self.params.density)
+                  for f, o in zip(self.shards, self.obst_shards)]
+        fields = [self._gather([p[i].cpu() for p in planes], "cpu").numpy()
+                  for i in range(4)]
         os.makedirs(out_dir, exist_ok=True)
         write_final_state(
             os.path.join(out_dir, "final_state.dat"),
@@ -199,3 +372,29 @@ class Simulation:
             os.path.join(out_dir, "av_vels.dat"),
             self.av_vels[: self.step_count],
         )
+
+    def _host_state(self) -> np.ndarray:
+        """A host copy of the gathered state, which no later chunk writes."""
+        if len(self.shards) == 1:
+            return self.shards[0].to("cpu", copy=True).numpy()
+        return self._gather(self.shards, "cpu").numpy()
+
+    def save_checkpoint(self, directory: str | os.PathLike) -> str:
+        return ckpt.save(directory, step=self.step_count,
+                         f=self._host_state(), av_vels=self.av_vels,
+                         params=self.params)
+
+    def restore_checkpoint(self, path_or_dir: str | os.PathLike) -> None:
+        """Resume from a checkpoint of either package, written on any mesh:
+        the gathered state is cut for this one."""
+        step, f, av_vels = ckpt.restore(path_or_dir, self.params)
+        shape = (9, self.params.ny, self.params.nx)
+        if f.shape != shape:
+            raise ValueError(f"checkpoint state {f.shape} does not match the "
+                             f"deck's {shape}")
+        self.step_count = step
+        self.av_vels[: av_vels.size] = av_vels[: self.av_vels.size]
+        self.shards = []
+        self.epoch += 1
+        self.shards, self.obst_shards = self._shard(
+            torch.as_tensor(f, device=self.device))

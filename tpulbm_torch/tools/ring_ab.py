@@ -8,11 +8,13 @@ Loads the deck once, cuts its rest state into the ring's shards
 (``dist.sharding.shard_rows``) and builds one runner of the deck's step
 count per backend. After a warm-up call of each, it times ``--pairs``
 rounds, the backends in order on even rounds and reversed on odd ones (so
-A B B A ...): every call from the same input shards, the clock stopped
-after every card has finished and the av series is read back. Prints one
-line per call, then one JSON line of the samples and each backend's median
-MLUPS. A change that moves a backend by less than the spread of its own
-samples is not shown by this run.
+A B B A ...): every call from a fresh copy of the same input shards, made
+before the clock starts (a runner call takes its input over and leaves a
+later state in it); the clock stopped after every card has finished and
+the av series is read back. Prints one line per call, then one JSON line
+of the samples and each backend's median MLUPS. A change that moves a
+backend by less than the spread of its own samples is not shown by this
+run.
 """
 
 from __future__ import annotations
@@ -70,13 +72,14 @@ def main(argv=None) -> int:
     steps = params.max_iters
     runners = {b: make_runner(params, steps, b, mesh=mesh) for b in backends}
     for b in backends:   # warm-up: kernel build, first launches
-        runners[b](shards, obst_shards)[1].cpu()
+        runners[b]([s.clone() for s in shards], obst_shards)[1].cpu()
     samples = {b: [] for b in backends}
     for r in range(args.pairs):
         for b in (backends if r % 2 == 0 else backends[::-1]):
+            state = [s.clone() for s in shards]
             _sync(mesh)
             t0 = time.perf_counter()
-            _, av = runners[b](shards, obst_shards)
+            _, av = runners[b](state, obst_shards)
             av.cpu()
             _sync(mesh)
             sec = time.perf_counter() - t0
