@@ -84,12 +84,26 @@ Phases; any failure raises and exits non-zero before the result lines:
    8192^2 with ``--no-output``, its final state bitwise phase 4's
    single-device K4 run and its av series within 1 %; logged and bounded
    as the ring's;
-   Phases 3-7 log their seconds;
-8. one JSON line of the kernels, then the result line
+8. several processes, through the port's launcher (``python -m
+   tpulbm_torch.dist.launch --local-smoke 2x2``: two processes of two
+   shards on the one card, so the transport is gloo with the slabs staged
+   through the host): 1024^2 at its full step count with dcp checkpoints
+   every CKPT_EVERY steps, through the golden gate and the same bytes as
+   phase 6's one-process run over 4 shards; its 10,000-step checkpoint
+   resumed in one process over 4 shards, the same bytes; 128^2 over a 2x2
+   torus on two processes for 4,000 steps, the bytes of one process's.
+   Launches are counted in each process (``--launch-counts``); process
+   0's MLUPS, host microseconds of exchange a chunk and transport are
+   logged;
+   Phases 3-8 log their seconds;
+9. one JSON line of the kernels, then the result line
    ``{"ok": true, "device": {...}}``;
-9. with ``--cards``, instead of phases 3-8: the ring with shard i on card
-   i, and the torus with block (i, j) on card 2i + j (``phase_cards``),
-   then the result line.
+10. with ``--cards``, instead of phases 3-9: the ring with shard i on card
+    i, and the torus with block (i, j) on card 2i + j (``phase_cards``);
+    on four cards, the launcher's NCCL transport: 2 processes x 2 cards
+    and 4 x 1, 1024^2 (the bytes of the one-process ring, the final state
+    of one card) and 8192^2 (its state, from a dcp checkpoint, bitwise one
+    card's K4 run); then the result line.
 """
 
 from __future__ import annotations
@@ -98,6 +112,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1094,14 +1109,21 @@ def _mesh_golden(deck, steps, mesh_args, totals, extra=()):
     """A reference deck over a ring or torus (``mesh_args``) through
     cli.main, with ``extra`` arguments, its outputs through the golden
     gate. Returns the output directory."""
-    from tpulbm_torch.validation import check
-
-    golden = os.path.join(ROOT, "tests", "goldens")
     name = "".join(mesh_args).replace("--", "_")
     out = os.path.join(OUT, f"{deck}{name}")
     sim, _ = _mesh_cli(deck, steps, [*mesh_args, *extra], totals, out)
     assert sim.params.max_iters == steps, (deck, sim.params.max_iters)
     del sim
+    _golden(deck, out, " ".join(mesh_args))
+    _free()
+    return out
+
+
+def _golden(deck, out, what):
+    """The output files in `out` through the golden gate."""
+    from tpulbm_torch.validation import check
+
+    golden = os.path.join(ROOT, "tests", "goldens")
     av_ref = os.path.join(golden, f"{deck}.av_vels.dat")
     fs_ref = os.path.join(golden, f"{deck}.final_state.dat")
     av_out = os.path.join(out, "av_vels.dat")
@@ -1113,12 +1135,9 @@ def _mesh_golden(deck, steps, mesh_args, totals, extra=()):
             av_ref, fs_ref, av_out, os.path.join(out, "final_state.dat"),
             GOLDEN_TOL, verbose=False)
         msg += f", final_state max diff {fs.max_diff_pcnt:.3g} %"
-    what = " ".join(mesh_args)
     log(f"[golden] {deck} {what}: golden ({GOLDEN_TOL:g} %): {msg}")
     if not (av_ok and fs_ok):
         raise AssertionError(f"{deck} {what}: golden check failed")
-    _free()
-    return out
 
 
 def _ring_busy():
@@ -1194,15 +1213,16 @@ CKPT_EVERY = 5000
 RESUME_STEP = 10000
 
 
-def _expect_checkpoints(ck, steps):
+def _expect_checkpoints(ck, steps, ext="npz"):
     """The checkpoint directory of a run of `steps` steps that saved every
-    CKPT_EVERY: one npz file a multiple of CKPT_EVERY."""
+    CKPT_EVERY: one npz file (or dcp directory) a multiple of CKPT_EVERY.
+    Returns the path of step RESUME_STEP's."""
     names = sorted(os.listdir(ck))
-    want = [f"ckpt_{s:08d}.npz" for s in range(CKPT_EVERY, steps + 1,
-                                                CKPT_EVERY)]
+    want = [f"ckpt_{s:08d}.{ext}" for s in range(CKPT_EVERY, steps + 1,
+                                                 CKPT_EVERY)]
     if names != want:
         raise AssertionError(f"{ck}: {names}, not {want}")
-    return os.path.join(ck, f"ckpt_{RESUME_STEP:08d}.npz")
+    return os.path.join(ck, f"ckpt_{RESUME_STEP:08d}.{ext}")
 
 
 def _read(out, name):
@@ -1210,18 +1230,19 @@ def _read(out, name):
         return fh.read()
 
 
-def _same_bytes(out, ref, what, av_from=0):
+def _same_bytes(out, ref, what, av_from=0,
+                ref_what="phase 4's uninterrupted run"):
     """The output files in `out` are the bytes of those in `ref` (av_vels.dat
     from its line av_from on)."""
     fs_same = _read(out, "final_state.dat") == _read(ref, "final_state.dat")
     av, av_ref = (_read(out, "av_vels.dat").splitlines()[av_from:],
                   _read(ref, "av_vels.dat").splitlines()[av_from:])
     av_same = av == av_ref and len(av) > 0
-    log(f"    {what}: final_state.dat the same bytes as phase 4's "
-        f"uninterrupted run: {fs_same}; av_vels.dat"
+    log(f"    {what}: final_state.dat the same bytes as {ref_what}: "
+        f"{fs_same}; av_vels.dat"
         f"{f' from step {av_from}' if av_from else ''}: {av_same}")
     if not (fs_same and av_same):
-        raise AssertionError(f"{what}: output files differ from phase 4's")
+        raise AssertionError(f"{what}: output files differ from {ref_what}")
 
 
 def phase_torus(one_card):
@@ -1373,6 +1394,127 @@ def phase_checkpoint():
     return totals
 
 
+# The multi-process main path: python -m tpulbm_torch.dist.launch
+# --local-smoke PROCESSES (two processes of two shards; on one card they
+# share it, so the transport is gloo with the slabs staged through the
+# host). 1024^2 with dcp checkpoints every CKPT_EVERY steps, its outputs
+# through the golden gate and the bytes of phase 6's --device-count 4 run;
+# its RESUME_STEP checkpoint resumed in one process over the same four
+# shards, the same bytes; 128^2 over a 2x2 torus on two processes for
+# TORUS_PROCESS_STEPS steps, the bytes of one process's torus.
+PROCESSES = "2x2"
+TORUS_PROCESS_STEPS = 4000
+_EXCHANGE = re.compile(r"multihost: transport (.*), (\d+) chunks, host "
+                       r"exchange ([\d.]+) us a chunk")
+
+
+def _launch(deck, steps, args, kernel, totals, shape=PROCESSES,
+            transport="gloo"):
+    """One run of the port's launcher, ``--local-smoke shape``: its lines
+    logged, its processes' launch counts (``--launch-counts``) checked
+    (only ``kernel``) and added to totals; the transport must be
+    ``transport``. Logs MLUPS and process 0's host exchange time a chunk;
+    returns the Reynolds number."""
+    pf, of = deck_files(deck)
+    procs = int(shape.split("x")[0])
+    counts = os.path.join(OUT, f"launches_{deck}_{shape}")
+    for r in range(procs):
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(f"{counts}.{r}")
+    cmd = [sys.executable, "-m", "tpulbm_torch.dist.launch", "--local-smoke",
+           shape, "--timeout", "300", pf, of, *args, "--launch-counts",
+           counts]
+    log(f"[multiproc] python -m tpulbm_torch.dist.launch --local-smoke "
+        f"{shape} {deck} {' '.join(args)} ({steps} steps)")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=360)
+    wall = time.perf_counter() - t0
+    for line in (proc.stdout + proc.stderr).splitlines():
+        log(f"    {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"{cmd} exited {proc.returncode}")
+    per = []
+    for r in range(procs):
+        with open(f"{counts}.{r}") as fh:
+            per.append(json.load(fh))
+    summed = {k: sum(c[k] for c in per) for k in per[0]}
+    _check_launches(deck, summed, [kernel, "reduce_partials"],
+                    [c for c in ("skew_chunk", "kstep_chunk", "resident_chunk",
+                                 "tile_chunk", "cluster_resident",
+                                 "ring_chunk", "torus_chunk") if c != kernel])
+    for key, v in summed.items():
+        totals[key] += v
+    fields = dict(line.split(":", 1) for line in proc.stdout.splitlines()
+                  if ":" in line)
+    elapsed = float(fields["Elapsed time"].split()[0])
+    how, chunks, us = _EXCHANGE.search(proc.stderr).groups()
+    nx, ny = map(int, deck.split("x"))
+    log(f"[multiproc] {deck} over {shape} (processes x shards): "
+        f"{nx * ny * steps / elapsed / 1e6:.1f} MLUPS ({elapsed:.3f} s), "
+        f"transport {how}, {chunks} chunks, host exchange {us} us a chunk "
+        f"(process 0), the launcher's wall {wall:.1f} s")
+    if not how.startswith(transport):
+        raise AssertionError(f"transport {how}, not {transport}")
+    return float(fields["Reynolds number"])
+
+
+def phase_multiproc():
+    """The multi-process main path (see PROCESSES)."""
+    from tpulbm_torch.ops import _build
+
+    totals = dict.fromkeys(_build.LAUNCHES, 0)
+    deck, steps = "1024x1024", 20000
+    pf, of = deck_files(deck)
+    ring4 = os.path.join(OUT, f"{deck}_device-count4")
+    ck = os.path.join(OUT, f"ckpt_multiproc_{deck}")
+    shutil.rmtree(ck, ignore_errors=True)
+    out = os.path.join(OUT, f"{deck}_multiproc")
+    _free()
+    _launch(deck, steps, ["--ckpt-backend", "dcp", "--checkpoint-every",
+                          str(CKPT_EVERY), "--checkpoint-dir", ck,
+                          "--out-dir", out], "ring_chunk", totals)
+    _golden(deck, out, f"over {PROCESSES} (processes x shards)")
+    _same_bytes(out, ring4, f"{PROCESSES} processes x shards",
+                ref_what="phase 6's --device-count 4 run")
+    path = _expect_checkpoints(ck, steps, "dcp")
+
+    resumed = os.path.join(OUT, f"{deck}_multiproc_resumed")
+    log(f"[multiproc] python -m tpulbm_torch {deck} --device-count 4 "
+        f"--resume {path} (the two processes' step {RESUME_STEP}, in one)")
+    _build.reset_launches()
+    _run_cli([pf, of, "--device-count", "4", "--resume", path, "--out-dir",
+              resumed])
+    counts = dict(_build.LAUNCHES)
+    _check_launches(deck, counts, ["ring_chunk", "reduce_partials"],
+                    ["torus_chunk", "tile_chunk", "skew_chunk",
+                     "kstep_chunk"])
+    for key, v in counts.items():
+        totals[key] += v
+    _same_bytes(resumed, ring4, "dcp checkpoint resumed in one process",
+                ref_what="phase 6's --device-count 4 run")
+    _free()
+
+    # the torus on two processes against one process's, for the first
+    # TORUS_PROCESS_STEPS steps: host-bound, 500 chunks show it
+    deck, steps = "128x128", TORUS_PROCESS_STEPS
+    pf, of = deck_files(deck)
+    one = os.path.join(OUT, f"{deck}_torus_{steps}")
+    short = ["--max-iters", str(steps)]
+    log(f"[multiproc] python -m tpulbm_torch {deck} {' '.join(TORUS)} "
+        f"{' '.join(short)} (one process)")
+    _build.reset_launches()
+    _run_cli([pf, of, *TORUS, *short, "--out-dir", one])
+    for key, v in _build.LAUNCHES.items():
+        totals[key] += v
+    out = os.path.join(OUT, f"{deck}_multiproc_torus")
+    _launch(deck, steps, [*TORUS, *short, "--out-dir", out], "torus_chunk",
+            totals)
+    _same_bytes(out, one, f"the torus over {PROCESSES} (processes x blocks)",
+                ref_what="one process's torus")
+    return totals
+
+
 KERNELS = [
     # (counter, name, source, replaces)
     ("cluster_resident", "lbm_cluster_chunk (K5)",
@@ -1421,7 +1563,7 @@ def phase_cards():
     ``--backend cuda-p2p``; and over 3) and 128^2 through the golden gate,
     and 8192^2 over 4 shards; the torus over 2x2 with block (i, j) on card
     (2i + j) % cards: 1024^2 through the golden gate, and 8192^2, its state
-    bitwise one card's K4 run."""
+    bitwise one card's K4 run; on four cards, ``_processes_on_cards``."""
     import torch
 
     from tpulbm_torch.ops import _build
@@ -1429,6 +1571,12 @@ def phase_cards():
 
     if torch.cuda.device_count() < 2:
         raise SystemExit("chip_smoke --cards: needs two or more CUDA devices")
+    deck, steps = TORUS_WIDE_RUN
+    one = Simulation.from_files(*deck_files(deck))
+    one.run()
+    f_one = one.f.cpu()
+    del one
+    _free()
     _ring_on_cards()
     n = min(4, torch.cuda.device_count())
     totals = dict.fromkeys(_build.LAUNCHES, 0)
@@ -1444,17 +1592,69 @@ def phase_cards():
     _mesh_golden("1024x1024", 20000, TORUS, totals)
     deck, steps = TORUS_WIDE_RUN
     sim, _ = _mesh_cli(deck, steps, TORUS, totals)
-    f_torus = sim.f
+    f_torus = sim.f.cpu()
     del sim
-    one = Simulation.from_files(*deck_files(deck))
-    one.run()
-    same = torch.equal(f_torus, one.f)
+    same = torch.equal(f_torus, f_one)
     log(f"[torus] {deck} over 2x2 across cards vs one card's K4 run: state "
         f"bitwise {same}")
     if not same:
         raise AssertionError(f"{deck} over 2x2 across cards disagrees")
-    del f_torus, one
+    del f_torus
     _free()
+    if n >= 4:
+        _processes_on_cards(f_one, totals)
+    else:
+        log("[multiproc] fewer than four cards: the NCCL transport is not "
+            "run")
+
+
+def _processes_on_cards(f_one, totals):
+    """The launcher's NCCL transport on four cards: 2 processes x 2 cards
+    and 4 x 1. 1024^2: the same bytes as the one-process ring over 4
+    (``phase_cards``), final_state.dat the bytes of one card's run; 8192^2
+    at its 1,000 steps: its state, read back from a dcp checkpoint of the
+    last step, bitwise one card's K4 run (``f_one``)."""
+    import torch
+
+    from tpulbm_torch.io.params_file import read_params
+    from tpulbm_torch.sim import checkpoint as ckpt
+
+    deck, steps = "1024x1024", 20000
+    pf, of = deck_files(deck)
+    single = os.path.join(OUT, f"{deck}_one_card")
+    log(f"[multiproc] python -m tpulbm_torch {deck} (one card)")
+    _run_cli([pf, of, "--out-dir", single])
+    wide, wide_steps = TORUS_WIDE_RUN
+    for shape in ("2x2", "4x1"):
+        out = os.path.join(OUT, f"{deck}_processes_{shape}")
+        _launch(deck, steps, ["--out-dir", out], "ring_chunk", totals, shape,
+                "nccl")
+        _same_bytes(out, os.path.join(OUT, f"{deck}_device-count4"),
+                    f"{shape} processes x cards",
+                    ref_what="the one-process ring over 4 cards")
+        same = _read(out, "final_state.dat") == _read(single,
+                                                      "final_state.dat")
+        log(f"    final_state.dat the same bytes as one card's: {same}")
+        if not same:
+            raise AssertionError(f"{deck} over {shape} processes x cards "
+                                 f"disagrees with one card")
+        ck = os.path.join(OUT, f"ckpt_{wide}_{shape}")
+        shutil.rmtree(ck, ignore_errors=True)
+        _launch(wide, wide_steps, ["--no-output", "--ckpt-backend", "dcp",
+                                   "--checkpoint-every", str(wide_steps),
+                                   "--checkpoint-dir", ck],
+                "ring_chunk", totals, shape, "nccl")
+        _, f, _ = ckpt.restore(
+            os.path.join(ck, f"ckpt_{wide_steps:08d}.dcp"),
+            read_params(deck_files(wide)[0]))
+        same = torch.equal(torch.from_numpy(f), f_one)
+        log(f"[multiproc] {wide} over {shape} processes x cards vs one "
+            f"card's K4 run: state bitwise {same}")
+        shutil.rmtree(ck, ignore_errors=True)
+        del f
+        if not same:
+            raise AssertionError(f"{wide} over {shape} processes x cards "
+                                 f"disagrees with one card")
 
 
 def main(argv=None) -> int:
@@ -1497,8 +1697,12 @@ def main(argv=None) -> int:
     log(f"[time] ring main path {t4 - t3:.1f} s")
     for key, v in phase_torus(one_card).items():
         launches[key] += v
-    log(f"[time] torus main path {time.perf_counter() - t4:.1f} s")
+    t5 = time.perf_counter()
+    log(f"[time] torus main path {t5 - t4:.1f} s")
     del one_card
+    for key, v in phase_multiproc().items():
+        launches[key] += v
+    log(f"[time] multi-process main path {time.perf_counter() - t5:.1f} s")
     import torch
 
     kernels = [{"name": name, "route": "cuda", "source": source,

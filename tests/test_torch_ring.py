@@ -31,6 +31,7 @@ from tpulbm import cli as jcli
 from tpulbm.core.params import LBMParams as JParams
 from tpulbm.dist import sharding as jsharding
 from tpulbm.dist.mesh import get_mesh as j_get_mesh
+from tpulbm.dist.runner import _make_xpad_runner as j_make_xpad_runner
 from tpulbm.dist.runner import make_runner as j_make_runner
 from tpulbm_torch import cli
 from tpulbm_torch.core import physics
@@ -195,15 +196,35 @@ def test_ring_matches_jax_jnp_ring(n_shards, n_steps):
            _jax_ring(p, mask, f0, n_steps, n_shards, "jnp"), tol)
 
 
-def test_uneven_ring_matches_jax_padded_runner():
-    """128 rows over 3 shards (43/43/42), no padding, against the JAX
-    package's padded runner (dead rows to 129), 50 steps of a perturbed
-    state."""
+@pytest.mark.parametrize("n_shards", [3, 5, 6, 7])
+def test_uneven_ring_matches_jax_padded_runner(n_shards):
+    """128 rows over 3, 5, 6 and 7 shards (43/43/42 ... 19 x 2 and 18 x
+    5), no padding, against the JAX package's padded runner
+    (``_make_padded_runner``, tpulbm/dist/runner.py:1101: dead rows to 129,
+    130, 132, 133), 50 steps of a perturbed state."""
     p, mask = _deck()
     f0 = _perturbed(p, 11)
-    assert p.ny % 3 != 0
-    _close(_ring(p, mask, f0, 50, 3),
-           _jax_ring(p, mask, f0, 50, 3, "jnp"), 1e-7)
+    assert p.ny % n_shards != 0
+    _close(_ring(p, mask, f0, 50, n_shards),
+           _jax_ring(p, mask, f0, 50, n_shards, "jnp"), 1e-7)
+
+
+def test_ring_at_unaligned_nx_matches_jax_xpad_runner():
+    """nx = 130 over 2 shards, 13 steps (an 8-step chunk and a 5-step one)
+    of a perturbed state: the kernel path's ring (ring_chunk, plain on the
+    CPU) runs the columns as they are; the JAX package pads them to 256
+    with mirror copies (``_make_xpad_runner``, tpulbm/dist/runner.py:1453,
+    Pallas in interpret mode)."""
+    p = LBMParams(nx=130, ny=128, max_iters=13, reynolds_dim=10,
+                  density=0.1, accel=0.005, omega=1.85)
+    mask = np.random.RandomState(5).rand(128, 130) < 0.12
+    p = p.with_free_cells(p.ny * p.nx - int(mask.sum()))
+    f0 = _perturbed(p, 15)
+    run = j_make_xpad_runner(_jp(p), 13, j_get_mesh(n_devices=2))
+    assert run is not None
+    f_j, av_j = run(jnp.asarray(f0), jnp.asarray(mask))
+    _close(_ring(p, mask, f0, 13, 2, kstep_tile.ring_chunk),
+           (np.asarray(f_j), np.asarray(av_j)), 1e-7)
 
 
 @pytest.mark.parametrize("n_steps", [16, 13])

@@ -184,6 +184,9 @@ def test_port_never_imports_jax_or_tpulbm():
     files = sorted((ROOT / "tpulbm_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    for name in ("dist/multihost.py", "dist/launch.py", "graft_entry.py",
+                 "tools/make_deck.py", "viz.py"):
+        assert ROOT / "tpulbm_torch" / name in files, name
     for path in files:
         for name in _imports(ast.parse(path.read_text(), str(path))):
             top = name.split(".")[0]

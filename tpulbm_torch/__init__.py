@@ -11,8 +11,18 @@ imports torch and numpy, never jax.
 
 __version__ = "0.1.0"
 
-from tpulbm_torch.core.params import LBMParams
-from tpulbm_torch.core.state import initial_state
-from tpulbm_torch.sim.simulation import Simulation
-
 __all__ = ["LBMParams", "initial_state", "Simulation", "__version__"]
+
+_LAZY = {"LBMParams": "tpulbm_torch.core.params",
+         "initial_state": "tpulbm_torch.core.state",
+         "Simulation": "tpulbm_torch.sim.simulation"}
+
+
+def __getattr__(name):
+    # imported on first use, so that a module that needs no torch (the
+    # launcher, dist/launch.py) starts without importing it
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -8,9 +8,14 @@ wall/user/system time — d2q9-bgk.c:409-416), messages and exit codes as
 av_vels.dat into --out-dir. ``--device-count N`` runs a 1-D ring of N row
 shards (``dist.mesh``), one per visible card by default; ``--mesh-shape
 DYxDX`` a 2-D torus of dy x dx blocks; ``--device cpu --device-count 4``
-runs four CPU shards on the plain versions of the kernels. Checkpoints are
-the JAX package's npz files (``sim.checkpoint``); ``--multihost`` and
-``--ckpt-backend orbax`` have no counterpart yet.
+runs four CPU shards on the plain versions of the kernels.
+``--multihost`` runs the ring (or, with ``--mesh-shape``, the torus) over
+every process of a ``torch.distributed`` group (``dist.multihost``;
+``python -m tpulbm_torch.dist.launch`` or torchrun starts them), process 0
+printing the result block and writing the outputs. Checkpoints are the JAX
+package's npz files or, with ``--ckpt-backend dcp`` (the counterpart of
+orbax), ``torch.distributed.checkpoint`` directories that each process
+writes its own shards into (``sim.checkpoint``).
 """
 
 from __future__ import annotations
@@ -55,6 +60,15 @@ def build_parser() -> argparse.ArgumentParser:
              "cuda:((i * DX + j) %% count)",
     )
     p.add_argument(
+        "--multihost",
+        action="store_true",
+        help="start torch.distributed (TPULBM_COORDINATOR/TPULBM_NUM_PROCS/"
+             "TPULBM_PROC_ID or torchrun's MASTER_ADDR/MASTER_PORT/RANK/"
+             "WORLD_SIZE env) and run over the global host-contiguous ring "
+             "(or --mesh-shape torus) of every process's shards; process 0 "
+             "writes outputs. See python -m tpulbm_torch.dist.launch",
+    )
+    p.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",
         help="device to run on (default cuda; fails if no GPU is visible)",
     )
@@ -73,9 +87,11 @@ def build_parser() -> argparse.ArgumentParser:
         "--checkpoint-dir", default=None, help="checkpoint directory"
     )
     p.add_argument(
-        "--ckpt-backend", choices=("npz",), default="npz",
+        "--ckpt-backend", choices=("npz", "dcp"), default="npz",
         help="checkpoint storage: npz (single atomic file, the JAX "
-             "package's format)",
+             "package's format) or dcp (async sharded save with "
+             "torch.distributed.checkpoint; each process writes its own "
+             "shards)",
     )
     p.add_argument(
         "--resume", default=None,
@@ -101,6 +117,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="print av_velocity and total_density each chunk (the reference's "
              "DEBUG block, d2q9-bgk.c:380-393)",
     )
+    p.add_argument(
+        "--launch-counts", default=None, metavar="FILE",
+        help="write the kernel launches of this run (ops._build.LAUNCHES) "
+             "as one JSON object to FILE (FILE.<process> under --multihost)",
+    )
     return p
 
 
@@ -111,8 +132,58 @@ def die(message: str) -> "int":
     return 1
 
 
+def _mesh_shape(text):
+    dy, sep, dx = text.partition("x")
+    if not sep or not dy.isdigit() or not dx.isdigit():
+        return None
+    return int(dy), int(dx)
+
+
+def _start_processes(args):
+    """--multihost: start the process group with its transport fixed
+    before the run (printed on stderr); returns the global mesh."""
+    import torch
+
+    from tpulbm_torch.dist import multihost
+
+    env = multihost.dist_env()
+    shape = _mesh_shape(args.mesh_shape) if args.mesh_shape else None
+    if shape:
+        n = shape[0] * shape[1]
+    elif args.device_count is not None:
+        n = args.device_count
+    else:
+        n = env.world * multihost.local_shard_count(args.device)
+    if n < 1 or n % env.world:
+        raise ValueError(f"{n} shards do not split evenly over "
+                         f"{env.world} processes")
+    cards = torch.cuda.device_count() if args.device == "cuda" else 0
+    backend = multihost.choose_transport(args.device, n // env.world,
+                                         env.local_world, cards)
+    multihost.init_distributed(backend)
+    info = multihost.process_mesh_info()
+    mesh = (multihost.global_torus_mesh(*shape, device=args.device) if shape
+            else multihost.global_ring_mesh(n, device=args.device))
+    print(f"multihost: process {info['process_index']}/"
+          f"{info['process_count']}, {n // info['process_count']} local / "
+          f"{n} global shards, transport {info['transport'] or 'none'}",
+          file=sys.stderr, flush=True)
+    return mesh
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    try:
+        return _main(args)
+    finally:
+        if args.multihost:
+            from tpulbm_torch.dist import multihost
+
+            multihost.shutdown()
+
+
+def _main(args) -> int:
+    import json
 
     import numpy as np
     import torch
@@ -126,20 +197,23 @@ def main(argv=None) -> int:
     if args.device == "cuda" and not torch.cuda.is_available():
         return die("--device cuda, but no CUDA device is available "
                    "(torch.cuda.is_available() is false)")
+    if args.mesh_shape and not _mesh_shape(args.mesh_shape):
+        return die(f"--mesh-shape must be DYxDX (e.g. 2x4), "
+                   f"got {args.mesh_shape!r}")
+    if args.multihost:
+        try:
+            mesh = _start_processes(args)
+        except Exception as e:  # coordinator unreachable, bad env, ...
+            return die(f"torch.distributed initialization failed: {e}")
     try:
-        if args.mesh_shape:
-            dy, sep, dx = args.mesh_shape.partition("x")
-            if not sep or not dy.isdigit() or not dx.isdigit():
-                return die(
-                    f"--mesh-shape must be DYxDX (e.g. 2x4), "
-                    f"got {args.mesh_shape!r}"
-                )
-            mesh = get_mesh_2d(int(dy), int(dx), device=args.device)
-        else:
-            mesh = get_mesh(n_devices=args.device_count, device=args.device)
+        if not args.multihost:
+            mesh = (get_mesh_2d(*_mesh_shape(args.mesh_shape),
+                                device=args.device) if args.mesh_shape
+                    else get_mesh(n_devices=args.device_count,
+                                  device=args.device))
         sim = Simulation.from_files(
             args.paramfile, args.obstaclefile, backend=args.backend,
-            device=args.device, mesh=mesh,
+            device=args.device, mesh=mesh, ckpt_backend=args.ckpt_backend,
         )
     except FileNotFoundError as e:
         return die(f"could not open input file: {e.filename}")
@@ -157,7 +231,8 @@ def main(argv=None) -> int:
     sim.settle()
     tic = time.time()
     try:
-        with trace_region("mainloop", args.profile_dir):
+        with trace_region("mainloop",
+                          args.profile_dir if sim.output else None):
             result = sim.run(
                 chunk=args.chunk,
                 checkpoint_every=args.checkpoint_every,
@@ -171,15 +246,30 @@ def main(argv=None) -> int:
     toc = time.time()
     ru = resource.getrusage(resource.RUSAGE_SELF)
 
-    # Same result block as the reference MASTER rank (d2q9-bgk.c:409-416).
-    print("==done==")
-    print("Reynolds number:\t\t%.12E" % result.reynolds)
-    print("Elapsed time:\t\t\t%.6f (s)" % (toc - tic))
-    print("Elapsed user CPU time:\t\t%.6f (s)" % ru.ru_utime)
-    print("Elapsed system CPU time:\t%.6f (s)" % ru.ru_stime)
+    # Same result block as the reference MASTER rank (d2q9-bgk.c:409-416);
+    # under --multihost only process 0 prints, like MASTER.
+    if sim.output:
+        print("==done==")
+        print("Reynolds number:\t\t%.12E" % result.reynolds)
+        print("Elapsed time:\t\t\t%.6f (s)" % (toc - tic))
+        print("Elapsed user CPU time:\t\t%.6f (s)" % ru.ru_utime)
+        print("Elapsed system CPU time:\t%.6f (s)" % ru.ru_stime)
+    tr = sim.transport
+    if args.multihost and sim.output and tr.chunks:
+        print(f"multihost: transport {tr.backend}, {tr.chunks} chunks, "
+              f"host exchange {tr.seconds / tr.chunks * 1e6:.1f} us a chunk",
+              file=sys.stderr, flush=True)
 
     if not args.no_output:
         sim.write_outputs(args.out_dir)
+    if args.launch_counts:
+        from tpulbm_torch.ops import _build
+
+        path = args.launch_counts
+        if args.multihost:
+            path = f"{path}.{tr.rank}"
+        with open(path, "w") as fh:
+            json.dump(_build.LAUNCHES, fh)
     return 0
 
 

@@ -1,12 +1,16 @@
-"""The devices of the 1-D ring and of the 2-D torus.
+"""The devices of the 1-D ring and of the 2-D torus, in one process.
 
 Counterpart of ``tpulbm.dist.mesh``: the reference's process topology is a
-1-D ring of MPI ranks over grid rows (d2q9-bgk.c:244-247,834-862). The
-port's ring is one process that drives a list of shards, one per entry of
-the device list ``get_mesh`` returns; the halo slabs move by tensor copies
-(peer copies between cards). ``get_mesh_2d`` is the counterpart of
+1-D ring of MPI ranks over grid rows (d2q9-bgk.c:244-247,834-862).
+``get_mesh`` returns the device list of a ring whose shards one process
+drives, one per entry; ``get_mesh_2d`` is the counterpart of
 ``tpulbm.dist.mesh.get_mesh_2d`` (``--mesh-shape DYxDX``): a dy x dx nested
-list of devices, one per block of the torus, which the same process drives.
+list of devices, one per block of the torus. Within a process the halo
+slabs move by tensor copies (peer copies between cards). Over several
+processes (``--multihost``) the global ring and torus come from
+``dist.multihost.global_ring_mesh`` and ``global_torus_mesh``, which list
+each process's own shards and ``None`` for the others', and
+``dist.multihost.Transport`` moves the slabs that cross a process.
 """
 
 from __future__ import annotations

@@ -43,6 +43,15 @@ any block width, so the TPU's ``w >= 128`` / ``supported_x_halo`` gate
 (runner.py:1532-1544), which picks between the Pallas and jnp tori there,
 chooses no route here: every block takes torus mode.
 
+Over several processes (``--multihost``) the ring's and the torus's mesh
+is the global one (``dist.multihost``), ``None`` for another process's
+shards, and a runner takes and returns this process's shards alone. A
+``dist.multihost.Transport`` moves every halo piece (the mask bands' too):
+a copy where both shards are in this process, as on one process, a P2P
+message where not; the raw sums of every shard are gathered to every
+process and added there in shard order, so the series is bitwise that of
+one process driving every shard.
+
 Every runner takes ownership of its input, as the JAX runners do with
 ``donate_argnums=0``: a chunk writes its state into the storage that the
 chunk before it read (``ops.kstep.output``), so a run holds two states,
@@ -82,13 +91,14 @@ H100s (PERF.md).
 from __future__ import annotations
 
 import sys
+import time
 from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from tpulbm_torch.core.params import LBMParams
-from tpulbm_torch.dist import tiers
+from tpulbm_torch.dist import multihost, tiers
 from tpulbm_torch.dist.sharding import block_shape, ring_rows
 from tpulbm_torch.ops import cluster, kstep, kstep_tile, resident, step_torch
 
@@ -154,24 +164,28 @@ def run_plan(plan, f, obst_f, params: LBMParams):
 
 
 def make_runner(params: LBMParams, n_steps: int, backend: str = "auto",
-                device="cuda", mesh: Sequence | None = None) -> Callable:
+                device="cuda", mesh: Sequence | None = None,
+                transport=None) -> Callable:
     if mesh is not None and isinstance(mesh[0], (list, tuple)):
         if backend == "cuda-p2p":
             # as the JAX package refuses pallas-rdma (runner.py:1646-1650)
             raise ValueError(
                 "backend='cuda-p2p' is not available on a 2-D mesh "
                 "(use 'cuda', 'torch' or 'auto')")
-        mesh = [[torch.device(d) for d in row] for row in mesh]
-        backend = resolve_backend(backend, mesh[0][0])
+        mesh = [[None if d is None else torch.device(d) for d in row]
+                for row in mesh]
+        backend = resolve_backend(backend, _first_local(mesh))
         return make_torus_runner(
             params, n_steps, mesh,
-            _plain_torus if backend == "torch" else kstep_tile.torus_chunk)
+            _plain_torus if backend == "torch" else kstep_tile.torus_chunk,
+            transport)
     if mesh is not None and len(mesh) > 1:
-        mesh = [torch.device(d) for d in mesh]
-        backend = resolve_backend(backend, mesh[0])
+        mesh = _flat(mesh)
+        backend = resolve_backend(backend, _first_local(mesh))
         return make_ring_runner(
             params, n_steps, mesh,
-            _plain_ring if backend == "torch" else kstep_tile.ring_chunk)
+            _plain_ring if backend == "torch" else kstep_tile.ring_chunk,
+            transport)
     device = torch.device(device if mesh is None else mesh[0])
     if backend == "cuda-p2p":
         # The JAX package's route for pallas-rdma on one device
@@ -223,46 +237,81 @@ def _plain_torus(xlo, block, xhi, ylo, yhi, obst_band, params, k, row_base,
     return kstep.into(out, f), sums
 
 
-def _deferred_sum(sums, device, params: LBMParams):
-    """The per-device lists of raw per-step sums, added on ``device`` in
-    list order and scaled by ``free_cells_inv``."""
+def _deferred_sum(sums, device, params: LBMParams, transport):
+    """The local shards' lists of raw per-step sums and every other
+    process's (``transport.all_gather``), added on ``device`` in shard order
+    and scaled by ``free_cells_inv``: every process holds the same series,
+    bitwise that of one process driving every shard."""
     av = None
-    for s in sums:
-        s = torch.cat(s).to(device)
+    for s in transport.all_gather([torch.cat(s) for s in sums]):
+        s = s.to(device)
         av = s if av is None else av + s
     return av * torch.tensor(params.free_cells_inv, dtype=torch.float32,
                              device=device)
 
 
-def _copy_slabs(k: int, shards, mesh):
-    """The ring's slab copies, on each device's compute stream: [(lo, hi)]
-    per shard."""
-    n = len(shards)
-    return [(shards[(d - 1) % n][:, -k:].to(dev).contiguous(),
-             shards[(d + 1) % n][:, :k].to(dev).contiguous())
-            for d, dev in enumerate(mesh)]
+def _flat(mesh):
+    """A ring's devices, or a torus's in row-major order; ``None`` stays
+    ``None`` (another process's shard)."""
+    rows = mesh if isinstance(mesh[0], (list, tuple)) else [mesh]
+    return [None if d is None else torch.device(d) for row in rows
+            for d in row]
 
 
-def make_ring_runner(params: LBMParams, n_steps: int,
-                     mesh: Sequence[torch.device],
-                     chunk_fn: Callable) -> Callable:
+def _first_local(mesh) -> torch.device:
+    return next(d for d in _flat(mesh) if d is not None)
+
+
+def _sources(local, values, n):
+    """A list of n entries, values[j] at index local[j], None elsewhere."""
+    out = [None] * n
+    for d, v in zip(local, values):
+        out[d] = v
+    return out
+
+
+def _ring_pieces(k: int, n: int, lead: tuple, nx: int) -> list:
+    """The ring's halo pieces of a chunk of k steps (``Transport.move``):
+    for each shard d, the last k rows of shard d - 1 (its lo slab) and the
+    first k rows of shard d + 1 (its hi slab); the wrap is the periodic y
+    boundary. ``lead``: (9,) for states, () for masks."""
+    shape = (*lead, k, nx)
+
+    def lo(t):
+        return t[..., -k:, :]
+
+    def hi(t):
+        return t[..., :k, :]
+
+    return [piece for d in range(n)
+            for piece in (((d - 1) % n, d, shape, lo),
+                          ((d + 1) % n, d, shape, hi))]
+
+
+def make_ring_runner(params: LBMParams, n_steps: int, mesh: Sequence,
+                     chunk_fn: Callable, transport=None) -> Callable:
     """The ring runner over ``mesh`` (see the module docstring).
     ``chunk_fn(lo, shard, hi, obst_band, params, k, row_base, out)`` steps
     one shard: ``kstep_tile.ring_chunk`` (which takes its plain version on
-    CPU tensors) or ``_plain_ring``."""
-    mesh = list(mesh)
+    CPU tensors) or ``_plain_ring``. ``transport``
+    (``dist.multihost.Transport``, made from ``mesh`` where not given)
+    moves the slabs; the runner takes and returns this process's shards."""
+    mesh = _flat(mesh)
+    tr = transport or multihost.Transport(mesh)
     n, ny, nx = len(mesh), params.ny, params.nx
     rows, offsets = ring_rows(ny, n)
     if n_steps < 1:
         raise ValueError(f"ring runner of {n_steps} steps")
     k_max = min(kstep_tile.TILE_K, min(rows), n_steps)
     plan = [k for _, k in _chunks(None, k_max, n_steps)]
+    slabs = {k: _ring_pieces(k, n, (9,), nx) for k in set(plan)}
+    local = tr.local
 
     def runner(shards, obst_shards):
-        if len(shards) != n or len(obst_shards) != n:
-            raise ValueError(f"ring runner over {n} shards got "
-                             f"{len(shards)} and {len(obst_shards)}")
-        for d, (f, o) in enumerate(zip(shards, obst_shards)):
+        if len(shards) != len(local) or len(obst_shards) != len(local):
+            raise ValueError(f"ring runner over {len(local)} local shards "
+                             f"got {len(shards)} and {len(obst_shards)}")
+        for d, f, o in zip(local, shards, obst_shards):
             if (f.shape != (9, rows[d], nx) or o.shape != (rows[d], nx)
                     or f.device != mesh[d] or o.device != mesh[d]):
                 raise ValueError(
@@ -271,77 +320,105 @@ def make_ring_runner(params: LBMParams, n_steps: int,
                     f"{rows[d]} of the ({ny}, {nx}) grid on {mesh[d]}")
         # Shard d's (h + 2 k_max, nx) mask band; a chunk of k steps takes
         # its rows [k_max - k, k_max + h + k).
-        masks = [torch.cat([o.to(mesh[d], torch.float32) for o in (
-                     obst_shards[(d - 1) % n][-k_max:], obst_shards[d],
-                     obst_shards[(d + 1) % n][:k_max])])
-                 for d in range(n)]
-        shards, spares = list(shards), [None] * n
-        sums = [[] for _ in range(n)]
+        obst_f = [o.to(torch.float32) for o in obst_shards]
+        halo = tr.move(_ring_pieces(k_max, n, (), nx),
+                       _sources(local, obst_f, n))
+        masks = [torch.cat([halo[2 * d], o, halo[2 * d + 1]])
+                 for d, o in zip(local, obst_f)]
+        del obst_f, halo
+        shards, spares = list(shards), [None] * len(local)
+        sums = [[] for _ in local]
         for k in plan:
+            t0 = time.perf_counter()
+            halo = tr.move(slabs[k], _sources(local, shards, n))
+            tr.timed(t0)
             new = []
-            for d, (lo, hi) in enumerate(_copy_slabs(k, shards, mesh)):
-                band = masks[d][k_max - k:k_max + rows[d] + k]
-                f, s = chunk_fn(lo, shards[d], hi, band, params, k,
-                                (offsets[d] - k) % ny, out=spares[d])
+            for j, d in enumerate(local):
+                band = masks[j][k_max - k:k_max + rows[d] + k]
+                f, s = chunk_fn(halo[2 * d], shards[j], halo[2 * d + 1],
+                                band, params, k, (offsets[d] - k) % ny,
+                                out=spares[j])
                 new.append(f)
-                sums[d].append(s)
+                sums[j].append(s)
             spares, shards = shards, new
-        return shards, _deferred_sum(sums, mesh[0], params)
+        return shards, _deferred_sum(sums, tr.device, params, tr)
 
     return runner
 
 
-def _torus_halos(g, k: int, dy: int, dx: int, devs):
-    """The two-phase exchange of a chunk of k steps over the row-major
-    blocks ``g`` (states (9, h, w) or masks (h, w)) of a dy x dx torus:
-    [(xlo, xhi, ylo, yhi)] per block, on its device. x first: xlo holds the
-    left neighbour's last k columns in its last k of col_margin(k), xhi the
-    right neighbour's first k in its first (the rest zeros). Then y, from
-    the row neighbours' x-extended bands xlo | block | xhi: ylo their last k
-    rows, yhi their first k, corners included."""
+def _torus_pieces(k: int, dy: int, dx: int, lead: tuple, h: int, w: int):
+    """The two phases of the torus's exchange for a chunk of k steps
+    (runner.py:1255-1281), as ``Transport.move`` pieces. x first, from the
+    blocks: block b's xlo is its left neighbour's last k columns in the last
+    k of ``col_margin(k)``, its xhi its right neighbour's first k in the
+    first (the rest zeros). Then y, from each block's x-extended band
+    (xlo, block, xhi): block b's ylo is its upper neighbour's last k rows,
+    its yhi its lower neighbour's first k, corners included."""
     kx = kstep_tile.col_margin(k)
-    x = []
-    for b, dev in enumerate(devs):
+
+    def xlo(t):
+        return F.pad(t[..., -k:], (kx - k, 0))
+
+    def xhi(t):
+        return F.pad(t[..., :k], (0, kx - k))
+
+    def ylo(band):
+        return torch.cat([p[..., -k:, :] for p in band], dim=-1)
+
+    def yhi(band):
+        return torch.cat([p[..., :k, :] for p in band], dim=-1)
+
+    x, y = [], []
+    for b in range(dy * dx):
         i, j = divmod(b, dx)
-        left, right = g[i * dx + (j - 1) % dx], g[i * dx + (j + 1) % dx]
-        x.append((F.pad(left[..., -k:], (kx - k, 0)).to(dev),
-                  F.pad(right[..., :k], (0, kx - k)).to(dev)))
-    halos = []
-    for b, dev in enumerate(devs):
-        i, j = divmod(b, dx)
-        up, down = ((i - 1) % dy) * dx + j, ((i + 1) % dy) * dx + j
-        ylo = torch.cat([x[up][0][..., -k:, :], g[up][..., -k:, :],
-                         x[up][1][..., -k:, :]], dim=-1).to(dev)
-        yhi = torch.cat([x[down][0][..., :k, :], g[down][..., :k, :],
-                         x[down][1][..., :k, :]], dim=-1).to(dev)
-        halos.append((*x[b], ylo, yhi))
-    return halos
+        x += [(i * dx + (j - 1) % dx, b, (*lead, h, kx), xlo),
+              (i * dx + (j + 1) % dx, b, (*lead, h, kx), xhi)]
+        y += [(((i - 1) % dy) * dx + j, b, (*lead, k, w + 2 * kx), ylo),
+              (((i + 1) % dy) * dx + j, b, (*lead, k, w + 2 * kx), yhi)]
+    return x, y
 
 
-def make_torus_runner(params: LBMParams, n_steps: int,
-                      mesh2d: Sequence[Sequence[torch.device]],
-                      chunk_fn: Callable) -> Callable:
+def _torus_halos(tr, pieces, g, n: int):
+    """The exchange of a chunk (``_torus_pieces``) over this process's
+    blocks ``g`` (states or float masks): [(xlo, xhi, ylo, yhi)] per local
+    block, on its device."""
+    x_pieces, y_pieces = pieces
+    x = tr.move(x_pieces, _sources(tr.local, g, n))
+    bands = [(x[2 * b], blk, x[2 * b + 1]) for b, blk in zip(tr.local, g)]
+    y = tr.move(y_pieces, _sources(tr.local, bands, n))
+    return [(x[2 * b], x[2 * b + 1], y[2 * b], y[2 * b + 1])
+            for b in tr.local]
+
+
+def make_torus_runner(params: LBMParams, n_steps: int, mesh2d: Sequence,
+                      chunk_fn: Callable, transport=None) -> Callable:
     """The torus runner over the dy x dx ``mesh2d`` (see the module
     docstring). ``chunk_fn(xlo, block, xhi, ylo, yhi, obst_band, params, k,
     row_base, out)`` steps one block: ``kstep_tile.torus_chunk`` (which
-    takes its plain version on CPU tensors) or ``_plain_torus``."""
+    takes its plain version on CPU tensors) or ``_plain_torus``.
+    ``transport`` as for the ring; the runner takes and returns this
+    process's blocks."""
     dy, dx = len(mesh2d), len(mesh2d[0])
-    devs = [torch.device(d) for row in mesh2d for d in row]
+    devs = _flat(mesh2d)
     if len(devs) != dy * dx:
         raise ValueError(f"a torus mesh is a full dy x dx grid, got rows of "
                          f"{[len(row) for row in mesh2d]}")
+    tr = transport or multihost.Transport(devs)
     n, ny, nx = dy * dx, params.ny, params.nx
     h, w = block_shape(ny, nx, dy, dx)
     if n_steps < 1:
         raise ValueError(f"torus runner of {n_steps} steps")
     plan = [k for _, k in _chunks(None, min(kstep_tile.TILE_K, h, w,
                                             n_steps), n_steps)]
+    pieces = {k: _torus_pieces(k, dy, dx, (9,), h, w) for k in set(plan)}
+    local = tr.local
 
     def runner(blocks, obst_blocks):
-        if len(blocks) != n or len(obst_blocks) != n:
-            raise ValueError(f"torus runner over {dy}x{dx} blocks got "
-                             f"{len(blocks)} and {len(obst_blocks)}")
-        for b, (f, o) in enumerate(zip(blocks, obst_blocks)):
+        if len(blocks) != len(local) or len(obst_blocks) != len(local):
+            raise ValueError(f"torus runner over {len(local)} local blocks "
+                             f"of {dy}x{dx} got {len(blocks)} and "
+                             f"{len(obst_blocks)}")
+        for b, f, o in zip(local, blocks, obst_blocks):
             if (f.shape != (9, h, w) or o.shape != (h, w)
                     or f.device != devs[b] or o.device != devs[b]):
                 raise ValueError(
@@ -355,23 +432,26 @@ def make_torus_runner(params: LBMParams, n_steps: int,
         obst_f = [o.to(torch.float32) for o in obst_blocks]
         masks = {}
         for k in set(plan):
+            halos = _torus_halos(tr, _torus_pieces(k, dy, dx, (), h, w),
+                                 obst_f, n)
             masks[k] = [torch.cat([ylo, torch.cat([xlo, o, xhi], dim=-1),
                                    yhi], dim=-2)
-                        for o, (xlo, xhi, ylo, yhi) in zip(
-                            obst_f, _torus_halos(obst_f, k, dy, dx, devs))]
+                        for o, (xlo, xhi, ylo, yhi) in zip(obst_f, halos)]
         del obst_f
-        blocks, spares = list(blocks), [None] * n
-        sums = [[] for _ in range(n)]
+        blocks, spares = list(blocks), [None] * len(local)
+        sums = [[] for _ in local]
         for k in plan:
+            t0 = time.perf_counter()
+            halos = _torus_halos(tr, pieces[k], blocks, n)
+            tr.timed(t0)
             new = []
-            for b, (xlo, xhi, ylo, yhi) in enumerate(
-                    _torus_halos(blocks, k, dy, dx, devs)):
-                f, s = chunk_fn(xlo, blocks[b], xhi, ylo, yhi, masks[k][b],
+            for j, (b, (xlo, xhi, ylo, yhi)) in enumerate(zip(local, halos)):
+                f, s = chunk_fn(xlo, blocks[j], xhi, ylo, yhi, masks[k][j],
                                 params, k, (b // dx * h - k) % ny,
-                                out=spares[b])
+                                out=spares[j])
                 new.append(f)
-                sums[b].append(s)
+                sums[j].append(s)
             spares, blocks = blocks, new
-        return blocks, _deferred_sum(sums, devs[0], params)
+        return blocks, _deferred_sum(sums, tr.device, params, tr)
 
     return runner

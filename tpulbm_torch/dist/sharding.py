@@ -95,11 +95,14 @@ def ring_rows(ny: int, n_shards: int) -> Tuple[List[int], List[int]]:
 def shard_rows(f: torch.Tensor, obstacles: torch.Tensor,
                mesh: Sequence[torch.device]):
     """Cut the (9, ny, nx) state and the (ny, nx) mask into the row shards
-    of ``ring_rows``; shard i goes to ``mesh[i]``. Returns (state shards,
-    mask shards), lists of contiguous tensors."""
+    of ``ring_rows``; shard i goes to ``mesh[i]``, and a shard whose entry
+    is ``None`` (another process's, ``dist.multihost``) is left out.
+    Returns (state shards, mask shards), lists of contiguous tensors."""
     rows, offsets = ring_rows(f.shape[1], len(mesh))
     fs, obs = [], []
     for dev, h, off in zip(mesh, rows, offsets):
+        if dev is None:
+            continue
         fs.append(f[:, off:off + h].to(dev).contiguous())
         obs.append(obstacles[off:off + h].to(dev).contiguous())
     return fs, obs
@@ -124,13 +127,16 @@ def shard_blocks(f: torch.Tensor, obstacles: torch.Tensor,
     blocks of the torus ``mesh2d`` (``dist.mesh.get_mesh_2d``): block (i, j)
     holds rows [i h, (i + 1) h) and columns [j w, (j + 1) w) and goes to
     ``mesh2d[i][j]``. Returns (state blocks, mask blocks), lists of
-    contiguous tensors in row-major block order."""
+    contiguous tensors in row-major block order; a block whose entry is
+    ``None`` (another process's) is left out."""
     dy, dx = len(mesh2d), len(mesh2d[0])
     h, w = block_shape(f.shape[1], f.shape[2], dy, dx)
     fs, obs = [], []
     for i in range(dy):
         for j in range(dx):
             dev = mesh2d[i][j]
+            if dev is None:
+                continue
             rows, cols = slice(i * h, (i + 1) * h), slice(j * w, (j + 1) * w)
             fs.append(f[:, rows, cols].to(dev).contiguous())
             obs.append(obstacles[rows, cols].to(dev).contiguous())
@@ -144,3 +150,16 @@ def gather_blocks(blocks: Sequence[torch.Tensor], dy: int, dx: int,
     rows = [torch.cat([b.to(device) for b in blocks[i * dx:(i + 1) * dx]],
                       dim=-1) for i in range(dy)]
     return torch.cat(rows, dim=-2)
+
+
+def regions(ny: int, nx: int, mesh) -> List[Tuple[int, int, int, int]]:
+    """(row0, row1, col0, col1) of every shard of ``mesh``, in shard order:
+    the whole grid on one device, ``ring_rows``' row shards on a ring, the
+    row-major blocks on a torus (a nested ``mesh``)."""
+    if isinstance(mesh[0], (list, tuple)):
+        dy, dx = len(mesh), len(mesh[0])
+        h, w = block_shape(ny, nx, dy, dx)
+        return [(i * h, (i + 1) * h, j * w, (j + 1) * w)
+                for i in range(dy) for j in range(dx)]
+    rows, offsets = ring_rows(ny, len(mesh))
+    return [(off, off + h, 0, nx) for h, off in zip(rows, offsets)]

@@ -7,7 +7,9 @@ repository root (git-ignored); the file name carries a hash of the sources,
 so an edit rebuilds and an unchanged tree reuses the library. ``ctypes``
 binds it: each entry point takes ``c_void_p`` pointers and the CUDA stream,
 ``c_int`` and ``c_float`` scalars, and returns a ``cudaError_t`` that
-``check`` turns into an exception. Nothing here runs at import time.
+``check`` turns into an exception. Nothing here runs at import time, and
+torch is imported only where a tensor is handled, so a launcher can build
+the library without it.
 
 Every kernel wrapper adds one to its entry of ``LAUNCHES`` where it launches
 its kernel and nowhere else, so a run can show which kernels it went through.
@@ -24,6 +26,7 @@ midway leaves it non-zero.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -31,8 +34,6 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-
-import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpulbm_torch"
@@ -120,12 +121,22 @@ def build() -> Path:
     """Compile csrc/*.cu unless the library of this source hash exists:
     one ``nvcc -c`` a source, all at once, then one link. Writes to a
     temporary file and renames, so concurrent builders never load a
-    half-written library. The compilers' output (``-Xptxas -v``:
-    registers, shared memory, spills per kernel) goes to ``build.log``."""
+    half-written library; a file lock lets one process build while the
+    others of a multi-process start wait and then load its library. The
+    compilers' output (``-Xptxas -v``: registers, shared memory, spills per
+    kernel) goes to ``build.log``."""
     lib_path = BUILD_DIR / f"libtpulbm_torch_{source_hash()}.so"
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not lib_path.exists():
+            _compile(lib_path)
+    return lib_path
+
+
+def _compile(lib_path: Path) -> None:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / f"{p.stem}.o" for p in sorted(CSRC.glob("*.cu"))]
@@ -149,7 +160,6 @@ def build() -> Path:
         if failed:
             raise RuntimeError(f"nvcc failed ({failed[0][1]}):\n{log}")
         os.replace(Path(tmp) / "lib.so", lib_path)
-    return lib_path
 
 
 def library() -> ctypes.CDLL:
@@ -178,12 +188,16 @@ def on_device(t: torch.Tensor):
     points set their kernel's attributes and launch on the current device,
     so every launch of a tensor on another card than the current one runs
     inside it."""
+    import torch
+
     return torch.cuda.device(t.device)
 
 
 def ticket_counter(device) -> torch.Tensor:
     """The zeroed int32 ticket counter of a CUDA device (see the module
     docstring), made on first use and cached."""
+    import torch
+
     device = torch.device(device)
     index = torch.cuda.current_device() if device.index is None else device.index
     with _lock:
@@ -195,6 +209,8 @@ def ticket_counter(device) -> torch.Tensor:
 
 def require_cuda(*tensors) -> None:
     """The kernels take contiguous float32 CUDA tensors on one device."""
+    import torch
+
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:

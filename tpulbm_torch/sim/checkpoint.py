@@ -1,34 +1,58 @@
-"""Step-stamped checkpoint / resume: the npz half of
-``tpulbm.sim.checkpoint``, numpy only.
+"""Step-stamped checkpoint / resume: the counterpart of
+``tpulbm.sim.checkpoint``.
 
 A snapshot carries the full distribution state, the accumulated av_vels
-prefix and the parameter deck, so a run resumes bitwise at its step. One
-file a snapshot, ``ckpt_%08d.npz`` with the keys ``step``, ``f`` (the
-(9, ny, nx) float32 state, gathered on the host), ``av_vels`` and
-``params`` (the deck as JSON), written atomically by a rename: the file
-name, keys and layout of the JAX package's, so a checkpoint written by
-either package resumes in the other. The JAX package compresses its files;
-these are stored uncompressed (``np.load`` reads both), since zlib took
-seconds for a 1024^2 state, tens of times the write (PERF.md).
+prefix and the parameter deck, so a run resumes bitwise at its step. Two
+storage backends, as the JAX package's:
+
+- ``npz``: one file a snapshot, ``ckpt_%08d.npz`` with the keys ``step``,
+  ``f`` (the (9, ny, nx) float32 state, gathered on the host of process
+  0), ``av_vels`` and ``params`` (the deck as JSON), written atomically by
+  a rename: the file name, keys and layout of the JAX package's, so a
+  checkpoint written by either package resumes in the other. The JAX
+  package compresses its files; these are stored uncompressed (``np.load``
+  reads both), since zlib took seconds for a 1024^2 state, tens of times
+  the write (PERF.md).
+- ``dcp``: the counterpart of the JAX package's ``orbax`` backend (orbax
+  is JAX's). A ``ckpt_%08d.dcp`` directory written by
+  ``torch.distributed.checkpoint``, in which every process writes only its
+  own shards, each a (9, h, w) piece keyed by its origin
+  (``f_r<row0>_c<col0>``) beside its CRC-32 (``crc_r<row0>_c<col0>``):
+  the ring's uneven splits (``decompose_rows``: 342/341/341 rows) are not
+  DTensor's even chunks. Process 0 adds ``step``, ``av_vels`` and
+  ``params`` (the deck's JSON bytes). The directory is written as
+  ``.dcp.tmp`` and renamed when complete. ``restore_regions`` reads only
+  the pieces that overlap the regions a process owns, onto any mesh and
+  process count, with or without a process group, and raises on a piece
+  whose checksum or coverage is wrong.
+
 ``AsyncCheckpointer`` writes on a thread, so the serialization overlaps
-the next chunk. The orbax backend (sharded, multi-host saves) has no
-counterpart yet.
+the next chunk, for both backends.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
 import re
+import shutil
 import threading
-from typing import Optional, Tuple
+import warnings
+import zlib
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from tpulbm_torch.core.params import LBMParams
 
 _NAME_RE = re.compile(r"ckpt_(\d+)\.npz$")
+_DCP_RE = re.compile(r"ckpt_(\d+)\.dcp$")
+_PIECE_RE = re.compile(r"f_r(\d+)_c(\d+)$")
+
+BACKENDS = ("npz", "dcp")
 
 
 def save(directory, step: int, f: np.ndarray, av_vels: np.ndarray,
@@ -47,26 +71,90 @@ def save(directory, step: int, f: np.ndarray, av_vels: np.ndarray,
     return path
 
 
+@contextlib.contextmanager
+def _one_process_quiet():
+    """Silence dcp's warning that it runs in one process, which is asked
+    for here (``no_dist``)."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore",
+                                message="torch.distributed is disabled")
+        yield
+
+
+def save_dcp(directory, step: int, pieces: dict, av_vels: np.ndarray,
+             params: LBMParams, group=None) -> str:
+    """Write ``ckpt_<step>.dcp`` from this process's ``pieces``
+    ({(row0, col0): (9, h, w) host tensor}). Under a process ``group``
+    every member calls it with its own pieces (a collective of that group);
+    without one, a single process writes every piece."""
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+
+    rank = 0 if group is None else dist.get_rank(group)
+    path = os.path.join(directory, f"ckpt_{step:08d}.dcp")
+    tmp = path + ".tmp"
+    if rank == 0:
+        os.makedirs(directory, exist_ok=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if group is not None:
+        dist.barrier(group=group)
+    state = {}
+    for (r0, c0), piece in pieces.items():
+        piece = piece.contiguous()
+        state[f"f_r{r0}_c{c0}"] = piece
+        state[f"crc_r{r0}_c{c0}"] = torch.tensor(zlib.crc32(piece.numpy()),
+                                                 dtype=torch.int64)
+    if rank == 0:
+        deck = json.dumps(dataclasses.asdict(params)).encode()
+        state["step"] = torch.tensor(step, dtype=torch.int64)
+        state["av_vels"] = torch.tensor(np.asarray(av_vels, np.float32))
+        state["params"] = torch.tensor(list(deck), dtype=torch.uint8)
+    with _one_process_quiet():
+        dcp.save(state, storage_writer=dcp.FileSystemWriter(tmp),
+                 process_group=group, no_dist=group is None)
+    if rank == 0:
+        # every member's pieces are on disk once the coordinator's save
+        # returns: it wrote the metadata after gathering their results
+        shutil.rmtree(path, ignore_errors=True)
+        os.replace(tmp, path)
+    return path
+
+
 class AsyncCheckpointer:
     """Overlaps checkpoint serialization with the next compute chunk:
     ``submit`` hands the write to a writer thread; ``wait`` joins the
     in-flight write (called before the next submit and at shutdown). At
     most one write is in flight, so checkpoints are never reordered. The
-    caller hands over a host copy of the state that nothing else writes."""
+    caller hands over host copies that nothing else writes: the gathered
+    state for ``npz``, this process's pieces for ``dcp`` (whose save runs
+    the collectives of ``group``, a group that only checkpoint writers
+    use)."""
 
-    def __init__(self):
+    def __init__(self, backend: str = "npz"):
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown checkpoint backend {backend!r} "
+                             f"(choose from {BACKENDS})")
+        self.backend = backend
         self._thread: Optional[threading.Thread] = None
         self._result: Optional[str] = None
         self._error: Optional[BaseException] = None
 
-    def submit(self, directory, step, f, av_vels, params) -> None:
+    def submit(self, directory, step, f, av_vels, params,
+               group=None) -> None:
         self.wait()
-        f = np.asarray(f)
         av_vels = np.array(av_vels, copy=True)
+        if self.backend == "dcp":
+            def write():
+                return save_dcp(directory, step, f, av_vels, params, group)
+        else:
+            f = np.asarray(f)
+
+            def write():
+                return save(directory, step, f, av_vels, params)
 
         def work():
             try:
-                self._result = save(directory, step, f, av_vels, params)
+                self._result = write()
             except BaseException as e:  # surfaced on the next wait()
                 self._error = e
 
@@ -84,33 +172,39 @@ class AsyncCheckpointer:
 
 
 def latest(directory) -> str | None:
+    """The newest checkpoint under ``directory``: npz files and dcp
+    directories alike (tpulbm/sim/checkpoint.py:217-227)."""
     if not os.path.isdir(directory):
         return None
     best = None
     best_step = -1
     for name in os.listdir(directory):
-        m = _NAME_RE.match(name)
+        m = _NAME_RE.match(name) or _DCP_RE.match(name)
         if m and int(m.group(1)) > best_step:
             best_step = int(m.group(1))
             best = os.path.join(directory, name)
     return best
 
 
-def restore(path_or_dir,
-            params: LBMParams) -> Tuple[int, np.ndarray, np.ndarray]:
-    """(step, f, av_vels) of a checkpoint file, or of the latest one in a
-    directory; raises FileNotFoundError where there is none, and
-    ValueError where its deck differs from ``params``."""
+def is_dcp(path) -> bool:
+    return bool(_DCP_RE.search(os.path.basename(os.path.normpath(path))))
+
+
+def resolve(path_or_dir) -> str:
+    """The checkpoint a path names: the file or dcp directory itself, or
+    the latest one in a directory; raises FileNotFoundError where there is
+    none."""
     path = str(path_or_dir)
-    if os.path.isdir(path):
+    if os.path.isdir(path) and not is_dcp(path):
         path = latest(path)
         if path is None:
             raise FileNotFoundError(f"no checkpoints under {path_or_dir}")
-    with np.load(path, allow_pickle=False) as z:
-        step = int(z["step"])
-        f = z["f"]
-        av_vels = z["av_vels"]
-        saved = json.loads(str(z["params"]))
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no checkpoint {path}")
+    return path
+
+
+def _check_params(saved: dict, params: LBMParams) -> None:
     current = dataclasses.asdict(params)
     mismatched = {
         k: (saved[k], current[k])
@@ -125,4 +219,109 @@ def restore(path_or_dir,
             for k, (a, b) in sorted(mismatched.items())
         )
         raise ValueError(f"checkpoint params do not match the deck ({detail})")
+
+
+def _load_dcp(path, state: dict) -> None:
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint.api import CheckpointException
+
+    try:
+        with _one_process_quiet():
+            dcp.load(state, storage_reader=dcp.FileSystemReader(path),
+                     no_dist=True)
+    except (Exception, CheckpointException) as e:  # the latter a BaseException
+        raise ValueError(f"corrupt checkpoint {path}: "
+                         f"{type(e).__name__}: {e}") from e
+
+
+def _restore_dcp(path, params: LBMParams, regions):
+    import torch.distributed.checkpoint as dcp
+
+    try:
+        meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    except Exception as e:
+        raise ValueError(f"corrupt checkpoint {path}: no readable metadata "
+                         f"({type(e).__name__}: {e})") from e
+    if not {"step", "av_vels", "params"} <= set(meta):
+        raise ValueError(f"corrupt checkpoint {path}: it lacks step, "
+                         f"av_vels or params")
+    head = {"step": torch.zeros((), dtype=torch.int64),
+            "av_vels": torch.empty(tuple(meta["av_vels"].size)),
+            "params": torch.empty(tuple(meta["params"].size),
+                                  dtype=torch.uint8)}
+    _load_dcp(path, head)
+    _check_params(json.loads(bytes(head["params"].tolist())), params)
+    pieces = {}
+    for key, m in meta.items():
+        match = _PIECE_RE.match(key)
+        if match:
+            r0, c0 = int(match.group(1)), int(match.group(2))
+            _, h, w = m.size
+            pieces[key] = (r0, r0 + h, c0, c0 + w)
+
+    def overlap(a, b):
+        return (max(a[0], b[0]), min(a[1], b[1]), max(a[2], b[2]),
+                min(a[3], b[3]))
+
+    need = {}
+    for key, box in pieces.items():
+        if any(o[0] < o[1] and o[2] < o[3]
+               for o in (overlap(box, r) for r in regions)):
+            need[key] = torch.empty((9, box[1] - box[0], box[3] - box[2]))
+            need["crc" + key[1:]] = torch.zeros((), dtype=torch.int64)
+    _load_dcp(path, need)
+    out = []
+    for region in regions:
+        r0, r1, c0, c1 = region
+        f = np.empty((9, r1 - r0, c1 - c0), dtype=np.float32)
+        filled = 0
+        for key, box in pieces.items():
+            o = overlap(box, region)
+            if not (o[0] < o[1] and o[2] < o[3]):
+                continue
+            piece = need[key].numpy()
+            if zlib.crc32(piece) != int(need["crc" + key[1:]]):
+                raise ValueError(f"corrupt checkpoint {path}: piece {key} "
+                                 f"fails its CRC-32")
+            f[:, o[0] - r0:o[1] - r0, o[2] - c0:o[3] - c0] = piece[
+                :, o[0] - box[0]:o[1] - box[0], o[2] - box[2]:o[3] - box[2]]
+            filled += (o[1] - o[0]) * (o[3] - o[2])
+        if filled != (r1 - r0) * (c1 - c0):
+            raise ValueError(f"corrupt checkpoint {path}: its pieces cover "
+                             f"{filled} of the {(r1 - r0) * (c1 - c0)} "
+                             f"cells of rows [{r0}, {r1}) x columns "
+                             f"[{c0}, {c1})")
+        out.append(f)
+    return int(head["step"]), out, head["av_vels"].numpy()
+
+
+def restore_regions(path_or_dir, params: LBMParams, regions: Sequence):
+    """(step, states, av_vels): the state of each region (row0, row1,
+    col0, col1) of the grid, a (9, row1 - row0, col1 - col0) array, from a
+    checkpoint file or dcp directory, or the latest one in a directory. A
+    dcp checkpoint is read only where its pieces overlap the regions.
+    Raises FileNotFoundError where there is no checkpoint, and ValueError
+    where its deck differs from ``params`` or it is corrupt."""
+    path = resolve(path_or_dir)
+    if is_dcp(path):
+        return _restore_dcp(path, params, regions)
+    with np.load(path, allow_pickle=False) as z:
+        step = int(z["step"])
+        f = z["f"]
+        av_vels = z["av_vels"]
+        saved = json.loads(str(z["params"]))
+    _check_params(saved, params)
+    shape = (9, params.ny, params.nx)
+    if f.shape != shape:
+        raise ValueError(f"checkpoint state {f.shape} does not match the "
+                         f"deck's {shape}")
+    return step, [f[:, r0:r1, c0:c1] for r0, r1, c0, c1 in regions], av_vels
+
+
+def restore(path_or_dir,
+            params: LBMParams) -> Tuple[int, np.ndarray, np.ndarray]:
+    """(step, f, av_vels) of a checkpoint (``restore_regions``), the whole
+    (9, ny, nx) state."""
+    step, (f,), av_vels = restore_regions(
+        path_or_dir, params, [(0, params.ny, 0, params.nx)])
     return step, f, av_vels

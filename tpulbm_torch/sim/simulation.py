@@ -12,9 +12,22 @@ the ring runner; with a 2-D ``mesh`` (``dist.mesh.get_mesh_2d``) as the
 blocks of ``dist.sharding.shard_blocks``, stepped by the torus runner.
 ``f`` gathers them on the first device at each read; ``reynolds()``,
 ``average_velocity()`` and the debug lines add per-shard sums there, in
-shard order; ``write_outputs()`` gathers the output planes and a checkpoint
-the state on the host. So a ring or torus holds two states at most, as one
-device does; a checkpoint restores onto any mesh.
+shard order; ``write_outputs()`` gathers the output planes and an npz
+checkpoint the state on the host. So a ring or torus holds two states at
+most, as one device does; a checkpoint restores onto any mesh.
+
+Under several processes (``--multihost``, ``dist.multihost``) the mesh is
+the global one, with ``None`` for another process's shards, and a
+Simulation holds only its process's shards; ``transport`` moves what
+crosses a process boundary. The per-shard sums are gathered to every
+process and added in shard order, so every process holds the same av
+series and Reynolds number, bitwise those of one process driving every
+shard. ``f``, ``write_outputs()`` and an npz checkpoint gather to process
+0 (the counterpart of tpulbm/sim/simulation.py:282-307): ``f`` is None on
+the other processes, which return from ``write_outputs()`` after the
+gather. An npz restore is read by process 0 and scattered; a dcp
+checkpoint (``--ckpt-backend dcp``) is written by every process for its
+own shards, and each process reads back only the rows it owns.
 
 A runner call takes ownership of the state it is handed (its storage holds
 a later chunk's output, as the JAX runners donate theirs): ``run`` keeps no
@@ -41,11 +54,13 @@ from tpulbm_torch.diag.observables import (
     speed_sum,
     total_density,
 )
+from tpulbm_torch.dist import multihost
 from tpulbm_torch.dist.runner import make_runner, resolve_backend
 from tpulbm_torch.dist.sharding import (
     block_shape,
     gather_blocks,
     gather_rows,
+    regions,
     shard_blocks,
     shard_rows,
 )
@@ -58,7 +73,8 @@ from tpulbm_torch.sim import checkpoint as ckpt
 @dataclasses.dataclass
 class SimulationResult:
     """A run's result. ``f`` is the simulation's state after the run, read
-    when asked for (gathered on the first device on a ring or torus). The
+    when asked for (gathered on the first device on a ring or torus; under
+    several processes a collective, None but on process 0). The
     next ``run`` or restore of the same Simulation takes that state over, as
     a JAX runner's donation deletes its input: ``f`` then raises."""
 
@@ -86,21 +102,30 @@ class Simulation:
         backend: str = "auto",
         device="cuda",
         mesh=None,
+        ckpt_backend: str = "npz",
     ):
         if params.free_cells_inv == 0.0:
             params = params.with_free_cells(
                 params.nx * params.ny - int(np.asarray(obstacles).sum())
             )
         self.params = params
+
+        def dev(d):
+            return None if d is None else torch.device(d)
+
         if mesh is not None and isinstance(mesh[0], (list, tuple)):
-            self.mesh = [[torch.device(d) for d in row] for row in mesh]
-            self.device = self.mesh[0][0]
+            self.mesh = [[dev(d) for d in row] for row in mesh]
             block_shape(params.ny, params.nx, len(mesh), len(mesh[0]))
+            flat = [d for row in self.mesh for d in row]
         else:
             self.mesh = ([torch.device(device)] if mesh is None
-                         else [torch.device(d) for d in mesh])
-            self.device = self.mesh[0]
+                         else [dev(d) for d in mesh])
+            flat = self.mesh
+        self.transport = multihost.Transport(flat)
+        self.device = self.transport.device
+        self.regions = regions(params.ny, params.nx, self.mesh)
         self.backend = resolve_backend(backend, self.device)
+        self.ckpt_backend = ckpt_backend
         self.obstacles = torch.as_tensor(
             np.asarray(obstacles, dtype=bool), device=self.device)
         self.shards, self.obst_shards = self._shard(
@@ -109,7 +134,7 @@ class Simulation:
         self.step_count = 0
         self.av_vels = np.zeros((params.max_iters,), dtype=np.float32)
         self._runners = {}
-        self._async_ckpt = ckpt.AsyncCheckpointer()
+        self._async_ckpt = ckpt.AsyncCheckpointer(ckpt_backend)
 
     @classmethod
     def from_files(
@@ -119,29 +144,43 @@ class Simulation:
         backend: str = "auto",
         device="cuda",
         mesh=None,
+        ckpt_backend: str = "npz",
     ) -> "Simulation":
         params = read_params(param_file)
         mask, num_free = read_obstacles(obstacle_file, params.nx, params.ny)
         return cls(params.with_free_cells(num_free), mask, backend=backend,
-                   device=device, mesh=mesh)
+                   device=device, mesh=mesh, ckpt_backend=ckpt_backend)
 
     @property
     def torus(self) -> bool:
         return isinstance(self.mesh[0], list)
 
+    @property
+    def output(self) -> bool:
+        """Whether this process writes the outputs (process 0)."""
+        return self.transport.rank == 0
+
     def _shard(self, f: torch.Tensor):
         """(state shards, mask shards) of the full state ``f`` for the mesh:
         one of each on one device, row shards on a ring, blocks on a
-        torus."""
+        torus; this process's alone."""
         if self.torus:
             return shard_blocks(f, self.obstacles, self.mesh)
         if len(self.mesh) > 1:
             return shard_rows(f, self.obstacles, self.mesh)
         return [f], [self.obstacles]
 
-    def _gather(self, shards, device) -> torch.Tensor:
-        """Per-shard tensors (states or (h, w) planes) as one on ``device``:
-        the one shard itself on one device."""
+    def _gather(self, shards, device) -> Optional[torch.Tensor]:
+        """This process's per-shard tensors (states or (h, w) planes) as one
+        on ``device``: the one shard itself on one device. Under several
+        processes, gathered on process 0's host first; None elsewhere."""
+        if self.transport.world > 1:
+            lead = tuple(shards[0].shape[:-2])
+            shards = multihost.gather_to_host(
+                self.transport, [s.cpu() for s in shards],
+                [(*lead, r1 - r0, c1 - c0) for r0, r1, c0, c1 in self.regions])
+            if shards is None:
+                return None
         if len(shards) == 1:
             return shards[0]
         if self.torus:
@@ -150,18 +189,20 @@ class Simulation:
         return gather_rows(shards, device)
 
     def _shard_sum(self, fn) -> torch.Tensor:
-        """fn(state shard, mask shard), a float32 scalar, added over the
-        shards on the first device in shard order."""
+        """fn(state shard, mask shard), a float32 scalar, added over all
+        the shards (every process's) on the first device in shard order."""
         total = None
-        for f, o in zip(self.shards, self.obst_shards):
-            s = fn(f, o).to(self.device)
+        for s in self.transport.all_gather(
+                [fn(f, o) for f, o in zip(self.shards, self.obst_shards)]):
+            s = s.to(self.device)
             total = s if total is None else total + s
         return total
 
     @property
-    def f(self) -> torch.Tensor:
+    def f(self) -> Optional[torch.Tensor]:
         """The (9, ny, nx) state on the first device: on a ring or torus, a
-        new gather of the shards at each read."""
+        new gather of the shards at each read (under several processes a
+        collective, None but on process 0)."""
         return self._gather(self.shards, self.device)
 
     def settle(self) -> None:
@@ -183,7 +224,7 @@ class Simulation:
         if n_steps not in self._runners:
             self._runners[n_steps] = make_runner(
                 self.params, n_steps, backend=self.backend,
-                device=self.device, mesh=self.mesh)
+                device=self.device, mesh=self.mesh, transport=self.transport)
         return self._runners[n_steps]
 
     def _advance(self, n_steps: int):
@@ -191,7 +232,7 @@ class Simulation:
         The runner takes the shards over: none is held here meanwhile."""
         shards, self.shards = self.shards, []
         self.epoch += 1
-        if len(shards) == 1 and not self.torus:
+        if len(self.mesh) == 1 and not self.torus:
             f, av = self._runner(n_steps)(shards.pop(), self.obstacles)
             shards = [f]
         else:
@@ -256,7 +297,9 @@ class Simulation:
             parent = os.path.dirname(metrics_file)
             if parent:
                 os.makedirs(parent, exist_ok=True)
-        metrics_fp = open(metrics_file, "a") if metrics_file else None
+        # under several processes, process 0 alone prints and writes metrics
+        metrics_fp = (open(metrics_file, "a")
+                      if metrics_file and self.output else None)
         plan = self._plan_chunks(
             self.step_count, total, chunk, checkpoint_every
         )
@@ -284,7 +327,7 @@ class Simulation:
                 self.av_vels[self.step_count : self.step_count + n] = av_np
                 self.step_count += n
                 done += n
-                if progress:
+                if progress and self.output:
                     print(
                         f"step {self.step_count}/{self.params.max_iters} "
                         f"av_vel={av_np[-1]:.6E}",
@@ -293,9 +336,11 @@ class Simulation:
                 if debug:
                     # The reference's DEBUG block (d2q9-bgk.c:380-393).
                     density = self._shard_sum(lambda f, _: total_density(f))
-                    print(f"==timestep: {self.step_count - 1}==")
-                    print(f"av velocity: {av_np[-1]:.12E}")
-                    print(f"tot density: {float(density):.12E}", flush=True)
+                    if self.output:
+                        print(f"==timestep: {self.step_count - 1}==")
+                        print(f"av velocity: {av_np[-1]:.12E}")
+                        print(f"tot density: {float(density):.12E}",
+                              flush=True)
                 if metrics_fp is not None:
                     wall = max(time.perf_counter() - t0, 1e-9)
                     metrics_fp.write(json.dumps({
@@ -312,10 +357,7 @@ class Simulation:
                 ):
                     # the write overlaps the next chunk on a thread, from a
                     # host copy (the next chunk reuses the state's storage)
-                    self._async_ckpt.submit(
-                        checkpoint_dir, self.step_count, self._host_state(),
-                        self.av_vels, self.params,
-                    )
+                    self._checkpoint(checkpoint_dir, self._async_ckpt.submit)
         finally:
             # join the in-flight checkpoint (surfacing its errors) and close
             # the metrics file even when a chunk raised
@@ -355,46 +397,105 @@ class Simulation:
     # -- persistence ------------------------------------------------------
     def write_outputs(self, out_dir: str | os.PathLike = ".") -> None:
         """Write final_state.dat + av_vels.dat; the output planes are
-        computed on each shard's device and read back once."""
+        computed on each shard's device and read back once. Under several
+        processes process 0 gathers them and writes; the others return
+        after the gather."""
         planes = [output_fields(f, o, self.params.density)
                   for f, o in zip(self.shards, self.obst_shards)]
-        fields = [self._gather([p[i].cpu() for p in planes], "cpu").numpy()
+        fields = [self._gather([p[i].cpu() for p in planes], "cpu")
                   for i in range(4)]
+        if not self.output:
+            return
         os.makedirs(out_dir, exist_ok=True)
         write_final_state(
             os.path.join(out_dir, "final_state.dat"),
             None,
             self.obstacles.cpu().numpy(),
             self.params,
-            fields=fields,
+            fields=[f.numpy() for f in fields],
         )
         write_av_vels(
             os.path.join(out_dir, "av_vels.dat"),
             self.av_vels[: self.step_count],
         )
 
-    def _host_state(self) -> np.ndarray:
-        """A host copy of the gathered state, which no later chunk writes."""
-        if len(self.shards) == 1:
+    def _host_state(self) -> Optional[np.ndarray]:
+        """A host copy of the gathered state, which no later chunk writes
+        (None but on process 0)."""
+        if len(self.regions) == 1:
             return self.shards[0].to("cpu", copy=True).numpy()
-        return self._gather(self.shards, "cpu").numpy()
+        f = self._gather(self.shards, "cpu")
+        return None if f is None else f.numpy()
 
-    def save_checkpoint(self, directory: str | os.PathLike) -> str:
-        return ckpt.save(directory, step=self.step_count,
-                         f=self._host_state(), av_vels=self.av_vels,
-                         params=self.params)
+    def _checkpoint(self, directory, save):
+        """Hand a checkpoint of this step to ``save``: the writer thread's
+        ``AsyncCheckpointer.submit``, or the backend's own writer
+        (``ckpt.save_dcp``, ``ckpt.save``). For ``dcp`` every process hands
+        over host copies of its own shards, for ``npz`` process 0 the
+        gathered state (the others return None)."""
+        if self.ckpt_backend == "dcp":
+            pieces = {(r0, c0): self.shards[j].to("cpu", copy=True)
+                      for j, (r0, _, c0, _) in enumerate(
+                          self.regions[d] for d in self.transport.local)}
+            group = (multihost.checkpoint_group()
+                     if self.transport.world > 1 else None)
+            return save(directory, self.step_count, pieces, self.av_vels,
+                        self.params, group=group)
+        f = self._host_state()
+        if f is None:
+            return None
+        return save(directory, self.step_count, f, self.av_vels, self.params)
+
+    def save_checkpoint(self, directory: str | os.PathLike) -> Optional[str]:
+        """Write a checkpoint of this step now; returns its path (None on
+        processes other than 0 with ``npz``)."""
+        return self._checkpoint(
+            directory, ckpt.save_dcp if self.ckpt_backend == "dcp"
+            else ckpt.save)
 
     def restore_checkpoint(self, path_or_dir: str | os.PathLike) -> None:
-        """Resume from a checkpoint of either package, written on any mesh:
-        the gathered state is cut for this one."""
-        step, f, av_vels = ckpt.restore(path_or_dir, self.params)
-        shape = (9, self.params.ny, self.params.nx)
-        if f.shape != shape:
-            raise ValueError(f"checkpoint state {f.shape} does not match the "
-                             f"deck's {shape}")
+        """Resume from a checkpoint of either package, written on any mesh
+        and process count: each process takes its shards' rows (from a dcp
+        checkpoint it reads them alone; an npz file is read by process 0
+        and scattered)."""
+        tr = self.transport
+        mine = [self.regions[d] for d in tr.local]
+        if tr.world == 1:
+            step, pieces, av_vels = ckpt.restore_regions(
+                path_or_dir, self.params, mine)
+        else:
+            path, err = tr.broadcast(
+                _attempt(ckpt.resolve, path_or_dir) if self.output else None)
+            if err is not None:
+                raise err
+            if ckpt.is_dcp(path):
+                step, pieces, av_vels = ckpt.restore_regions(
+                    path, self.params, mine)
+            else:
+                got, err = (_attempt(ckpt.restore, path, self.params)
+                            if self.output else (None, None))
+                head, err = tr.broadcast(
+                    ((got[0], got[2]) if got else None, err))
+                if err is not None:
+                    raise err
+                step, av_vels = head
+                pieces = multihost.scatter_from_host(
+                    tr, [torch.from_numpy(got[1][:, r0:r1, c0:c1])
+                     for r0, r1, c0, c1 in self.regions] if got else None,
+                    [(9, r1 - r0, c1 - c0)
+                     for r0, r1, c0, c1 in self.regions])
         self.step_count = step
         self.av_vels[: av_vels.size] = av_vels[: self.av_vels.size]
         self.shards = []
         self.epoch += 1
-        self.shards, self.obst_shards = self._shard(
-            torch.as_tensor(f, device=self.device))
+        self.shards = [torch.as_tensor(p).to(tr.devices[d]).contiguous()
+                       for d, p in zip(tr.local, pieces)]
+
+
+def _attempt(fn, *args):
+    """(fn(*args), None), or (None, the error) where it raised one of the
+    errors a restore reports."""
+    try:
+        return fn(*args), None
+    except (FileNotFoundError, ValueError) as e:
+        return None, e
