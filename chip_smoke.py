@@ -31,7 +31,14 @@ Phases; any failure raises and exits non-zero before the result lines:
    4096x4096 block of the 8192^2 deck at 8 steps, cut into its five
    pieces) and K4 against K1 on one
    2048^2 chunk (state bitwise); the four blocks of the 1024^2 deck after
-   one chunk of the torus runner, bitwise the whole grid's ``tile_chunk``.
+   one chunk of the torus runner, bitwise the whole grid's ``tile_chunk``;
+   K6 (``ring_p2p``, the cuda-p2p ring) over 64 chunks of the 128^2 deck
+   over 2 shards and the 1024^2 and 8192^2 decks over 4 on this card: its
+   state and sums bitwise the cuda ring's over the same chunks and on a
+   rerun, the error word and the ticket counter 0, against
+   ``p2p_chunks_ref`` (the state over all 64 chunks, 8 at 8192^2; the sums
+   over the first SUMS_GATE_CHUNKS), CUDA-event ms a launch beside the
+   cuda ring's a chunk, and its bound.
    Every
    chunk kernel's in-kernel sums (the former K3, now each stepping
    kernel's epilogue) are held against ``reduce_partials_ref`` of the same
@@ -66,12 +73,14 @@ Phases; any failure raises and exits non-zero before the result lines:
    first profiler session, whose Chrome trace must hold every K4 launch
    of its run;
 6. the ring, through ``cli.main`` with ``--device-count``: the three
-   small reference decks over 2 shards, 1024^2 over 4, over 3 (uneven) and
-   over 4 with ``--backend cuda-p2p``, at their full step counts through
-   the golden gate; 8192^2 over 4 shards with ``--no-output``, its final
-   state bitwise that of phase 4's single-device K4 run of the deck and
-   its av series within 1 %, its peak device memory at most
-   PEAK_MESH_8192_GIB.
+   small reference decks over 2 shards and 1024^2 over 4, each on the
+   cuda ring and with ``--backend cuda-p2p`` (K6), at their full step
+   counts through the golden gate, the two runs' output files the same
+   bytes, and 1024^2 over 3 (uneven); the device's busy share of both
+   rings at 1024^2 over 4; 8192^2 over 4 shards with ``--no-output`` on
+   both rings, each final state bitwise that of phase 4's single-device K4
+   run of the deck and its av series within 1 %, its peak device memory
+   at most PEAK_MESH_8192_GIB.
    Each run logs its shard-to-card layout, MLUPS, peak device memory and
    host microseconds per chunk (the time to issue the runner call's
    chunks);
@@ -95,11 +104,13 @@ Phases; any failure raises and exits non-zero before the result lines:
    Launches are counted in each process (``--launch-counts``); process
    0's MLUPS, host microseconds of exchange a chunk and transport are
    logged;
-   Phases 3-8 log their seconds;
+   Phases 3-8 log their seconds, and their sum;
 9. one JSON line of the kernels, then the result line
    ``{"ok": true, "device": {...}}``;
 10. with ``--cards``, instead of phases 3-9: the ring with shard i on card
-    i, and the torus with block (i, j) on card 2i + j (``phase_cards``);
+    i (the cuda and the cuda-p2p ring, whose K6 hands slabs and flags
+    through peer memory), and the torus with block (i, j) on card 2i + j
+    (``phase_cards``);
     on four cards, the launcher's NCCL transport: 2 processes x 2 cards
     and 4 x 1, 1024^2 (the bytes of the one-process ring, the final state
     of one card) and 8192^2 (its state, from a dcp checkpoint, bitwise one
@@ -478,6 +489,163 @@ def _torus_chunk_is_the_whole_grid(p, o, f0):
         raise AssertionError("the torus's blocks differ from the whole grid")
 
 
+def p2p_bound(rows, nx, k, n_outer):
+    """A K6 launch of n_outer chunks of k steps over shards of `rows` rows:
+    the states and their mask bands in once, the states, the landing
+    slots' last slabs and the sums out once; k n_outer updates of every
+    cell (the shards compute no cell twice)."""
+    cells = sum(rows) * nx
+    bands = sum(h + 2 * k for h in rows) * nx
+    slabs = 2 * 9 * k * nx * len(rows)
+    return bound(4 * (9 * cells + bands + 9 * cells + slabs
+                      + n_outer * k * len(rows)),
+                 OPS_PER_UPDATE * cells * k * n_outer)
+
+
+# K6 against its plain version over several chunks: the per-step sums drift
+# apart by nvcc's FMA contraction, growing about as steps^1.5 (an H100 80GB
+# HBM3, 700 W: 1.4e-5 after one chunk, 1.3e-4 after 4, 3.8e-4 after 8,
+# 8.2e-3 after 64 at 1024^2), and the cuda ring's K4 chunks drift by the
+# same bits; the state stays within F_ATOL. The sums are gated over the
+# first SUMS_GATE_CHUNKS chunks, the state over all of them, and K6 is held
+# bitwise to the cuda ring over every chunk.
+SUMS_GATE_CHUNKS = 4
+
+
+def _p2p_check(deck, n, plain_chunks, seed, chunks=64):
+    """K6 (ring_p2p._p2p_launch) over n shards of the deck on this card,
+    `chunks` chunks of 8 steps from a perturbed state in launches of
+    ring_p2p.outer_per_launch chunks (the first reads the neighbours'
+    states, the next ones the landing slots): bitwise on a rerun, its
+    state and sums bitwise the cuda ring's (ring_chunk a shard and chunk,
+    the slabs copied) over the same chunks, the error word and the ticket
+    counter 0; over the first plain_chunks chunks against p2p_chunks_ref
+    (the state within F_ATOL, the sums within AV_RTOL over the first
+    SUMS_GATE_CHUNKS). CUDA-event ms of a launch, of the plain version over the
+    same chunks and of the cuda ring's chunks, and the bound. Returns the
+    record of the kernels JSON line (one launch)."""
+    import torch
+
+    from tpulbm_torch.dist import sharding
+    from tpulbm_torch.dist.mesh import get_mesh
+    from tpulbm_torch.ops import _build, kstep_tile, ring_p2p
+
+    p, o = _load_deck(deck)
+    f0 = _state(p, seed)
+    mesh = get_mesh(n)
+    rows, offsets = sharding.ring_rows(p.ny, n)
+    shards = [f0[:, off:off + h].contiguous() for off, h in zip(offsets, rows)]
+    del f0
+    k = kstep_tile.TILE_K
+    bands = [o[torch.arange(off - k, off + h + k, device="cuda") % p.ny]
+             .contiguous() for off, h in zip(offsets, rows)]
+    bases = [(off - k) % p.ny for off in offsets]
+    n_outer = ring_p2p.outer_per_launch(rows, p.nx, k)
+
+    def k6(n_chunks):
+        ex = ring_p2p.Exchange(mesh, rows, p.nx)
+        states = [s.clone() for s in shards]
+        spares = [torch.empty_like(s) for s in states]
+        ex.barrier()   # the clones are written on each card's stream
+        sums, first = [[] for _ in rows], True
+        while n_chunks:
+            m = min(n_outer, n_chunks)
+            got, _ = ring_p2p._p2p_launch(ex, states, spares, bands, p, k, m,
+                                          bases, first)
+            if m % 2:
+                states, spares = spares, states
+            for d in range(n):
+                sums[d].append(got[d])
+            n_chunks, first = n_chunks - m, False
+        torch.cuda.synchronize()
+        ex.check()
+        if _build.ticket_counter("cuda").item() != 0:
+            raise AssertionError(f"K6 {deck}: ticket counter left non-zero")
+        return states, [torch.cat(t) for t in sums]
+
+    def events(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    f_a, s_a = k6(chunks)
+    f_b, s_b = k6(chunks)
+    rerun = all(torch.equal(a, b) for a, b in zip(f_a + s_a, f_b + s_b))
+    del f_b, s_b
+
+    def ring(n_chunks):
+        f, sums = [s.clone() for s in shards], [[] for _ in rows]
+        for _ in range(n_chunks):
+            new = []
+            for d in range(n):
+                g, t = kstep_tile.ring_chunk(
+                    f[d - 1][:, -k:].contiguous(), f[d],
+                    f[(d + 1) % n][:, :k].contiguous(), bands[d], p, k,
+                    bases[d])
+                new.append(g)
+                sums[d].append(t)
+            f = new
+        return f, [torch.cat(t) for t in sums]
+
+    (f_r, s_r), ring_ms = events(lambda: ring(chunks))
+    same_ring = all(torch.equal(a, b) for a, b in zip(f_a + s_a, f_r + s_r))
+    del f_r, s_r, f_a, s_a
+    _free()
+    f_c, s_c = k6(plain_chunks)
+    nan = float("nan")
+    slots = [[torch.full((2, 9 * 8 * p.nx), nan, device="cuda")
+              for _ in rows] for _ in range(2)]
+    (f_p, s_p), plain_ms = events(lambda: ring_p2p.p2p_chunks_ref(
+        [s.clone() for s in shards], bands, slots[0], slots[1], p, k,
+        plain_chunks, 0, bases, True))
+    err = max((a - b).abs().max().item() for a, b in zip(f_c, f_p))
+    rel = torch.stack([(a - b).abs() / b.abs() for a, b in zip(s_c, s_p)])
+    rel = rel.max(dim=0).values.cpu()          # per step, over the shards
+    av_rel = rel.max().item()
+    drift = ", ".join(f"{c} chunks {rel[:c * k].max().item():.3e}"
+                      for c in (1, 2, 4, 8, 16, 32, 64) if c <= plain_chunks)
+    del f_c, s_c, f_p, s_p
+    _free()
+    # one launch of n_outer chunks, in a row (each reads the neighbours'
+    # states: the host's view of a launch after another)
+    ex = ring_p2p.Exchange(mesh, rows, p.nx)
+    states = [s.clone() for s in shards]
+    spares = [torch.empty_like(s) for s in states]
+    ex.barrier()
+    ms = cuda_ms(lambda: ring_p2p._p2p_launch(ex, states, spares, bands, p, k,
+                                              n_outer, bases, True), 10)
+    ex.check()
+    del states, spares
+    _free()
+    bound_ms, bound_by = p2p_bound(rows, p.nx, k, n_outer)
+    ring_per = ring_ms / chunks
+    log(f"[kernel] ring_p2p K6 ({deck} over {n} shards, "
+        f"{'/'.join(map(str, rows))} rows, {chunks} chunks of {k} steps in "
+        f"launches of {n_outer}): max|df| {err:.3e} (<= {F_ATOL:g}), max av "
+        f"rel {av_rel:.3e} at step {int(rel.argmax())} (over the first "
+        f"{drift}; <= {AV_RTOL:g} over the first {SUMS_GATE_CHUNKS}) against "
+        f"p2p_chunks_ref over {plain_chunks} chunks; rerun bitwise {rerun}; "
+        f"state and sums "
+        f"bitwise the cuda ring's over {chunks} chunks {same_ring}; "
+        f"{ms:.4f} ms a launch ({ms / n_outer:.4f} ms a chunk) vs the cuda "
+        f"ring (ring_chunk x {n} and the slab copies) {ring_per:.4f} ms a "
+        f"chunk, K6/K4 ring {ms / n_outer / ring_per:.3f}; plain "
+        f"{plain_ms:.2f} ms for {plain_chunks} chunks; bound {bound_ms:.4f} "
+        f"ms a launch ({bound_by}), bound/kernel {100 * bound_ms / ms:.1f} %")
+    sums_rel = rel[:SUMS_GATE_CHUNKS * k].max().item()
+    if not (err <= F_ATOL and sums_rel <= AV_RTOL and rerun and same_ring):
+        raise AssertionError(f"K6 {deck} over {n}: disagrees with its plain "
+                             f"version or the cuda ring")
+    if _build.ticket_counter("cuda").item() != 0:
+        raise AssertionError("the ticket counter is not 0 after K6")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
 def _free():
     import gc
 
@@ -659,6 +827,15 @@ def phase_kernels():
     _torus_check(p, o, f0, 64, 64, 64, 64, 8, 200, 5,
                  "128x128 block (1, 1) of 2x2")
     del f0
+    # K6 over the ring's shards on this card, 64 chunks of 8 steps: 128^2
+    # over 2, 1024^2 over 4 (the kernels line's record: one launch of 64
+    # chunks, the plain version over the same 64) and 8192^2 over 4 (two
+    # launches of 32), held against the plain version over its first 8
+    # chunks: over 64 its plain version would take ~18 s.
+    _p2p_check("128x128", 2, 64, SEED + 16)
+    res["ring_p2p"] = _p2p_check("1024x1024", 4, 64, SEED + 17)
+    _p2p_check("8192x8192", 4, 8, SEED + 18)
+    _free()
     # tile_chunk at the shapes of the TPU kernels no main path reaches:
     # pallas_kstep2d._kernel_row_inner (the JAX router takes it at
     # 272x8192, k = 8), pallas_kstep_bands._kernel and
@@ -720,9 +897,10 @@ def phase_kernels():
 
 def _ring_on_cards():
     """The 1024^2 ring with shard i on card i (up to 4 shards), 64 steps
-    from a perturbed state: the state within F_ATOL of the single-device K4
-    plan's on card 0 (bitwise is expected), the av series within the chunk
-    gate."""
+    from a perturbed state, on the cuda ring and on the cuda-p2p ring (K6:
+    slabs and flags through peer memory): the state within F_ATOL of the
+    single-device K4 plan's on card 0 (bitwise is expected), the av series
+    within the chunk gate."""
     import torch
 
     from tpulbm_torch.dist import runner, sharding
@@ -736,17 +914,19 @@ def _ring_on_cards():
         runner._chunks(kstep_tile.tile_chunk, kstep_tile.TILE_K, 64),
         f0.clone(), o, p)
     mesh = get_mesh(min(4, torch.cuda.device_count()))
-    fs, obs = sharding.shard_rows(f0, o != 0, mesh)
-    out, av = runner.make_runner(p, 64, "cuda", mesh=mesh)(fs, obs)
-    f = sharding.gather_rows(out, "cuda:0")
-    torch.cuda.synchronize()
-    err = (f - f1).abs().max().item()
-    av_rel = ((av - av1).abs() / av1.abs()).max().item()
-    log(f"[kernel] 1024x1024 ring, layout {_layout(mesh)}, 64 steps: "
-        f"max|df| vs one card {err:.3e}, state bitwise {torch.equal(f, f1)}; "
-        f"max av rel {av_rel:.3e}")
-    if not (err <= F_ATOL and av_rel <= AV_RTOL):
-        raise AssertionError("ring over cards disagrees with one card")
+    for backend in ("cuda", "cuda-p2p"):
+        fs, obs = sharding.shard_rows(f0, o != 0, mesh)
+        out, av = runner.make_runner(p, 64, backend, mesh=mesh)(fs, obs)
+        f = sharding.gather_rows(out, "cuda:0")
+        torch.cuda.synchronize()
+        err = (f - f1).abs().max().item()
+        av_rel = ((av - av1).abs() / av1.abs()).max().item()
+        log(f"[kernel] 1024x1024 ring ({backend}), layout {_layout(mesh)}, "
+            f"64 steps: max|df| vs one card {err:.3e}, state bitwise "
+            f"{torch.equal(f, f1)}; max av rel {av_rel:.3e}")
+        if not (err <= F_ATOL and av_rel <= AV_RTOL):
+            raise AssertionError(f"ring ({backend}) over cards disagrees "
+                                 f"with one card")
 
 
 def _layout(mesh):
@@ -775,12 +955,12 @@ def _run_cli(args):
             float(fields["Elapsed time"].split()[0]))
 
 
-def _check_launches(deck, counts, needed, absent=()):
+def _check_launches(deck, counts, needed, absent=(), p2p_chunks=0):
     """Every kernel of `needed` launched, none of `absent`; the chunks'
     sums all reduced in-kernel: one reduction per chunk (a K2 or K4 launch,
-    8 K1 launches, and one K1 remainder chunk per runner call), and the
-    library has no second-pass entry point (lbm_reduce_partials) to
-    launch."""
+    8 K1 launches, one K1 remainder chunk per runner call, and p2p_chunks,
+    the chunks times the shards that K6 launches ran), and the library has
+    no second-pass entry point (lbm_reduce_partials) to launch."""
     from tpulbm_torch.ops import _build
 
     log(f"    launches: {counts}")
@@ -794,7 +974,7 @@ def _check_launches(deck, counts, needed, absent=()):
               + counts["ring_chunk"] + counts["torus_chunk"]
               + counts["cluster_resident"]
               + counts["skew_chunk"] // 8
-              + (counts["kstep_chunk"] > 0))
+              + (counts["kstep_chunk"] > 0) + p2p_chunks)
     if counts["reduce_partials"] != chunks:
         raise AssertionError(f"{deck}: {counts['reduce_partials']} in-kernel "
                              f"reductions for {chunks} chunks")
@@ -1004,18 +1184,24 @@ def phase_main_path(chunk_ms):
     return totals, one_card
 
 
-# The ring through the CLI: (deck, steps, --device-count, extra arguments).
-# The small decks run over 2 shards: on one card the ring's host path sets
-# their pace, and 4 shards would double the script's time for them.
+# The ring through the CLI: (deck, steps, --device-count), each run on the
+# cuda ring and on the cuda-p2p ring (K6), whose outputs must be the same
+# bytes. The small decks run over 2 shards: on one card the cuda ring's host
+# path sets their pace, and 4 shards would double the script's time for
+# them.
 RING_RUNS = [
-    ("128x128", 40000, 2, []),
-    ("128x256", 40000, 2, []),
-    ("256x256", 80000, 2, []),
-    ("1024x1024", 20000, 4, []),
-    ("1024x1024", 20000, 3, []),                          # 342/341/341 rows
-    ("1024x1024", 20000, 4, ["--backend", "cuda-p2p"]),
+    ("128x128", 40000, 2),
+    ("128x256", 40000, 2),
+    ("256x256", 80000, 2),
+    ("1024x1024", 20000, 4),
 ]
+RING_UNEVEN_RUN = ("1024x1024", 20000, 3)                # 342/341/341 rows
 RING_WIDE_RUN = ("8192x8192", 1000, 4)
+P2P = ["--backend", "cuda-p2p"]
+# The launch counters that a mesh run may not touch but its own
+KERNEL_COUNTERS = ("skew_chunk", "kstep_chunk", "resident_chunk",
+                   "tile_chunk", "cluster_resident", "ring_chunk",
+                   "ring_p2p", "torus_chunk")
 
 
 @contextlib.contextmanager
@@ -1062,8 +1248,9 @@ def _mesh_cli(deck, steps, mesh_args, totals, out=None, peak_gib=None):
     from tpulbm_torch.ops import _build, kstep_tile
 
     torus = "--mesh-shape" in mesh_args
-    kernel, tag = ("torus_chunk", "[torus]") if torus else ("ring_chunk",
-                                                             "[ring]")
+    p2p = "cuda-p2p" in mesh_args
+    kernel, tag = (("torus_chunk", "[torus]") if torus
+                   else ("ring_p2p" if p2p else "ring_chunk", "[ring]"))
     pf, of = deck_files(deck)
     args = [pf, of, *mesh_args]
     args += ["--out-dir", out] if out else ["--no-output"]
@@ -1075,12 +1262,6 @@ def _mesh_cli(deck, steps, mesh_args, totals, out=None, peak_gib=None):
     with _watch_simulation(seen):
         reynolds, elapsed = _run_cli(args)
     counts = dict(_build.LAUNCHES)
-    _check_launches(deck, counts, [kernel, "reduce_partials"],
-                    [c for c in ("skew_chunk", "kstep_chunk", "resident_chunk",
-                                 "tile_chunk", "cluster_resident",
-                                 "ring_chunk", "torus_chunk") if c != kernel])
-    for key, v in counts.items():
-        totals[key] += v
     sim = seen["sim"]
     ny, nx = sim.params.ny, sim.params.nx
     if torus:
@@ -1092,11 +1273,17 @@ def _mesh_cli(deck, steps, mesh_args, totals, out=None, peak_gib=None):
         k = min(kstep_tile.TILE_K, min(rows))
         what = f"{len(rows)} shards ({'/'.join(map(str, rows))} rows)"
     chunks = -(-steps // k)
+    _check_launches(deck, counts, [kernel, "reduce_partials"],
+                    [c for c in KERNEL_COUNTERS if c != kernel],
+                    p2p_chunks=chunks * len(sim.mesh) if p2p else 0)
+    for key, v in counts.items():
+        totals[key] += v
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"{tag} {deck} over {what}, layout {_layout(sim.mesh)}: Reynolds "
         f"{reynolds:.12E}, {elapsed:.3f} s, "
         f"{nx * ny * steps / elapsed / 1e6:.1f} MLUPS, peak device memory "
-        f"{peak:.3f} GiB, {chunks} chunks of {k} steps, host "
+        f"{peak:.3f} GiB, {chunks} chunks of {k} steps"
+        f"{f' in {counts[kernel]} K6 launches' if p2p else ''}, host "
         f"{seen['issue_s'] / chunks * 1e6:.1f} us per chunk, solve "
         f"{elapsed / chunks * 1e6:.1f} us per chunk")
     if peak_gib is not None and not peak <= peak_gib:
@@ -1140,11 +1327,12 @@ def _golden(deck, out, what):
         raise AssertionError(f"{deck} {what}: golden check failed")
 
 
-def _ring_busy():
+def _ring_busy(backend="cuda"):
     """Device time against wall time of 50 chunks of the 1024^2 ring over
-    4 shards, from a torch.profiler trace: the sum of the device events'
-    self time (kernels and copies) over the wall time of the runner call
-    and its readback. Off the main path: its launches are not counted."""
+    4 shards on `backend`, from a torch.profiler trace: the sum of the
+    device events' self time (kernels and copies) over the wall time of the
+    runner call and its readback. Off the main path: its launches are not
+    counted."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1154,7 +1342,7 @@ def _ring_busy():
     p, o = _load_deck("1024x1024")
     mesh = get_mesh(4)
     fs, obs = sharding.shard_rows(_state(p, SEED + 12), o != 0, mesh)
-    run = runner.make_runner(p, 400, "cuda", mesh=mesh)
+    run = runner.make_runner(p, 400, backend, mesh=mesh)
     run(fs, obs)[1].cpu()   # the timed call goes on from its later state
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1162,7 +1350,8 @@ def _ring_busy():
         run(fs, obs)[1].cpu()
         wall = time.perf_counter() - t0
     device_us = sum(e.self_device_time_total for e in prof.key_averages())
-    log(f"[ring] 1024x1024 over 4 shards, 50 chunks under torch.profiler: "
+    log(f"[ring] 1024x1024 over 4 shards ({backend}), 50 chunks under "
+        f"torch.profiler: "
         f"wall {wall * 1e3:.3f} ms, device time {device_us / 1e3:.3f} ms, "
         f"busy {100 * device_us / 1e6 / wall:.1f} %")
 
@@ -1177,28 +1366,39 @@ def phase_ring(one_card):
     from tpulbm_torch.ops import _build
 
     totals = dict.fromkeys(_build.LAUNCHES, 0)
-    for deck, steps, n, extra in RING_RUNS:
-        _mesh_golden(deck, steps, ["--device-count", str(n), *extra], totals)
-    _ring_busy()
+    for deck, steps, n in RING_RUNS:
+        mesh_args = ["--device-count", str(n)]
+        cuda = _mesh_golden(deck, steps, mesh_args, totals)
+        p2p = _mesh_golden(deck, steps, [*mesh_args, *P2P], totals)
+        _same_bytes(p2p, cuda, f"{deck} over {n} shards, cuda-p2p",
+                    ref_what="the cuda ring's run")
+    deck, steps, n = RING_UNEVEN_RUN
+    _mesh_golden(deck, steps, ["--device-count", str(n)], totals)
+    _ring_busy("cuda")
+    _ring_busy("cuda-p2p")
 
-    # 8192^2 over 4 shards, full width and steps, against one card's K4
+    # 8192^2 over 4 shards, full width and steps, on both rings, against
+    # one card's K4
     deck, steps, n = RING_WIDE_RUN
-    sim, _ = _mesh_cli(deck, steps, ["--device-count", str(n)], totals,
-                       peak_gib=PEAK_MESH_8192_GIB)
-    f_ring, av_ring = sim.f, sim.av_vels.copy()
-    del sim
-    f_one = one_card["f"].to(f_ring.device)
-    diff = (f_ring - f_one).abs().max().item()
-    same = torch.equal(f_ring, f_one)
-    rel = _max_rel_pct(av_ring, one_card["av"])
-    log(f"[ring] {deck} over {n} shards vs one card (phase 4's K4 run): "
-        f"max|df| {diff:.3e} (<= {F_ATOL:g}), state bitwise {same}; av max "
-        f"diff {rel:.3g} % (<= {GOLDEN_TOL:g} %)")
-    if not (same and rel <= GOLDEN_TOL
-            and np.isfinite(av_ring).all() and av_ring.shape == (steps,)):
-        raise AssertionError(f"{deck} over {n} shards disagrees with one card")
-    del f_ring, f_one
-    _free()
+    for extra in ([], P2P):
+        what = f"{deck} over {n} shards{' (cuda-p2p)' if extra else ''}"
+        sim, _ = _mesh_cli(deck, steps, ["--device-count", str(n), *extra],
+                           totals, peak_gib=PEAK_MESH_8192_GIB)
+        f_ring, av_ring = sim.f, sim.av_vels.copy()
+        del sim
+        _free()
+        f_one = one_card["f"].to(f_ring.device)
+        diff = (f_ring - f_one).abs().max().item()
+        same = torch.equal(f_ring, f_one)
+        rel = _max_rel_pct(av_ring, one_card["av"])
+        log(f"[ring] {what} vs one card (phase 4's K4 run): max|df| "
+            f"{diff:.3e} (<= {F_ATOL:g}), state bitwise {same}; av max diff "
+            f"{rel:.3g} % (<= {GOLDEN_TOL:g} %)")
+        if not (same and rel <= GOLDEN_TOL
+                and np.isfinite(av_ring).all() and av_ring.shape == (steps,)):
+            raise AssertionError(f"{what} disagrees with one card")
+        del f_ring, f_one
+        _free()
     return totals
 
 
@@ -1440,9 +1640,7 @@ def _launch(deck, steps, args, kernel, totals, shape=PROCESSES,
             per.append(json.load(fh))
     summed = {k: sum(c[k] for c in per) for k in per[0]}
     _check_launches(deck, summed, [kernel, "reduce_partials"],
-                    [c for c in ("skew_chunk", "kstep_chunk", "resident_chunk",
-                                 "tile_chunk", "cluster_resident",
-                                 "ring_chunk", "torus_chunk") if c != kernel])
+                    [c for c in KERNEL_COUNTERS if c != kernel])
     for key, v in summed.items():
         totals[key] += v
     fields = dict(line.split(":", 1) for line in proc.stdout.splitlines()
@@ -1488,7 +1686,7 @@ def phase_multiproc():
     counts = dict(_build.LAUNCHES)
     _check_launches(deck, counts, ["ring_chunk", "reduce_partials"],
                     ["torus_chunk", "tile_chunk", "skew_chunk",
-                     "kstep_chunk"])
+                     "kstep_chunk", "ring_p2p"])
     for key, v in counts.items():
         totals[key] += v
     _same_bytes(resumed, ring4, "dcp checkpoint resumed in one process",
@@ -1546,7 +1744,11 @@ KERNELS = [
      "tpulbm/ops/pallas_kstep_skew_fold.py:118, "
      "tpulbm/ops/pallas_kstep_skew_fold.py:497, "
      "tpulbm/ops/pallas_kstep_skew2d.py:112, tpulbm/ops/pallas_kstep2d.py:79, "
-     "tpulbm/ops/pallas_kstep_bands.py:118, tpulbm/ops/pallas_step.py:55, "
+     "tpulbm/ops/pallas_kstep_bands.py:118, tpulbm/ops/pallas_step.py:55"),
+    ("ring_p2p", "lbm_ring_p2p (K6, the cuda-p2p ring: every shard of a "
+     "card for up to 64 chunks a launch, the slabs handed between shards "
+     "inside the kernel)",
+     "tpulbm_torch/csrc/ring_p2p.cu",
      "tpulbm/ops/pallas_kstep_rdma.py:65, "
      "tpulbm/ops/pallas_resident_rdma.py:63"),
     ("torus_chunk", "lbm_kstep_tile_torus (K4, torus_chunk: torus mode, the "
@@ -1559,11 +1761,13 @@ KERNELS = [
 def phase_cards():
     """The ring and the torus across cards (``--cards``; needs two or
     more): the kernel-phase check of ``_ring_on_cards``, the 1024^2 deck
-    over the cards (over twice as many shards, two a card, with
-    ``--backend cuda-p2p``; and over 3) and 128^2 through the golden gate,
-    and 8192^2 over 4 shards; the torus over 2x2 with block (i, j) on card
-    (2i + j) % cards: 1024^2 through the golden gate, and 8192^2, its state
-    bitwise one card's K4 run; on four cards, ``_processes_on_cards``."""
+    over the cards on the cuda and the cuda-p2p ring (the same bytes), over
+    twice as many shards with cuda-p2p (two a card, neither neighbour of a
+    shard on its card) and over 3, and 128^2, through the golden gate;
+    8192^2 over the cards on both rings, the state bitwise one card's K4
+    run; the torus over 2x2 with block (i, j) on card (2i + j) % cards:
+    1024^2 through the golden gate, and 8192^2, its state bitwise one
+    card's K4 run; on four cards, ``_processes_on_cards``."""
     import torch
 
     from tpulbm_torch.ops import _build
@@ -1580,15 +1784,29 @@ def phase_cards():
     _ring_on_cards()
     n = min(4, torch.cuda.device_count())
     totals = dict.fromkeys(_build.LAUNCHES, 0)
+    outs = {}
     for deck, steps, shards, extra in (
-            ("1024x1024", 20000, n, []),
-            ("1024x1024", 20000, 2 * n, ["--backend", "cuda-p2p"]),
+            ("1024x1024", 20000, n, []), ("1024x1024", 20000, n, P2P),
+            ("1024x1024", 20000, 2 * n, P2P),
             ("1024x1024", 20000, 3, []), ("128x128", 40000, n, [])):
-        _mesh_golden(deck, steps, ["--device-count", str(shards), *extra],
-                     totals)
+        outs[deck, shards, tuple(extra)] = _mesh_golden(
+            deck, steps, ["--device-count", str(shards), *extra], totals)
+    _same_bytes(outs["1024x1024", n, tuple(P2P)], outs["1024x1024", n, ()],
+                f"1024x1024 over {n} cards, cuda-p2p",
+                ref_what="the cuda ring's run")
     deck, steps, _ = RING_WIDE_RUN
-    _mesh_cli(deck, steps, ["--device-count", str(n)], totals)
-    _free()
+    for extra in ([], P2P):
+        sim, _ = _mesh_cli(deck, steps, ["--device-count", str(n), *extra],
+                           totals)
+        f_ring = sim.f.cpu()
+        del sim
+        same = torch.equal(f_ring, f_one)
+        log(f"[ring] {deck} over {n} cards{' (cuda-p2p)' if extra else ''} "
+            f"vs one card's K4 run: state bitwise {same}")
+        if not same:
+            raise AssertionError(f"{deck} over {n} cards disagrees")
+        del f_ring
+        _free()
     _mesh_golden("1024x1024", 20000, TORUS, totals)
     deck, steps = TORUS_WIDE_RUN
     sim, _ = _mesh_cli(deck, steps, TORUS, totals)
@@ -1702,7 +1920,9 @@ def main(argv=None) -> int:
     del one_card
     for key, v in phase_multiproc().items():
         launches[key] += v
-    log(f"[time] multi-process main path {time.perf_counter() - t5:.1f} s")
+    t6 = time.perf_counter()
+    log(f"[time] multi-process main path {t6 - t5:.1f} s")
+    log(f"[time] phases 3-8 {t6 - t0:.1f} s")
     import torch
 
     kernels = [{"name": name, "route": "cuda", "source": source,

@@ -200,11 +200,13 @@ def test_ring_chunk_matches_plain_and_repeats_bitwise(case):
 
 @pytest.mark.cuda
 def test_ring_runners_give_the_single_device_state(case):
-    """The cuda and cuda-p2p rings (the same ring) over 3 shards (uneven)
-    and 4 shards, 21 steps: one ring_chunk launch per shard and chunk, the
-    state bitwise equal to the single-device K4 plan's, the av series
-    within the chunk gate; cuda-p2p on one shard warns and runs the
-    single-device route."""
+    """The cuda ring (one ring_chunk launch per shard and chunk) and the
+    cuda-p2p ring (K6: one ring_p2p launch a card for the two 8-step chunks
+    and one for the 5-step remainder, no ring_chunk launch) over 3 shards
+    (uneven) and 4 shards, 21 steps: the state bitwise equal to the
+    single-device K4 plan's, the cuda-p2p av series bitwise the cuda
+    ring's, within the chunk gate of the plan's; cuda-p2p on one shard
+    warns and runs the single-device route."""
     from tpulbm_torch.dist import sharding
     from tpulbm_torch.dist.mesh import get_mesh
     from tpulbm_torch.dist.runner import run_plan
@@ -213,17 +215,144 @@ def test_ring_runners_give_the_single_device_state(case):
     plan = [(kstep_tile.tile_chunk, 8)] * 2 + [(kstep_tile.tile_chunk, 5)]
     # a run takes its input over: its third chunk writes where the first read
     f1, av1 = run_plan(plan, f0.clone(), mask.float(), p)
-    for backend in ("cuda", "cuda-p2p"):
-        for n in (3, 4):
-            mesh = get_mesh(n)
+    for n in (3, 4):
+        mesh = get_mesh(n)
+        avs = {}
+        for backend in ("cuda", "cuda-p2p"):
             fs, obs = sharding.shard_rows(f0, mask, mesh)
             _build.reset_launches()
-            out, av = make_runner(p, 21, backend, mesh=mesh)(fs, obs)
-            assert _build.LAUNCHES["ring_chunk"] == 3 * n
+            out, avs[backend] = make_runner(p, 21, backend, mesh=mesh)(fs,
+                                                                      obs)
+            if backend == "cuda":
+                assert _build.LAUNCHES["ring_chunk"] == 3 * n
+                assert _build.LAUNCHES["ring_p2p"] == 0
+            else:
+                assert _build.LAUNCHES["ring_p2p"] == 2 * len(set(mesh))
+                assert _build.LAUNCHES["ring_chunk"] == 0
+                assert _build.LAUNCHES["reduce_partials"] == 3 * n
             assert torch.equal(sharding.gather_rows(out, "cuda"), f1)
+            av = avs[backend]
             assert ((av - av1).abs() / av1.abs()).max().item() <= AV_RTOL
+        assert torch.equal(avs["cuda"], avs["cuda-p2p"])
     f, av = make_runner(p, 21, "cuda-p2p", mesh=get_mesh(1))(f0.clone(), mask)
     assert torch.equal(f, f1)
+
+
+def _p2p_case(case, nx):
+    """The fixture's case, or a 96 x nx grid of its kind (nx % 4 != 0: K6's
+    4-byte window loads)."""
+    if nx is None:
+        return case
+    p = LBMParams(nx=nx, ny=96, max_iters=1, reynolds_dim=10, density=0.1,
+                  accel=0.005, omega=1.85)
+    rng = np.random.RandomState(19)
+    mask = rng.rand(p.ny, p.nx) < 0.1
+    p = p.with_free_cells(p.ny * p.nx - int(mask.sum()))
+    dev = torch.device("cuda")
+    f0 = initial_state(p, dev) * torch.tensor(
+        1 + 0.01 * rng.rand(9, p.ny, p.nx), dtype=torch.float32, device=dev)
+    return p, f0, torch.tensor(mask, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx", [None, 130])
+def test_ring_p2p_matches_plain_and_the_cuda_ring(case, nx):
+    """K6 over 3 shards of the 200 x 136 case (16-byte window loads) and of
+    a 96 x 130 grid (4-byte loads), in launches of 2, 1, 5 and 1 chunks of
+    8 steps (the first reads the neighbours' states, the others the
+    landing slots their predecessor filled, from odd and even epochs):
+    over the first two launches (3 chunks) against p2p_chunks_ref from
+    the same slots (F_ATOL, AV_RTOL: over 9 chunks nvcc's FMA contraction
+    moved the sums of this decaying flow by 9.5e-4 relative on an H100,
+    and the cuda ring's by the same bits); bitwise on a rerun; state and
+    sums over
+    all 9 chunks bitwise the cuda ring's ring_chunk; the error word and
+    the ticket counter back at 0; every chunk's sums the reduction of its
+    partials (K3_RTOL)."""
+    from tpulbm_torch.dist import sharding
+    from tpulbm_torch.dist.mesh import get_mesh
+    from tpulbm_torch.ops import ring_p2p
+
+    p, f0, mask = _p2p_case(case, nx)
+    mesh = get_mesh(3)
+    shards, _ = sharding.shard_rows(f0, mask, mesh)
+    rows, offsets = sharding.ring_rows(p.ny, 3)
+    k = 8
+    o = mask.float()
+    bands = [o[torch.arange(off - k, off + h + k, device=o.device) % p.ny]
+             .to(dev) for off, h, dev in zip(offsets, rows, mesh)]
+    bases = [(off - k) % p.ny for off in offsets]
+    launches = ((2, True), (1, False), (5, False), (1, False))
+
+    def kernel(plan):
+        ex = ring_p2p.Exchange(mesh, rows, p.nx)
+        states = [s.clone() for s in shards]
+        spares = [torch.empty_like(s) for s in states]
+        ex.barrier()   # the clones are written on each card's stream
+        sums, parts = [[] for _ in rows], []
+        for n_outer, pull0 in plan:
+            s, pt = ring_p2p._p2p_launch(ex, states, spares, bands, p, k,
+                                         n_outer, bases, pull0)
+            if n_outer % 2:
+                states, spares = spares, states
+            for d in range(3):
+                sums[d].append(s[d])
+            parts += [(n_outer, pt)]
+        torch.cuda.synchronize()
+        ex.check()
+        _counter_is_zero(f0.device)
+        return states, [torch.cat(s) for s in sums], parts
+
+    _build.reset_launches()
+    states, sums, parts = kernel(launches)
+    assert _build.LAUNCHES["ring_p2p"] == 4 * len(set(mesh))
+    first = kernel(launches[:2])
+    # the plain version on the first card (shards of several cards too)
+    nan, one = float("nan"), f0.device
+    lo = [torch.full((2, 9 * 8 * p.nx), nan, device=one) for _ in rows]
+    hi = [torch.full((2, 9 * 8 * p.nx), nan, device=one) for _ in rows]
+    ref = [s.to(one) for s in shards]
+    ref_sums = [[] for _ in rows]
+    for base, (n_outer, pull0) in zip((0, 2), launches[:2]):
+        ref, s = ring_p2p.p2p_chunks_ref(ref, [b.to(one) for b in bands], lo,
+                                         hi, p, k, n_outer, base, bases,
+                                         pull0)
+        for d in range(3):
+            ref_sums[d].append(s[d])
+    for d in range(3):
+        _close((first[0][d].to(one), first[1][d].to(one)),
+               (ref[d], torch.cat(ref_sums[d])))
+    again = kernel(launches)
+    for d in range(3):
+        assert torch.equal(states[d], again[0][d])
+        assert torch.equal(sums[d], again[1][d])
+    chunk = 0
+    for n_outer, pt in parts:
+        for c in range(n_outer):
+            for d in range(3):
+                want = kstep.reduce_partials_ref(pt[d][c * k:(c + 1) * k])
+                got = sums[d][(chunk + c) * k:(chunk + c + 1) * k]
+                assert ((got - want).abs() / want.abs()).max().item() <= (
+                    K3_RTOL)
+        chunk += n_outer
+    # the cuda ring over the same 9 chunks
+    ring = [s.clone() for s in shards]
+    ring_sums = [[] for _ in rows]
+    for _ in range(chunk):
+        new = []
+        for d in range(3):
+            dev = ring[d].device
+            f, s = kstep_tile.ring_chunk(
+                ring[d - 1][:, -k:].contiguous().to(dev), ring[d],
+                ring[(d + 1) % 3][:, :k].contiguous().to(dev), bands[d], p,
+                k, bases[d])
+            new.append(f)
+            ring_sums[d].append(s)
+        ring = new
+    for d in range(3):
+        assert torch.equal(states[d], ring[d])
+        assert torch.equal(sums[d], torch.cat(ring_sums[d]))
+    _counter_is_zero(f0.device)
 
 
 @pytest.mark.cuda

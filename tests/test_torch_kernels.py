@@ -248,7 +248,8 @@ def test_epilogue_order_matches_the_plain_sum(k, n):
 def test_nvcc_flags_and_sources():
     """The build covers every .cu of csrc for sm_90a, without fast math."""
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-        "cluster.cu", "fused_step.cu", "kstep_tile.cu", "resident.cu"}
+        "cluster.cu", "fused_step.cu", "kstep_tile.cu", "resident.cu",
+        "ring_p2p.cu"}
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags

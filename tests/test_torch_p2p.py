@@ -1,0 +1,657 @@
+"""The cuda-p2p ring (``ops.ring_p2p``, ``dist.runner.make_p2p_runner``,
+kernel K6 ``csrc/ring_p2p.cu``) on the CPU: against the JAX package's
+``--backend pallas-rdma`` (``pallas_resident_rdma`` and
+``pallas_kstep_rdma`` in interpret mode on the 8-device virtual CPU mesh of
+conftest.py), against the port's own ``cuda`` ring, and an eager model of
+K6's flag protocol.
+
+The shards lie on the CPU, so ``p2p_chunks`` takes its plain version,
+``p2p_chunks_ref`` (K6 runs only on the card; ``chip_smoke.py`` and
+``tests/test_torch_cuda.py`` hold it against the same plain version and
+the ``cuda`` ring there).
+
+Tolerances, the tiers of test_torch_ring: against the JAX package (both
+pair-symmetric), up to 19 steps f atol 1e-7 and av rtol 1e-4; 40 and 120
+steps (the 200-step tier) f atol 5e-7 and av rtol 1e-4 (XLA-CPU rounding
+against strict float32). Against the port's ``cuda`` ring on the CPU,
+whose plain ``ring_chunk`` runs the same per-shard arithmetic: state and
+sums bitwise. The model: bitwise the plain version, and no stale read.
+"""
+
+import dataclasses
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpulbm.core.params import LBMParams as JParams
+from tpulbm.dist.mesh import get_mesh as j_get_mesh
+from tpulbm.dist.runner import _make_resident_rdma_runner
+from tpulbm.dist.runner import make_runner as j_make_runner
+from tpulbm.ops import pallas_kstep_rdma, pallas_resident_rdma
+from tpulbm_torch.core import physics
+from tpulbm_torch.core.lattice import CX, CY, NSPEEDS
+from tpulbm_torch.core.params import LBMParams
+from tpulbm_torch.core.state import initial_state
+from tpulbm_torch.dist import runner, sharding
+from tpulbm_torch.dist.mesh import get_mesh
+from tpulbm_torch.io.obstacles import read_obstacles
+from tpulbm_torch.io.params_file import read_params
+from tpulbm_torch.ops import _build, kstep_tile, ring_p2p, step_torch
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parent.parent
+DATA = ROOT / "data"
+
+
+def _deck(name="128x128"):
+    p = read_params(DATA / f"input_{name}.params")
+    mask, n_free = read_obstacles(DATA / f"obstacles_{name}.dat", p.nx, p.ny)
+    return p.with_free_cells(n_free), mask
+
+
+def _case(ny, nx, seed):
+    """A seeded 10 % random mask and a 1 % perturbation of the rest state
+    (numpy)."""
+    p = LBMParams(nx=nx, ny=ny, max_iters=1, reynolds_dim=10, density=0.1,
+                  accel=0.005, omega=1.85)
+    rng = np.random.RandomState(seed)
+    mask = rng.rand(ny, nx) < 0.1
+    p = p.with_free_cells(ny * nx - int(mask.sum()))
+    f0 = (initial_state(p).numpy()
+          * (1 + 0.01 * rng.rand(9, ny, nx))).astype(np.float32)
+    return p, mask, f0
+
+
+def _perturbed(p, seed):
+    rng = np.random.RandomState(seed)
+    return (initial_state(p).numpy()
+            * (1 + 0.01 * rng.rand(9, p.ny, p.nx))).astype(np.float32)
+
+
+def _run(make, p, mask, f0, n_steps, n_shards, calls=1):
+    """A ring runner (make(p, n_steps, mesh)) on CPU shards, called
+    ``calls`` times in a row, each on the last one's output: (the shards,
+    the av series of every call) as numpy."""
+    mesh = get_mesh(n_shards, device="cpu")
+    run = make(p, n_steps, mesh)
+    shards, obst = sharding.shard_rows(torch.tensor(f0), torch.tensor(mask),
+                                       mesh)
+    avs = []
+    for _ in range(calls):
+        shards, av = run(shards, obst)
+        avs.append(av)
+    return (sharding.gather_rows(shards, "cpu").numpy(),
+            torch.cat(avs).numpy())
+
+
+def _p2p(max_outer=ring_p2p.MAX_OUTER):
+    def make(p, n_steps, mesh):
+        return runner.make_p2p_runner(p, n_steps, mesh, max_outer=max_outer)
+    return make
+
+
+def _cuda_ring(p, n_steps, mesh):
+    return runner.make_ring_runner(p, n_steps, mesh, kstep_tile.ring_chunk)
+
+
+def _close(got, want, f_atol):
+    (f, av), (f_ref, av_ref) = got, want
+    assert f.shape == f_ref.shape and av.shape == av_ref.shape
+    np.testing.assert_allclose(f, f_ref, rtol=0, atol=f_atol)
+    np.testing.assert_allclose(av, av_ref, rtol=1e-4)
+
+
+@pytest.mark.parametrize("n_shards,n_steps", [(2, 16), (4, 40), (8, 19)])
+def test_p2p_matches_jax_resident_rdma(n_shards, n_steps):
+    """The cases of tests/test_pallas_resident_rdma.py on the 128^2 deck
+    (two chunks in one call, five, and a 3-step remainder), from a
+    perturbed state: the p2p runner against --backend pallas-rdma, which
+    the JAX package sends to pallas_resident_rdma (a 64-, 32- or 16-row
+    shard fits its VMEM) and the remainder to the ppermute K-step kernel."""
+    p, mask = _deck()
+    assert pallas_resident_rdma.supported(p.ny // n_shards, p.nx,
+                                          min(8, n_steps), n_shards)
+    f0 = _perturbed(p, 21 + n_shards)
+    jrun = j_make_runner(JParams(**dataclasses.asdict(p)), n_steps,
+                         j_get_mesh(n_devices=n_shards), backend="pallas-rdma")
+    f_j, av_j = jrun(jnp.asarray(f0), jnp.asarray(mask))
+    _close(_run(_p2p(), p, mask, f0, n_steps, n_shards),
+           (np.asarray(f_j), np.asarray(av_j)),
+           1e-7 if n_steps <= 19 else 5e-7)
+
+
+def test_p2p_cross_call_parity_handoff_matches_jax():
+    """tests/test_pallas_resident_rdma.py::test_cross_call_parity_handoff:
+    120 steps over 2 shards, 3 chunks a launch (an odd count, so the slot
+    parity flips between launches) in 5 launches, against the JAX
+    package's resident-rdma runner with max_outer_per_call=3; and the same
+    run as 5 runner calls of 24 steps (each call's first chunk reads the
+    neighbours' states, the epochs go on)."""
+    p, mask = _deck()
+    f0 = _perturbed(p, 31)
+    jrun = _make_resident_rdma_runner(JParams(**dataclasses.asdict(p)), 120,
+                                      j_get_mesh(n_devices=2),
+                                      max_outer_per_call=3)
+    f_j, av_j = jrun(jnp.asarray(f0), jnp.asarray(mask))
+    want = (np.asarray(f_j), np.asarray(av_j))
+    got = _run(_p2p(3), p, mask, f0, 120, 2)
+    _close(got, want, 5e-7)
+    calls = _run(_p2p(3), p, mask, f0, 24, 2, calls=5)
+    assert np.array_equal(calls[0], got[0])
+    assert np.array_equal(calls[1], got[1])
+
+
+def test_p2p_matches_jax_kstep_rdma_on_a_256_row_shard():
+    """A 512 x 256 grid over 2 shards of 256 rows: too large for
+    pallas_resident_rdma's VMEM (64K cells a shard > 48K), so the JAX
+    package's pallas-rdma runs pallas_kstep_rdma, one launch a chunk
+    (n_outer = 1); 16 steps of a perturbed state with a random mask."""
+    p, mask, f0 = _case(512, 256, 41)
+    assert not pallas_resident_rdma.supported(256, 256, 8, 2)
+    assert pallas_kstep_rdma.supported(256, 256, 8, 2)
+    jrun = j_make_runner(JParams(**dataclasses.asdict(p)), 16,
+                         j_get_mesh(n_devices=2), backend="pallas-rdma")
+    f_j, av_j = jrun(jnp.asarray(f0), jnp.asarray(mask))
+    _close(_run(_p2p(1), p, mask, f0, 16, 2),
+           (np.asarray(f_j), np.asarray(av_j)), 1e-7)
+
+
+@pytest.mark.parametrize("n_shards,n_steps,max_outer", [
+    (3, 45, 64),     # 342/341/341-like uneven rows, a 5-step remainder
+    (5, 45, 2),      # launches of 2 chunks (odd epochs at each start)
+    (3, 16, 1),      # one chunk a launch
+    (2, 7, 64),      # one chunk of 7 steps, no remainder
+])
+def test_p2p_runner_is_bitwise_the_cuda_ring(n_shards, n_steps, max_outer):
+    """The p2p runner against the cuda ring (make_ring_runner with
+    ring_chunk, plain on the CPU) on 128 x 256 rows split unevenly: state
+    and av series bitwise, also over three calls in a row."""
+    p, mask = _deck("128x256")
+    f0 = _perturbed(p, 40 + n_shards)
+    got = _run(_p2p(max_outer), p, mask, f0, n_steps, n_shards, calls=3)
+    want = _run(_cuda_ring, p, mask, f0, n_steps, n_shards, calls=3)
+    assert np.array_equal(got[0], want[0])
+    assert np.array_equal(got[1], want[1])
+
+
+def test_p2p_chunks_ref_slots_by_parity():
+    """p2p_chunks_ref's landing slots: after a chunk at epoch e, slot
+    (e + 1) % 2 of shard d's lo holds shard d - 1's last k rows and its hi
+    shard d + 1's first k rows; slot e % 2 is left alone; chunk 0 with pull0
+    reads the states, not the slots (they hold NaN here)."""
+    p, mask, f0 = _case(48, 40, 7)
+    mesh = get_mesh(3, device="cpu")
+    states, obst = sharding.shard_rows(torch.tensor(f0), torch.tensor(mask),
+                                       mesh)
+    rows, offsets = sharding.ring_rows(p.ny, 3)
+    k = 5
+    ex = ring_p2p.Exchange(mesh, rows, p.nx)
+    for buf in ex.land_lo + ex.land_hi:
+        buf.fill_(float("nan"))
+    full = torch.tensor(mask, dtype=torch.float32)
+    bands = [full[torch.arange(o - k, o + h + k) % p.ny]
+             for o, h in zip(offsets, rows)]
+    bases = [(o - k) % p.ny for o in offsets]
+    f, _ = ring_p2p.p2p_chunks_ref(states, bands, ex.land_lo, ex.land_hi, p,
+                                   k, 1, 4, bases, True)
+    assert all(torch.isfinite(g).all() for g in f)
+    for d in range(3):
+        lo = ring_p2p.slot(ex.land_lo[d], 1, k, p.nx)
+        hi = ring_p2p.slot(ex.land_hi[d], 1, k, p.nx)
+        assert torch.equal(lo, f[d - 1][:, -k:])
+        assert torch.equal(hi, f[(d + 1) % 3][:, :k])
+        assert torch.isnan(ex.land_lo[d][0]).all()
+    # chunk 1 (epoch 5) reads slot 1, and gives the ring's next chunk
+    g, _ = ring_p2p.p2p_chunks_ref(f, bands, ex.land_lo, ex.land_hi, p, k, 1,
+                                   5, bases, False)
+    want, _ = ring_p2p.p2p_chunks_ref(f, bands, ex.land_lo, ex.land_hi, p, k,
+                                      1, 5, bases, True)
+    assert all(torch.equal(a, b) for a, b in zip(g, want))
+
+
+def test_outer_per_launch_and_the_table():
+    """Chunks a launch: 64, but 32 for an 8192^2 shard of 4 (16 MiB of
+    partials); the table of a launch and the limits are csrc/ring_p2p.cu's."""
+    assert ring_p2p.outer_per_launch([256] * 4, 1024, 8) == 64
+    assert ring_p2p.outer_per_launch([2048] * 4, 8192, 8) == 32
+    assert ring_p2p.outer_per_launch([8192], 8192, 8) == 8
+    src = (_build.CSRC / "ring_p2p.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kWords") == len(ring_p2p.TABLE)
+    assert const("kMaxOuter") == ring_p2p.MAX_OUTER
+    assert const("kMaxLocal") == ring_p2p.MAX_LOCAL
+    tile_src = (_build.CSRC / "tile_step.cuh").read_text()
+    assert f"constexpr int kTile = {ring_p2p.TILE};" in tile_src
+    for i, name in enumerate(ring_p2p.TABLE):
+        field = re.sub(r"(\w+?)(\d)$", r"\1[\2]", name)
+        assert re.search(rf"s\.{re.escape(field)} = [^;]*"
+                         rf"(ptr\({i}\)|t\[{i}\])", src), (i, name)
+
+
+def test_p2p_route(capsys):
+    """make_runner's route for cuda-p2p: over several processes it prints a
+    fallback line and takes the cuda ring (refused here on the CPU, as the
+    cuda backend is); on one device the JAX package's line; on a 2-D mesh a
+    refusal."""
+
+    class Transport:
+        world = 2
+
+    p, _ = _deck()
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        runner.make_runner(p, 10, "cuda-p2p", "cpu",
+                           mesh=get_mesh(4, device="cpu"),
+                           transport=Transport())
+    err = capsys.readouterr().err
+    assert "cuda-p2p unsupported across 2 processes" in err
+    assert "falling back to the cuda ring" in err
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        runner.make_runner(p, 10, "cuda-p2p", "cpu",
+                           mesh=get_mesh(4, device="cpu"))
+    assert "falling back" not in capsys.readouterr().err
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        runner.make_runner(p, 10, "cuda-p2p", "cpu",
+                           mesh=get_mesh(1, device="cpu"))
+    assert "falling back to the single-device route" in (
+        capsys.readouterr().err)
+    with pytest.raises(ValueError, match="cuda-p2p"):
+        runner.make_runner(p, 10, "cuda-p2p", "cpu",
+                           mesh=[[torch.device("cpu")] * 2] * 2)
+    with pytest.raises(ValueError, match="one process"):
+        runner.make_p2p_runner(p, 10, [torch.device("cpu"), None])
+
+
+# An eager model of K6's flag protocol (csrc/ring_p2p.cu). Each card runs
+# its launches in order; a launch's CTAs are Python generators, interleaved
+# by a seeded random scheduler with every other card's, that walk their
+# items (chunk, shard, tile) chunk-major with the grid's stride and do what
+# the kernel does: after a tile's first step, release the flag of the tile
+# before, poll the next item's dependencies and load its window early where
+# they are done; else, after the tile, release its flag and then wait; load
+# a window row by row; write the owned rows into the other state buffer and
+# the edge rows into the neighbours' landing slots of the next epoch's
+# parity, row by row; release the last tile's flag at the end. Every
+# cell of every buffer carries the epoch of the state it holds, and a load
+# checks that each cell the tile's owned results depend on (the owned cells
+# and k around them) holds the item's epoch: a stale or too-new value is
+# recorded. Cells outside that cone are loaded as NaN, so a result that
+# depended on them would not be bitwise the plain version's. MODEL_TILE is
+# 8 (the kernel's is 32) to have many tiles on a small grid: the
+# dependency rule needs only k <= the tile edge.
+MODEL_TILE = 8
+
+
+def model_deps(rows, tiles_x, d, tile, k, t=MODEL_TILE, cross=True):
+    """csrc/ring_p2p.cu::dependency: the tiles (shard, tile) that tile
+    ``tile`` of shard d waits on. ``cross=False`` drops the other shards'
+    (the variant the model must catch)."""
+    n, h = len(rows), rows[d]
+    ty, tx = divmod(tile, tiles_x)
+    cols = [(tx + o) % tiles_x for o in (-2, -1, 0, 1, 2)]
+    out = [(d, r * tiles_x + c) for r in (ty - 1, ty, ty + 1)
+           if 0 <= r < -(-h // t) for c in cols]
+    if not cross:
+        return out
+    if ty == 0:
+        q = (d - 1) % n
+        last = -(-rows[q] // t) - 1
+        out += [(q, r * tiles_x + c) for r in (last, last - 1) if r >= 0
+                for c in cols]
+    y0 = ty * t
+    if y0 + min(t, h - y0) + k > h:
+        out += [((d + 1) % n, c) for c in cols]
+    return out
+
+
+def _band_steps(lo, mid, hi, obst_band, params, k, row_base):
+    """ring_chunk_ref's arithmetic on a band lo | mid | hi: (mid's rows
+    after k steps, per step the |u| of mid's rows)."""
+    h = mid.shape[1]
+    blocked = obst_band != 0
+    f, speeds = torch.cat([lo, mid, hi], dim=1), []
+    for s in range(k):
+        rows = f.shape[1]
+        b = blocked[s:s + rows]
+        for j in range(rows):
+            if (row_base + s + j) % params.ny == params.accel_row:
+                f = step_torch.accelerate(f, b, params, row=j)
+        pulled = [torch.roll(f[q, 1 - CY[q]:rows - 1 - CY[q]], CX[q], dims=1)
+                  for q in range(NSPEEDS)]
+        out, speed = physics.collide(pulled, b[1:rows - 1], params.omega,
+                                     True)
+        f = torch.stack(out)
+        own = k - s - 1
+        speeds.append(speed[own:own + h])
+    return f, speeds
+
+
+class FlagModel:
+    """The buffers, tags and flags of a p2p ring of ``rows`` shards on
+    ``cards`` (card of shard d), and its scheduler."""
+
+    def __init__(self, params, rows, offsets, cards, mask, states, k,
+                 deps=model_deps, t=MODEL_TILE):
+        self.p, self.rows, self.offsets, self.cards = params, rows, offsets, cards
+        self.k, self.deps, self.t = k, deps, t
+        self.nx = params.nx
+        self.tiles_x = -(-self.nx // t)
+        n = len(rows)
+        nan = float("nan")
+        self.buf = [[s.clone(), torch.full_like(s, nan)] for s in states]
+        self.tag = [[np.zeros((h, self.nx), int), np.full((h, self.nx), -1)]
+                    for h in rows]
+        self.cur = 0                 # the buffer holding the state
+        self.slots = {side: [[torch.full((9, k, self.nx), nan)
+                              for _ in range(2)] for _ in range(n)]
+                      for side in ("lo", "hi")}
+        self.slot_tag = {side: [[np.full((k, self.nx), -1) for _ in range(2)]
+                                for _ in range(n)] for side in ("lo", "hi")}
+        self.flags = [np.zeros(-(-h // t) * self.tiles_x, int) for h in rows]
+        full = torch.tensor(mask, dtype=torch.float32)
+        self.bands = [full[torch.arange(o - k, o + h + k) % params.ny]
+                      for o, h in zip(offsets, rows)]
+        self.epoch = 0
+        self.stale = []
+        self.speed = {}
+
+    def ntiles(self, d):
+        return self.flags[d].size
+
+    def ready(self, launch, item):
+        c, d, tile = self.locate(launch, item)
+        return all(self.flags[q][u] >= launch["base"] + c
+                   for q, u in self.deps(self.rows, self.tiles_x, d, tile,
+                                         self.k, self.t))
+
+    def locate(self, launch, item):
+        c, r = divmod(item, launch["items"])
+        for d in launch["shards"]:
+            if r < self.ntiles(d):
+                return c, d, r
+            r -= self.ntiles(d)
+        raise AssertionError(item)
+
+    def source(self, launch, c, d, r):
+        """(values (9, nx), tags (nx,)) of band row r - k ... of shard d at
+        chunk c: shard row r (may be < 0 or >= h)."""
+        h, k, e = self.rows[d], self.k, launch["base"] + c
+        n = len(self.rows)
+        if 0 <= r < h:
+            b = launch["cur"] ^ (c % 2)
+            return self.buf[d][b][:, r], self.tag[d][b][r]
+        if launch["pull0"] and c == 0:
+            q = (d - 1) % n if r < 0 else (d + 1) % n
+            rr = self.rows[q] + r if r < 0 else r - h
+            b = launch["cur"]
+            return self.buf[q][b][:, rr], self.tag[q][b][rr]
+        side, rr = ("lo", r + k) if r < 0 else ("hi", r - h)
+        return (self.slots[side][d][e % 2][:, rr],
+                self.slot_tag[side][d][e % 2][rr])
+
+    def load(self, launch, item):
+        """The window of the item's needed cone, row by row (a generator
+        returning (c, d, tile, band (9, own + 2k, nx))); records a stale
+        cell."""
+        c, d, tile = self.locate(launch, item)
+        k, t, e = self.k, self.t, launch["base"] + c
+        ty, tx = divmod(tile, self.tiles_x)
+        y0, x0 = ty * t, tx * t
+        own = min(t, self.rows[d] - y0)
+        cols = np.arange(x0 - k, x0 + min(t, self.nx - x0) + k) % self.nx
+        band = torch.full((9, own + 2 * k, self.nx), float("nan"))
+        for i, r in enumerate(range(y0 - k, y0 + own + k)):
+            vals, tags = self.source(launch, c, d, r)
+            band[:, i, cols] = vals[:, cols]
+            if not (tags[cols] == e).all():
+                self.stale.append((e, d, tile, r, sorted(set(tags[cols]))))
+            yield "work"
+        return c, d, tile, band
+
+    def publish(self, pending):
+        """Release a stepped tile's flag: (shard, tile, epoch + 1)."""
+        if pending:
+            d, tile, value = pending
+            self.flags[d][tile] = value
+
+    def step_store(self, launch, window, hook):
+        """Step the window's tile, run ``hook`` (a generator: after the
+        first step), write its owned cells and slabs row by row, record its
+        speeds; returns its flag, to release."""
+        c, d, tile, band = window
+        k, t, n = self.k, self.t, len(self.rows)
+        e, h = launch["base"] + c, self.rows[d]
+        ty, tx = divmod(tile, self.tiles_x)
+        y0, x0 = ty * t, tx * t
+        own = min(t, h - y0)
+        cols = slice(x0, x0 + min(t, self.nx - x0))
+        ob = self.bands[d][y0:y0 + own + 2 * k]
+        f, speeds = _band_steps(band[:, :k], band[:, k:k + own],
+                                band[:, k + own:], ob, self.p, k,
+                                (self.offsets[d] - k + y0) % self.p.ny)
+        yield "work"
+        yield from hook()
+        out = launch["cur"] ^ ((c + 1) % 2)
+        for i in range(own):
+            row = y0 + i
+            self.buf[d][out][:, row, cols] = f[:, i, cols]
+            self.tag[d][out][row, cols] = e + 1
+            if row >= h - k:
+                q = (d + 1) % n
+                self.slots["lo"][q][(e + 1) % 2][:, row - (h - k), cols] = (
+                    f[:, i, cols])
+                self.slot_tag["lo"][q][(e + 1) % 2][row - (h - k), cols] = e + 1
+            if row < k:
+                q = (d - 1) % n
+                self.slots["hi"][q][(e + 1) % 2][:, row, cols] = f[:, i, cols]
+                self.slot_tag["hi"][q][(e + 1) % 2][row, cols] = e + 1
+            yield "work"
+        maps = self.speed.setdefault((e, d), [torch.full((h, self.nx),
+                                                         float("nan"))
+                                              for _ in range(k)])
+        for s in range(k):
+            maps[s][y0:y0 + own, cols] = speeds[s][:, cols]
+        return d, tile, e + 1
+
+    def cta(self, launch, b, grid):
+        """One CTA's walk over its items (see the comment above)."""
+        total = launch["items"] * launch["n_outer"]
+        items = list(range(b, total, grid))
+        if not items:
+            return
+        while not self.ready(launch, items[0]):
+            yield "wait"
+        window = yield from self.load(launch, items[0])
+        held = {"pending": None, "early": None}
+        for item in items:
+            nxt = item + grid
+            held["early"] = None
+
+            def hook():
+                self.publish(held["pending"])
+                held["pending"] = None
+                if nxt < total and self.ready(launch, nxt):
+                    held["early"] = yield from self.load(launch, nxt)
+
+            held["pending"] = yield from self.step_store(launch, window, hook)
+            if nxt < total and held["early"] is None:
+                self.publish(held["pending"])
+                held["pending"] = None
+                while not self.ready(launch, nxt):
+                    yield "wait"
+                held["early"] = yield from self.load(launch, nxt)
+            window = held["early"]
+        self.publish(held["pending"])
+
+    def call(self, launches, grid, rng):
+        """One runner call: ``launches`` [(n_outer, pull0)] on every card,
+        each card's in order, the CTAs of all cards' current launches
+        interleaved at random. Launch i's input is buffer ``cur`` of every
+        shard, the runner's ping-pong. Raises on a deadlock."""
+        n = len(self.rows)
+        plan, base, cur = [], self.epoch, self.cur
+        for n_outer, pull0 in launches:
+            plan.append(dict(base=base, n_outer=n_outer, pull0=pull0,
+                             cur=cur))
+            base, cur = base + n_outer, cur ^ (n_outer % 2)
+        queues = {card: list(plan) for card in set(self.cards)}
+        running = {}
+
+        def start(card):
+            shards = [d for d in range(n) if self.cards[d] == card]
+            launch = dict(queues[card].pop(0), shards=shards,
+                          items=sum(self.ntiles(d) for d in shards))
+            total = launch["items"] * launch["n_outer"]
+            running[card] = [self.cta(launch, b, grid)
+                             for b in range(min(grid, total))]
+
+        for card in sorted(queues):
+            start(card)
+        idle = 0
+        while running:
+            card = sorted(running)[rng.randint(len(running))]
+            ctas = running[card]
+            j = rng.randint(len(ctas))
+            try:
+                idle = idle + 1 if next(ctas[j]) == "wait" else 0
+            except StopIteration:
+                ctas.pop(j)
+                idle = 0
+                if not ctas:
+                    del running[card]
+                    if queues[card]:
+                        start(card)
+            if idle > 20000:
+                raise AssertionError("the model deadlocked")
+        self.epoch, self.cur = base, cur
+
+    def states(self):
+        return [self.buf[d][self.cur] for d in range(len(self.rows))]
+
+
+def _plain_calls(p, mask, states, rows, offsets, k, calls):
+    """p2p_chunks_ref over the same calls: (states, per call and shard the
+    sums)."""
+    n = len(rows)
+    nan = float("nan")
+    lo = [torch.full((2, 9 * 8 * p.nx), nan) for _ in range(n)]
+    hi = [torch.full((2, 9 * 8 * p.nx), nan) for _ in range(n)]
+    full = torch.tensor(mask, dtype=torch.float32)
+    bands = [full[torch.arange(o - k, o + h + k) % p.ny]
+             for o, h in zip(offsets, rows)]
+    bases = [(o - k) % p.ny for o in offsets]
+    base, sums = 0, []
+    for launches in calls:
+        for n_outer, pull0 in launches:
+            states, s = ring_p2p.p2p_chunks_ref(states, bands, lo, hi, p, k,
+                                                n_outer, base, bases, pull0)
+            sums.append((base, n_outer, s))
+            base += n_outer
+    return states, sums
+
+
+def _model_case(n_shards, cards, ny=44, nx=36, k=5, seed=3):
+    p, mask, f0 = _case(ny, nx, seed)
+    rows, offsets = sharding.ring_rows(ny, n_shards)
+    states = [torch.tensor(f0[:, o:o + h]) for o, h in zip(offsets, rows)]
+    return p, mask, rows, offsets, states, [cards[d % len(cards)]
+                                            for d in range(n_shards)], k
+
+
+# Calls of launches (n_outer, pull0): a call's first launch reads the
+# neighbours' states, the next ones the slots; two calls, odd launches.
+CALLS = [[(3, True), (1, False)], [(2, True), (3, False)]]
+
+
+@pytest.mark.parametrize("n_shards,cards,grid,ny", [
+    (2, ["a"], 1, 44), (2, ["a"], 2, 44), (3, ["a"], 7, 44),
+    (3, ["a"], 29, 44), (3, ["a", "b"], 5, 44), (4, ["a", "b"], 3, 44),
+    (3, ["a", "b", "c"], 11, 44),
+    (3, ["a", "b"], 7, 51),   # 17-row shards: a last tile row of 1 row
+    (2, ["a"], None, 44),     # one CTA a tile of a chunk
+])
+def test_flag_model_reads_nothing_stale_and_is_the_plain_version(
+        n_shards, cards, grid, ny):
+    """The model of K6 over 2-4 shards (ny x 36 grid, 8 x 8 model tiles,
+    k = 5: ragged tile rows and a last tile column of 4 columns, so the
+    slabs and the x margins reach across two tiles) on 1-3 cards, for grids
+    of 1 CTA to every tile of a chunk: it finishes, reads no stale cell,
+    and ends bitwise equal to p2p_chunks_ref over the same calls, state and
+    per-step sums (the speeds of every tile stitched and summed as the
+    plain chunk sums them)."""
+    p, mask, rows, offsets, states, on, k = _model_case(n_shards, cards,
+                                                        ny=ny)
+    model = FlagModel(p, rows, offsets, on, mask, states, k)
+    total_tiles = sum(model.ntiles(d) for d in range(n_shards))
+    rng = np.random.RandomState(n_shards * 100 + (grid or 0))
+    for launches in CALLS:
+        model.call(launches, grid or total_tiles, rng)
+    assert model.stale == []
+    want, sums = _plain_calls(p, mask, states, rows, offsets, k, CALLS)
+    for a, b in zip(model.states(), want):
+        assert torch.equal(a, b)
+    for base, n_outer, s in sums:
+        for d in range(n_shards):
+            got = torch.stack([kstep_tile.rows_sum(
+                model.speed[(base + c, d)][j], 0, rows[d])
+                for c in range(n_outer) for j in range(k)])
+            assert torch.equal(got, s[d])
+
+
+def _caught(deps, grid, seeds=4):
+    """The seeds of 4 whose run of the model with ``deps`` read a stale
+    cell or deadlocked: 3 shards of 17 rows on 2 cards."""
+    caught = 0
+    for seed in range(seeds):
+        p, mask, rows, offsets, states, on, k = _model_case(3, ["a", "b"],
+                                                            ny=51)
+        model = FlagModel(p, rows, offsets, on, mask, states, k, deps=deps)
+        try:
+            for launches in CALLS:
+                model.call(launches, grid, np.random.RandomState(seed))
+        except AssertionError:
+            caught += 1
+            continue
+        caught += bool(model.stale)
+    return caught
+
+
+def test_flag_model_catches_a_missing_cross_shard_wait():
+    """Without the waits on the other shards' tiles, the model reads a
+    stale slab (or state): every seed, at 7 CTAs."""
+    def no_cross(rows, tiles_x, d, tile, k, t):
+        return model_deps(rows, tiles_x, d, tile, k, t, cross=False)
+
+    assert _caught(no_cross, 7) == 4
+
+
+def _one_prev_row(rows, tiles_x, d, tile, k, t):
+    """Only the previous shard's last tile row (a 1-row last tile row
+    holds fewer than k rows)."""
+    q = (d - 1) % len(rows)
+    last = -(-rows[q] // t) - 1
+    return [(e, u) for e, u in model_deps(rows, tiles_x, d, tile, k, t)
+            if e != q or e == d or u // tiles_x == last]
+
+
+def _three_cols(rows, tiles_x, d, tile, k, t):
+    """Tile columns tx - 1 .. tx + 1 only (a 4-column last tile column is
+    narrower than k)."""
+    tx = tile % tiles_x
+    return [(e, u) for e, u in model_deps(rows, tiles_x, d, tile, k, t)
+            if (u % tiles_x - tx) % tiles_x in (0, 1, tiles_x - 1)]
+
+
+@pytest.mark.parametrize("deps", [_one_prev_row, _three_cols])
+def test_flag_model_catches_a_narrow_neighbourhood(deps):
+    """The superset parts of the rule are needed where the last tile row
+    or column is narrower than k: without them, the model reads a stale
+    cell (every seed, at 20 CTAs)."""
+    assert _caught(deps, 20) == 4

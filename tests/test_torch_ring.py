@@ -240,12 +240,18 @@ def test_kernel_ring_matches_jax_pallas_ring(n_steps):
 
 
 def test_p2p_ring_matches_jax_pallas_rdma():
-    """The ring that cuda-p2p runs (slabs copied before each chunk) on CPU
-    shards against --backend pallas-rdma (in-kernel slab exchange, interior
-    blocks first) in interpret mode: 2 shards, 16 steps."""
+    """The ring that cuda-p2p runs (make_p2p_runner: p2p_chunks, the plain
+    version of K6 on CPU shards, the slabs handed through landing slots)
+    against --backend pallas-rdma (in-kernel slab exchange, interior blocks
+    first) in interpret mode: 2 shards, 16 steps."""
     p, mask = _deck()
     f0 = _perturbed(p, 13)
-    _close(_ring(p, mask, f0, 16, 2, kstep_tile.ring_chunk),
+    mesh = get_mesh(2, device="cpu")
+    run = runner.make_p2p_runner(p, 16, mesh)
+    shards, obst = sharding.shard_rows(torch.tensor(f0), torch.tensor(mask),
+                                       mesh)
+    shards, av = run(shards, obst)
+    _close((sharding.gather_rows(shards, "cpu").numpy(), av.numpy()),
            _jax_ring(p, mask, f0, 16, 2, "pallas-rdma"), 1e-7)
 
 

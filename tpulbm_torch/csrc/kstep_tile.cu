@@ -22,10 +22,10 @@
 //   pallas_kstep_skew2d.py::_kernel; pallas_kstep.py::_kernel and
 //     pallas_kstep2d.py::_kernel (the K-step rings and remainders);
 //   pallas_kstep_bands.py::_kernel (the bands ring);
-//   pallas_step.py::_kernel (k = 1: one step with 1-row halos);
-//   pallas_kstep_rdma.py::_kernel and pallas_resident_rdma.py::_kernel,
-//     whose slab exchange runs inside the kernel: here the slabs are
-//     copied before the launch (dist/runner.py).
+//   pallas_step.py::_kernel (k = 1: one step with 1-row halos).
+// (The in-kernel exchange of pallas_kstep_rdma.py::_kernel and
+// pallas_resident_rdma.py::_kernel is K6, ring_p2p.cu, which steps its
+// tiles with this kernel's tile step, tile_step.cuh.)
 // Torus mode is the per-block body of the 2-D torus (k steps of one block
 // given its neighbours' k-column and corner-carrying k-row slabs, and the
 // per-step sum over the block's cells): pallas_kstep.py::_kernel with
@@ -68,7 +68,8 @@
 //     three row sources would cut an edge tile's box into up to six. Each
 //     thread's row and column wraps are computed once per window row and
 //     column segment: no division or modulo per element.
-//   State in registers: one shared copy of the window's state. Thread t
+//   State in registers (tile_step.cuh, shared with K6): one shared copy of
+//     the window's state. Thread t
 //     owns window cells t + j * 768 (j < 3), their coordinates computed once
 //     per launch; at each step it computes those of its cells that lie in
 //     the step's rectangle into registers, and after a barrier writes them
@@ -138,27 +139,13 @@
 
 #include "async_copy.cuh"
 #include "lbm_cell.cuh"
+#include "tile_step.cuh"
 
 namespace {
 
-constexpr int kTile = 32;                      // owned tile edge, cells
-constexpr int kMaxK = 8;                       // steps per launch
-constexpr int kMaxW = kTile + 2 * kMaxK;       // window edge at kMaxK
-constexpr int kThreads = 768;                  // 48^2 = 3 x 768
-constexpr int kWarps = kThreads / 32;
-// Window cells a thread owns: t + j * kThreads, j < kCells
-constexpr int kCells = kMaxW * kMaxW / kThreads;
-// The load: kSegLanes threads a window row, kRowSlots rows at a time
-constexpr int kSegLanes = 16;
-constexpr int kRowSlots = kThreads / kSegLanes;
-constexpr int kMaxSegs = (kMaxW + kSegLanes - 1) / kSegLanes;  // 4-B mode
-constexpr int kPlanes = 10;                    // nine populations, mask
+using namespace tpulbm::tile;
+
 constexpr int kMaxDevices = 64;
-static_assert(kCells * kThreads == kMaxW * kMaxW && kMaxK % 4 == 0,
-              "the threads' cells fill the largest window");
-static_assert(kMaxK <= kWarps && kMaxK <= tpulbm::kMaxEpilogueRows &&
-                  kThreads >= tpulbm::kReduceThreads,
-              "one warp per step sums the warp sums");
 
 enum class Mode { kGrid, kRing, kTorus };
 
@@ -188,39 +175,6 @@ struct TileArgs {
   int row_base;
 };
 
-__device__ __forceinline__ int wrap(int v, int n) {
-  v %= n;
-  return v < 0 ? v + n : v;
-}
-
-// The step-s state of a stage around window cell c (planes of `plane`
-// floats, rows of w, plane 9 the mask, nonzero = blocked; bit dy + 1 of acc
-// set where row wy + dy of the window is the accelerated row).
-struct TileSrc {
-  const float* buf;
-  int plane, w, c;
-  unsigned acc;
-  __device__ __forceinline__ float f(int k, int dy, int dx) const {
-    return buf[k * plane + c + dy * w + dx];
-  }
-  __device__ __forceinline__ bool fluid(int dy, int dx) const {
-    return buf[9 * plane + c + dy * w + dx] == 0.0f;
-  }
-  __device__ __forceinline__ bool accel(int dy) const {
-    return (acc >> (dy + 1)) & 1u;
-  }
-};
-
-// Window columns left and right of the owned tile: k rounded up to a
-// multiple of 4, so that a window row starts at a multiple of 4 columns.
-__host__ __device__ constexpr int col_margin(int k) { return (k + 3) & ~3; }
-
-// Floats of one stage: 10 planes of (32 + 2k) x (32 + 2 col_margin(k)), a
-// multiple of 4.
-__host__ __device__ constexpr int stage_floats(int k) {
-  return kPlanes * (kTile + 2 * k) * (kTile + 2 * col_margin(k));
-}
-
 template <Mode kMode, int kK>
 __global__ void __launch_bounds__(kThreads, 1)
     kstep_tile_kernel(Sources src, const float* __restrict__ obst,
@@ -234,7 +188,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int kx = col_margin(k);
   const int wh = kTile + 2 * k;    // window rows
   const int w = kTile + 2 * kx;    // window columns
-  const int cm = kx - k;           // columns a side that no step computes
   const int plane = wh * w;
   const int sfloats = stage_floats(k);
   const int tiles_x = (t.out_cols + kTile - 1) / kTile;
@@ -242,17 +195,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int band_rows = t.out_rows + 2 * k;        // ring and torus
   const int band_cols = t.out_cols + 2 * kx;       // torus
   const size_t oplane = (size_t)t.out_rows * t.out_cols;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
-  // This thread's window cells, fixed for the launch; a cell past the
-  // window gets a row outside every step's rectangle.
-  int cy[kCells], cx[kCells];
-#pragma unroll
-  for (int j = 0; j < kCells; ++j) {
-    const int c = threadIdx.x + j * kThreads;
-    cy[j] = c < plane ? c / w : -kMaxW;
-    cx[j] = c - (c / w) * w;
-  }
+  const Cells<kK> cells;
 
   // This thread's part of the window load: column segments sl + 16 m of
   // seg_w columns, window rows threadIdx.x / 16 + 32 i.
@@ -351,78 +295,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     tpulbm::cp_async_wait<1>();
     __syncthreads();
 
-    float* stage = smem + st * sfloats;
     const int ty = tile / tiles_x;
     const int y0 = ty * kTile, x0 = (tile - ty * tiles_x) * kTile;
-    const int own_rows = min(kTile, t.out_rows - y0);
-    const int own_cols = min(kTile, t.out_cols - x0);
-    bool owned[kCells];
-    unsigned acc3[kCells];
+    step_tile<kK>(
+        smem + st * sfloats, acc_rows[st], min(kTile, t.out_rows - y0),
+        min(kTile, t.out_cols - x0), cells, warp_sums, a,
+        [&](int oy, int ox, const float* res) {
+          float* o = out + (size_t)(y0 + oy) * t.out_cols + x0 + ox;
 #pragma unroll
-    for (int j = 0; j < kCells; ++j) {
-      const int oy = cy[j] - k, ox = cx[j] - kx;
-      owned[j] = oy >= 0 && oy < own_rows && ox >= 0 && ox < own_cols;
-      acc3[j] = cy[j] >= 1 && cy[j] < wh - 1
-                    ? acc_rows[st][cy[j] - 1] | acc_rows[st][cy[j]] << 1 |
-                          acc_rows[st][cy[j] + 1] << 2
-                    : 0u;
-    }
-
-#pragma unroll 1
-    for (int s = 0; s < k; ++s) {
-      // State s + 1 on the rectangle of rows [lo, wh - lo) and columns
-      // [cm + lo, w - cm - lo) from state s on the one a cell wider; on the
-      // last step it is the owned tile.
-      const int lo = s + 1, hi = wh - lo, xlo = cm + lo, xhi = w - xlo;
-      float res[kCells][9];
-      bool act[kCells];
-      float acc = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kCells; ++j) {
-        act[j] = cy[j] >= lo && cy[j] < hi && cx[j] >= xlo && cx[j] < xhi;
-        if (act[j]) {
-          const int c = threadIdx.x + j * kThreads;
-          const float speed = tpulbm::lbm_cell(
-              TileSrc{stage, plane, w, c, acc3[j]}, tpulbm::RegDst{res[j]}, a);
-          if (owned[j]) acc += speed;
-        }
-      }
-      for (int off = 16; off > 0; off >>= 1)
-        acc += __shfl_down_sync(0xffffffffu, acc, off);
-      if (lane == 0) warp_sums[s][warp] = acc;
-      if (s == k - 1) {
-#pragma unroll
-        for (int j = 0; j < kCells; ++j) {
-          if (owned[j]) {
-            float* o = out + (size_t)(y0 + cy[j] - k) * t.out_cols + x0 +
-                       cx[j] - kx;
-#pragma unroll
-            for (int q = 0; q < 9; ++q) o[q * oplane] = res[j][q];
-          }
-        }
-      } else {
-        __syncthreads();   // every read of state s is done
-#pragma unroll
-        for (int j = 0; j < kCells; ++j) {
-          if (act[j]) {
-            const int c = threadIdx.x + j * kThreads;
-#pragma unroll
-            for (int q = 0; q < 9; ++q) stage[q * plane + c] = res[j][q];
-          }
-        }
-        __syncthreads();   // state s + 1 is complete
-      }
-    }
-
-    // The tile's partials: warp s sums step s's warp sums in a fixed order.
-    __syncthreads();
-    if (warp < k) {
-      float v = lane < kWarps ? warp_sums[warp][lane] : 0.0f;
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_down_sync(0xffffffffu, v, off);
-      if (lane == 0) partials[(size_t)warp * ntiles + tile] = v;
-    }
-    __syncthreads();   // stage st and warp_sums are free
+          for (int q = 0; q < 9; ++q) o[q * oplane] = res[q];
+        },
+        [&](int s, float v) { partials[(size_t)s * ntiles + tile] = v; },
+        [] {});
     st ^= 1;
   }
   tpulbm::cp_async_wait<0>();

@@ -81,11 +81,14 @@ On a ring, ``cuda`` copies the slabs on each device's compute stream (peer
 copies between cards) and launches ``ring_chunk`` once per shard; ``torch``
 runs its plain version (canonical equilibrium) per shard. ``cuda-p2p`` is
 the counterpart of ``--backend pallas-rdma`` (``pallas_kstep_rdma``,
-``pallas_resident_rdma``, whose slab exchange runs inside the kernel): as in
-the JAX package, on one device it says so and runs the single-device route;
-on a ring it runs the ``cuda`` ring. Copies on a side stream that overlap
-the interior rows' steps measured no gain worth their schedule on four
-H100s (PERF.md).
+``pallas_resident_rdma``, whose slab exchange runs inside the kernel): on a
+ring of one process it runs ``make_p2p_runner``, one K6 launch
+(``ring_p2p.p2p_chunks``) a card for up to ``ring_p2p.MAX_OUTER`` chunks of
+every shard on it, the slabs handed between shards inside the kernel, and
+one host readback a runner call; it computes the ``cuda`` ring's bits. As in
+the JAX package, on one device it says so and runs the single-device route,
+and a 2-D mesh refuses it. Over several processes it says so and runs the
+``cuda`` ring: K6's peer pointers do not cross processes.
 """
 
 from __future__ import annotations
@@ -100,7 +103,8 @@ import torch.nn.functional as F
 from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.dist import multihost, tiers
 from tpulbm_torch.dist.sharding import block_shape, ring_rows
-from tpulbm_torch.ops import cluster, kstep, kstep_tile, resident, step_torch
+from tpulbm_torch.ops import (cluster, kstep, kstep_tile, resident, ring_p2p,
+                              step_torch)
 
 BACKENDS = ("auto", "cuda", "torch", "cuda-p2p")
 
@@ -181,7 +185,18 @@ def make_runner(params: LBMParams, n_steps: int, backend: str = "auto",
             transport)
     if mesh is not None and len(mesh) > 1:
         mesh = _flat(mesh)
+        if (backend == "cuda-p2p" and transport is not None
+                and transport.world > 1):
+            # in the style of the JAX package's fallback for pallas-rdma
+            # (tpulbm/dist/runner.py:1709-1719)
+            print(f"tpulbm_torch: cuda-p2p unsupported across "
+                  f"{transport.world} processes (K6's peer pointers do not "
+                  f"cross processes); falling back to the cuda ring",
+                  file=sys.stderr, flush=True)
+            backend = "cuda"
         backend = resolve_backend(backend, _first_local(mesh))
+        if backend == "cuda-p2p":
+            return make_p2p_runner(params, n_steps, mesh, transport)
         return make_ring_runner(
             params, n_steps, mesh,
             _plain_ring if backend == "torch" else kstep_tile.ring_chunk,
@@ -308,24 +323,10 @@ def make_ring_runner(params: LBMParams, n_steps: int, mesh: Sequence,
     local = tr.local
 
     def runner(shards, obst_shards):
-        if len(shards) != len(local) or len(obst_shards) != len(local):
-            raise ValueError(f"ring runner over {len(local)} local shards "
-                             f"got {len(shards)} and {len(obst_shards)}")
-        for d, f, o in zip(local, shards, obst_shards):
-            if (f.shape != (9, rows[d], nx) or o.shape != (rows[d], nx)
-                    or f.device != mesh[d] or o.device != mesh[d]):
-                raise ValueError(
-                    f"shard {d}: state {tuple(f.shape)} on {f.device}, mask "
-                    f"{tuple(o.shape)} on {o.device}; the ring wants rows "
-                    f"{rows[d]} of the ({ny}, {nx}) grid on {mesh[d]}")
+        _check_shards(local, shards, obst_shards, rows, mesh, ny, nx)
         # Shard d's (h + 2 k_max, nx) mask band; a chunk of k steps takes
         # its rows [k_max - k, k_max + h + k).
-        obst_f = [o.to(torch.float32) for o in obst_shards]
-        halo = tr.move(_ring_pieces(k_max, n, (), nx),
-                       _sources(local, obst_f, n))
-        masks = [torch.cat([halo[2 * d], o, halo[2 * d + 1]])
-                 for d, o in zip(local, obst_f)]
-        del obst_f, halo
+        masks = _mask_bands(tr, obst_shards, k_max, n, nx)
         shards, spares = list(shards), [None] * len(local)
         sums = [[] for _ in local]
         for k in plan:
@@ -342,6 +343,85 @@ def make_ring_runner(params: LBMParams, n_steps: int, mesh: Sequence,
                 sums[j].append(s)
             spares, shards = shards, new
         return shards, _deferred_sum(sums, tr.device, params, tr)
+
+    return runner
+
+
+def _check_shards(local, shards, obst_shards, rows, mesh, ny, nx):
+    """A ring runner's input: this process's shards and masks, shard d of
+    rows[d] rows on mesh[d]."""
+    if len(shards) != len(local) or len(obst_shards) != len(local):
+        raise ValueError(f"ring runner over {len(local)} local shards "
+                         f"got {len(shards)} and {len(obst_shards)}")
+    for d, f, o in zip(local, shards, obst_shards):
+        if (f.shape != (9, rows[d], nx) or o.shape != (rows[d], nx)
+                or f.device != mesh[d] or o.device != mesh[d]):
+            raise ValueError(
+                f"shard {d}: state {tuple(f.shape)} on {f.device}, mask "
+                f"{tuple(o.shape)} on {o.device}; the ring wants rows "
+                f"{rows[d]} of the ({ny}, {nx}) grid on {mesh[d]}")
+
+
+def _mask_bands(tr, obst_shards, k: int, n: int, nx: int) -> list:
+    """Each local shard's (h + 2k, nx) float mask band: its neighbours'
+    k edge rows around its own."""
+    obst_f = [o.to(torch.float32) for o in obst_shards]
+    halo = tr.move(_ring_pieces(k, n, (), nx), _sources(tr.local, obst_f, n))
+    return [torch.cat([halo[2 * d], o, halo[2 * d + 1]])
+            for d, o in zip(tr.local, obst_f)]
+
+
+def make_p2p_runner(params: LBMParams, n_steps: int, mesh: Sequence,
+                    transport=None,
+                    max_outer: int = ring_p2p.MAX_OUTER) -> Callable:
+    """The ``cuda-p2p`` ring over ``mesh`` in one process: the counterpart
+    of ``_make_resident_rdma_runner`` (and ``_make_rdma_runner``) of
+    tpulbm/dist/runner.py:946-1092. The chunks are those of the ``cuda``
+    ring, k the least of 8, the smallest shard's rows and n_steps; each
+    ``ring_p2p.p2p_chunks`` call (one K6 launch a card, or its plain
+    version on CPU shards) runs up to ``max_outer`` of them
+    (``ring_p2p.outer_per_launch`` may take fewer, for the partials'
+    memory), and the n_steps % k remainder one more launch of that k. The
+    first launch of a call and the remainder's read the neighbours' states
+    for their first chunk (pull0); every other chunk reads the landing
+    slots that the chunk before filled, chosen by the parity of the epoch,
+    which ``ring_p2p.Exchange`` carries across launches and calls. The sums
+    are added as the ``cuda`` ring adds them: the same bits."""
+    mesh = _flat(mesh)
+    if None in mesh or (transport is not None and transport.world > 1):
+        raise ValueError("the cuda-p2p ring runs in one process")
+    tr = transport or multihost.Transport(mesh)
+    n, ny, nx = len(mesh), params.ny, params.nx
+    rows, offsets = ring_rows(ny, n)
+    if n_steps < 1 or max_outer < 1:
+        raise ValueError(f"p2p ring runner of {n_steps} steps, "
+                         f"{max_outer} chunks a launch")
+    k = min(kstep_tile.TILE_K, min(rows), n_steps)
+    n_full, rem = divmod(n_steps, k)
+    per = min(max_outer, ring_p2p.outer_per_launch(rows, nx, k))
+    launches = [(k, per)] * (n_full // per)
+    launches += [(k, n_full % per)] if n_full % per else []
+    launches += [(rem, 1)] if rem else []
+    ex = ring_p2p.Exchange(mesh, rows, nx)
+
+    def runner(shards, obst_shards):
+        _check_shards(tr.local, shards, obst_shards, rows, mesh, ny, nx)
+        masks = _mask_bands(tr, obst_shards, k, n, nx)
+        bands = {kk: [m[k - kk:k + rows[d] + kk] for d, m in enumerate(masks)]
+                 for kk, _ in launches}
+        ex.barrier()
+        states = list(shards)
+        spares = [torch.empty_like(f) for f in states]
+        sums = [[] for _ in range(n)]
+        for i, (kk, outer) in enumerate(launches):
+            states, spares, s = ring_p2p.p2p_chunks(
+                ex, states, spares, bands[kk], params, kk, outer,
+                [(offsets[d] - kk) % ny for d in range(n)],
+                pull0=i == 0 or kk != k)
+            for d in range(n):
+                sums[d].append(s[d])
+        ex.check()
+        return states, _deferred_sum(sums, tr.device, params, tr)
 
     return runner
 

@@ -4,9 +4,10 @@
   problem of ``__graft_entry__.py:19-46`` (64 x 128, 4 steps) on the
   card's kernel route (``dist.runner.kernel_plan``).
 - ``dryrun_multichip(n, device="cuda")``: every multi-device path of the
-  port on n shards: the ring (K4 ring mode) and ``--backend cuda-p2p``, an
-  uneven ring, the torus (K4 torus mode), a dcp save and restore, and a
-  real two-process group through the CLI (``dist.launch --local-smoke``).
+  port on n shards: the ring (K4 ring mode) and ``--backend cuda-p2p`` (K6,
+  the slabs handed between shards inside the kernel), an uneven ring, the
+  torus (K4 torus mode), a dcp save and restore, and a real two-process
+  group through the CLI (``dist.launch --local-smoke``).
   Every av series is certified against the single-device plain PyTorch
   oracle (``ops.step_torch``) at rtol 5e-5, as ``_assert_av_matches`` of
   ``__graft_entry__.py:123-145`` does: the kernels use the pair-symmetric
@@ -79,10 +80,13 @@ def _assert_av_matches(tag, av, params, mask, n_steps, device):
 
 def _ring(params, n_steps, mesh, backend="cuda"):
     """The kernel route's ring: make_runner on the card; on CPU shards the
-    same runner over ring_chunk, which takes its plain version there."""
+    same runners (make_ring_runner over ring_chunk, make_p2p_runner), whose
+    kernel wrappers take their plain versions there."""
     if mesh[0].type == "cuda" or len(mesh) == 1:
         return runner.make_runner(params, n_steps, backend, mesh[0],
                                   mesh=mesh)
+    if backend == "cuda-p2p":
+        return runner.make_p2p_runner(params, n_steps, mesh)
     return runner.make_ring_runner(params, n_steps, mesh,
                                    kstep_tile.ring_chunk)
 

@@ -50,8 +50,10 @@ LAUNCHES = {
     "ring_chunk": 0,        # K4 launches made by ops.kstep_tile.ring_chunk
     "torus_chunk": 0,       # K4 launches made by ops.kstep_tile.torus_chunk
     "cluster_resident": 0,  # K5 launches made by cluster_resident_chunk
+    "ring_p2p": 0,          # K6 launches (one a card) made by ring_p2p
     # Chunks whose per-step sums the stepping kernels' epilogue reduced
-    # (one per K1 chunk and K2, K4 or K5 launch): the former K3 pass
+    # (one per K1 chunk and K2, K4 or K5 launch, one per chunk and shard of
+    # a K6 launch): the former K3 pass
     "reduce_partials": 0,
 }
 
@@ -82,6 +84,14 @@ _SIGNATURES = {
     "lbm_cluster_resident_clusters": ([_I], _I),
     "lbm_cluster_resident": (
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P], _I),
+    "lbm_ring_p2p_words": ([], _I),
+    "lbm_ring_p2p_max_local": ([], _I),
+    "lbm_ring_p2p_max_outer": ([], _I),
+    "lbm_ring_p2p_smem": ([_I], _I),
+    "lbm_ring_p2p_ctas": ([_I], _I),
+    "lbm_ring_p2p_enable_peer": ([_I, _I], _I),
+    "lbm_ring_p2p": (
+        [_P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P], _I),
     "lbm_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -17,11 +17,13 @@ that epilogue). The sums stay on the device; the caller scales them by
 - ``ring_chunk`` runs one shard of the 1-D ring (``dist.runner``): the band
   of its rows and the k-row slabs of its two neighbours, passed as three
   tensors. It computes what every ring tier of the JAX package computes on
-  a device between two slab exchanges (the skew, fold, 2-D skew, K-step,
-  bands and in-kernel-exchange kernels, and ``pallas_step._kernel`` at
-  k = 1). A band of rows around a seam, cut into lo, shard and hi, gives
-  the function of the seam fixes (``pallas_kstep_skew_fold._fix_kernel``,
-  ``pallas_kstep_skew._fix_kernel`` and ``_fix_tiled_kernel``).
+  a device between two slab exchanges (the skew, fold, 2-D skew, K-step
+  and bands kernels, and ``pallas_step._kernel`` at k = 1; the
+  in-kernel-exchange kernels' chunks too, whose exchange K6 runs,
+  ``ops.ring_p2p``). A band of rows around a seam, cut into lo, shard and
+  hi, gives the function of the seam fixes
+  (``pallas_kstep_skew_fold._fix_kernel``, ``pallas_kstep_skew._fix_kernel``
+  and ``_fix_tiled_kernel``).
 - ``torus_chunk`` runs one (h, w) block of the 2-D torus (``dist.runner``):
   the block, its column neighbours' k columns (``xlo``, ``xhi``, padded to
   ``col_margin(k)`` columns) and its row neighbours' corner-carrying k-row
