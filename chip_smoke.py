@@ -36,9 +36,11 @@ Phases; any failure raises and exits non-zero before the result lines:
    over 2 shards and the 1024^2 and 8192^2 decks over 4 on this card: its
    state and sums bitwise the cuda ring's over the same chunks and on a
    rerun, the error word and the ticket counter 0, against
-   ``p2p_chunks_ref`` (the state over all 64 chunks, 8 at 8192^2; the sums
-   over the first SUMS_GATE_CHUNKS), CUDA-event ms a launch beside the
-   cuda ring's a chunk, and its bound.
+   ``p2p_chunks_ref`` over all 64 chunks (the state within F_ATOL; the
+   sums within AV_RTOL over the first SUMS_GATE_CHUNKS and, over all 64,
+   within what a state within F_ATOL allows, ``sums_atol``), CUDA-event
+   ms a launch beside the cuda ring's chunk and K4's whole-grid chunk of
+   the deck, its bound and K6's ptxas line (registers, spills).
    Every
    chunk kernel's in-kernel sums (the former K3, now each stepping
    kernel's epilogue) are held against ``reduce_partials_ref`` of the same
@@ -506,10 +508,39 @@ def p2p_bound(rows, nx, k, n_outer):
 # apart by nvcc's FMA contraction, growing about as steps^1.5 (an H100 80GB
 # HBM3, 700 W: 1.4e-5 after one chunk, 1.3e-4 after 4, 3.8e-4 after 8,
 # 8.2e-3 after 64 at 1024^2), and the cuda ring's K4 chunks drift by the
-# same bits; the state stays within F_ATOL. The sums are gated over the
-# first SUMS_GATE_CHUNKS chunks, the state over all of them, and K6 is held
-# bitwise to the cuda ring over every chunk.
+# same bits; the state stays within F_ATOL. The sums are gated relatively
+# (AV_RTOL) over the first SUMS_GATE_CHUNKS chunks, and over every chunk
+# absolutely, by what a state within F_ATOL allows (sums_atol); the state
+# over all of them, and K6 is held bitwise to the cuda ring over every
+# chunk.
 SUMS_GATE_CHUNKS = 4
+
+
+def sums_atol(f, o, free_cells):
+    """The largest difference of a step's raw sum of |u| over the free
+    cells that a state within F_ATOL of f allows (f: states (9, rows, nx);
+    o: their masks, nonzero = blocked): each population off by at most
+    F_ATOL moves the momentum by at most 6 sqrt(2) F_ATOL (six populations
+    carry each component) and the density rho by 9 F_ATOL, so |u| = |m| /
+    rho by at most (6 sqrt(2) + 9 |u|max) F_ATOL / (rho_min - 9 F_ATOL),
+    times the free cells; rho_min and |u|max over the free cells of f.
+    Returns (the bound, rho_min, |u|max)."""
+    import torch
+
+    from tpulbm_torch.core.lattice import CX, CY
+
+    rho_min, u_max = float("inf"), 0.0
+    for g, m in zip(f, o):
+        free = m == 0
+        rho = g.sum(0)
+        cx = torch.tensor(CX, dtype=g.dtype, device=g.device)[:, None, None]
+        cy = torch.tensor(CY, dtype=g.dtype, device=g.device)[:, None, None]
+        u = torch.hypot((g * cx).sum(0), (g * cy).sum(0)) / rho
+        rho_min = min(rho_min, rho[free].min().item())
+        u_max = max(u_max, u[free].max().item())
+    per_cell = ((6 * 2 ** 0.5 + 9 * u_max) * F_ATOL
+                / (rho_min - 9 * F_ATOL))
+    return free_cells * per_cell, rho_min, u_max
 
 
 def _p2p_check(deck, n, plain_chunks, seed, chunks=64):
@@ -521,22 +552,28 @@ def _p2p_check(deck, n, plain_chunks, seed, chunks=64):
     the slabs copied) over the same chunks, the error word and the ticket
     counter 0; over the first plain_chunks chunks against p2p_chunks_ref
     (the state within F_ATOL, the sums within AV_RTOL over the first
-    SUMS_GATE_CHUNKS). CUDA-event ms of a launch, of the plain version over the
-    same chunks and of the cuda ring's chunks, and the bound. Returns the
-    record of the kernels JSON line (one launch)."""
+    SUMS_GATE_CHUNKS and within sums_atol over all). CUDA-event ms of a
+    launch, of the plain version over the same chunks, of the cuda ring's
+    chunks (ring_chunk a shard and the slab copies) and of K4's whole-grid
+    chunk of the deck, the bound, and K6's ptxas line. Returns the record of
+    the kernels JSON line (one launch)."""
     import torch
 
     from tpulbm_torch.dist import sharding
     from tpulbm_torch.dist.mesh import get_mesh
     from tpulbm_torch.ops import _build, kstep_tile, ring_p2p
+    from tpulbm_torch.tools.p2p_ab import ptxas_lines
 
     p, o = _load_deck(deck)
     f0 = _state(p, seed)
     mesh = get_mesh(n)
     rows, offsets = sharding.ring_rows(p.ny, n)
     shards = [f0[:, off:off + h].contiguous() for off, h in zip(offsets, rows)]
-    del f0
     k = kstep_tile.TILE_K
+    grid_ms = cuda_ms(lambda: kstep_tile._tile_launch(f0, o, p, k),
+                      max(1, min(50, 10000 // p.ny)))
+    del f0
+    _free()
     bands = [o[torch.arange(off - k, off + h + k, device="cuda") % p.ny]
              .contiguous() for off, h in zip(offsets, rows)]
     bases = [(off - k) % p.ny for off in offsets]
@@ -605,6 +642,16 @@ def _p2p_check(deck, n, plain_chunks, seed, chunks=64):
     err = max((a - b).abs().max().item() for a, b in zip(f_c, f_p))
     rel = torch.stack([(a - b).abs() / b.abs() for a, b in zip(s_c, s_p)])
     rel = rel.max(dim=0).values.cpu()          # per step, over the shards
+    # every chunk, absolutely: each shard's raw sums within the bound of its
+    # free cells, from the plain state at the start and at the end
+    sums_abs, sums_ok, sums_bound = 0.0, True, float("inf")
+    for d in range(n):
+        mask = bands[d][k:-k]
+        atol = min(sums_atol([g], [mask], int((mask == 0).sum().item()))[0]
+                   for g in (shards[d], f_p[d]))
+        diff = (s_c[d] - s_p[d]).abs().max().item()
+        sums_abs, sums_bound = max(sums_abs, diff), min(sums_bound, atol)
+        sums_ok = sums_ok and diff <= atol
     av_rel = rel.max().item()
     drift = ", ".join(f"{c} chunks {rel[:c * k].max().item():.3e}"
                       for c in (1, 2, 4, 8, 16, 32, 64) if c <= plain_chunks)
@@ -623,21 +670,30 @@ def _p2p_check(deck, n, plain_chunks, seed, chunks=64):
     _free()
     bound_ms, bound_by = p2p_bound(rows, p.nx, k, n_outer)
     ring_per = ring_ms / chunks
+    ptxas = "; ".join(line.split(": ", 1)[1].replace("ptxas info    : ", "")
+                      for line in ptxas_lines(_build.BUILD_DIR)
+                      if line.startswith(f"k={k}:"))
     log(f"[kernel] ring_p2p K6 ({deck} over {n} shards, "
         f"{'/'.join(map(str, rows))} rows, {chunks} chunks of {k} steps in "
         f"launches of {n_outer}): max|df| {err:.3e} (<= {F_ATOL:g}), max av "
         f"rel {av_rel:.3e} at step {int(rel.argmax())} (over the first "
-        f"{drift}; <= {AV_RTOL:g} over the first {SUMS_GATE_CHUNKS}) against "
-        f"p2p_chunks_ref over {plain_chunks} chunks; rerun bitwise {rerun}; "
-        f"state and sums "
+        f"{drift}; <= {AV_RTOL:g} over the first {SUMS_GATE_CHUNKS}), max "
+        f"abs raw sums diff {sums_abs:.4e} over all {plain_chunks} (<= "
+        f"{sums_bound:.4e} on every shard: its free cells x the |u| error "
+        f"F_ATOL allows) against p2p_chunks_ref over {plain_chunks} "
+        f"chunks; rerun bitwise {rerun}; state and sums "
         f"bitwise the cuda ring's over {chunks} chunks {same_ring}; "
         f"{ms:.4f} ms a launch ({ms / n_outer:.4f} ms a chunk) vs the cuda "
         f"ring (ring_chunk x {n} and the slab copies) {ring_per:.4f} ms a "
-        f"chunk, K6/K4 ring {ms / n_outer / ring_per:.3f}; plain "
+        f"chunk, K6/K4 ring {ms / n_outer / ring_per:.3f}, vs K4's "
+        f"whole-grid chunk {grid_ms:.4f} ms, K6/K4 grid "
+        f"{ms / n_outer / grid_ms:.3f}; plain "
         f"{plain_ms:.2f} ms for {plain_chunks} chunks; bound {bound_ms:.4f} "
-        f"ms a launch ({bound_by}), bound/kernel {100 * bound_ms / ms:.1f} %")
+        f"ms a launch ({bound_by}), bound/kernel {100 * bound_ms / ms:.1f} %; "
+        f"ptxas ring_p2p_kernel<{k}>: {ptxas or 'not in build.log'}")
     sums_rel = rel[:SUMS_GATE_CHUNKS * k].max().item()
-    if not (err <= F_ATOL and sums_rel <= AV_RTOL and rerun and same_ring):
+    if not (err <= F_ATOL and sums_rel <= AV_RTOL and sums_ok and rerun
+            and same_ring):
         raise AssertionError(f"K6 {deck} over {n}: disagrees with its plain "
                              f"version or the cuda ring")
     if _build.ticket_counter("cuda").item() != 0:
@@ -829,12 +885,11 @@ def phase_kernels():
     del f0
     # K6 over the ring's shards on this card, 64 chunks of 8 steps: 128^2
     # over 2, 1024^2 over 4 (the kernels line's record: one launch of 64
-    # chunks, the plain version over the same 64) and 8192^2 over 4 (two
-    # launches of 32), held against the plain version over its first 8
-    # chunks: over 64 its plain version would take ~18 s.
+    # chunks) and 8192^2 over 4 (two launches of 32), each held against the
+    # plain version over all 64 chunks (~18 s of plain steps at 8192^2).
     _p2p_check("128x128", 2, 64, SEED + 16)
     res["ring_p2p"] = _p2p_check("1024x1024", 4, 64, SEED + 17)
-    _p2p_check("8192x8192", 4, 8, SEED + 18)
+    _p2p_check("8192x8192", 4, 64, SEED + 18)
     _free()
     # tile_chunk at the shapes of the TPU kernels no main path reaches:
     # pallas_kstep2d._kernel_row_inner (the JAX router takes it at

@@ -216,7 +216,8 @@ def test_p2p_chunks_ref_slots_by_parity():
 
 def test_outer_per_launch_and_the_table():
     """Chunks a launch: 64, but 32 for an 8192^2 shard of 4 (16 MiB of
-    partials); the table of a launch and the limits are csrc/ring_p2p.cu's."""
+    partials); the table of a launch, the tile graph's record and the
+    limits are csrc/ring_p2p.cu's."""
     assert ring_p2p.outer_per_launch([256] * 4, 1024, 8) == 64
     assert ring_p2p.outer_per_launch([2048] * 4, 8192, 8) == 32
     assert ring_p2p.outer_per_launch([8192], 8192, 8) == 8
@@ -228,6 +229,12 @@ def test_outer_per_launch_and_the_table():
     assert const("kWords") == len(ring_p2p.TABLE)
     assert const("kMaxOuter") == ring_p2p.MAX_OUTER
     assert const("kMaxLocal") == ring_p2p.MAX_LOCAL
+    assert const("kRec") == ring_p2p.REC
+    assert const("kRecDeps") == ring_p2p.REC_DEPS == len(ring_p2p.HEADER)
+    assert const("kPeerShift") == ring_p2p.PEER_SHIFT
+    assert const("kMaxPeers") == ring_p2p.MAX_PEERS
+    assert const("kPushRemote") == ring_p2p.PUSH_REMOTE
+    assert const("kReadRemote") == ring_p2p.READ_REMOTE
     tile_src = (_build.CSRC / "tile_step.cuh").read_text()
     assert f"constexpr int kTile = {ring_p2p.TILE};" in tile_src
     for i, name in enumerate(ring_p2p.TABLE):
@@ -270,30 +277,38 @@ def test_p2p_route(capsys):
 
 
 # An eager model of K6's flag protocol (csrc/ring_p2p.cu). Each card runs
-# its launches in order; a launch's CTAs are Python generators, interleaved
-# by a seeded random scheduler with every other card's, that walk their
-# items (chunk, shard, tile) chunk-major with the grid's stride and do what
-# the kernel does: after a tile's first step, release the flag of the tile
-# before, poll the next item's dependencies and load its window early where
-# they are done; else, after the tile, release its flag and then wait; load
-# a window row by row; write the owned rows into the other state buffer and
-# the edge rows into the neighbours' landing slots of the next epoch's
-# parity, row by row; release the last tile's flag at the end. Every
-# cell of every buffer carries the epoch of the state it holds, and a load
-# checks that each cell the tile's owned results depend on (the owned cells
-# and k around them) holds the item's epoch: a stale or too-new value is
-# recorded. Cells outside that cone are loaded as NaN, so a result that
+# its launches in order; a launch's CTAs are two Python generators each, the
+# stepping warps and the producer warp, interleaved by a seeded random
+# scheduler with every other card's. The producer walks the CTA's items
+# (chunk, shard, tile) chunk-major with the grid's stride and does what the
+# kernel's does: wait for the first item's flags and load its window into
+# stage 0; then, while the stepping warps step tile n, poll the next item's
+# flags and load its window into the other stage where they are done; wait
+# until tile n is stored, release its flag; where the next window is not
+# loaded yet, wait for its flags (after the release) and load it; after the
+# last item, a stop. The stepping warps take the stages in turn, step the
+# window, write the owned rows into the other state buffer and the edge
+# rows into the neighbours' landing slots of the next epoch's parity, row
+# by row, and signal the stage done. Loads go row by row too. A tile waits
+# on the tiles of the host-built tile graph (ring_p2p.tile_graph, decoded
+# from its records by graph_deps) unless a test gives another relation.
+# Every cell of every buffer carries the epoch of the state it holds, and a
+# load checks that each cell the tile's owned results depend on (the owned
+# cells and k around them) holds the item's epoch: a stale or too-new value
+# is recorded. Cells outside that cone are loaded as NaN, so a result that
 # depended on them would not be bitwise the plain version's. MODEL_TILE is
 # 8 (the kernel's is 32) to have many tiles on a small grid: the
 # dependency rule needs only k <= the tile edge.
 MODEL_TILE = 8
 
 
-def model_deps(rows, tiles_x, d, tile, k, t=MODEL_TILE, cross=True):
-    """csrc/ring_p2p.cu::dependency: the tiles (shard, tile) that tile
-    ``tile`` of shard d waits on. ``cross=False`` drops the other shards'
-    (the variant the model must catch)."""
-    n, h = len(rows), rows[d]
+def model_deps(rows, nx, d, tile, k, t=MODEL_TILE, cross=True):
+    """The per-tile rule of K6's first design, a superset of the cone:
+    tile columns tx - 2 .. tx + 2 of tile rows ty - 1 .. ty + 1, the
+    previous shard's last two tile rows (ty = 0) and the next shard's first
+    (where rows within k of the tile pass the shard's end). ``cross=False``
+    drops the other shards' (the variant the model must catch)."""
+    n, h, tiles_x = len(rows), rows[d], -(-nx // t)
     ty, tx = divmod(tile, tiles_x)
     cols = [(tx + o) % tiles_x for o in (-2, -1, 0, 1, 2)]
     out = [(d, r * tiles_x + c) for r in (ty - 1, ty, ty + 1)
@@ -309,6 +324,46 @@ def model_deps(rows, tiles_x, d, tile, k, t=MODEL_TILE, cross=True):
     if y0 + min(t, h - y0) + k > h:
         out += [((d + 1) % n, c) for c in cols]
     return out
+
+
+def decode_graph(cards, rows, nx, k, t=MODEL_TILE):
+    """ring_p2p.tile_graph's records of every card, decoded: {(shard,
+    tile): [(shard, tile) it waits on, in record order]}, and {(shard,
+    tile): its header}; checks that a record's dependencies on this card
+    come first, then the others'."""
+    graphs = ring_p2p.tile_graph(cards, rows, nx, k, t)
+    of = {}
+    for card, (recs, _) in graphs.items():
+        local = [d for d in range(len(rows)) if cards[d] == card]
+        for i, rec in enumerate(recs):
+            of[card, i] = (local[rec[0]], int(rec[1]))
+    deps, header = {}, {}
+    mask = (1 << ring_p2p.PEER_SHIFT) - 1
+    for card, (recs, peers) in graphs.items():
+        assert peers[0] == card and len(set(peers)) == len(peers)
+        for i, rec in enumerate(recs):
+            n_local, n_remote = rec[7] & 255, rec[7] >> 8
+            out = []
+            for j in range(n_local + n_remote):
+                e = int(rec[ring_p2p.REC_DEPS + j])
+                peer = e >> ring_p2p.PEER_SHIFT
+                assert (peer == 0) == (j < n_local)
+                out.append(of[peers[peer], e & mask])
+            deps[of[card, i]] = out
+            header[of[card, i]] = dict(zip(ring_p2p.HEADER, map(int, rec)))
+    return deps, header
+
+
+def graph_deps(cards):
+    """The model's relation from the tile graph of shards on ``cards``."""
+    memo = {}
+
+    def deps(rows, nx, d, tile, k, t):
+        key = (tuple(rows), nx, k, t)
+        if key not in memo:
+            memo[key] = decode_graph(cards, rows, nx, k, t)[0]
+        return memo[key][d, tile]
+    return deps
 
 
 def _band_steps(lo, mid, hi, obst_band, params, k, row_base):
@@ -335,12 +390,17 @@ def _band_steps(lo, mid, hi, obst_band, params, k, row_base):
 
 class FlagModel:
     """The buffers, tags and flags of a p2p ring of ``rows`` shards on
-    ``cards`` (card of shard d), and its scheduler."""
+    ``cards`` (card of shard d), and its scheduler. ``deps`` (None: the
+    tile graph's) is the relation a tile waits on; ``early_release``
+    releases a tile's flag as soon as its window is loaded, before its
+    stores (the variant the model must catch)."""
 
     def __init__(self, params, rows, offsets, cards, mask, states, k,
-                 deps=model_deps, t=MODEL_TILE):
+                 deps=None, t=MODEL_TILE, early_release=False):
         self.p, self.rows, self.offsets, self.cards = params, rows, offsets, cards
-        self.k, self.deps, self.t = k, deps, t
+        self.k, self.t = k, t
+        self.deps = graph_deps(cards) if deps is None else deps
+        self.early_release = early_release
         self.nx = params.nx
         self.tiles_x = -(-self.nx // t)
         n = len(rows)
@@ -368,7 +428,7 @@ class FlagModel:
     def ready(self, launch, item):
         c, d, tile = self.locate(launch, item)
         return all(self.flags[q][u] >= launch["base"] + c
-                   for q, u in self.deps(self.rows, self.tiles_x, d, tile,
+                   for q, u in self.deps(self.rows, self.nx, d, tile,
                                          self.k, self.t))
 
     def locate(self, launch, item):
@@ -415,16 +475,14 @@ class FlagModel:
             yield "work"
         return c, d, tile, band
 
-    def publish(self, pending):
-        """Release a stepped tile's flag: (shard, tile, epoch + 1)."""
-        if pending:
-            d, tile, value = pending
-            self.flags[d][tile] = value
+    def release(self, launch, item):
+        """A tile's flag: the epoch it finished + 1."""
+        c, d, tile = self.locate(launch, item)
+        self.flags[d][tile] = launch["base"] + c + 1
 
-    def step_store(self, launch, window, hook):
-        """Step the window's tile, run ``hook`` (a generator: after the
-        first step), write its owned cells and slabs row by row, record its
-        speeds; returns its flag, to release."""
+    def step_store(self, launch, window):
+        """Step the window's tile, write its owned cells and slabs row by
+        row, record its speeds."""
         c, d, tile, band = window
         k, t, n = self.k, self.t, len(self.rows)
         e, h = launch["base"] + c, self.rows[d]
@@ -437,7 +495,6 @@ class FlagModel:
                                 band[:, k + own:], ob, self.p, k,
                                 (self.offsets[d] - k + y0) % self.p.ny)
         yield "work"
-        yield from hook()
         out = launch["cur"] ^ ((c + 1) % 2)
         for i in range(own):
             row = y0 + i
@@ -458,41 +515,61 @@ class FlagModel:
                                               for _ in range(k)])
         for s in range(k):
             maps[s][y0:y0 + own, cols] = speeds[s][:, cols]
-        return d, tile, e + 1
 
-    def cta(self, launch, b, grid):
-        """One CTA's walk over its items (see the comment above)."""
+    def stepping_warps(self, launch, cta):
+        """The CTA's stepping warps: tile n from stage n % 2 once it is
+        full, then the stage done (see the comment above)."""
+        n = 0
+        while True:
+            st = n % 2
+            while cta["full"][st] <= n // 2:
+                yield "wait"
+            window = cta["stage"][st]
+            if window is None:
+                return
+            yield from self.step_store(launch, window)
+            cta["done"][st] += 1
+            n += 1
+
+    def producer(self, launch, cta, b, grid):
+        """The CTA's producer warp (see the comment above)."""
         total = launch["items"] * launch["n_outer"]
         items = list(range(b, total, grid))
-        if not items:
-            return
+
+        def fill(st, item):
+            cta["stage"][st] = yield from self.load(launch, item)
+            cta["full"][st] += 1
+            if self.early_release:
+                self.release(launch, item)
+
         while not self.ready(launch, items[0]):
             yield "wait"
-        window = yield from self.load(launch, items[0])
-        held = {"pending": None, "early": None}
-        for item in items:
-            nxt = item + grid
-            held["early"] = None
-
-            def hook():
-                self.publish(held["pending"])
-                held["pending"] = None
-                if nxt < total and self.ready(launch, nxt):
-                    held["early"] = yield from self.load(launch, nxt)
-
-            held["pending"] = yield from self.step_store(launch, window, hook)
-            if nxt < total and held["early"] is None:
-                self.publish(held["pending"])
-                held["pending"] = None
+        yield from fill(0, items[0])
+        for n, item in enumerate(items):
+            st, nxt = n % 2, item + grid
+            have = False
+            if nxt < total:
+                while cta["done"][st] <= n // 2:
+                    if self.ready(launch, nxt):
+                        yield from fill(st ^ 1, nxt)
+                        have = True
+                        break
+                    yield "wait"
+            while cta["done"][st] <= n // 2:
+                yield "wait"
+            self.release(launch, item)
+            if nxt >= total:
+                cta["stage"][st ^ 1] = None
+                cta["full"][st ^ 1] += 1
+                return
+            if not have:
                 while not self.ready(launch, nxt):
                     yield "wait"
-                held["early"] = yield from self.load(launch, nxt)
-            window = held["early"]
-        self.publish(held["pending"])
+                yield from fill(st ^ 1, nxt)
 
     def call(self, launches, grid, rng):
         """One runner call: ``launches`` [(n_outer, pull0)] on every card,
-        each card's in order, the CTAs of all cards' current launches
+        each card's in order, the warps of all cards' current launches
         interleaved at random. Launch i's input is buffer ``cur`` of every
         shard, the runner's ping-pong. Raises on a deadlock."""
         n = len(self.rows)
@@ -509,22 +586,26 @@ class FlagModel:
             launch = dict(queues[card].pop(0), shards=shards,
                           items=sum(self.ntiles(d) for d in shards))
             total = launch["items"] * launch["n_outer"]
-            running[card] = [self.cta(launch, b, grid)
-                             for b in range(min(grid, total))]
+            warps = []
+            for b in range(min(grid, total)):
+                cta = dict(stage=[None, None], full=[0, 0], done=[0, 0])
+                warps += [self.producer(launch, cta, b, grid),
+                          self.stepping_warps(launch, cta)]
+            running[card] = warps
 
         for card in sorted(queues):
             start(card)
         idle = 0
         while running:
             card = sorted(running)[rng.randint(len(running))]
-            ctas = running[card]
-            j = rng.randint(len(ctas))
+            warps = running[card]
+            j = rng.randint(len(warps))
             try:
-                idle = idle + 1 if next(ctas[j]) == "wait" else 0
+                idle = idle + 1 if next(warps[j]) == "wait" else 0
             except StopIteration:
-                ctas.pop(j)
+                warps.pop(j)
                 idle = 0
-                if not ctas:
+                if not warps:
                     del running[card]
                     if queues[card]:
                         start(card)
@@ -605,14 +686,15 @@ def test_flag_model_reads_nothing_stale_and_is_the_plain_version(
             assert torch.equal(got, s[d])
 
 
-def _caught(deps, grid, seeds=4):
+def _caught(deps, grid, seeds=4, **kw):
     """The seeds of 4 whose run of the model with ``deps`` read a stale
     cell or deadlocked: 3 shards of 17 rows on 2 cards."""
     caught = 0
     for seed in range(seeds):
         p, mask, rows, offsets, states, on, k = _model_case(3, ["a", "b"],
                                                             ny=51)
-        model = FlagModel(p, rows, offsets, on, mask, states, k, deps=deps)
+        model = FlagModel(p, rows, offsets, on, mask, states, k, deps=deps,
+                          **kw)
         try:
             for launches in CALLS:
                 model.call(launches, grid, np.random.RandomState(seed))
@@ -623,35 +705,133 @@ def _caught(deps, grid, seeds=4):
     return caught
 
 
+# The tile graph's relation on _caught's cards, which the variants narrow
+_GRAPH = graph_deps(["a", "b", "a"])
+
+
 def test_flag_model_catches_a_missing_cross_shard_wait():
     """Without the waits on the other shards' tiles, the model reads a
     stale slab (or state): every seed, at 7 CTAs."""
-    def no_cross(rows, tiles_x, d, tile, k, t):
-        return model_deps(rows, tiles_x, d, tile, k, t, cross=False)
+    def no_cross(rows, nx, d, tile, k, t):
+        return [(e, u) for e, u in _GRAPH(rows, nx, d, tile, k, t) if e == d]
 
     assert _caught(no_cross, 7) == 4
 
 
-def _one_prev_row(rows, tiles_x, d, tile, k, t):
+def _one_prev_row(rows, nx, d, tile, k, t):
     """Only the previous shard's last tile row (a 1-row last tile row
     holds fewer than k rows)."""
-    q = (d - 1) % len(rows)
+    q, tiles_x = (d - 1) % len(rows), -(-nx // t)
     last = -(-rows[q] // t) - 1
-    return [(e, u) for e, u in model_deps(rows, tiles_x, d, tile, k, t)
+    return [(e, u) for e, u in _GRAPH(rows, nx, d, tile, k, t)
             if e != q or e == d or u // tiles_x == last]
 
 
-def _three_cols(rows, tiles_x, d, tile, k, t):
+def _three_cols(rows, nx, d, tile, k, t):
     """Tile columns tx - 1 .. tx + 1 only (a 4-column last tile column is
     narrower than k)."""
+    tiles_x = -(-nx // t)
     tx = tile % tiles_x
-    return [(e, u) for e, u in model_deps(rows, tiles_x, d, tile, k, t)
+    return [(e, u) for e, u in _GRAPH(rows, nx, d, tile, k, t)
             if (u % tiles_x - tx) % tiles_x in (0, 1, tiles_x - 1)]
 
 
 @pytest.mark.parametrize("deps", [_one_prev_row, _three_cols])
 def test_flag_model_catches_a_narrow_neighbourhood(deps):
-    """The superset parts of the rule are needed where the last tile row
-    or column is narrower than k: without them, the model reads a stale
-    cell (every seed, at 20 CTAs)."""
-    assert _caught(deps, 20) == 4
+    """The cone's reach past the next tile row or column is needed where the
+    last tile row or column is narrower than k: without it, the model reads
+    a stale cell (every seed, at 29 CTAs: with the producer's early loads,
+    20 CTAs caught _three_cols on 3 seeds of 4)."""
+    assert _caught(deps, 29) == 4
+
+
+def test_flag_model_catches_an_early_release():
+    """A producer that releases a tile's flag once its window is loaded,
+    before the stepping warps' stores: the model reads a stale cell (every
+    seed, at 7 CTAs)."""
+    assert _caught(None, 7, early_release=True) == 4
+
+
+def _brute_cone(rows, nx, k, t):
+    """The cone by cells: per shard and tile, the tiles that own a cell
+    within k cells (rows modulo the ring, columns modulo nx) of one of its
+    own."""
+    ny, tiles_x = sum(rows), -(-nx // t)
+    owner = np.zeros((ny, nx), dtype=object)
+    off = 0
+    for d, h in enumerate(rows):
+        for y in range(h):
+            for x in range(nx):
+                owner[off + y, x] = (d, (y // t) * tiles_x + x // t)
+        off += h
+    out, off = [], 0
+    for d, h in enumerate(rows):
+        out.append([])
+        for tile in range(-(-h // t) * tiles_x):
+            ty, tx = divmod(tile, tiles_x)
+            y0, x0 = off + ty * t, tx * t
+            ys = np.arange(y0 - k, y0 + min(t, h - ty * t) + k) % ny
+            xs = np.arange(x0 - k, x0 + min(t, nx - x0) + k) % nx
+            out[d].append(sorted(set(owner[np.ix_(ys, xs)].ravel())))
+        off += h
+    return out
+
+
+@pytest.mark.parametrize("n_shards,ny,nx,cards", [
+    (2, 44, 36, ["a"]), (3, 51, 36, ["a", "b"]), (4, 70, 45, ["a", "b"]),
+    (5, 83, 29, ["a", "b", "c"]), (6, 100, 60, ["a", "b", "c", "d"]),
+    (7, 117, 33, ["a", "b", "c"]),
+])
+@pytest.mark.parametrize("k", range(1, 9))
+def test_tile_graph_is_the_cone(n_shards, ny, nx, cards, k):
+    """The host-built tile graph, decoded from its records: every tile
+    waits on exactly the tiles with owned cells within k of its own (by
+    cells, _brute_cone), a symmetric relation within the first design's
+    per-tile rule (model_deps); ragged shards (ring_rows' uneven split,
+    8-row model tiles) and ragged last tile columns; its headers, the own
+    flag at the record's index on its card, and the duties (a push onto another card, a waiter on another card)."""
+    rows, _ = sharding.ring_rows(ny, n_shards)
+    on = [cards[d % len(cards)] for d in range(n_shards)]
+    t, tiles_x = MODEL_TILE, -(-nx // MODEL_TILE)
+    deps, header = decode_graph(on, rows, nx, k)
+    cone = _brute_cone(rows, nx, k, t)
+    for d, h in enumerate(rows):
+        for tile in range(-(-h // t) * tiles_x):
+            got = deps[d, tile]
+            assert sorted(got) == cone[d][tile]
+            assert (d, tile) in got
+            assert set(got) <= set(model_deps(rows, nx, d, tile, k, t))
+            for e, u in got:
+                assert (d, tile) in deps[e, u]
+            hd = header[d, tile]
+            ty, tx = divmod(tile, tiles_x)
+            own = min(t, h - ty * t)
+            assert (hd["tile"], hd["y0"], hd["x0"], hd["own_rows"],
+                    hd["own_cols"]) == (tile, ty * t, tx * t, own,
+                                        min(t, nx - tx * t))
+            local = [q for q in range(n_shards) if on[q] == on[d]]
+            assert local[hd["shard"]] == d
+            n = n_shards
+            push = ((ty * t + own > h - k and on[(d + 1) % n] != on[d])
+                    or (ty * t < k and on[(d - 1) % n] != on[d]))
+            waited = any(on[e] != on[d] for e, _ in got)
+            assert hd["duties"] == (push * ring_p2p.PUSH_REMOTE
+                                    + waited * ring_p2p.READ_REMOTE)
+    for card, (recs, _) in ring_p2p.tile_graph(on, rows, nx, k, t).items():
+        local = [q for q in range(n_shards) if on[q] == card]
+        walk = [(d, u) for d in local for u in range(-(-rows[d] // t)
+                                                      * tiles_x)]
+        assert [(local[r[0]], r[1]) for r in recs] == walk
+
+
+def test_tile_graph_at_the_kernel_tile():
+    """At the kernel's 32 x 32 tiles and k = 8 on the 1024^2 deck over 4
+    shards on two cards: the graph is the cone by cells, 9 tiles a tile
+    (the first design's rule waited on up to 30)."""
+    rows, on = [256] * 4, ["a", "b", "a", "b"]
+    deps, _ = decode_graph(on, rows, 1024, 8, ring_p2p.TILE)
+    cone = _brute_cone(rows, 1024, 8, ring_p2p.TILE)
+    for d in range(4):
+        for tile, want in enumerate(cone[d]):
+            assert sorted(deps[d, tile]) == want
+            assert len(want) == 9

@@ -305,8 +305,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
           for (int q = 0; q < 9; ++q) o[q * oplane] = res[q];
         },
-        [&](int s, float v) { partials[(size_t)s * ntiles + tile] = v; },
-        [] {});
+        [&](int s, float v) { partials[(size_t)s * ntiles + tile] = v; });
     st ^= 1;
   }
   tpulbm::cp_async_wait<0>();

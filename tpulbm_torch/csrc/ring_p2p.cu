@@ -19,62 +19,74 @@
 // (lbm_cell.cuh::reduce_rows).
 //
 // Design.
-//   Work items (c, shard, tile), chunk-major: item c * items + item0 of the
-//     shard + tile, `items` the tiles of one chunk over this launch's shards.
-//     A persistent grid (CTAs a SM x SMs, as K4, co-resident by
-//     construction: cudaOccupancyMaxActiveBlocksPerMultiprocessor) walks
-//     them, CTA b taking items b, b + grid, ... in order.
-//   The tile graph. Before a tile of chunk c (epoch e = base + c) loads its
-//     window it waits until every tile whose owned cells lie within k cells
-//     of its own has finished epoch e - 1: the 3 x 3 neighbourhood, taken
-//     as tile columns tx - 2 .. tx + 2 and the tile rows that hold the
-//     rows within k (across the shard edges, into the previous shard's last
-//     two tile rows and the next shard's first), a superset wherever a
-//     ragged last tile row or column is narrower than k. The relation is
-//     symmetric, and every tile depends on itself, so it also orders every
-//     write after a read: chunk c + 1 writes the buffer chunk c read, and a
-//     landing slot is rewritten two epochs later, only after the tiles that
-//     read it have finished. No grid-wide barrier and no launch per chunk:
-//     chunk c + 1 starts wherever its neighbourhood is done.
-//   Flags: one int a tile, on the shard's card, holding the last epoch the
-//     tile finished + 1. Never reset: the epoch rises across launches and
-//     runner calls (the counterpart of the TPU kernel's base-parity
-//     scalar), so no memset races a kernel on another card that reads the
-//     flag. A wait reads a flag with ld.acquire.gpu, or ld.acquire.sys
-//     across cards; a tile publishes after its stores with st.release at
-//     the matching scope, sys where a neighbour shard lies on another card,
-//     and then every thread that stored to the other card has fenced at
-//     sys scope first (__threadfence_system).
+//   Work items (c, r), chunk-major: item c * items + r, r a tile of one of
+//     this launch's shards (their tiles in shard order). A persistent grid
+//     (one CTA a SM, co-resident by construction:
+//     cudaOccupancyMaxActiveBlocksPerMultiprocessor) walks them, CTA b
+//     taking items b, b + grid, ... in order.
+//   The tile graph, built once on the host (ops/ring_p2p.py::tile_graph)
+//     and kept on the card for the ring's life (only the epoch changes
+//     between launches): record r (kRec ints) holds tile r's shard, tile,
+//     window origin, owned extent, duties and its dependencies: every tile
+//     with owned cells within k cells of its own (rows across the shard
+//     edges, columns periodic), itself included, as flag indices into this
+//     card's flat flag array (one int a tile, the record's own at index r)
+//     or, after them, into another card's (peer << kPeerShift | index). The
+//     relation is symmetric, so it also orders every write after a read:
+//     chunk c + 1 writes the buffer chunk c read, and a landing slot is
+//     rewritten two epochs later, only after the tiles that read it have
+//     finished. No grid-wide barrier: chunk c + 1 starts wherever its
+//     neighbourhood is done. Before a tile of chunk c (epoch e = base + c)
+//     loads its window, every dependency's flag reads at least e.
+//   Flags hold the last epoch the tile finished + 1, never reset: the epoch
+//     rises across launches and runner calls (the counterpart of the TPU
+//     kernel's base-parity scalar), so no memset races a kernel on another
+//     card that reads the flag.
+//   Warp specialisation. 896 threads: warps 0-23 step tiles (tile_step.cuh,
+//     its barriers named, kStepBar), warp 24 is the producer, warps 24-27
+//     the copy group. For the CTA's next item the producer polls the
+//     dependencies (one lane a flag, ld.acquire at gpu scope, sys where the
+//     flag lies on another card), then writes the stage's job and window
+//     source, arrives on the stage's `posted` mbarrier, and the copy group
+//     copies the window into the free stage by cp.async.cg (16 B, L2 only:
+//     never a stale L1 line of a buffer another SM wrote; without 16-byte
+//     alignment, __ldcg loads), each thread arriving on the stage's `full`
+//     mbarrier once for its stores and once, through
+//     cp.async.mbarrier.arrive, when its copies land. The stepping warps
+//     wait only on `full`: no protocol code, barrier or poll in the step.
+//     After a tile's stores they meet at a named barrier and one thread
+//     arrives on the stage's `done`; the producer waits for it and
+//     releases the tile's flag (st.release, sys scope where a tile on
+//     another card waits on it). While the tile steps, the producer polls
+//     the next item's flags; where they are done the next window flies
+//     under the step; otherwise it releases the tile's flag first and then
+//     waits, so no CTA waits on an item while it holds one that a wait
+//     could need.
 //   Slabs, pushed: a tile that owns one of its shard's last k rows writes
 //     it into the next shard's lo landing slot, one of its first k rows into
 //     the previous shard's hi slot, the slot of the next epoch's parity; the
-//     window load reads lo | shard | hi as K4's ring mode does, from local
-//     memory by cp.async, while NVLink carries posted stores. A slot is
+//     window load reads lo | shard | hi as K4's ring mode does. A slot is
 //     (9, k, nx) in a (9, 8, nx) buffer. The first chunk of a runner call
 //     (pull0) reads the neighbours' input states instead: they hold the
-//     call's start state, and no slot does yet.
-//   After a tile's first step (tile_step.cuh's hook), the CTA releases the
-//     flag of the tile before and polls the next item's neighbourhood once;
-//     where it is done, the next window loads under the other k - 1 steps.
-//     Otherwise the CTA waits after the tile, its own flag released first,
-//     so no CTA waits on an item while it holds one that a wait could need.
-//     Loads are cp.async.cg (L2 only: a buffer written earlier in the
-//     launch by another SM is never read from a stale L1 line); without
-//     16-byte alignment, __ldcg loads.
-//   Registers: the step needs the 80 a thread that 768 threads leave, so
-//     the stepped tile's output pointers and offsets live in shared memory
-//     (`to`), not in registers live across the step loop; held in
-//     registers, ptxas spilled 144 B and a chunk took longer (PERF.md).
+//     call's start state, and no slot does yet. Where a tile pushes onto
+//     another card, each stepping thread fences at sys scope once after its
+//     stores (not once a stored cell), before the barrier that precedes
+//     the release, so the release does not rest on the cumulativity of one
+//     thread's fence over the other warps' NVLink stores.
+//   Registers: one CTA a SM of 896 threads leaves 72 a thread (896 x 72 =
+//     64,512), which the step takes without spilling now that no protocol
+//     state lives across it: the stepped tile's outputs live in shared
+//     memory (`job`), written by the producer.
 //   Sums: each tile's k partials go to column `tile` of rows [ck, ck + k)
 //     of its shard's (n_outer k, ntiles) partials; the CTA that draws the
 //     launch's last ticket (lbm_cell.cuh::last_ticket, one counter a card)
 //     reduces each (chunk, shard)'s k rows in reduce_rows's order: K4's
 //     bits, chunk by chunk, with no atomic in a tile's path.
-//   Every spin is bounded by %globaltimer (kSpinNs, 10 s); when the bound
-//     runs out the CTA writes the card's error word and returns, and every
-//     spinner of the card gives up once it sees the word. The runner reads
-//     the word with the av series and raises: a broken protocol fails, it
-//     never hangs.
+//   Every wait on a flag is bounded by %globaltimer (kSpinNs, 10 s); when
+//     the bound runs out the producer writes the card's error word and
+//     stops its CTA, and every producer of the card gives up once it sees
+//     the word. The runner reads the word with the av series and raises: a
+//     broken protocol fails, it never hangs.
 //   One instance per k (1 to 8), as K4.
 //
 // Bound. One launch moves the shards' states and masks in once and the
@@ -83,7 +95,7 @@
 // from a few chunks on (0.0118 ms a chunk at 1024^2, 0.75 ms for 64
 // chunks). The design adds what K4 adds (the 1.51x recompute, the shared-
 // memory traffic of the step loop) and reads and writes each chunk's state
-// through L2 and device memory, and the waits.
+// through L2 and device memory; the waits are the producer's.
 
 #include <cuda_runtime.h>
 
@@ -99,16 +111,30 @@ using namespace tpulbm::tile;
 
 constexpr int kMaxLocal = 16;       // shards of one launch
 constexpr int kMaxOuter = 64;       // chunks of one launch
-constexpr int kDepCols = 5;         // tile columns tx - 2 .. tx + 2
-constexpr int kDepRows = 6;         // ty - 1 .. ty + 1, two above, one below
-constexpr int kMaxDeps = kDepCols * kDepRows;
+constexpr int kMaxPeers = 4;        // flag arrays a card's records name
+// A tile's record in the graph: shard, tile, y0, x0, owned rows, owned
+// columns, duties, local | remote << 8 dependency counts, then the
+// dependencies, local ones first.
+constexpr int kRec = 40;
+constexpr int kRecDeps = 8;
+constexpr int kMaxDeps = kRec - kRecDeps;
+constexpr int kPeerShift = 24;      // dependency: peer << 24 | flag index
+constexpr int kPushRemote = 1;      // duty: pushes an edge row to a card
+constexpr int kReadRemote = 2;      // duty: a tile on another card waits
+// The copy group: the producer warp and kCopyWarps - 1 warps that only copy
+// windows (one warp's copy took ~5.6 us, on the path of a chain of one-round
+// chunks; PERF.md). 896 threads leave 72 registers a thread, which the
+// step needs.
+constexpr int kCopyWarps = 4;
+constexpr int kBlock = kThreads + 32 * kCopyWarps;
+constexpr int kStepBar = 1;         // named barrier of the stepping warps
 constexpr long long kSpinNs = 10000000000LL;
 constexpr int kErrTimeout = 1;      // the error word: a wait ran out
 constexpr int kMaxDevices = 64;
-// Words of a shard's entry in the host table (lbm_ring_p2p): 18 pointers,
-// then h, h_prev, h_next, row_base, remote_prev, remote_next.
-constexpr int kWords = 24;
-static_assert(kMaxDeps <= kThreads, "one thread a dependency");
+// Words of a shard's entry in the host table (lbm_ring_p2p): 15 pointers,
+// then h, h_prev, h_next, row_base.
+constexpr int kWords = 19;
+static_assert(kMaxDeps == 32, "one producer lane a dependency");
 
 // One shard of a launch. state[0] holds the state at the launch's first
 // epoch; chunk c reads state[c & 1] and writes state[(c + 1) & 1].
@@ -121,21 +147,88 @@ struct Shard {
   float* hi[2];
   float* push_lo[2];       // the next shard's lo slots
   float* push_hi[2];       // the previous shard's hi slots
-  int* flags;              // own tiles' flags
-  const int* flags_prev;
-  const int* flags_next;
   float* partials;         // (n_outer k, ntiles)
   float* sums;             // (n_outer k,)
-  int h, h_prev, h_next, row_base, remote_prev, remote_next;
-  int item0, ntiles;
+  int h, h_prev, h_next, row_base, ntiles;
 };
 
 struct Launch {
   Shard shard[kMaxLocal];
-  int n_local, items, n_outer, base, pull0, tiles_x;
+  const int* graph;                  // (items, kRec), walk order
+  const int* peer_flags[kMaxPeers];  // [0]: this card's flat flag array
+  int* flags;                        // peer_flags[0], written
+  int n_local, items, n_outer, base, pull0;
   int* error;              // this card's error word
   unsigned int* counter;   // this card's ticket counter, zeroed, left so
 };
+
+// The stepped tile of a stage, written by the producer before it arrives
+// on the stage's `full` barrier: the stepping warps read it from shared
+// memory, not from registers live across the step loop.
+struct Job {
+  float* out;              // the shard's next state, (9, h, nx)
+  float* push_lo;          // the next shard's lo slot of the next parity
+  float* push_hi;          // the previous shard's hi slot
+  float* partials;         // column `tile` of the chunk's first row
+  int h, y0, x0, own_rows, own_cols, ntiles;
+  int push_remote;         // a push goes to another card
+  int live;                // 0: no more tiles
+};
+
+// The producer's view of an item; lane l holds dependency l.
+struct Item {
+  int c, r, j, tile, y0, x0, own_rows, own_cols, duties;
+  const int* flag;         // this lane's dependency, or null
+  bool sys;                // it lies on another card
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(b)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* b) {
+  asm volatile(
+      "{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}" ::"r"(
+          smem_u32(b))
+      : "memory");
+}
+
+// An arrive on b once every cp.async this thread issued before has landed
+// (the pending count is raised now and lowered then).
+__device__ __forceinline__ void mbar_arrive_copies(unsigned long long* b) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];" ::"r"(
+                   smem_u32(b))
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_test(unsigned long long* b, int parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.test_wait.parity.shared::cta.b64 p, [%1], "
+      "%2;\n selp.u32 %0, 1, 0, p;\n}"
+      : "=r"(ok)
+      : "r"(smem_u32(b)), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* b, int parity) {
+  unsigned ok;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, "
+        "[%1], %2;\n selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(ok)
+        : "r"(smem_u32(b)), "r"(parity)
+        : "memory");
+  } while (!ok);
+}
 
 __device__ __forceinline__ int load_acquire(const int* p, bool sys) {
   int v;
@@ -163,287 +256,322 @@ __device__ __forceinline__ long long globaltimer() {
   return t;
 }
 
-// Dependency d (< kMaxDeps) of tile `tile` of shard S: the flag to wait
-// on, or null; *sys where it lies on another card.
-__device__ __forceinline__ const int* dependency(const Shard& S, int tiles_x,
-                                                 int tile, int k, int d,
-                                                 bool* sys) {
-  const int ty = tile / tiles_x, tx = tile - ty * tiles_x;
-  const int col = wrap(tx + d % kDepCols - 2, tiles_x);
-  const int slot = d / kDepCols;
-  const int y0 = ty * kTile, own = min(kTile, S.h - y0);
-  *sys = false;
-  if (slot < 3) {
-    const int r = ty + slot - 1;
-    const int tiles_y = (S.h + kTile - 1) / kTile;
-    return r >= 0 && r < tiles_y ? S.flags + r * tiles_x + col : nullptr;
+// Where a stage's window comes from, written by the producer for the copy
+// group: band rows [y0, y0 + 32 + 2k) of lo | mid | hi (planes of lo_plane,
+// mid_plane, hi_plane floats), columns x0 - kx ... (mod nx); live = 0: no
+// more windows.
+struct Window {
+  const float *lo, *mid, *hi, *obst;
+  size_t lo_plane, mid_plane, hi_plane;
+  int h, row_base, y0, x0, live;
+};
+
+// Copy-group thread t's part of window W into `stage`: segments of kSeg
+// columns (4: cp.async.cg of 16 B; 1: __ldcg), t taking segments t,
+// t + 32 kCopyWarps, ... of the window's rows in order.
+template <int kK, int kSeg>
+__device__ __forceinline__ void copy_window(float* stage, unsigned char* acc,
+                                            const Window& W,
+                                            const tpulbm::LbmArgs& a, int t) {
+  constexpr int k = kK;
+  constexpr int kx = col_margin(k);
+  constexpr int wh = kTile + 2 * k;
+  constexpr int w = kTile + 2 * kx;
+  constexpr int plane = wh * w;
+  constexpr int segs = w / kSeg;
+  for (int s = t; s < wh * segs; s += 32 * kCopyWarps) {
+    const int wy = s / segs, wc = (s - wy * segs) * kSeg;
+    const int sr = W.y0 + wy;   // band row
+    int r = sr - k;
+    const float* buf = W.mid;
+    size_t bplane = W.mid_plane;
+    if (r < 0) {
+      buf = W.lo, r = sr, bplane = W.lo_plane;
+    } else if (r >= W.h) {
+      buf = W.hi, r -= W.h, bplane = W.hi_plane;
+    }
+    const bool in = sr < W.h + 2 * k;
+    if (wc == 0) acc[wy] = in && wrap(W.row_base + sr, a.ny) == a.accel_row;
+    float* d = stage + wy * w + wc;
+    if (!in) {
+      for (int e = 0; e < kSeg; ++e) {
+        for (int q = 0; q < 9; ++q) d[q * plane + e] = 0.0f;
+        d[9 * plane + e] = 1.0f;
+      }
+      continue;
+    }
+    int col = W.x0 - kx + wc;
+    while (col < 0) col += a.nx;
+    while (col >= a.nx) col -= a.nx;
+    const float* g = buf + (size_t)r * a.nx + col;
+    const float* m = W.obst + (size_t)sr * a.nx + col;
+    if constexpr (kSeg == 4) {
+#pragma unroll
+      for (int q = 0; q < 9; ++q)
+        tpulbm::cp_async16(d + q * plane, g + q * bplane);
+      tpulbm::cp_async16(d + 9 * plane, m);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 9; ++q) d[q * plane] = __ldcg(g + q * bplane);
+      d[9 * plane] = __ldcg(m);
+    }
   }
-  if (slot < 5) {   // the previous shard's last two tile rows
-    const int r = (S.h_prev + kTile - 1) / kTile - 1 - (slot - 3);
-    if (ty != 0 || r < 0) return nullptr;
-    *sys = S.remote_prev;
-    return S.flags_prev + r * tiles_x + col;
-  }
-  if (y0 + own + k <= S.h) return nullptr;   // the next shard's first row
-  *sys = S.remote_next;
-  return S.flags_next + col;
+}
+
+// Copy-group thread t's part of stage st's window, then its arrivals on
+// full: once for its stores, once (cp.async.mbarrier.arrive) when its
+// copies land.
+template <int kK>
+__device__ __forceinline__ void copy_part(float* stage, unsigned char* acc,
+                                          const Window& W,
+                                          unsigned long long* full,
+                                          const tpulbm::LbmArgs& a, int vec16,
+                                          int t) {
+  if (vec16)
+    copy_window<kK, 4>(stage, acc, W, a, t);
+  else
+    copy_window<kK, 1>(stage, acc, W, a, t);
+  mbar_arrive_copies(full);
+  mbar_arrive(full);
 }
 
 template <int kK>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kBlock, 1)
     ring_p2p_kernel(const __grid_constant__ Launch L, tpulbm::LbmArgs a,
                     int vec16) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float warp_sums[kMaxK][kWarps];
   __shared__ unsigned char acc_rows[2][kMaxW];
+  __shared__ Job job[2];
+  __shared__ Window win[2];
+  // posted[s]: win[s] is set (the producer's arrival); full[s]: stage s's
+  // window and job are in (the copy group's arrivals and copies); done[s]:
+  // its tile is stored (one arrival)
+  __shared__ unsigned long long posted[2], full[2], done[2];
   __shared__ int go;
-  // The stepped tile's outputs, read by the step's stores and partials:
-  // held in shared memory, not in registers live across the step loop,
-  // whose 80 registers a thread the step needs (ptxas spilled K6 where
-  // they were registers; PERF.md).
-  __shared__ struct {
-    float* out;            // the shard's next state, (9, h, nx)
-    float* push_lo;        // the next shard's lo slot of the next parity
-    float* push_hi;        // the previous shard's hi slot
-    float* partials;       // column `tile` of the chunk's first row
-    int h, y0, x0, ntiles;
-    int remote_lo, remote_hi;   // push_lo's, push_hi's shard on another card
-  } to;
   constexpr int k = kK;
-  constexpr int kx = col_margin(k);
-  constexpr int wh = kTile + 2 * k;     // window rows
-  constexpr int w = kTile + 2 * kx;     // window columns
-  constexpr int plane = wh * w;
   constexpr int sfloats = stage_floats(k);
   const int total = L.items * L.n_outer;
   const size_t slab_plane = (size_t)k * a.nx;
-  const Cells<kK> cells;
-  const int sl = threadIdx.x & (kSegLanes - 1);
-  const int seg_w = vec16 ? 4 : 1;
-
-  // item -> chunk c, shard j, tile
-  auto locate = [&](int item, int* c, int* j, int* tile) {
-    *c = item / L.items;
-    const int r = item - *c * L.items;
-    int s = 0;
-    while (s + 1 < L.n_local && r >= L.shard[s + 1].item0) ++s;
-    *j = s;
-    *tile = r - L.shard[s].item0;
-  };
-
-  // One poll of the item's dependencies: true in every thread where all
-  // have finished the epoch before the item's.
-  auto ready = [&](int item2) {
-    int ok = 1;
-    if (threadIdx.x < kMaxDeps) {
-      int c, j, tile;
-      locate(item2, &c, &j, &tile);
-      bool sys;
-      const int* f =
-          dependency(L.shard[j], L.tiles_x, tile, k, threadIdx.x, &sys);
-      if (f) ok = load_acquire(f, sys) >= L.base + c;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&posted[s], 1);
+      mbar_init(&full[s], 32 * kCopyWarps);
+      mbar_init(&done[s], 1);
     }
-    return __syncthreads_and(ok) != 0;
-  };
-
-  // Waits for the item's dependencies; false in every thread where the
-  // card's error word is set (this or another CTA gave up).
-  auto wait = [&](int c, int j, int tile) {
-    if (threadIdx.x < kMaxDeps) {
-      bool sys;
-      const int* f =
-          dependency(L.shard[j], L.tiles_x, tile, k, threadIdx.x, &sys);
-      if (f) {
-        const long long t0 = globaltimer();
-        for (int n = 1; load_acquire(f, sys) < L.base + c; ++n) {
-          if ((n & 31) == 0) {
-            if (*(volatile int*)L.error) break;
-            if (globaltimer() - t0 > kSpinNs) {
-              atomicExch(L.error, kErrTimeout);
-              break;
-            }
-          }
-          __nanosleep(100);
-        }
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) go = *(volatile int*)L.error == 0;
-    __syncthreads();
-    return go != 0;
-  };
-
-  // Issues the copy of the item's window into stage st: band rows
-  // [32 ty, 32 ty + 32 + 2k) of lo | shard | hi, columns 32 tx - kx ...
-  // (mod nx).
-  auto issue = [&](int c, int j, int tile, int st) {
-    const Shard& S = L.shard[j];
-    const int e = L.base + c;
-    const int ty = tile / L.tiles_x;
-    const int y0 = ty * kTile, x0 = (tile - ty * L.tiles_x) * kTile;
-    const float *lo, *hi;
-    size_t lo_plane = slab_plane, hi_plane = slab_plane;
-    if (L.pull0 && c == 0) {
-      lo = S.prev_in + (size_t)(S.h_prev - k) * a.nx;
-      hi = S.next_in;
-      lo_plane = (size_t)S.h_prev * a.nx;
-      hi_plane = (size_t)S.h_next * a.nx;
-    } else {
-      lo = S.lo[e & 1];
-      hi = S.hi[e & 1];
-    }
-    const float* mid = S.state[c & 1];
-    const size_t mid_plane = (size_t)S.h * a.nx;
-    float* stage = smem + st * sfloats;
-    int wcol[kMaxSegs], gcol[kMaxSegs];
-#pragma unroll
-    for (int m = 0; m < kMaxSegs; ++m) {
-      wcol[m] = (sl + kSegLanes * m) * seg_w;
-      gcol[m] = wrap(x0 - kx + wcol[m], a.nx);
-    }
-    for (int wy = threadIdx.x / kSegLanes; wy < wh; wy += kRowSlots) {
-      const int sr = y0 + wy;   // band row
-      int r = sr - k;
-      const float* buf = mid;
-      size_t bplane = mid_plane;
-      if (r < 0) {
-        buf = lo, r = sr, bplane = lo_plane;
-      } else if (r >= S.h) {
-        buf = hi, r -= S.h, bplane = hi_plane;
-      }
-      const bool in = sr < S.h + 2 * k;
-      if (sl == 0)
-        acc_rows[st][wy] = in && wrap(S.row_base + sr, a.ny) == a.accel_row;
-      const float* mrow = S.obst + (size_t)sr * a.nx;
-      float* drow = stage + wy * w;
-#pragma unroll
-      for (int m = 0; m < kMaxSegs; ++m) {
-        if (wcol[m] >= w) break;
-        float* d = drow + wcol[m];
-        const int cc = gcol[m];
-        const float* g = buf + (size_t)r * a.nx + cc;
-        if (!in) {
-          for (int x = 0; x < seg_w; ++x) {
-            for (int q = 0; q < 9; ++q) d[q * plane + x] = 0.0f;
-            d[9 * plane + x] = 1.0f;
-          }
-        } else if (vec16) {
-          for (int q = 0; q < 9; ++q)
-            tpulbm::cp_async16(d + q * plane, g + q * bplane);
-          tpulbm::cp_async16(d + 9 * plane, mrow + cc);
-        } else {
-          for (int q = 0; q < 9; ++q) d[q * plane] = __ldcg(g + q * bplane);
-          d[9 * plane] = mrow[cc];
-        }
-      }
-    }
-  };
-
-  // The item whose flag thread 0 releases next (its tile is stepped and
-  // stored), or -1. The barriers after the stores order every thread's
-  // stores before thread 0's release (the pattern of CUTLASS's
-  // GenericBarrier), at sys scope where a neighbour is on another card.
-  int pending = -1;
-  auto publish = [&] {
-    if (threadIdx.x == 0 && pending >= 0) {
-      int pc, pj, pt;
-      locate(pending, &pc, &pj, &pt);
-      const Shard& P = L.shard[pj];
-      const bool sys = P.remote_prev || P.remote_next;
-      if (sys) __threadfence_system();
-      store_release(P.flags + pt, L.base + pc + 1, sys);
-    }
-    pending = -1;
-  };
-
-  int item = blockIdx.x;
-  if (item >= total) return;
-  {
-    int c, j, tile;
-    locate(item, &c, &j, &tile);
-    if (!wait(c, j, tile)) return;
-    issue(c, j, tile, 0);
-    tpulbm::cp_async_commit();
   }
-  int st = 0;
-  for (; item < total; item += gridDim.x) {
-    const int next = item + gridDim.x;
-    bool issued = false;
-    if (threadIdx.x == 0) {
-      int c, j, tile;
-      locate(item, &c, &j, &tile);
-      const Shard& S = L.shard[j];
-      const int parity = (L.base + c + 1) & 1;
-      const int ty = tile / L.tiles_x;
-      to.out = S.state[(c + 1) & 1];
-      to.push_lo = S.push_lo[parity];
-      to.push_hi = S.push_hi[parity];
-      to.partials = S.partials + (size_t)c * k * S.ntiles + tile;
-      to.h = S.h;
-      to.y0 = ty * kTile;
-      to.x0 = (tile - ty * L.tiles_x) * kTile;
-      to.ntiles = S.ntiles;
-      to.remote_lo = S.remote_next;
-      to.remote_hi = S.remote_prev;
+  __syncthreads();
+
+  if (threadIdx.x < kThreads) {
+    // The stepping warps: tile n of this CTA in stage n & 1, the
+    // (n >> 1)-th use of the stage.
+    const Cells<kK> cells;
+    for (int n = 0;; ++n) {
+      const int st = n & 1;
+      mbar_wait(&full[st], (n >> 1) & 1);
+      const Job& J = job[st];
+      if (!J.live) break;
+      step_tile<kK, kStepBar>(
+          smem + st * sfloats, acc_rows[st], J.own_rows, J.own_cols, cells,
+          warp_sums, a,
+          [&](int oy, int ox, const float* res) {
+            const int row = J.y0 + oy, col = J.x0 + ox, h = J.h;
+            float* o = J.out + (size_t)row * a.nx + col;
+            const size_t oplane = (size_t)h * a.nx;
+#pragma unroll
+            for (int q = 0; q < 9; ++q) o[q * oplane] = res[q];
+            if (row >= h - k) {
+              float* p = J.push_lo + (size_t)(row - (h - k)) * a.nx + col;
+#pragma unroll
+              for (int q = 0; q < 9; ++q) p[q * slab_plane] = res[q];
+            }
+            if (row < k) {
+              float* p = J.push_hi + (size_t)row * a.nx + col;
+#pragma unroll
+              for (int q = 0; q < 9; ++q) p[q * slab_plane] = res[q];
+            }
+          },
+          [&](int s, float v) { J.partials[(size_t)s * J.ntiles] = v; });
+      if (J.push_remote) __threadfence_system();
+      // every stepping thread's stores (and sys fence) and reads of job[st]
+      // are done: the producer may release the tile and refill the stage
+      step_sync<kStepBar>();
+      if (threadIdx.x == 0) mbar_arrive(&done[st]);
+    }
+  } else if (threadIdx.x >= kThreads + 32) {
+    // The copy warps: window n into stage n & 1, once the producer set it.
+    const int t = threadIdx.x - kThreads;
+    for (int n = 0;; ++n) {
+      const int st = n & 1;
+      mbar_wait(&posted[st], (n >> 1) & 1);
+      if (!win[st].live) {
+        mbar_arrive(&full[st]);
+        break;
+      }
+      copy_part<kK>(smem + st * sfloats, acc_rows[st], win[st], &full[st], a,
+                    vec16, t);
     }
     tpulbm::cp_async_wait<0>();
-    __syncthreads();   // the item's window is in stage st, `to` is set
-    step_tile<kK>(
-        smem + st * sfloats, acc_rows[st], min(kTile, to.h - to.y0),
-        min(kTile, a.nx - to.x0), cells, warp_sums, a,
-        [&](int oy, int ox, const float* res) {
-          const int row = to.y0 + oy, col = to.x0 + ox, h = to.h;
-          float* o = to.out + (size_t)row * a.nx + col;
-          const size_t oplane = (size_t)h * a.nx;
-#pragma unroll
-          for (int q = 0; q < 9; ++q) o[q * oplane] = res[q];
-          // Each thread that stored to another card fences at sys scope
-          // itself, before the barriers that precede thread 0's release,
-          // so the release does not rest on the cumulativity of one
-          // thread's fence over the other warps' NVLink stores.
-          if (row >= h - k) {
-            float* p = to.push_lo + (size_t)(row - (h - k)) * a.nx + col;
-#pragma unroll
-            for (int q = 0; q < 9; ++q) p[q * slab_plane] = res[q];
-            if (to.remote_lo) __threadfence_system();
-          }
-          if (row < k) {
-            float* p = to.push_hi + (size_t)row * a.nx + col;
-#pragma unroll
-            for (int q = 0; q < 9; ++q) p[q * slab_plane] = res[q];
-            if (to.remote_hi) __threadfence_system();
-          }
-        },
-        [&](int s, float v) { to.partials[(size_t)s * to.ntiles] = v; },
-        [&] {
-          // After the first step the tile before's stores have drained, so
-          // its release and this poll wait on nothing (right after the
-          // stores both waited for them); the next window, where its
-          // neighbourhood is done, then flies under the other k - 1 steps.
-          publish();
-          if (next < total) {
-            issued = ready(next);
-            if (issued) {
-              int nc, nj, nt;
-              locate(next, &nc, &nj, &nt);
-              issue(nc, nj, nt, st ^ 1);
-              tpulbm::cp_async_commit();
+  } else {
+    // The producer warp.
+    const int lane = threadIdx.x & 31;
+
+    auto fetch = [&](int item) {
+      Item it;
+      it.c = item / L.items;
+      it.r = item - it.c * L.items;
+      const int* rec = L.graph + (size_t)it.r * kRec;
+      const int hdr = __ldg(rec + (lane & (kRecDeps - 1)));
+      const int dep = __ldg(rec + kRecDeps + lane);
+      it.j = __shfl_sync(0xffffffffu, hdr, 0);
+      it.tile = __shfl_sync(0xffffffffu, hdr, 1);
+      it.y0 = __shfl_sync(0xffffffffu, hdr, 2);
+      it.x0 = __shfl_sync(0xffffffffu, hdr, 3);
+      it.own_rows = __shfl_sync(0xffffffffu, hdr, 4);
+      it.own_cols = __shfl_sync(0xffffffffu, hdr, 5);
+      it.duties = __shfl_sync(0xffffffffu, hdr, 6);
+      const int counts = __shfl_sync(0xffffffffu, hdr, 7);
+      const int local = counts & 255, deps = local + (counts >> 8);
+      it.flag = lane < deps ? L.peer_flags[dep >> kPeerShift] +
+                                  (dep & ((1 << kPeerShift) - 1))
+                            : nullptr;
+      it.sys = lane >= local;
+      return it;
+    };
+
+    // One poll of the item's flags (ld.acquire, one lane a flag): true in
+    // every lane where all have finished the epoch before the item's.
+    auto poll = [&](const Item& it) {
+      const int ok =
+          !it.flag || load_acquire(it.flag, it.sys) >= L.base + it.c;
+      const bool all = __all_sync(0xffffffffu, ok);
+      __syncwarp();
+      return all;
+    };
+
+    // Polls until the item's flags are done: false where the card's error
+    // word is set (this or another CTA gave up) or the bound ran out.
+    auto wait = [&](const Item& it) {
+      const long long t0 = globaltimer();
+      for (int n = 1;; ++n) {
+        if (poll(it)) return true;
+        if ((n & 31) == 0) {
+          int bad = 0;
+          if (lane == 0) {
+            bad = *(volatile int*)L.error;
+            if (!bad && globaltimer() - t0 > kSpinNs) {
+              atomicExch(L.error, kErrTimeout);
+              bad = 1;
             }
           }
-        });
-    pending = item;
-    if (next < total && !issued) {
-      publish();
-      int nc, nj, nt;
-      locate(next, &nc, &nj, &nt);
-      if (!wait(nc, nj, nt)) break;
-      issue(nc, nj, nt, st ^ 1);
-      tpulbm::cp_async_commit();
+          if (__shfl_sync(0xffffffffu, bad, 0)) return false;
+        }
+        __nanosleep(100);
+      }
+    };
+
+    // The item's job and window into stage st: win[st] for the copy
+    // warps (posted), this warp's part of the copy, the arrivals on full.
+    auto issue = [&](const Item& it, int st) {
+      const Shard& S = L.shard[it.j];
+      const int e = L.base + it.c;
+      if (lane == 0) {
+        Job& J = job[st];
+        const int parity = (e + 1) & 1;
+        J.out = S.state[(it.c + 1) & 1];
+        J.push_lo = S.push_lo[parity];
+        J.push_hi = S.push_hi[parity];
+        J.partials = S.partials + (size_t)it.c * k * S.ntiles + it.tile;
+        J.h = S.h;
+        J.y0 = it.y0;
+        J.x0 = it.x0;
+        J.own_rows = it.own_rows;
+        J.own_cols = it.own_cols;
+        J.ntiles = S.ntiles;
+        J.push_remote = it.duties & kPushRemote;
+        J.live = 1;
+        Window& W = win[st];
+        if (L.pull0 && it.c == 0) {
+          W.lo = S.prev_in + (size_t)(S.h_prev - k) * a.nx;
+          W.hi = S.next_in;
+          W.lo_plane = (size_t)S.h_prev * a.nx;
+          W.hi_plane = (size_t)S.h_next * a.nx;
+        } else {
+          W.lo = S.lo[e & 1];
+          W.hi = S.hi[e & 1];
+          W.lo_plane = W.hi_plane = slab_plane;
+        }
+        W.mid = S.state[it.c & 1];
+        W.mid_plane = (size_t)S.h * a.nx;
+        W.obst = S.obst;
+        W.h = S.h;
+        W.row_base = S.row_base;
+        W.y0 = it.y0;
+        W.x0 = it.x0;
+        W.live = 1;
+        mbar_arrive(&posted[st]);
+      }
+      __syncwarp();
+      copy_part<kK>(smem + st * sfloats, acc_rows[st], win[st], &full[st], a,
+                    vec16, lane);
+    };
+
+    // The stepping and copy warps find no more tiles in stage st.
+    auto stop = [&](int st) {
+      if (lane == 0) {
+        job[st].live = 0;
+        win[st].live = 0;
+        mbar_arrive(&posted[st]);
+      }
+      mbar_arrive(&full[st]);
+    };
+
+    // The tile's flag, after its stores (done): epoch + 1.
+    auto release = [&](const Item& it) {
+      if (lane == 0)
+        store_release(L.flags + it.r, L.base + it.c + 1,
+                      it.duties & kReadRemote);
+      __syncwarp();
+    };
+
+    int item = blockIdx.x;   // < total: the grid is at most total
+    Item it = fetch(item);
+    if (!wait(it)) {
+      stop(0);
+    } else {
+      issue(it, 0);
+      for (int n = 0;; ++n) {
+        const int st = n & 1, phase = (n >> 1) & 1;
+        const int next = item + gridDim.x;
+        Item nt;
+        bool have = false;
+        if (next < total) {
+          // While tile n steps: the next window, once its flags are done.
+          nt = fetch(next);
+          while (!(have = poll(nt)) && !mbar_test(&done[st], phase)) {
+          }
+          if (have) issue(nt, st ^ 1);
+        }
+        mbar_wait(&done[st], phase);
+        release(it);
+        if (next >= total) {
+          stop(st ^ 1);
+          break;
+        }
+        if (!have) {
+          if (!wait(nt)) {
+            stop(st ^ 1);
+            break;
+          }
+          issue(nt, st ^ 1);
+        }
+        item = next;
+        it = nt;
+      }
     }
-    st ^= 1;
+    tpulbm::cp_async_wait<0>();
   }
-  publish();
-  tpulbm::cp_async_wait<0>();
+
   __syncthreads();
   if (threadIdx.x == 0) go = *(volatile int*)L.error == 0;
   __syncthreads();
@@ -484,7 +612,7 @@ cudaError_t configure(int* grid_cap) {
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, ring_p2p_kernel<kK>, kThreads, smem_bytes(kK));
+          &per_sm, ring_p2p_kernel<kK>, kBlock, smem_bytes(kK));
     if (e != cudaSuccess) return e;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     cap[dev] = per_sm * sms;
@@ -509,7 +637,7 @@ int launch(const Launch& l, const tpulbm::LbmArgs& a, cudaStream_t stream) {
                           (const void*)s.hi[1]})
       vec16 = vec16 && aligned16(p);
   }
-  ring_p2p_kernel<kK><<<total < cap ? total : cap, kThreads, smem_bytes(kK),
+  ring_p2p_kernel<kK><<<total < cap ? total : cap, kBlock, smem_bytes(kK),
                         stream>>>(l, a, vec16 ? 1 : 0);
   return (int)cudaGetLastError();
 }
@@ -567,28 +695,37 @@ int lbm_ring_p2p_enable_peer(int from, int to) {
 // kMaxLocal) shards of the ring, the epochs base .. base + n_outer - 1;
 // table: kWords int64 words a shard (the Shard fields in order, pointers
 // then ints; see ops/ring_p2p.py), all shards of the launch on the current
-// device; pull0: chunk 0 reads prev_in / next_in, not the slots; error: the
-// device's error word; counter: a zeroed unsigned int of the device, left
-// zeroed (the last CTA resets it), not shared with a launch that may run
-// at the same time. Launches on the current device and stream; returns
-// cudaGetLastError(), or the error of configuring the kernel.
-int lbm_ring_p2p(const long long* table, int n_local, int n_outer, int base,
-                 int pull0, int* error, unsigned int* counter, int ny,
-                 int nx, int accel_row,
+// device; graph: the card's (items, kRec) int32 tile graph on the device,
+// items the shards' tiles; peer_flags: n_peers (<= kMaxPeers) flag arrays
+// that the graph names, this card's first; pull0: chunk 0 reads prev_in /
+// next_in, not the slots; error: the device's error word; counter: a
+// zeroed unsigned int of the device, left zeroed (the last CTA resets it),
+// not shared with a launch that may run at the same time. Launches on the
+// current device and stream; returns cudaGetLastError(), or the error of
+// configuring the kernel.
+int lbm_ring_p2p(const long long* table, int n_local, const int* graph,
+                 int items, const long long* peer_flags, int n_peers,
+                 int n_outer, int base, int pull0, int* error,
+                 unsigned int* counter, int ny, int nx, int accel_row,
                  float omega, float w1, float w2, int k,
                  cudaStream_t stream) {
   if (k < 1 || k > kMaxK || n_local < 1 || n_local > kMaxLocal ||
-      n_outer < 1 || n_outer > kMaxOuter || nx < 1 || base < 0)
+      n_outer < 1 || n_outer > kMaxOuter || nx < 1 || base < 0 ||
+      n_peers < 1 || n_peers > kMaxPeers || !graph)
     return (int)cudaErrorInvalidValue;
   Launch l{};
   l.n_local = n_local;
   l.n_outer = n_outer;
   l.base = base;
   l.pull0 = pull0;
-  l.tiles_x = (nx + kTile - 1) / kTile;
+  l.graph = graph;
+  for (int p = 0; p < n_peers; ++p)
+    l.peer_flags[p] = reinterpret_cast<const int*>(peer_flags[p]);
+  l.flags = reinterpret_cast<int*>(peer_flags[0]);
   l.error = error;
   l.counter = counter;
-  int items = 0;
+  const int tiles_x = (nx + kTile - 1) / kTile;
+  int tiles = 0;
   for (int j = 0; j < n_local; ++j) {
     const long long* t = table + (size_t)j * kWords;
     Shard& s = l.shard[j];
@@ -599,21 +736,17 @@ int lbm_ring_p2p(const long long* table, int n_local, int n_outer, int base,
     s.lo[0] = ptr(5), s.lo[1] = ptr(6), s.hi[0] = ptr(7), s.hi[1] = ptr(8);
     s.push_lo[0] = ptr(9), s.push_lo[1] = ptr(10);
     s.push_hi[0] = ptr(11), s.push_hi[1] = ptr(12);
-    s.flags = reinterpret_cast<int*>(t[13]);
-    s.flags_prev = reinterpret_cast<const int*>(t[14]);
-    s.flags_next = reinterpret_cast<const int*>(t[15]);
-    s.partials = ptr(16);
-    s.sums = ptr(17);
-    s.h = (int)t[18], s.h_prev = (int)t[19], s.h_next = (int)t[20];
-    s.row_base = (int)t[21];
-    s.remote_prev = (int)t[22], s.remote_next = (int)t[23];
+    s.partials = ptr(13);
+    s.sums = ptr(14);
+    s.h = (int)t[15], s.h_prev = (int)t[16], s.h_next = (int)t[17];
+    s.row_base = (int)t[18];
     if (s.h < k || s.h_prev < k || s.h_next < k || s.row_base < 0 ||
         s.row_base >= ny)
       return (int)cudaErrorInvalidValue;
-    s.item0 = items;
-    s.ntiles = l.tiles_x * ((s.h + kTile - 1) / kTile);
-    items += s.ntiles;
+    s.ntiles = tiles_x * ((s.h + kTile - 1) / kTile);
+    tiles += s.ntiles;
   }
+  if (items != tiles) return (int)cudaErrorInvalidValue;
   l.items = items;
   const tpulbm::LbmArgs a{ny, nx, accel_row, omega, w1, w2};
   return kLaunch[k - 1](l, a, stream);

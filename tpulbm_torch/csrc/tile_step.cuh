@@ -12,7 +12,10 @@
 // to the caller's store. Thread t owns window cells t + j * kThreads
 // (j < kCells); at each step it computes those of its cells that lie in the
 // step's rectangle into registers and, after a barrier, writes them back
-// (then a second barrier, before the next step reads). A thread adds the
+// (then a second barrier, before the next step reads). The barriers join
+// the kThreads stepping threads only: __syncthreads where they are the
+// whole block (K4), named barrier kBar where the block holds other warps
+// too (K6's producer and copy warps). A thread adds the
 // |u| of its owned cells into one register per step, warps sum by shuffles,
 // and warp s sums step s's warp sums once per tile, in a fixed order.
 #pragma once
@@ -45,6 +48,16 @@ static_assert(kMaxK <= kWarps && kMaxK <= kMaxEpilogueRows &&
 __device__ __forceinline__ int wrap(int v, int n) {
   v %= n;
   return v < 0 ? v + n : v;
+}
+
+// The barrier of the kThreads threads that step a tile (threads 0 ..
+// kThreads - 1): __syncthreads for kBar = 0, else named barrier kBar.
+template <int kBar>
+__device__ __forceinline__ void step_sync() {
+  if constexpr (kBar == 0)
+    __syncthreads();
+  else
+    asm volatile("bar.sync %0, %1;" ::"n"(kBar), "n"(kThreads) : "memory");
 }
 
 // Window columns left and right of the owned tile: k rounded up to a
@@ -96,18 +109,17 @@ struct Cells {
 // wy is the accelerated row) whose owned tile has own_rows x own_cols
 // cells. store(oy, ox, res) takes the nine new populations of owned cell
 // (oy, ox) of the tile; partial(s, v) takes step s's sum over the owned
-// cells (called by lane 0 of warp s); every thread calls hook() once, after
-// the barrier that ends the first step's reads (k > 1) or after the stores
-// (k = 1). Every thread of the block calls step_tile. Ends with a barrier:
-// the stage and warp_sums are free again.
-template <int kK, class Store, class Partial, class Hook>
+// cells (called by lane 0 of warp s). Threads 0 .. kThreads - 1 call
+// step_tile, and only they (step_sync<kBar>). Ends with a barrier: the
+// stage and warp_sums are free again.
+template <int kK, int kBar = 0, class Store, class Partial>
 __device__ __forceinline__ void step_tile(float* stage,
                                           const unsigned char* acc_row,
                                           int own_rows, int own_cols,
                                           const Cells<kK>& cells,
                                           float (*warp_sums)[kWarps],
                                           const LbmArgs& a, Store store,
-                                          Partial partial, Hook hook) {
+                                          Partial partial) {
   constexpr int k = kK;
   constexpr int kx = col_margin(k);
   constexpr int wh = kTile + 2 * k;    // window rows
@@ -154,10 +166,8 @@ __device__ __forceinline__ void step_tile(float* stage,
 #pragma unroll
       for (int j = 0; j < kCells; ++j)
         if (owned[j]) store(cells.cy[j] - k, cells.cx[j] - kx, res[j]);
-      if (k == 1) hook();
     } else {
-      __syncthreads();   // every read of state s is done
-      if (s == 0) hook();
+      step_sync<kBar>();   // every read of state s is done
 #pragma unroll
       for (int j = 0; j < kCells; ++j) {
         if (act[j]) {
@@ -166,19 +176,19 @@ __device__ __forceinline__ void step_tile(float* stage,
           for (int q = 0; q < 9; ++q) stage[q * plane + c] = res[j][q];
         }
       }
-      __syncthreads();   // state s + 1 is complete
+      step_sync<kBar>();   // state s + 1 is complete
     }
   }
 
   // The tile's partials: warp s sums step s's warp sums in a fixed order.
-  __syncthreads();
+  step_sync<kBar>();
   if (warp < k) {
     float v = lane < kWarps ? warp_sums[warp][lane] : 0.0f;
     for (int off = 16; off > 0; off >>= 1)
       v += __shfl_down_sync(0xffffffffu, v, off);
     if (lane == 0) partial(warp, v);
   }
-  __syncthreads();   // the stage and warp_sums are free
+  step_sync<kBar>();   // the stage and warp_sums are free
 }
 
 }  // namespace tile

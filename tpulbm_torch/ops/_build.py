@@ -91,7 +91,8 @@ _SIGNATURES = {
     "lbm_ring_p2p_ctas": ([_I], _I),
     "lbm_ring_p2p_enable_peer": ([_I, _I], _I),
     "lbm_ring_p2p": (
-        [_P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P], _I),
+        [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _F, _F, _F,
+         _I, _P], _I),
     "lbm_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -49,11 +49,11 @@ SEED = 20260
 SUMS_RTOL = 3e-4
 
 
-def import_tree(root: Path) -> dict:
-    """The ``ops`` modules of the package under ``root`` (those of OPS that
-    it has), imported beside this process's own: this package's entries of
-    ``sys.modules`` are set aside for the import and put back after it, so
-    the other tree's modules keep their own globals."""
+def import_tree(root: Path, ops=OPS) -> dict:
+    """The ``ops`` modules of the package under ``root`` (those of ``ops``
+    that it has), imported beside this process's own: this package's
+    entries of ``sys.modules`` are set aside for the import and put back
+    after it, so the other tree's modules keep their own globals."""
     def loaded():
         return {n: m for n, m in sys.modules.items()
                 if n == PKG or n.startswith(PKG + ".")}
@@ -63,7 +63,7 @@ def import_tree(root: Path) -> dict:
         del sys.modules[name]
     sys.path.insert(0, str(root))
     try:
-        mods = {m: importlib.import_module(f"{PKG}.ops.{m}") for m in OPS
+        mods = {m: importlib.import_module(f"{PKG}.ops.{m}") for m in ops
                 if (root / PKG / "ops" / f"{m}.py").exists()}
     finally:
         sys.path.remove(str(root))
