@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py          # from the repository root; one CUDA device
     python3 chip_smoke.py --cards  # only the ring and torus over 2-4 cards
-                                   # (phase 9)
+                                   # (phase 10)
+    python3 chip_smoke.py --cards --processes   # only phase 10's processes
+                                                # on four cards
 
 Phases; any failure raises and exits non-zero before the result lines:
 
@@ -101,11 +103,16 @@ Phases; any failure raises and exits non-zero before the result lines:
    through the host): 1024^2 at its full step count with dcp checkpoints
    every CKPT_EVERY steps, through the golden gate and the same bytes as
    phase 6's one-process run over 4 shards; its 10,000-step checkpoint
-   resumed in one process over 4 shards, the same bytes; 128^2 over a 2x2
-   torus on two processes for 4,000 steps, the bytes of one process's.
-   Launches are counted in each process (``--launch-counts``); process
-   0's MLUPS, host microseconds of exchange a chunk and transport are
-   logged;
+   resumed in one process over 4 shards, the same bytes; 1024^2 over the
+   same two processes with ``--backend cuda-p2p`` (K6 in each process,
+   the slabs and flags through CUDA IPC mappings of the other process's
+   exchange block on the shared card) at its full step count, the same
+   bytes as phase 6's run; 128^2 over a 2x2 torus on two processes for
+   4,000 steps, the bytes of one process's. Launches are counted and
+   checked in each process (``--launch-counts``: the route's kernel
+   launched, no other); MLUPS, ms a chunk, the transport, and process 0's
+   host microseconds of exchange a chunk (or, on cuda-p2p, each process's
+   time to open the other processes' exchange blocks) are logged;
    Phases 3-8 log their seconds, and their sum;
 9. one JSON line of the kernels, then the result line
    ``{"ok": true, "device": {...}}``;
@@ -114,9 +121,11 @@ Phases; any failure raises and exits non-zero before the result lines:
     through peer memory), and the torus with block (i, j) on card 2i + j
     (``phase_cards``);
     on four cards, the launcher's NCCL transport: 2 processes x 2 cards
-    and 4 x 1, 1024^2 (the bytes of the one-process ring, the final state
-    of one card) and 8192^2 (its state, from a dcp checkpoint, bitwise one
-    card's K4 run); then the result line.
+    and 4 x 1, each on the cuda ring and on cuda-p2p (K6 across processes
+    through CUDA IPC), 1024^2 (the bytes of the one-process ring, the final
+    state of one card) and 8192^2 (its state, from a dcp checkpoint,
+    bitwise one card's K4 run), the two backends' MLUPS side by side; then
+    the result line.
 """
 
 from __future__ import annotations
@@ -1655,30 +1664,65 @@ def phase_checkpoint():
 # host). 1024^2 with dcp checkpoints every CKPT_EVERY steps, its outputs
 # through the golden gate and the bytes of phase 6's --device-count 4 run;
 # its RESUME_STEP checkpoint resumed in one process over the same four
-# shards, the same bytes; 128^2 over a 2x2 torus on two processes for
-# TORUS_PROCESS_STEPS steps, the bytes of one process's torus.
+# shards, the same bytes; 1024^2 over the two processes on cuda-p2p (K6
+# across processes, the two contexts time-sliced on the card), the same
+# bytes; 128^2 over a 2x2 torus on two processes for TORUS_PROCESS_STEPS
+# steps, the bytes of one process's torus.
 PROCESSES = "2x2"
 TORUS_PROCESS_STEPS = 4000
 _EXCHANGE = re.compile(r"multihost: transport (.*), (\d+) chunks, host "
                        r"exchange ([\d.]+) us a chunk")
 
 
+# (the processes' lines may interleave on the launcher's stderr)
+_STARTED = re.compile(r"multihost: process \d+/\d+, [^,\n]*?, transport "
+                      r"(gloo|nccl)")
+_OPENED = re.compile(r"cuda-p2p over \d+ processes: (\d+) exchange blocks of "
+                     r"other processes opened in ([\d.]+) ms")
+
+
+def _last_call(metrics, deck):
+    """MLUPS of the last runner call of a run, from its ``--metrics-file``
+    (one line a call: the steps done and the wall seconds so far)."""
+    with open(metrics) as fh:
+        a, b = [json.loads(line) for line in fh.readlines()[-2:]]
+    nx, ny = map(int, deck.split("x"))
+    steps, wall = b["step"] - a["step"], b["wall_s"] - a["wall_s"]
+    return nx * ny * steps / wall / 1e6
+
+
+def _split(deck, steps, what):
+    """Arguments that run ``steps`` in two runner calls of whole 8-step
+    chunks with a metrics file (``_last_call``: the second call, past the
+    first call's set-up)."""
+    metrics = os.path.join(OUT, f"metrics_{deck}_{what}.jsonl")
+    with contextlib.suppress(FileNotFoundError):
+        os.remove(metrics)
+    return (["--chunk", str(-(-steps // 16) * 8), "--metrics-file", metrics],
+            metrics)
+
+
 def _launch(deck, steps, args, kernel, totals, shape=PROCESSES,
-            transport="gloo"):
+            transport="gloo", split=False):
     """One run of the port's launcher, ``--local-smoke shape``: its lines
-    logged, its processes' launch counts (``--launch-counts``) checked
-    (only ``kernel``) and added to totals; the transport must be
-    ``transport``. Logs MLUPS and process 0's host exchange time a chunk;
-    returns the Reynolds number."""
+    logged, each process's launch counts (``--launch-counts``) checked
+    (only ``kernel``, in every process) and added to totals; the transport
+    must be ``transport``. Logs MLUPS, ms a chunk, and process 0's host
+    exchange time a chunk (the cuda ring, the torus) or every process's
+    time to open the other processes' exchange blocks (cuda-p2p); with
+    ``split``, the steps run in two runner calls and the second call's
+    MLUPS are logged too. Returns (MLUPS, the second call's or None)."""
     pf, of = deck_files(deck)
-    procs = int(shape.split("x")[0])
+    procs, per = map(int, shape.split("x"))
     counts = os.path.join(OUT, f"launches_{deck}_{shape}")
     for r in range(procs):
         with contextlib.suppress(FileNotFoundError):
             os.remove(f"{counts}.{r}")
+    extra, metrics = (_split(deck, steps, f"{shape}_{kernel}") if split
+                      else ([], None))
     cmd = [sys.executable, "-m", "tpulbm_torch.dist.launch", "--local-smoke",
-           shape, "--timeout", "300", pf, of, *args, "--launch-counts",
-           counts]
+           shape, "--timeout", "300", pf, of, *args, *extra,
+           "--launch-counts", counts]
     log(f"[multiproc] python -m tpulbm_torch.dist.launch --local-smoke "
         f"{shape} {deck} {' '.join(args)} ({steps} steps)")
     t0 = time.perf_counter()
@@ -1689,27 +1733,47 @@ def _launch(deck, steps, args, kernel, totals, shape=PROCESSES,
         log(f"    {line}")
     if proc.returncode != 0:
         raise AssertionError(f"{cmd} exited {proc.returncode}")
-    per = []
+    nx, ny = map(int, deck.split("x"))
+    shards = procs * per
+    chunks = -(-steps // min(8, ny // shards))
+    p2p = kernel == "ring_p2p"
     for r in range(procs):
         with open(f"{counts}.{r}") as fh:
-            per.append(json.load(fh))
-    summed = {k: sum(c[k] for c in per) for k in per[0]}
-    _check_launches(deck, summed, [kernel, "reduce_partials"],
-                    [c for c in KERNEL_COUNTERS if c != kernel])
-    for key, v in summed.items():
-        totals[key] += v
+            got = json.load(fh)
+        _check_launches(f"{deck}, process {r}", got,
+                        [kernel, "reduce_partials"],
+                        [c for c in KERNEL_COUNTERS if c != kernel],
+                        p2p_chunks=chunks * per if p2p else 0)
+        for key, v in got.items():
+            totals[key] += v
     fields = dict(line.split(":", 1) for line in proc.stdout.splitlines()
                   if ":" in line)
     elapsed = float(fields["Elapsed time"].split()[0])
-    how, chunks, us = _EXCHANGE.search(proc.stderr).groups()
-    nx, ny = map(int, deck.split("x"))
-    log(f"[multiproc] {deck} over {shape} (processes x shards): "
-        f"{nx * ny * steps / elapsed / 1e6:.1f} MLUPS ({elapsed:.3f} s), "
-        f"transport {how}, {chunks} chunks, host exchange {us} us a chunk "
-        f"(process 0), the launcher's wall {wall:.1f} s")
-    if not how.startswith(transport):
-        raise AssertionError(f"transport {how}, not {transport}")
-    return float(fields["Reynolds number"])
+    mlups = nx * ny * steps / elapsed / 1e6
+    hows = _STARTED.findall(proc.stderr)
+    if p2p:
+        opened = [(int(n), float(ms)) for n, ms in
+                  _OPENED.findall(proc.stderr)]
+        if not opened or len(opened) % procs:
+            # one line a process and runner (a run of two call sizes has
+            # two runners)
+            raise AssertionError(f"{procs} processes, {len(opened)} lines "
+                                 f"of opened exchange blocks")
+        what = ("exchange blocks of other processes opened: "
+                + ", ".join(f"{n} in {ms} ms" for n, ms in opened))
+    else:
+        how, _, us = _EXCHANGE.search(proc.stderr).groups()
+        what = f"host exchange {us} us a chunk (process 0), {how}"
+    last = _last_call(metrics, deck) if split else None
+    log(f"[multiproc] {deck} over {shape} (processes x shards), {kernel}: "
+        f"{mlups:.1f} MLUPS ({elapsed:.3f} s, {chunks} chunks, "
+        f"{elapsed / chunks * 1e3:.4f} ms a chunk"
+        f"{f'; the second of two calls {last:.1f} MLUPS' if split else ''}"
+        f"), transport {'/'.join(sorted(set(hows)))}, {what}, the "
+        f"launcher's wall {wall:.1f} s")
+    if len(hows) != procs or set(hows) != {transport}:
+        raise AssertionError(f"transports {hows}, not {transport}")
+    return mlups, last
 
 
 def phase_multiproc():
@@ -1747,6 +1811,14 @@ def phase_multiproc():
     _same_bytes(resumed, ring4, "dcp checkpoint resumed in one process",
                 ref_what="phase 6's --device-count 4 run")
     _free()
+
+    # cuda-p2p across the two processes: K6 in each, the slabs and flags
+    # through CUDA IPC mappings of the other process's exchange block on
+    # the shared card
+    out = os.path.join(OUT, f"{deck}_multiproc_p2p")
+    _launch(deck, steps, [*P2P, "--out-dir", out], "ring_p2p", totals)
+    _same_bytes(out, ring4, f"{PROCESSES} processes x shards, cuda-p2p",
+                ref_what="phase 6's --device-count 4 run")
 
     # the torus on two processes against one process's, for the first
     # TORUS_PROCESS_STEPS steps: host-bound, 500 chunks show it
@@ -1813,7 +1885,7 @@ KERNELS = [
 ]
 
 
-def phase_cards():
+def phase_cards(processes_only=False):
     """The ring and the torus across cards (``--cards``; needs two or
     more): the kernel-phase check of ``_ring_on_cards``, the 1024^2 deck
     over the cards on the cuda and the cuda-p2p ring (the same bytes), over
@@ -1822,23 +1894,32 @@ def phase_cards():
     8192^2 over the cards on both rings, the state bitwise one card's K4
     run; the torus over 2x2 with block (i, j) on card (2i + j) % cards:
     1024^2 through the golden gate, and 8192^2, its state bitwise one
-    card's K4 run; on four cards, ``_processes_on_cards``."""
+    card's K4 run; on four cards, ``_processes_on_cards``.
+    ``processes_only`` (``--cards --processes``, four cards): only
+    ``_processes_on_cards`` and what it is held against, one card's 8192^2
+    run and the one-process ring over the four cards at 1024^2."""
     import torch
 
     from tpulbm_torch.ops import _build
     from tpulbm_torch.sim.simulation import Simulation
 
-    if torch.cuda.device_count() < 2:
-        raise SystemExit("chip_smoke --cards: needs two or more CUDA devices")
+    if torch.cuda.device_count() < (4 if processes_only else 2):
+        raise SystemExit(f"chip_smoke --cards: needs "
+                         f"{'four' if processes_only else 'two'} or more "
+                         f"CUDA devices")
     deck, steps = TORUS_WIDE_RUN
     one = Simulation.from_files(*deck_files(deck))
     one.run()
     f_one = one.f.cpu()
     del one
     _free()
-    _ring_on_cards()
     n = min(4, torch.cuda.device_count())
     totals = dict.fromkeys(_build.LAUNCHES, 0)
+    if processes_only:
+        _mesh_golden("1024x1024", 20000, ["--device-count", str(n)], totals)
+        _processes_on_cards(f_one, totals)
+        return
+    _ring_on_cards()
     outs = {}
     for deck, steps, shards, extra in (
             ("1024x1024", 20000, n, []), ("1024x1024", 20000, n, P2P),
@@ -1883,10 +1964,11 @@ def phase_cards():
 
 def _processes_on_cards(f_one, totals):
     """The launcher's NCCL transport on four cards: 2 processes x 2 cards
-    and 4 x 1. 1024^2: the same bytes as the one-process ring over 4
-    (``phase_cards``), final_state.dat the bytes of one card's run; 8192^2
-    at its 1,000 steps: its state, read back from a dcp checkpoint of the
-    last step, bitwise one card's K4 run (``f_one``)."""
+    and 4 x 1, each on the cuda ring and on cuda-p2p. 1024^2: the same
+    bytes as the one-process ring over 4 (``phase_cards``), final_state.dat
+    the bytes of one card's run; 8192^2 at its 1,000 steps: its state, read
+    back from a dcp checkpoint of the last step, bitwise one card's K4 run
+    (``f_one``); the MLUPS of both backends side by side."""
     import torch
 
     from tpulbm_torch.io.params_file import read_params
@@ -1898,36 +1980,61 @@ def _processes_on_cards(f_one, totals):
     log(f"[multiproc] python -m tpulbm_torch {deck} (one card)")
     _run_cli([pf, of, "--out-dir", single])
     wide, wide_steps = TORUS_WIDE_RUN
+    # one process's cuda-p2p over the four cards, the yardstick of this call
+    mlups = {}
+    for d, n_steps in ((deck, steps), (wide, wide_steps)):
+        extra, metrics = _split(d, n_steps, "one_process_p2p")
+        sim, _ = _mesh_cli(d, n_steps, ["--device-count", "4", *P2P, *extra],
+                           totals)
+        del sim
+        _free()
+        mlups[d, "one process"] = (None, _last_call(metrics, d))
     for shape in ("2x2", "4x1"):
-        out = os.path.join(OUT, f"{deck}_processes_{shape}")
-        _launch(deck, steps, ["--out-dir", out], "ring_chunk", totals, shape,
-                "nccl")
-        _same_bytes(out, os.path.join(OUT, f"{deck}_device-count4"),
-                    f"{shape} processes x cards",
-                    ref_what="the one-process ring over 4 cards")
-        same = _read(out, "final_state.dat") == _read(single,
-                                                      "final_state.dat")
-        log(f"    final_state.dat the same bytes as one card's: {same}")
-        if not same:
-            raise AssertionError(f"{deck} over {shape} processes x cards "
-                                 f"disagrees with one card")
-        ck = os.path.join(OUT, f"ckpt_{wide}_{shape}")
-        shutil.rmtree(ck, ignore_errors=True)
-        _launch(wide, wide_steps, ["--no-output", "--ckpt-backend", "dcp",
-                                   "--checkpoint-every", str(wide_steps),
-                                   "--checkpoint-dir", ck],
-                "ring_chunk", totals, shape, "nccl")
-        _, f, _ = ckpt.restore(
-            os.path.join(ck, f"ckpt_{wide_steps:08d}.dcp"),
-            read_params(deck_files(wide)[0]))
-        same = torch.equal(torch.from_numpy(f), f_one)
-        log(f"[multiproc] {wide} over {shape} processes x cards vs one "
-            f"card's K4 run: state bitwise {same}")
-        shutil.rmtree(ck, ignore_errors=True)
-        del f
-        if not same:
-            raise AssertionError(f"{wide} over {shape} processes x cards "
-                                 f"disagrees with one card")
+        for backend, kernel, extra in (("cuda", "ring_chunk", []),
+                                       ("cuda-p2p", "ring_p2p", P2P)):
+            out = os.path.join(OUT, f"{deck}_processes_{shape}_{backend}")
+            mlups[deck, backend] = _launch(deck, steps,
+                                           [*extra, "--out-dir", out],
+                                           kernel, totals, shape, "nccl",
+                                           split=True)
+            _same_bytes(out, os.path.join(OUT, f"{deck}_device-count4"),
+                        f"{shape} processes x cards, {backend}",
+                        ref_what="the one-process ring over 4 cards")
+            same = _read(out, "final_state.dat") == _read(single,
+                                                          "final_state.dat")
+            log(f"    final_state.dat the same bytes as one card's: {same}")
+            if not same:
+                raise AssertionError(f"{deck} over {shape} processes x "
+                                     f"cards ({backend}) disagrees with one "
+                                     f"card")
+            ck = os.path.join(OUT, f"ckpt_{wide}_{shape}")
+            shutil.rmtree(ck, ignore_errors=True)
+            mlups[wide, backend] = _launch(
+                wide, wide_steps, [*extra, "--no-output", "--ckpt-backend",
+                                   "dcp", "--checkpoint-every",
+                                   str(wide_steps), "--checkpoint-dir", ck],
+                kernel, totals, shape, "nccl", split=True)
+            _, f, _ = ckpt.restore(
+                os.path.join(ck, f"ckpt_{wide_steps:08d}.dcp"),
+                read_params(deck_files(wide)[0]))
+            same = torch.equal(torch.from_numpy(f), f_one)
+            log(f"[multiproc] {wide} over {shape} processes x cards "
+                f"({backend}) vs one card's K4 run: state bitwise {same}")
+            shutil.rmtree(ck, ignore_errors=True)
+            del f
+            if not same:
+                raise AssertionError(f"{wide} over {shape} processes x cards "
+                                     f"({backend}) disagrees with one card")
+        for d in (deck, wide):
+            (p2p, p2p_last), (ring, ring_last) = (mlups[d, "cuda-p2p"],
+                                                  mlups[d, "cuda"])
+            one = mlups[d, "one process"][1]
+            log(f"[multiproc] {d} over {shape} processes x cards: cuda-p2p "
+                f"{p2p:.1f} MLUPS, the NCCL cuda ring {ring:.1f} MLUPS "
+                f"({p2p / ring:.2f}x); the second of two calls: cuda-p2p "
+                f"{p2p_last:.1f}, the NCCL cuda ring {ring_last:.1f} "
+                f"({p2p_last / ring_last:.2f}x), one process's cuda-p2p over "
+                f"the four cards {one:.1f} ({p2p_last / one:.2f}x)")
 
 
 def main(argv=None) -> int:
@@ -1938,12 +2045,16 @@ def main(argv=None) -> int:
         "--cards", action="store_true",
         help="run only the ring and the torus across cards (needs two or "
              "more CUDA devices)")
+    parser.add_argument(
+        "--processes", action="store_true",
+        help="with --cards: only the processes across four cards and what "
+             "they are held against")
     args = parser.parse_args(argv)
     sys.path.insert(0, ROOT)
     kind = phase_device()
     phase_build()
     if args.cards:
-        phase_cards()
+        phase_cards(processes_only=args.processes)
         import torch
 
         print(json.dumps({"ok": True, "device": {

@@ -412,3 +412,56 @@ def test_torus_runner_gives_the_single_device_state(case):
         assert ((av - av1).abs() / av1.abs()).max().item() <= AV_RTOL
     with pytest.raises(ValueError, match="cuda-p2p"):
         make_runner(p, 21, "cuda-p2p", mesh=get_mesh_2d(2, 2))
+
+
+# The second process of the IPC round trip: maps the block of the handle
+# (hex, argv[1]) on cuda:0, checks that it holds 0 .. n - 1 (argv[2]),
+# writes their negatives, unmaps it
+_IPC_CHILD = """
+import sys
+import torch
+from tpulbm_torch.ops import ring_p2p
+handle, n = bytes.fromhex(sys.argv[1]), int(sys.argv[2])
+ptr = ring_p2p.open_block(0, handle)
+got = torch.empty(n, dtype=torch.float32, device="cuda:0")
+ring_p2p.copy_bytes(got.data_ptr(), ptr, 4 * n, "cuda:0")
+want = torch.arange(n, dtype=torch.float32, device="cuda:0")
+assert torch.equal(got, want), "the mapped block lacks the exporter's values"
+neg = -want
+ring_p2p.copy_bytes(ptr, neg.data_ptr(), 4 * n, "cuda:0")
+ring_p2p.close_block(0, ptr)
+"""
+
+
+@pytest.mark.cuda
+def test_exchange_block_crosses_processes():
+    """K6's exchange memory across processes, alone: this process exports
+    a block (cudaMalloc, cudaIpcGetMemHandle) holding 0 .. n - 1; a second
+    process on the same card maps it (cudaIpcOpenMemHandle), reads the
+    values, writes their negatives and unmaps it; this process then reads
+    the negatives."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from tpulbm_torch.ops import ring_p2p
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n, dev = 1 << 16, torch.device("cuda", 0)
+    ptr, handle = ring_p2p.alloc_block(dev, 4 * n, export=True)
+    try:
+        vals = torch.arange(n, dtype=torch.float32, device=dev)
+        ring_p2p.copy_bytes(ptr, vals.data_ptr(), 4 * n, dev)
+        root = Path(__file__).resolve().parent.parent
+        env = dict(os.environ, PYTHONPATH=str(root))
+        proc = subprocess.run([sys.executable, "-c", _IPC_CHILD, handle.hex(),
+                               str(n)], capture_output=True, text=True,
+                              env=env, cwd=root, timeout=300)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        back = torch.empty_like(vals)
+        ring_p2p.copy_bytes(back.data_ptr(), ptr, 4 * n, dev)
+        assert torch.equal(back, -vals)
+    finally:
+        ring_p2p._free_blocks([(0, ptr)])

@@ -244,22 +244,37 @@ def test_outer_per_launch_and_the_table():
 
 
 def test_p2p_route(capsys):
-    """make_runner's route for cuda-p2p: over several processes it prints a
-    fallback line and takes the cuda ring (refused here on the CPU, as the
-    cuda backend is); on one device the JAX package's line; on a 2-D mesh a
-    refusal."""
+    """make_runner's route for cuda-p2p: over several processes of one host
+    it takes the p2p ring and prints nothing (refused here on the CPU, as
+    the cuda backend is); where the ring crosses hosts it prints the
+    fallback line and takes the cuda ring; on one device the JAX package's
+    line; on a 2-D mesh a refusal; a mesh with another process's shard
+    needs the process group."""
 
     class Transport:
         world = 2
+
+        def __init__(self, hosts):
+            self.hosts = hosts
+
+        def places(self):
+            return [(d // 2, d % 2, f"GPU-{d}", host)
+                    for d, host in enumerate(self.hosts)]
 
     p, _ = _deck()
     with pytest.raises(ValueError, match="needs a CUDA device"):
         runner.make_runner(p, 10, "cuda-p2p", "cpu",
                            mesh=get_mesh(4, device="cpu"),
-                           transport=Transport())
+                           transport=Transport(["h0"] * 4))
+    assert "falling back" not in capsys.readouterr().err
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        runner.make_runner(p, 10, "cuda-p2p", "cpu",
+                           mesh=get_mesh(4, device="cpu"),
+                           transport=Transport(["h0", "h0", "h1", "h1"]))
     err = capsys.readouterr().err
-    assert "cuda-p2p unsupported across 2 processes" in err
-    assert "falling back to the cuda ring" in err
+    assert ("cuda-p2p unsupported across hosts (shard 1 of process 0 on h0, "
+            "shard 2 of process 1 on h1: CUDA IPC does not cross hosts); "
+            "falling back to the cuda ring") in err
     with pytest.raises(ValueError, match="needs a CUDA device"):
         runner.make_runner(p, 10, "cuda-p2p", "cpu",
                            mesh=get_mesh(4, device="cpu"))
@@ -272,7 +287,7 @@ def test_p2p_route(capsys):
     with pytest.raises(ValueError, match="cuda-p2p"):
         runner.make_runner(p, 10, "cuda-p2p", "cpu",
                            mesh=[[torch.device("cpu")] * 2] * 2)
-    with pytest.raises(ValueError, match="one process"):
+    with pytest.raises(ValueError, match="owns shards 0-1"):
         runner.make_p2p_runner(p, 10, [torch.device("cpu"), None])
 
 
@@ -300,6 +315,9 @@ def test_p2p_route(capsys):
 # 8 (the kernel's is 32) to have many tiles on a small grid: the
 # dependency rule needs only k <= the tile edge.
 MODEL_TILE = 8
+# Across processes, the most scheduler steps a process's host takes to
+# reach a prologue (FlagModel.prologue)
+HOST_DELAY = 500
 
 
 def model_deps(rows, nx, d, tile, k, t=MODEL_TILE, cross=True):
@@ -393,14 +411,23 @@ class FlagModel:
     ``cards`` (card of shard d), and its scheduler. ``deps`` (None: the
     tile graph's) is the relation a tile waits on; ``early_release``
     releases a tile's flag as soon as its window is loaded, before its
-    stores (the variant the model must catch)."""
+    stores (the variant the model must catch). ``processes``: the cards are
+    (process, card) keys of several processes, and a launch whose first
+    chunk would read the neighbours' states (pull0) is run as across
+    processes (ring_p2p.Exchange.enter): a prologue on each card, after
+    its launch before, pushes its shards' input edge rows into the
+    neighbours' slots of the launch's first parity, and, with
+    ``entry_order``, no card starts the launch before every card has
+    pushed; its chunk 0 then reads the slots."""
 
     def __init__(self, params, rows, offsets, cards, mask, states, k,
-                 deps=None, t=MODEL_TILE, early_release=False):
+                 deps=None, t=MODEL_TILE, early_release=False,
+                 processes=False, entry_order=True):
         self.p, self.rows, self.offsets, self.cards = params, rows, offsets, cards
         self.k, self.t = k, t
         self.deps = graph_deps(cards) if deps is None else deps
         self.early_release = early_release
+        self.processes, self.entry_order = processes, entry_order
         self.nx = params.nx
         self.tiles_x = -(-self.nx // t)
         n = len(rows)
@@ -516,6 +543,39 @@ class FlagModel:
         for s in range(k):
             maps[s][y0:y0 + own, cols] = speeds[s][:, cols]
 
+    def prologue(self, launch, card, pushed, delay):
+        """The entry of a launch across processes on ``card`` (see the
+        class): ``delay`` steps of the host before it issues the pushes
+        (each process reaches its prologue at its own time), the pushes,
+        row by row, then the entry order."""
+        for _ in range(delay):
+            yield "work"
+        n, k, e, b = len(self.rows), self.k, launch["base"], launch["cur"]
+        for d in [d for d in range(n) if self.cards[d] == card]:
+            h = self.rows[d]
+            for r in range(k):
+                for side, q, row in (("lo", (d + 1) % n, h - k + r),
+                                     ("hi", (d - 1) % n, r)):
+                    self.slots[side][q][e % 2][:, r] = self.buf[d][b][:, row]
+                    self.slot_tag[side][q][e % 2][r] = self.tag[d][b][row]
+                    yield "work"
+        pushed.add(card)
+        while self.entry_order and len(pushed) < len(set(self.cards)):
+            yield "wait"
+
+    def resume(self, states):
+        """The next call starts from ``states`` (a restored checkpoint) at
+        the current epoch: the slots hold edges of a state that is gone."""
+        nan = float("nan")
+        self.buf = [[s.clone(), torch.full_like(s, nan)] for s in states]
+        self.tag = [[np.full((h, self.nx), self.epoch),
+                     np.full((h, self.nx), -1)] for h in self.rows]
+        self.cur = 0
+        for tags in self.slot_tag.values():
+            for pair in tags:
+                for t in pair:
+                    t[:] = -2
+
     def stepping_warps(self, launch, cta):
         """The CTA's stepping warps: tile n from stage n % 2 once it is
         full, then the stage done (see the comment above)."""
@@ -569,21 +629,36 @@ class FlagModel:
 
     def call(self, launches, grid, rng):
         """One runner call: ``launches`` [(n_outer, pull0)] on every card,
-        each card's in order, the warps of all cards' current launches
-        interleaved at random. Launch i's input is buffer ``cur`` of every
-        shard, the runner's ping-pong. Raises on a deadlock."""
+        each card's in order (across processes, a pull0 launch after its
+        prologue), the warps of all cards' current launches interleaved at
+        random. Launch i's input is buffer ``cur`` of every shard, the
+        runner's ping-pong. Raises on a deadlock."""
         n = len(self.rows)
         plan, base, cur = [], self.epoch, self.cur
         for n_outer, pull0 in launches:
             plan.append(dict(base=base, n_outer=n_outer, pull0=pull0,
                              cur=cur))
             base, cur = base + n_outer, cur ^ (n_outer % 2)
-        queues = {card: list(plan) for card in set(self.cards)}
+        entries = [set() for _ in plan]
+        queues = {}
+        for card in set(self.cards):
+            queues[card] = []
+            for i, launch in enumerate(plan):
+                if self.processes and launch["pull0"]:
+                    queues[card].append(("enter", i))
+                    launch = dict(launch, pull0=False)
+                queues[card].append(launch)
         running = {}
 
         def start(card):
+            item = queues[card].pop(0)
+            if isinstance(item, tuple):
+                running[card] = [self.prologue(plan[item[1]], card,
+                                               entries[item[1]],
+                                               rng.randint(HOST_DELAY))]
+                return
             shards = [d for d in range(n) if self.cards[d] == card]
-            launch = dict(queues[card].pop(0), shards=shards,
+            launch = dict(item, shards=shards,
                           items=sum(self.ntiles(d) for d in shards))
             total = launch["items"] * launch["n_outer"]
             warps = []
@@ -618,7 +693,8 @@ class FlagModel:
 
 
 def _plain_calls(p, mask, states, rows, offsets, k, calls):
-    """p2p_chunks_ref over the same calls: (states, per call and shard the
+    """p2p_chunks_ref over the same calls (a list of states in place of a
+    call: the next call starts from them): (states, per call and shard the
     sums)."""
     n = len(rows)
     nan = float("nan")
@@ -630,6 +706,9 @@ def _plain_calls(p, mask, states, rows, offsets, k, calls):
     bases = [(o - k) % p.ny for o in offsets]
     base, sums = 0, []
     for launches in calls:
+        if isinstance(launches[0], torch.Tensor):
+            states = launches
+            continue
         for n_outer, pull0 in launches:
             states, s = ring_p2p.p2p_chunks_ref(states, bands, lo, hi, p, k,
                                                 n_outer, base, bases, pull0)
@@ -686,18 +765,37 @@ def test_flag_model_reads_nothing_stale_and_is_the_plain_version(
             assert torch.equal(got, s[d])
 
 
-def _caught(deps, grid, seeds=4, **kw):
+def _resumed(states, seed=5):
+    """A state handed to a call from elsewhere: ``states`` perturbed by
+    0.1 % (numpy, seeded)."""
+    rng = np.random.RandomState(seed)
+    return [s * torch.tensor(1 + 1e-3 * rng.rand(*s.shape),
+                             dtype=torch.float32) for s in states]
+
+
+def _run_model(model, calls, grid, seed):
+    """The model over ``calls`` (a list of states in place of a call: the
+    next call resumes from them), each call scheduled from ``seed``."""
+    for launches in calls:
+        if isinstance(launches[0], torch.Tensor):
+            model.resume(launches)
+        else:
+            model.call(launches, grid, np.random.RandomState(seed))
+
+
+def _caught(deps, grid, seeds=4, cards=("a", "b"), calls=None, **kw):
     """The seeds of 4 whose run of the model with ``deps`` read a stale
-    cell or deadlocked: 3 shards of 17 rows on 2 cards."""
+    cell or deadlocked: 3 shards of 17 rows on 2 cards (``CALLS``, or
+    ``calls(states)``)."""
     caught = 0
     for seed in range(seeds):
-        p, mask, rows, offsets, states, on, k = _model_case(3, ["a", "b"],
+        p, mask, rows, offsets, states, on, k = _model_case(3, list(cards),
                                                             ny=51)
         model = FlagModel(p, rows, offsets, on, mask, states, k, deps=deps,
                           **kw)
         try:
-            for launches in CALLS:
-                model.call(launches, grid, np.random.RandomState(seed))
+            _run_model(model, CALLS if calls is None else calls(states),
+                       grid, seed)
         except AssertionError:
             caught += 1
             continue
@@ -752,6 +850,61 @@ def test_flag_model_catches_an_early_release():
     assert _caught(None, 7, early_release=True) == 4
 
 
+def _cross_calls(states):
+    """Calls across processes: pull0 launches within a call (the
+    remainder's, or the next call's first with no host step between), then
+    a resumed state, whose edges no slot holds."""
+    return [[(3, True), (1, False), (2, True)], _resumed(states),
+            [(1, True), (2, False), (1, True)]]
+
+
+@pytest.mark.parametrize("cards,grid,ny", [
+    ([(0, "a"), (1, "a")], 3, 44),                          # 2 x 1, one card
+    ([(0, "a"), (0, "a"), (1, "a"), (1, "a")], 7, 44),      # 2 x 2, one card
+    ([(0, "a"), (0, "b"), (1, "c"), (1, "d")], 5, 44),      # 2 x 2, 4 cards
+    ([(0, "a"), (1, "b"), (2, "c"), (3, "d")], 11, 51),     # 4 x 1
+    ([(0, "a"), (1, "a"), (2, "b")], None, 51),
+])
+def test_flag_model_across_processes(cards, grid, ny):
+    """The model of K6 across processes (cards keyed by (process, card),
+    two processes on one card included): every pull0 launch runs the
+    prologue's pushes and the entry order, and its chunk 0 reads the
+    pushed slots; over calls with pull0 launches between others and a
+    resumed state, it reads no stale cell and ends bitwise equal to
+    p2p_chunks_ref, whose chunk 0 reads the neighbours' states, state and
+    per-step sums."""
+    n_shards = len(cards)
+    p, mask, rows, offsets, states, on, k = _model_case(n_shards, cards,
+                                                        ny=ny)
+    model = FlagModel(p, rows, offsets, on, mask, states, k, processes=True)
+    total_tiles = sum(model.ntiles(d) for d in range(n_shards))
+    calls = _cross_calls(states)
+    _run_model(model, calls, grid or total_tiles, n_shards * 10 + (grid or 0))
+    assert model.stale == []
+    want, sums = _plain_calls(p, mask, states, rows, offsets, k, calls)
+    for a, b in zip(model.states(), want):
+        assert torch.equal(a, b)
+    for base, n_outer, s in sums:
+        for d in range(n_shards):
+            got = torch.stack([kstep_tile.rows_sum(
+                model.speed[(base + c, d)][j], 0, rows[d])
+                for c in range(n_outer) for j in range(k)])
+            assert torch.equal(got, s[d])
+
+
+def test_flag_model_catches_a_prologue_without_the_entry_order():
+    """Across processes, a card that starts a launch once its own pushes
+    are done, without waiting for the other processes' pushes: chunk 0
+    reads a slot before its neighbour's push (the first call's empty slot,
+    or one that holds the edge of the state before a resume), a stale
+    read: every seed, at 7 CTAs."""
+    cards = [(0, "a"), (1, "a"), (1, "b")]
+    assert _caught(None, 7, cards=cards, calls=_cross_calls, processes=True,
+                   entry_order=False) == 4
+    assert _caught(None, 7, cards=cards, calls=_cross_calls,
+                   processes=True) == 0
+
+
 def _brute_cone(rows, nx, k, t):
     """The cone by cells: per shard and tile, the tiles that own a cell
     within k cells (rows modulo the ring, columns modulo nx) of one of its
@@ -781,6 +934,12 @@ def _brute_cone(rows, nx, k, t):
     (2, 44, 36, ["a"]), (3, 51, 36, ["a", "b"]), (4, 70, 45, ["a", "b"]),
     (5, 83, 29, ["a", "b", "c"]), (6, 100, 60, ["a", "b", "c", "d"]),
     (7, 117, 33, ["a", "b", "c"]),
+    # keyed by (process, card): 2 processes x 2 shards on one card, on four
+    # cards, 4 x 1, and 3 processes of 2 shards on two cards
+    (4, 70, 45, [(0, 0), (0, 0), (1, 0), (1, 0)]),
+    (4, 70, 45, [(0, 0), (0, 1), (1, 2), (1, 3)]),
+    (4, 83, 29, [(0, 0), (1, 1), (2, 2), (3, 3)]),
+    (6, 100, 60, [(0, 0), (0, 1), (1, 0), (1, 1), (2, 0), (2, 1)]),
 ])
 @pytest.mark.parametrize("k", range(1, 9))
 def test_tile_graph_is_the_cone(n_shards, ny, nx, cards, k):
@@ -789,7 +948,10 @@ def test_tile_graph_is_the_cone(n_shards, ny, nx, cards, k):
     cells, _brute_cone), a symmetric relation within the first design's
     per-tile rule (model_deps); ragged shards (ring_rows' uneven split,
     8-row model tiles) and ragged last tile columns; its headers, the own
-    flag at the record's index on its card, and the duties (a push onto another card, a waiter on another card)."""
+    flag at the record's index on its card, the duties (a push onto another
+    card, a waiter on another card; a card of another process is another
+    card, even the same physical one) and at most MAX_PEERS flag arrays a
+    card's records name."""
     rows, _ = sharding.ring_rows(ny, n_shards)
     on = [cards[d % len(cards)] for d in range(n_shards)]
     t, tiles_x = MODEL_TILE, -(-nx // MODEL_TILE)
@@ -817,7 +979,9 @@ def test_tile_graph_is_the_cone(n_shards, ny, nx, cards, k):
             waited = any(on[e] != on[d] for e, _ in got)
             assert hd["duties"] == (push * ring_p2p.PUSH_REMOTE
                                     + waited * ring_p2p.READ_REMOTE)
-    for card, (recs, _) in ring_p2p.tile_graph(on, rows, nx, k, t).items():
+    for card, (recs, peers) in ring_p2p.tile_graph(on, rows, nx, k,
+                                                   t).items():
+        assert len(peers) <= ring_p2p.MAX_PEERS
         local = [q for q in range(n_shards) if on[q] == card]
         walk = [(d, u) for d in local for u in range(-(-rows[d] // t)
                                                       * tiles_x)]

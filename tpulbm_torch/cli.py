@@ -41,11 +41,12 @@ def build_parser() -> argparse.ArgumentParser:
         default="auto",
         help="compute path: the hand-written CUDA kernels, the plain PyTorch "
              "oracle, cuda-p2p (the counterpart of the in-kernel-RDMA "
-             "pallas-rdma: on N >= 2 shards of one process the ring whose "
-             "kernel hands the slabs between shards itself, up to 64 chunks "
-             "a launch; the single-device route with a warning on one "
-             "shard, the cuda ring with a warning over several processes), "
-             "or auto (cuda on a CUDA device, torch on the CPU)",
+             "pallas-rdma: on N >= 2 shards the ring whose kernel hands the "
+             "slabs between shards itself, up to 64 chunks a launch, across "
+             "the processes of a host through CUDA IPC; the single-device "
+             "route with a warning on one shard, the cuda ring with a "
+             "warning where the ring crosses hosts), or auto (cuda on a "
+             "CUDA device, torch on the CPU)",
     )
     p.add_argument(
         "--device-count",

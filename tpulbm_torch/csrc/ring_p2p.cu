@@ -68,7 +68,11 @@
 //     window load reads lo | shard | hi as K4's ring mode does. A slot is
 //     (9, k, nx) in a (9, 8, nx) buffer. The first chunk of a runner call
 //     (pull0) reads the neighbours' input states instead: they hold the
-//     call's start state, and no slot does yet. Where a tile pushes onto
+//     call's start state, and no slot does yet (in one process; across
+//     processes a neighbour's state lies in another process, so the runner
+//     pushes each input's edge rows into the slots and orders every
+//     process after the pushes first, then launches with pull0 = 0:
+//     ops/ring_p2p.py::Exchange.enter). Where a tile pushes onto
 //     another card, each stepping thread fences at sys scope once after its
 //     stores (not once a stored cell), before the barrier that precedes
 //     the release, so the release does not rest on the cumulativity of one
@@ -88,6 +92,12 @@
 //     the word. The runner reads the word with the av series and raises: a
 //     broken protocol fails, it never hangs.
 //   One instance per k (1 to 8), as K4.
+//   Across processes each process launches on its own shards; a card's
+//     landing slots, flag array and error word lie in one cudaMalloc block
+//     (lbm_ring_p2p_alloc) that the processes of its shards' neighbours map
+//     by CUDA IPC (lbm_ring_p2p_open). A shard of another process counts
+//     as another card, even on the same physical card: its flags are read
+//     and released, and the pushes to it fenced, at system scope.
 //
 // Bound. One launch moves the shards' states and masks in once and the
 // states out once (76 B a cell, the slabs are a few rows) and does 94 fp32
@@ -99,6 +109,7 @@
 
 #include <cuda_runtime.h>
 
+#include <cstring>
 #include <initializer_list>
 
 #include "async_copy.cuh"
@@ -650,6 +661,18 @@ constexpr cudaError_t (*kConfigure[kMaxK])(int*) = {
     configure<1>, configure<2>, configure<3>, configure<4>,
     configure<5>, configure<6>, configure<7>, configure<8>};
 
+// f() with `device` current; restores the current device.
+template <class F>
+int on_device(int device, F f) {
+  int cur = 0;
+  cudaError_t e = cudaGetDevice(&cur);
+  if (e == cudaSuccess) e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  e = f();
+  const cudaError_t back = cudaSetDevice(cur);
+  return (int)(e != cudaSuccess ? e : back);
+}
+
 }  // namespace
 
 extern "C" {
@@ -689,6 +712,70 @@ int lbm_ring_p2p_enable_peer(int from, int to) {
   }
   const cudaError_t back = cudaSetDevice(cur);
   return (int)(e != cudaSuccess ? e : back);
+}
+
+// K6's exchange memory across processes (ops/ring_p2p.py::Exchange): a
+// process's landing slots, flag array and error word of a card lie in one
+// cudaMalloc block, which the processes of its neighbour shards map with
+// CUDA IPC. The block is no PyTorch tensor: the caching allocator
+// sub-allocates its blocks, and an IPC handle names a whole cudaMalloc
+// allocation.
+
+int lbm_ring_p2p_handle_bytes() { return (int)sizeof(cudaIpcMemHandle_t); }
+
+// A zeroed block of `bytes` on `device` into *ptr, the zeroing finished;
+// where `handle` is not null, its IPC handle (lbm_ring_p2p_handle_bytes()
+// bytes) into it.
+int lbm_ring_p2p_alloc(int device, long long bytes, void** ptr,
+                       void* handle) {
+  return on_device(device, [&]() {
+    *ptr = nullptr;
+    cudaError_t e = cudaMalloc(ptr, (size_t)bytes);
+    if (e == cudaSuccess) e = cudaMemset(*ptr, 0, (size_t)bytes);
+    if (e == cudaSuccess) e = cudaDeviceSynchronize();
+    if (e == cudaSuccess && handle)
+      e = cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle), *ptr);
+    if (e != cudaSuccess && *ptr) {
+      cudaFree(*ptr);
+      *ptr = nullptr;
+    }
+    return e;
+  });
+}
+
+// Frees a block of lbm_ring_p2p_alloc once `device`'s work is done.
+int lbm_ring_p2p_free(int device, void* ptr) {
+  return on_device(device, [&]() {
+    const cudaError_t e = cudaDeviceSynchronize();
+    const cudaError_t f = cudaFree(ptr);
+    return e != cudaSuccess ? e : f;
+  });
+}
+
+// Maps another process's block (its IPC handle) into this process for
+// `device`, peer access to the block's card enabled as needed, into *ptr.
+int lbm_ring_p2p_open(int device, const void* handle, void** ptr) {
+  return on_device(device, [&]() {
+    cudaIpcMemHandle_t h;
+    std::memcpy(&h, handle, sizeof h);
+    return cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+  });
+}
+
+// Unmaps a block of lbm_ring_p2p_open.
+int lbm_ring_p2p_close(int device, void* ptr) {
+  return on_device(device, [&]() { return cudaIpcCloseMemHandle(ptr); });
+}
+
+// `height` rows of `width` bytes from src (rows spitch bytes apart) to dst
+// (dpitch apart), on `stream` of the current device; either side may be a
+// mapping of lbm_ring_p2p_open, or host memory.
+int lbm_ring_p2p_copy(void* dst, long long dpitch, const void* src,
+                      long long spitch, long long width, long long height,
+                      cudaStream_t stream) {
+  return (int)cudaMemcpy2DAsync(dst, (size_t)dpitch, src, (size_t)spitch,
+                                (size_t)width, (size_t)height,
+                                cudaMemcpyDefault, stream);
 }
 
 // n_outer (<= kMaxOuter) chunks of k (<= 8) steps of n_local (<=

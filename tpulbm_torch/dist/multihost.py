@@ -28,7 +28,12 @@ under ``jax.distributed``. Here each process is a member of a
   its backend before the run: NCCL where no card serves two processes,
   gloo with the slabs staged through the host where processes share a card
   (NCCL refuses two ranks on one GPU) and on the CPU. A refused NCCL start
-  fails the run: nothing falls back.
+  fails the run: nothing falls back. Over the host group it also gathers
+  what the cuda-p2p ring's exchange needs of every process
+  (``ops.ring_p2p.Exchange``): where each shard lies (``places``: process,
+  card, the card's UUID, host) and the IPC handles of the exchange
+  memory (``all_gather_object``); and it orders the processes
+  (``barrier``) and ORs their error flags (``any``).
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import socket
 import sys
 import time
 from datetime import timedelta
@@ -48,6 +54,8 @@ import torch.distributed as dist
 TIMEOUT_S = 600
 
 _GROUPS: dict = {}
+# Callables that shutdown() runs before it destroys the group
+_AT_SHUTDOWN: list = []
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,11 +135,23 @@ def init_distributed(backend: str = "gloo", environ=None) -> bool:
     return dist.get_world_size() > 1
 
 
+def at_shutdown(fn) -> None:
+    """Have ``shutdown`` call ``fn()`` while the group still stands, in
+    the order of these calls (the same on every process)."""
+    _AT_SHUTDOWN.append(fn)
+
+
 def shutdown() -> None:
-    """Destroy the process group (and its subgroups), if one was started."""
-    if dist.is_initialized():
-        dist.destroy_process_group()
-    _GROUPS.clear()
+    """Run the ``at_shutdown`` callables, then destroy the process group
+    (and its subgroups), if one was started."""
+    try:
+        while _AT_SHUTDOWN:
+            _AT_SHUTDOWN.pop(0)()
+    finally:
+        _AT_SHUTDOWN.clear()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        _GROUPS.clear()
 
 
 def world() -> tuple:
@@ -218,6 +238,43 @@ def global_ring_mesh(n_shards: Optional[int] = None, device="cuda") -> list:
             for d in range(n)]
 
 
+def ring_pieces(k: int, n: int, lead: tuple, nx: int) -> list:
+    """The ring's halo pieces of a chunk of k steps (``Transport.move``):
+    for each shard d, the last k rows of shard d - 1 (its lo slab) and the
+    first k rows of shard d + 1 (its hi slab); the wrap is the periodic y
+    boundary. ``lead``: (9,) for states, () for masks."""
+    shape = (*lead, k, nx)
+
+    def lo(t):
+        return t[..., -k:, :]
+
+    def hi(t):
+        return t[..., :k, :]
+
+    return [piece for d in range(n)
+            for piece in (((d - 1) % n, d, shape, lo),
+                          ((d + 1) % n, d, shape, hi))]
+
+
+def by_shard(local, values, n: int) -> list:
+    """A list of n entries, values[j] at index local[j], None elsewhere
+    (``Transport.move``'s sources)."""
+    out = [None] * n
+    for d, v in zip(local, values):
+        out[d] = v
+    return out
+
+
+def card(device: torch.device) -> tuple:
+    """(device index, the card's UUID) of a CUDA device, (-1, "") of the
+    CPU."""
+    if device.type != "cuda":
+        return -1, ""
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    return index, str(torch.cuda.get_device_properties(index).uuid)
+
+
 def global_torus_mesh(dy: int, dx: int, device="cuda") -> list:
     """The dy x dx torus with its row-major blocks shared out as the
     ring's shards: ``None`` for another process's block."""
@@ -265,6 +322,7 @@ class Transport:
         self.pinned = self.comm.type == "cpu" and self.device.type == "cuda"
         self.seconds = 0.0     # host seconds spent in exchanges
         self.chunks = 0        # chunks whose halos this transport moved
+        self._places = None
 
     def owner(self, d: int) -> int:
         return d // self.per
@@ -355,6 +413,49 @@ class Transport:
         parts = [torch.empty_like(mine) for _ in range(self.world)]
         dist.all_gather(parts, mine)
         return [p[j] for p in parts for j in range(self.per)]
+
+    def warm(self) -> None:
+        """One all-gather over the group: its first collective, where NCCL
+        makes its communicators (seconds), so that a timed region after it
+        holds none of that."""
+        if self.world > 1:
+            self.all_gather([torch.zeros(1, device=self.devices[d])
+                             for d in self.local])
+
+    def all_gather_object(self, obj) -> list:
+        """Every process's ``obj`` (pickled, host group), in process
+        order; in a world of one, ``[obj]``."""
+        if self.world == 1:
+            return [obj]
+        out = [None] * self.world
+        dist.all_gather_object(out, obj, group=host_group())
+        return out
+
+    def places(self) -> list:
+        """(process, card, card UUID, host) of every shard of the mesh:
+        card the device index in the owner process (-1 on the CPU), the
+        UUID "" on the CPU; gathered over the host group on first use."""
+        if self._places is None:
+            host = socket.gethostname()
+            mine = [(self.rank, *card(self.devices[d]), host)
+                    for d in self.local]
+            self._places = [p for part in self.all_gather_object(mine)
+                            for p in part]
+        return self._places
+
+    def barrier(self) -> None:
+        """Return once every process has called it (host group)."""
+        if self.world > 1:
+            dist.barrier(group=host_group())
+
+    def any(self, flag: bool) -> bool:
+        """True on every process where ``flag`` is true on one (host
+        group)."""
+        if self.world == 1:
+            return bool(flag)
+        t = torch.tensor([int(bool(flag))])
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=host_group())
+        return bool(t.item())
 
     def broadcast(self, obj):
         """``obj`` of process 0 on every process (pickled, host group)."""

@@ -82,13 +82,15 @@ copies between cards) and launches ``ring_chunk`` once per shard; ``torch``
 runs its plain version (canonical equilibrium) per shard. ``cuda-p2p`` is
 the counterpart of ``--backend pallas-rdma`` (``pallas_kstep_rdma``,
 ``pallas_resident_rdma``, whose slab exchange runs inside the kernel): on a
-ring of one process it runs ``make_p2p_runner``, one K6 launch
-(``ring_p2p.p2p_chunks``) a card for up to ``ring_p2p.MAX_OUTER`` chunks of
-every shard on it, the slabs handed between shards inside the kernel, and
-one host readback a runner call; it computes the ``cuda`` ring's bits. As in
-the JAX package, on one device it says so and runs the single-device route,
-and a 2-D mesh refuses it. Over several processes it says so and runs the
-``cuda`` ring: K6's peer pointers do not cross processes.
+ring it runs ``make_p2p_runner``, one K6 launch (``ring_p2p.p2p_chunks``)
+a card and process for up to ``ring_p2p.MAX_OUTER`` chunks of every shard
+on it, the slabs handed between shards inside the kernel (between
+processes through CUDA IPC mappings), and one host readback a runner call;
+it computes the ``cuda`` ring's bits. As in the JAX package, on one device
+it says so and runs the single-device route, and a 2-D mesh refuses it.
+Where the ring crosses hosts (IPC does not) it says so and runs the
+``cuda`` ring, as the JAX package does for a layout its rdma kernel cannot
+serve (tpulbm/dist/runner.py:1709-1719).
 """
 
 from __future__ import annotations
@@ -187,13 +189,14 @@ def make_runner(params: LBMParams, n_steps: int, backend: str = "auto",
         mesh = _flat(mesh)
         if (backend == "cuda-p2p" and transport is not None
                 and transport.world > 1):
-            # in the style of the JAX package's fallback for pallas-rdma
-            # (tpulbm/dist/runner.py:1709-1719)
-            print(f"tpulbm_torch: cuda-p2p unsupported across "
-                  f"{transport.world} processes (K6's peer pointers do not "
-                  f"cross processes); falling back to the cuda ring",
-                  file=sys.stderr, flush=True)
-            backend = "cuda"
+            seam = _host_seam(transport.places())
+            if seam:
+                # in the style of the JAX package's fallback for pallas-rdma
+                # (tpulbm/dist/runner.py:1709-1719)
+                print(f"tpulbm_torch: cuda-p2p unsupported across hosts "
+                      f"({seam}: CUDA IPC does not cross hosts); falling "
+                      f"back to the cuda ring", file=sys.stderr, flush=True)
+                backend = "cuda"
         backend = resolve_backend(backend, _first_local(mesh))
         if backend == "cuda-p2p":
             return make_p2p_runner(params, n_steps, mesh, transport)
@@ -232,6 +235,18 @@ def make_runner(params: LBMParams, n_steps: int, backend: str = "auto",
         return run_plan(plan, f, obstacles.to(torch.float32), params)
 
     return runner
+
+
+def _host_seam(places) -> str:
+    """The first pair of ring neighbours on different hosts, as text, or
+    "" (``places``: ``Transport.places``)."""
+    n = len(places)
+    for d in range(n):
+        a, b = places[d], places[(d + 1) % n]
+        if a[3] != b[3]:
+            return (f"shard {d} of process {a[0]} on {a[3]}, shard "
+                    f"{(d + 1) % n} of process {b[0]} on {b[3]}")
+    return ""
 
 
 def _plain_ring(lo, shard, hi, obst_band, params, k, row_base, out=None):
@@ -277,32 +292,6 @@ def _first_local(mesh) -> torch.device:
     return next(d for d in _flat(mesh) if d is not None)
 
 
-def _sources(local, values, n):
-    """A list of n entries, values[j] at index local[j], None elsewhere."""
-    out = [None] * n
-    for d, v in zip(local, values):
-        out[d] = v
-    return out
-
-
-def _ring_pieces(k: int, n: int, lead: tuple, nx: int) -> list:
-    """The ring's halo pieces of a chunk of k steps (``Transport.move``):
-    for each shard d, the last k rows of shard d - 1 (its lo slab) and the
-    first k rows of shard d + 1 (its hi slab); the wrap is the periodic y
-    boundary. ``lead``: (9,) for states, () for masks."""
-    shape = (*lead, k, nx)
-
-    def lo(t):
-        return t[..., -k:, :]
-
-    def hi(t):
-        return t[..., :k, :]
-
-    return [piece for d in range(n)
-            for piece in (((d - 1) % n, d, shape, lo),
-                          ((d + 1) % n, d, shape, hi))]
-
-
 def make_ring_runner(params: LBMParams, n_steps: int, mesh: Sequence,
                      chunk_fn: Callable, transport=None) -> Callable:
     """The ring runner over ``mesh`` (see the module docstring).
@@ -319,7 +308,7 @@ def make_ring_runner(params: LBMParams, n_steps: int, mesh: Sequence,
         raise ValueError(f"ring runner of {n_steps} steps")
     k_max = min(kstep_tile.TILE_K, min(rows), n_steps)
     plan = [k for _, k in _chunks(None, k_max, n_steps)]
-    slabs = {k: _ring_pieces(k, n, (9,), nx) for k in set(plan)}
+    slabs = {k: multihost.ring_pieces(k, n, (9,), nx) for k in set(plan)}
     local = tr.local
 
     def runner(shards, obst_shards):
@@ -331,7 +320,7 @@ def make_ring_runner(params: LBMParams, n_steps: int, mesh: Sequence,
         sums = [[] for _ in local]
         for k in plan:
             t0 = time.perf_counter()
-            halo = tr.move(slabs[k], _sources(local, shards, n))
+            halo = tr.move(slabs[k], multihost.by_shard(local, shards, n))
             tr.timed(t0)
             new = []
             for j, d in enumerate(local):
@@ -366,7 +355,8 @@ def _mask_bands(tr, obst_shards, k: int, n: int, nx: int) -> list:
     """Each local shard's (h + 2k, nx) float mask band: its neighbours'
     k edge rows around its own."""
     obst_f = [o.to(torch.float32) for o in obst_shards]
-    halo = tr.move(_ring_pieces(k, n, (), nx), _sources(tr.local, obst_f, n))
+    halo = tr.move(multihost.ring_pieces(k, n, (), nx),
+                   multihost.by_shard(tr.local, obst_f, n))
     return [torch.cat([halo[2 * d], o, halo[2 * d + 1]])
             for d, o in zip(tr.local, obst_f)]
 
@@ -374,22 +364,25 @@ def _mask_bands(tr, obst_shards, k: int, n: int, nx: int) -> list:
 def make_p2p_runner(params: LBMParams, n_steps: int, mesh: Sequence,
                     transport=None,
                     max_outer: int = ring_p2p.MAX_OUTER) -> Callable:
-    """The ``cuda-p2p`` ring over ``mesh`` in one process: the counterpart
-    of ``_make_resident_rdma_runner`` (and ``_make_rdma_runner``) of
-    tpulbm/dist/runner.py:946-1092. The chunks are those of the ``cuda``
-    ring, k the least of 8, the smallest shard's rows and n_steps; each
+    """The ``cuda-p2p`` ring over ``mesh``: the counterpart of
+    ``_make_resident_rdma_runner`` (and ``_make_rdma_runner``) of
+    tpulbm/dist/runner.py:946-1092, over one process or, with a
+    ``transport`` of several (``dist.multihost``), a global mesh of every
+    process's shards. The chunks are those of the ``cuda`` ring, k the
+    least of 8, the smallest shard's rows and n_steps; each
     ``ring_p2p.p2p_chunks`` call (one K6 launch a card, or its plain
     version on CPU shards) runs up to ``max_outer`` of them
     (``ring_p2p.outer_per_launch`` may take fewer, for the partials'
     memory), and the n_steps % k remainder one more launch of that k. The
     first launch of a call and the remainder's read the neighbours' states
-    for their first chunk (pull0); every other chunk reads the landing
-    slots that the chunk before filled, chosen by the parity of the epoch,
-    which ``ring_p2p.Exchange`` carries across launches and calls. The sums
-    are added as the ``cuda`` ring adds them: the same bits."""
+    for their first chunk (pull0; across processes the states' edge rows
+    pushed into the slots first, ``ring_p2p.Exchange.enter``); every other
+    chunk reads the landing slots that the chunk before filled, chosen by
+    the parity of the epoch, which ``ring_p2p.Exchange`` carries across
+    launches and calls. A call ends in ``Exchange.check``, which over
+    several processes returns once no launch of the call runs on any. The
+    sums are added as the ``cuda`` ring adds them: the same bits."""
     mesh = _flat(mesh)
-    if None in mesh or (transport is not None and transport.world > 1):
-        raise ValueError("the cuda-p2p ring runs in one process")
     tr = transport or multihost.Transport(mesh)
     n, ny, nx = len(mesh), params.ny, params.nx
     rows, offsets = ring_rows(ny, n)
@@ -402,24 +395,30 @@ def make_p2p_runner(params: LBMParams, n_steps: int, mesh: Sequence,
     launches = [(k, per)] * (n_full // per)
     launches += [(k, n_full % per)] if n_full % per else []
     launches += [(rem, 1)] if rem else []
-    ex = ring_p2p.Exchange(mesh, rows, nx)
+    ex = ring_p2p.Exchange(mesh, rows, nx, tr)
+    if ex.world > 1 and ex.mesh[ex.local[0]].type == "cuda":
+        print(f"tpulbm_torch: cuda-p2p over {ex.world} processes: "
+              f"{len(ex.opened)} exchange blocks of other processes opened "
+              f"in {ex.open_seconds * 1e3:.1f} ms", file=sys.stderr,
+              flush=True)
 
     def runner(shards, obst_shards):
         _check_shards(tr.local, shards, obst_shards, rows, mesh, ny, nx)
         masks = _mask_bands(tr, obst_shards, k, n, nx)
-        bands = {kk: [m[k - kk:k + rows[d] + kk] for d, m in enumerate(masks)]
+        bands = {kk: [m[k - kk:k + rows[d] + kk]
+                      for d, m in zip(tr.local, masks)]
                  for kk, _ in launches}
         ex.barrier()
         states = list(shards)
         spares = [torch.empty_like(f) for f in states]
-        sums = [[] for _ in range(n)]
+        sums = [[] for _ in states]
         for i, (kk, outer) in enumerate(launches):
             states, spares, s = ring_p2p.p2p_chunks(
                 ex, states, spares, bands[kk], params, kk, outer,
-                [(offsets[d] - kk) % ny for d in range(n)],
+                [(offsets[d] - kk) % ny for d in tr.local],
                 pull0=i == 0 or kk != k)
-            for d in range(n):
-                sums[d].append(s[d])
+            for j, sj in enumerate(s):
+                sums[j].append(sj)
         ex.check()
         return states, _deferred_sum(sums, tr.device, params, tr)
 
@@ -463,9 +462,9 @@ def _torus_halos(tr, pieces, g, n: int):
     blocks ``g`` (states or float masks): [(xlo, xhi, ylo, yhi)] per local
     block, on its device."""
     x_pieces, y_pieces = pieces
-    x = tr.move(x_pieces, _sources(tr.local, g, n))
+    x = tr.move(x_pieces, multihost.by_shard(tr.local, g, n))
     bands = [(x[2 * b], blk, x[2 * b + 1]) for b, blk in zip(tr.local, g)]
-    y = tr.move(y_pieces, _sources(tr.local, bands, n))
+    y = tr.move(y_pieces, multihost.by_shard(tr.local, bands, n))
     return [(x[2 * b], x[2 * b + 1], y[2 * b], y[2 * b + 1])
             for b in tr.local]
 

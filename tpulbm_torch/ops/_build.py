@@ -62,6 +62,7 @@ _lib = None
 _counters: dict = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "lbm_fused_step_blocks": ([_I], _I),
     "lbm_fused_step": (
@@ -90,6 +91,12 @@ _SIGNATURES = {
     "lbm_ring_p2p_smem": ([_I], _I),
     "lbm_ring_p2p_ctas": ([_I], _I),
     "lbm_ring_p2p_enable_peer": ([_I, _I], _I),
+    "lbm_ring_p2p_handle_bytes": ([], _I),
+    "lbm_ring_p2p_alloc": ([_I, _L, ctypes.POINTER(_P), _P], _I),
+    "lbm_ring_p2p_free": ([_I, _P], _I),
+    "lbm_ring_p2p_open": ([_I, _P, ctypes.POINTER(_P)], _I),
+    "lbm_ring_p2p_close": ([_I, _P], _I),
+    "lbm_ring_p2p_copy": ([_P, _L, _P, _L, _L, _L, _P], _I),
     "lbm_ring_p2p": (
         [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _F, _F, _F,
          _I, _P], _I),

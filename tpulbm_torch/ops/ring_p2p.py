@@ -19,25 +19,46 @@ slots, two (9, 8, nx) lo and two hi buffers chosen by the parity of the
 global chunk count (the epoch); on the card, a flat array of one flag a
 tile of the card's shards, one error word a card, and, for each k, the
 card's tile graph (``tile_graph``): a record a tile in the kernel's walk
-order, with its dependencies as indices into the flag arrays. The sums'
+order, with its dependencies as indices into the flag arrays. The slots,
+flags and error word of a card lie in one ``cudaMalloc`` block. The sums'
 epilogue draws its tickets on the card's ticket counter
 (``_build.ticket_counter``), as K4's does. The epoch rises across launches
 and calls and no flag is ever reset (a reset on one card would race a
 kernel on another that reads the flag).
 
+Over several processes (``dist.multihost``) the ring is the JAX package's
+over a global mesh: each process launches K6 on its own shards, and a
+card's block is mapped into the processes of its shards' neighbours by
+CUDA IPC, so the slabs and flags cross processes inside the kernel as
+they cross cards. A shard is keyed by (process, card): a neighbour in
+another process counts as another card, at system scope, even on the
+same physical card. A neighbour's input state lies in another process, so
+a launch there never reads it (pull0): ``Exchange.enter`` pushes each
+shard's input edge rows into the neighbours' slots first and orders every
+process after the pushes (the TPU kernel's entry,
+pallas_resident_rdma.py:127-147), and ``Exchange.check`` ORs the error
+words of every process at the end of a runner call.
+
 ``p2p_chunks`` runs one launch a card; on CPU tensors it takes the plain
 version, ``p2p_chunks_ref``: ``n_outer`` chunks of ``ring_chunk_ref`` over
-every shard, the slabs of each chunk written into the next epoch's landing
-slots, chunk 0 reading the neighbours' states where ``pull0`` (the first
-chunk of a runner call), the slots elsewhere.
+every shard (this process's, the slabs of others through the transport),
+the slabs of each chunk written into the next epoch's landing slots,
+chunk 0 reading the neighbours' states where ``pull0`` (the first chunk of
+a runner call), the slots elsewhere.
 """
 
 from __future__ import annotations
+
+import ctypes
+import os
+import time
+import weakref
 
 import numpy as np
 import torch
 
 from tpulbm_torch.core.params import LBMParams
+from tpulbm_torch.dist import multihost
 from tpulbm_torch.ops import _build, kstep_tile
 
 MAX_OUTER = 64      # chunks of one launch (csrc/ring_p2p.cu::kMaxOuter)
@@ -198,83 +219,232 @@ def slot(buf, parity: int, k: int, nx: int):
     return buf[parity, :9 * k * nx].view(9, k, nx)
 
 
+SLOT_BYTES = 9 * SLAB_ROWS * 4      # bytes of one landing slot a column
+ALIGN = 256                         # the block's pieces start 256-aligned
+
+
+def _up(n: int) -> int:
+    return -(-n // ALIGN) * ALIGN
+
+
+def block_layout(rows, shards, nx: int):
+    """Byte offsets in a card's exchange block (one of each process and
+    card, ``lbm_ring_p2p_alloc``): the error word at 0, the flag array
+    (one int a tile of ``shards``, in walk order) at "flags", then each
+    shard d's lo and hi landing buffers, two slots each, at layout[d].
+    Returns (layout, bytes); every process computes any block's."""
+    buf = _up(2 * SLOT_BYTES * nx)
+    layout = {"error": 0, "flags": ALIGN}
+    at = ALIGN + _up(4 * sum(ntiles(rows[d], nx) for d in shards))
+    for d in shards:
+        layout[d] = (at, at + buf)
+        at += 2 * buf
+    return layout, at
+
+
 class Exchange:
     """The landing slots, flags, error words, tile graphs and epoch of a
     p2p ring over ``mesh`` (shard d on mesh[d], ``rows[d]`` rows of ``nx``
-    columns). Made once a runner; on the card it enables peer access
-    between the cards of neighbour shards (raising, with the two cards,
-    where it is refused) and waits for its zeroed buffers."""
+    columns; ``None`` for a shard of another process, whose ``transport``
+    the ring's, ``dist.multihost.Transport``). Made once a runner, by every
+    process of the ring alike.
 
-    def __init__(self, mesh, rows, nx: int):
+    On the CPU the slots are tensors, ``land_lo[j]`` and ``land_hi[j]`` of
+    this process's j-th shard. On the card each (process, card) holds one
+    block (``block_layout``) of its shards' slots, its flag array and its
+    error word. Shards are keyed by (process, card), so a shard of another
+    process counts as another card even on the same physical card: its
+    flags and slots are reached through a CUDA IPC mapping, at system
+    scope. Over several processes the blocks' IPC handles are gathered
+    once, and each process maps the blocks of its shards' neighbours in
+    other processes on the card of the shard beside them
+    (``open_seconds``); neighbour cards of one process get peer access
+    (raising, with the two cards, where it is refused)."""
+
+    def __init__(self, mesh, rows, nx: int, transport=None):
         self.mesh, self.rows, self.nx = list(mesh), list(rows), nx
+        self.tr = transport or multihost.Transport(self.mesh)
+        self.local, self.world = self.tr.local, self.tr.world
+        self.index = {d: j for j, d in enumerate(self.local)}
         self.epoch = 0
         self.failed = False
-        n = len(self.mesh)
-
-        def zeros(shape, d, dtype=torch.float32):
-            return torch.zeros(shape, dtype=dtype, device=self.mesh[d])
-
-        self.land_lo = [zeros((2, 9 * SLAB_ROWS * nx), d) for d in range(n)]
-        self.land_hi = [zeros((2, 9 * SLAB_ROWS * nx), d) for d in range(n)]
-        self.cards = list(dict.fromkeys(self.mesh))
-        self.local = {c: [d for d in range(n) if self.mesh[d] == c]
-                      for c in self.cards}
+        self.open_seconds = 0.0
+        self.k_last = None
         self.graphs = {}
-        if self.mesh[0].type != "cuda":
+        n = len(self.mesh)
+        if self.mesh[self.local[0]].type != "cuda":
+            self.land_lo = [torch.zeros((2, 9 * SLAB_ROWS * nx))
+                            for _ in self.local]
+            self.land_hi = [torch.zeros((2, 9 * SLAB_ROWS * nx))
+                            for _ in self.local]
             return
+        places = (self.tr.places() if self.world > 1
+                  else [(0, multihost.card(d)[0]) for d in self.mesh])
+        self.keys = [tuple(pl[:2]) for pl in places]
+        self.cards = list(dict.fromkeys(self.keys[d] for d in self.local))
+        self.device = {self.keys[d]: self.mesh[d] for d in self.local}
+        self.on = {key: [d for d in range(n) if self.keys[d] == key]
+                   for key in set(self.keys)}
         lib = _build.library()
-        for d in range(n):
+        for d in self.local:
             for e in ((d - 1) % n, (d + 1) % n):
-                a, b = self.mesh[d].index, self.mesh[e].index
-                if a != b:
-                    enable_peer(lib, a, b)
-        self.flags = {c: torch.zeros(sum(ntiles(self.rows[d], nx)
-                                         for d in self.local[c]),
-                                     dtype=torch.int32, device=c)
-                      for c in self.cards}
-        self.errors = {c: torch.zeros(1, dtype=torch.int32, device=c)
-                       for c in self.cards}
-        for c in self.cards:
-            torch.cuda.synchronize(c)
+                a, b = self.mesh[d], self.mesh[e]
+                if b is not None and a != b:
+                    enable_peer(lib, a.index, b.index)
+        self.blocks, handles, own = {}, {}, []
+        for key in self.cards:
+            layout, size = block_layout(self.rows, self.on[key], nx)
+            ptr, handle = alloc_block(self.device[key], size,
+                                      export=self.world > 1)
+            self.blocks[key] = (ptr, layout)
+            handles[key] = handle
+            own.append((_index(self.device[key]), ptr))
+        if self.world == 1:
+            weakref.finalize(self, _free_blocks, own).atexit = False
+            return
+        t0 = time.perf_counter()
+        self.opened = self._open(places, handles)
+        self.open_seconds = time.perf_counter() - t0
+        multihost.at_shutdown(lambda: self.close(own))
+
+    def _open(self, places, handles):
+        """Map the blocks of this process's shards' neighbours in other
+        processes (the handles gathered from every process), each on the
+        card of the shard beside it; returns [(device index, mapping)]."""
+        n = len(self.mesh)
+        every = {}
+        for part in self.tr.all_gather_object(handles):
+            every.update(part)
+        visible = {multihost.card(torch.device("cuda", i))[1]
+                   for i in range(torch.cuda.device_count())}
+        opened = []
+        for d in self.local:
+            for e in ((d - 1) % n, (d + 1) % n):
+                key = self.keys[e]
+                if self.tr.is_local(e) or key in self.blocks:
+                    continue
+                dev = self.mesh[d]
+                if places[e][2] not in visible:
+                    raise ValueError(
+                        f"cuda-p2p across processes: shard {e} of process "
+                        f"{key[0]} lies on card {places[e][2]}, which this "
+                        f"process cannot see (CUDA_VISIBLE_DEVICES="
+                        f"{os.environ.get('CUDA_VISIBLE_DEVICES')!r}); every "
+                        f"neighbour's card must be visible in each process")
+                ptr = open_block(dev, every[key])
+                opened.append((_index(dev), ptr))
+                self.blocks[key] = (ptr, block_layout(self.rows, self.on[key],
+                                                      self.nx)[0])
+        return opened
+
+    def close(self, own) -> None:
+        """Unmap the neighbours' blocks, wait for every process to do the
+        same, then free this process's blocks (``dist.multihost.shutdown``
+        calls it on every process). After a failed launch it frees nothing:
+        another process may still run into the blocks."""
+        for dev in dict.fromkeys(self.device.values()):
+            torch.cuda.synchronize(dev)
+        for index, ptr in self.opened:
+            close_block(index, ptr)
+        if self.failed:
+            return
+        self.tr.barrier()
+        _free_blocks(own)
+
+    def slots(self, d: int):
+        """(lo, hi): the addresses of shard d's landing buffers (slot 0;
+        slot 1 follows it), in its block or this process's mapping of it."""
+        ptr, layout = self.blocks[self.keys[d]]
+        return ptr + layout[d][0], ptr + layout[d][1]
+
+    def flags(self, key) -> int:
+        ptr, layout = self.blocks[key]
+        return ptr + layout["flags"]
+
+    def error(self, key) -> int:
+        ptr, layout = self.blocks[key]
+        return ptr + layout["error"]
 
     def graph(self, k: int):
-        """{card: (its tile graph on the card, the flag pointers its records
-        name)} for k steps a chunk (``tile_graph``), made on first use."""
+        """{this process's card: (its tile graph on the card, the flag
+        arrays its records name)} for k steps a chunk (``tile_graph`` keyed
+        by (process, card)), made on first use."""
         if k not in self.graphs:
-            graphs = tile_graph(self.mesh, self.rows, self.nx, k)
+            graphs = tile_graph(self.keys, self.rows, self.nx, k)
             self.graphs[k] = {
-                c: (torch.from_numpy(recs).to(c),
-                    np.array([self.flags[p].data_ptr() for p in peers],
-                             dtype=np.int64))
-                for c, (recs, peers) in graphs.items()}
+                key: (torch.from_numpy(graphs[key][0]).to(self.device[key]),
+                      np.array([self.flags(p) for p in graphs[key][1]],
+                               dtype=np.int64))
+                for key in self.cards}
         return self.graphs[k]
 
     def barrier(self) -> None:
-        """Order every card's stream after the work issued so far on every
-        other card: the first chunk of a call reads the neighbours' input
-        states, which another card's stream may still be writing."""
-        if len(self.cards) < 2:
+        """Order every card's stream of this process after the work issued
+        so far on every other: the first chunk of a call reads the
+        neighbours' input states, which another card's stream may still be
+        writing."""
+        devs = list(dict.fromkeys(self.mesh[d] for d in self.local))
+        if len(devs) < 2:
             return
         events = {}
-        for c in self.cards:
+        for c in devs:
             events[c] = torch.cuda.Event()
             events[c].record(torch.cuda.current_stream(c))
-        for c in self.cards:
-            for o in self.cards:
+        for c in devs:
+            for o in devs:
                 if o != c:
                     torch.cuda.current_stream(c).wait_event(events[o])
 
+    def enter(self, states, k: int) -> None:
+        """The first chunk of a launch across processes, in place of its
+        reads of the neighbours' states (pull0), which lie in another
+        process: as the TPU kernel's entry (pallas_resident_rdma.py:
+        127-147), each shard pushes its input's last k rows into the next
+        shard's lo slot and its first k rows into the previous shard's hi
+        slot, of the launch's first epoch's parity (a copy on its card's
+        stream, after the launch that wrote the input). Then the entry
+        order: every card of this process synchronised and a host barrier,
+        so no launch reads a slot before every process's pushes landed.
+
+        The order before a push needs no host step: the slot it writes was
+        last read two epochs earlier by the neighbour's tiles within k of
+        the seam, and this shard's launch of the epoch between (which its
+        stream ran to the end before the push) waited on exactly those
+        tiles' flags. A call ends in ``check``'s host OR besides."""
+        n, nx, parity = len(self.mesh), self.nx, self.epoch % 2
+        width = k * nx * 4          # bytes of a slab's plane
+        for j, d in enumerate(self.local):
+            h, src = self.rows[d], states[j].data_ptr()
+            lo = self.slots((d + 1) % n)[0] + parity * SLOT_BYTES * nx
+            hi = self.slots((d - 1) % n)[1] + parity * SLOT_BYTES * nx
+            for dst, off in ((lo, (h - k) * nx * 4), (hi, 0)):
+                copy_rows(dst, width, src + off, h * nx * 4, width, 9,
+                          states[j].device)
+        for dev in dict.fromkeys(self.device.values()):
+            torch.cuda.synchronize(dev)
+        self.tr.barrier()
+
     def check(self) -> None:
         """Raise where a card's error word is set: a wait of K6 ran out
-        (csrc/ring_p2p.cu::kSpinNs). Reads every card's word to the host."""
-        if self.mesh[0].type != "cuda":
+        (csrc/ring_p2p.cu::kSpinNs). Reads this process's words to the host
+        (after its launches); over several processes the flags are ORed over
+        the host group, so every process raises together, and when it
+        returns no launch of the call runs on any process."""
+        if self.mesh[self.local[0]].type != "cuda":
             return
-        bad = [str(c) for c, e in self.errors.items() if int(e.item())]
-        if bad:
+        bad = []
+        for key in self.cards:
+            word = ctypes.c_int(0)
+            copy_bytes(ctypes.addressof(word), self.error(key), 4,
+                       self.device[key])
+            if word.value:
+                bad.append(str(self.device[key]))
+        if self.tr.any(bool(bad)):
             self.failed = True
             raise RuntimeError(
                 f"lbm_ring_p2p: a wait on a neighbour's flag ran out on "
-                f"{', '.join(bad)}; the ring's state is lost")
+                f"{', '.join(bad) or 'a card of another process'}; the "
+                f"ring's state is lost")
 
 
 def enable_peer(lib, a: int, b: int) -> None:
@@ -288,55 +458,142 @@ def enable_peer(lib, a: int, b: int) -> None:
             f"cuda-p2p ring needs peer access between neighbour cards")
 
 
+def alloc_block(device, nbytes: int, export: bool = False):
+    """A zeroed exchange block of ``nbytes`` on a card (``cudaMalloc``,
+    not PyTorch's allocator): (its address, its IPC handle as bytes where
+    ``export``, else None)."""
+    lib = _build.library()
+    ptr = ctypes.c_void_p()
+    handle = (ctypes.create_string_buffer(lib.lbm_ring_p2p_handle_bytes())
+              if export else None)
+    _build.check(lib.lbm_ring_p2p_alloc(
+        _index(device), nbytes, ctypes.byref(ptr),
+        ctypes.addressof(handle) if export else None),
+        f"lbm_ring_p2p_alloc ({nbytes} bytes on {device})")
+    return ptr.value, (handle.raw if export else None)
+
+
+def open_block(device, handle: bytes) -> int:
+    """The address of another process's block (its IPC handle), mapped
+    into this process for ``device``."""
+    lib = _build.library()
+    ptr = ctypes.c_void_p()
+    buf = ctypes.create_string_buffer(handle, len(handle))
+    _build.check(lib.lbm_ring_p2p_open(_index(device),
+                                       ctypes.addressof(buf),
+                                       ctypes.byref(ptr)),
+                 f"lbm_ring_p2p_open (on {device})")
+    return ptr.value
+
+
+def close_block(device, ptr: int) -> None:
+    """Unmap a block of ``open_block``."""
+    lib = _build.library()
+    _build.check(lib.lbm_ring_p2p_close(_index(device), ptr),
+                 f"lbm_ring_p2p_close (on {device})")
+
+
+def _index(device) -> int:
+    """A card's device index (an int stays as it is)."""
+    if isinstance(device, int):
+        return device
+    return multihost.card(torch.device(device))[0]
+
+
+def _free_blocks(blocks) -> None:
+    """Free [(device index, address)] of ``alloc_block``."""
+    lib = _build.library()
+    for index, ptr in blocks:
+        _build.check(lib.lbm_ring_p2p_free(index, ptr), "lbm_ring_p2p_free")
+
+
+def copy_rows(dst: int, dpitch: int, src: int, spitch: int, width: int,
+              rows: int, device) -> None:
+    """``rows`` rows of ``width`` bytes from address src (rows ``spitch``
+    bytes apart) to dst (``dpitch`` apart), on ``device``'s current stream;
+    either side a block, a mapping, a tensor's storage or host memory."""
+    lib = _build.library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device)
+        _build.check(lib.lbm_ring_p2p_copy(dst, dpitch, src, spitch, width,
+                                           rows, stream.cuda_stream),
+                     f"lbm_ring_p2p_copy ({rows} x {width} B on {device})")
+
+
+def copy_bytes(dst: int, src: int, nbytes: int, device) -> None:
+    """``copy_rows`` of one row of ``nbytes``, then the stream
+    synchronised."""
+    copy_rows(dst, nbytes, src, nbytes, nbytes, 1, device)
+    torch.cuda.current_stream(device).synchronize()
+
+
 def p2p_chunks_ref(states, bands, land_lo, land_hi, params: LBMParams,
-                   k: int, n_outer: int, base: int, row_bases, pull0: bool):
-    """Plain version of ``p2p_chunks`` over every shard of the ring:
-    ``n_outer`` chunks of ``kstep_tile.ring_chunk_ref``. Chunk c (epoch
-    base + c) steps shard d from its lo and hi slabs: the previous shard's
-    last k rows and the next shard's first k rows, where ``pull0`` and
-    c = 0, else slot (base + c) % 2 of ``land_lo[d]`` and ``land_hi[d]``;
-    then writes each shard's last k rows into the next shard's lo slot and
-    its first k rows into the previous shard's hi slot of parity
-    (base + c + 1) % 2. ``bands[d]`` is shard d's (h + 2k, nx) mask band,
-    band row 0 global row ``row_bases[d]``. Returns (the states after
-    n_outer chunks, per shard the (n_outer k,) per-step sums); updates the
-    landing buffers in place."""
-    n, nx = len(states), params.nx
+                   k: int, n_outer: int, base: int, row_bases, pull0: bool,
+                   transport=None):
+    """Plain version of ``p2p_chunks`` over every shard of the ring (or,
+    with a ``transport`` of several processes, over this process's shards,
+    every list in ``transport.local``'s order): ``n_outer`` chunks of
+    ``kstep_tile.ring_chunk_ref``. Chunk c (epoch base + c) steps shard d
+    from its lo and hi slabs: the previous shard's last k rows and the next
+    shard's first k rows, where ``pull0`` and c = 0, else slot (base + c) %
+    2 of ``land_lo[d]`` and ``land_hi[d]``; then writes each shard's last k
+    rows into the next shard's lo slot and its first k rows into the
+    previous shard's hi slot of parity (base + c + 1) % 2. A slab of a
+    shard in another process comes through the transport, in its fixed
+    order (``dist.multihost.ring_pieces``). ``bands[d]`` is shard d's
+    (h + 2k, nx) mask band, band row 0 global row ``row_bases[d]``. Returns
+    (the states after n_outer chunks, per shard the (n_outer k,) per-step
+    sums); updates the landing buffers in place."""
+    nx = params.nx
+
+    def edges(f):
+        """Per shard of f: (the previous shard's last k rows, the next
+        shard's first k rows)."""
+        if transport is None:
+            n = len(f)
+            return [(f[d - 1][:, -k:], f[(d + 1) % n][:, :k])
+                    for d in range(n)]
+        n = len(transport.devices)
+        halo = transport.move(multihost.ring_pieces(k, n, (9,), nx),
+                              multihost.by_shard(transport.local, f, n))
+        return [(halo[2 * d], halo[2 * d + 1]) for d in transport.local]
+
     f, sums = list(states), [[] for _ in states]
+    first = edges(f) if pull0 else None
     for c in range(n_outer):
         e = base + c
         new = []
-        for d in range(n):
+        for j in range(len(f)):
             if pull0 and c == 0:
-                lo, hi = f[d - 1][:, -k:], f[(d + 1) % n][:, :k]
+                lo, hi = first[j]
             else:
-                lo = slot(land_lo[d], e % 2, k, nx)
-                hi = slot(land_hi[d], e % 2, k, nx)
-            g, s = kstep_tile.ring_chunk_ref(lo, f[d], hi, bands[d], params,
-                                             k, row_bases[d])
+                lo = slot(land_lo[j], e % 2, k, nx)
+                hi = slot(land_hi[j], e % 2, k, nx)
+            g, s = kstep_tile.ring_chunk_ref(lo, f[j], hi, bands[j], params,
+                                             k, row_bases[j])
             new.append(g)
-            sums[d].append(s)
-        for d in range(n):
-            slot(land_lo[(d + 1) % n], (e + 1) % 2, k, nx).copy_(
-                new[d][:, -k:])
-            slot(land_hi[(d - 1) % n], (e + 1) % 2, k, nx).copy_(
-                new[d][:, :k])
+            sums[j].append(s)
+        for j, (lo, hi) in enumerate(edges(new)):
+            slot(land_lo[j], (e + 1) % 2, k, nx).copy_(lo)
+            slot(land_hi[j], (e + 1) % 2, k, nx).copy_(hi)
         f = new
     return f, [torch.cat(s) for s in sums]
 
 
 def p2p_chunks(ex: Exchange, states, spares, bands, params: LBMParams,
                k: int, n_outer: int, row_bases, pull0: bool):
-    """``n_outer`` chunks of k steps of every shard of ``ex``'s ring from
-    ``states`` (shard d on ex.mesh[d]), epochs ex.epoch onwards; advances
-    ex.epoch. ``spares``: a second buffer a shard, which the launch
-    ping-pongs with the state. One K6 launch a card, on its current stream;
-    on CPU tensors, ``p2p_chunks_ref``. Returns (the states, the buffers
-    now free, per shard the (n_outer k,) raw per-step sums)."""
+    """``n_outer`` chunks of k steps of this process's shards of ``ex``'s
+    ring from ``states`` (lists in ``ex.local``'s order, shard d on
+    ex.mesh[d]), epochs ex.epoch onwards; advances ex.epoch. ``spares``: a
+    second buffer a shard, which the launch ping-pongs with the state. One
+    K6 launch a card, on its current stream; on CPU tensors,
+    ``p2p_chunks_ref`` (its slabs across processes through ``ex.tr``).
+    Returns (the states, the buffers now free, per shard the (n_outer k,)
+    raw per-step sums)."""
     if states[0].device.type == "cpu":
         f, sums = p2p_chunks_ref(states, bands, ex.land_lo, ex.land_hi,
                                  params, k, n_outer, ex.epoch, row_bases,
-                                 pull0)
+                                 pull0, ex.tr if ex.world > 1 else None)
         ex.epoch += n_outer
         return f, list(states), sums
     sums = _p2p_launch(ex, states, spares, bands, params, k, n_outer,
@@ -348,47 +605,61 @@ def p2p_chunks(ex: Exchange, states, spares, bands, params: LBMParams,
 
 def _p2p_launch(ex: Exchange, states, spares, bands, params: LBMParams,
                 k: int, n_outer: int, row_bases, pull0: bool):
-    """K6 on CUDA shards, one launch a card: (per shard the sums, per shard
-    the (n_outer k, ntiles) partials that the kernel reduced into them)."""
-    n, nx, rows = len(states), params.nx, ex.rows
+    """K6 on this process's CUDA shards (lists in ``ex.local``'s order),
+    one launch a card: (per shard the sums, per shard the (n_outer k,
+    ntiles) partials that the kernel reduced into them). Over several
+    processes a launch with ``pull0`` runs ``ex.enter`` and reads the slots
+    instead; in one process a launch of another k than the one before it
+    is ordered after every card's launch before it (``ex.barrier``): its
+    tiles wait only on their k-cone, narrower than the cone of the reads
+    of the launch before, whose slots its pushes rewrite."""
+    n, nx, rows = len(ex.mesh), params.nx, ex.rows
     if ex.failed:
         raise RuntimeError("lbm_ring_p2p: an earlier launch of this ring "
                            "failed; its flags and ticket counters are lost")
     if not (1 <= k <= kstep_tile.TILE_K and 1 <= n_outer <= MAX_OUTER
-            and k <= min(rows) and n >= 2):
+            and k <= min(rows) and n >= 2 and len(states) == len(ex.local)):
         raise ValueError(f"K6 takes 1 to {kstep_tile.TILE_K} steps over "
                          f"shards of at least k rows and 1 to {MAX_OUTER} "
-                         f"chunks, got k {k}, {n_outer} chunks, rows {rows}")
-    for d in range(n):
-        _build.require_cuda(states[d], spares[d], bands[d])
-        if (states[d].device != ex.mesh[d]
-                or states[d].shape != (9, rows[d], nx)
-                or spares[d].shape != states[d].shape
-                or spares[d].data_ptr() == states[d].data_ptr()
-                or bands[d].shape != (rows[d] + 2 * k, nx)
-                or not 0 <= row_bases[d] < params.ny):
+                         f"chunks, got k {k}, {n_outer} chunks, rows {rows}, "
+                         f"{len(states)} states for {len(ex.local)} shards")
+    for j, d in enumerate(ex.local):
+        _build.require_cuda(states[j], spares[j], bands[j])
+        if (states[j].device != ex.mesh[d]
+                or states[j].shape != (9, rows[d], nx)
+                or spares[j].shape != states[j].shape
+                or spares[j].data_ptr() == states[j].data_ptr()
+                or bands[j].shape != (rows[d] + 2 * k, nx)
+                or not 0 <= row_bases[j] < params.ny):
             raise ValueError(
-                f"shard {d}: state {tuple(states[d].shape)} on "
-                f"{states[d].device}, spare {tuple(spares[d].shape)}, mask "
-                f"{tuple(bands[d].shape)}, row {row_bases[d]}; the ring wants "
-                f"{rows[d]} rows of the ({params.ny}, {nx}) grid on "
+                f"shard {d}: state {tuple(states[j].shape)} on "
+                f"{states[j].device}, spare {tuple(spares[j].shape)}, mask "
+                f"{tuple(bands[j].shape)}, row {row_bases[j]}; the ring "
+                f"wants {rows[d]} rows of the ({params.ny}, {nx}) grid on "
                 f"{ex.mesh[d]} and a distinct spare")
+    if pull0 and ex.world > 1:
+        ex.enter(states, k)
+        pull0 = False
+    elif ex.k_last not in (None, k):
+        ex.barrier()
+    ex.k_last = k
     lib = _build.library()
     partials = [torch.empty((n_outer * k, ntiles(rows[d], nx)),
                             dtype=torch.float32, device=ex.mesh[d])
-                for d in range(n)]
+                for d in ex.local]
     sums = [torch.empty(n_outer * k, dtype=torch.float32, device=ex.mesh[d])
-            for d in range(n)]
+            for d in ex.local]
     graph = ex.graph(k)
     for card in ex.cards:
-        local = ex.local[card]
+        local = [j for j, d in enumerate(ex.local) if ex.keys[d] == card]
         if len(local) > MAX_LOCAL:
             raise ValueError(f"K6 takes at most {MAX_LOCAL} shards a card, "
-                             f"got {len(local)} on {card}")
+                             f"got {len(local)} on {ex.device[card]}")
         table = np.array([_entry(ex, states, spares, bands, partials, sums,
-                                 row_bases, d) for d in local],
+                                 row_bases, j) for j in local],
                          dtype=np.int64)
         records, peer_flags = graph[card]
+        dev = ex.device[card]
         with _build.on_device(states[local[0]]):
             _build.LAUNCHES["ring_p2p"] += 1
             _build.LAUNCHES["reduce_partials"] += n_outer * len(local)
@@ -397,39 +668,41 @@ def _p2p_launch(ex: Exchange, states, spares, bands, params: LBMParams,
                     table.ctypes.data, len(local), records.data_ptr(),
                     records.shape[0], peer_flags.ctypes.data,
                     len(peer_flags), n_outer, ex.epoch,
-                    int(pull0), ex.errors[card].data_ptr(),
-                    _build.ticket_counter(card).data_ptr(), params.ny, nx,
+                    int(pull0), ex.error(card),
+                    _build.ticket_counter(dev).data_ptr(), params.ny, nx,
                     params.accel_row, params.omega, params.accel_w1,
                     params.accel_w2, k,
-                    torch.cuda.current_stream(card).cuda_stream),
+                    torch.cuda.current_stream(dev).cuda_stream),
                 f"lbm_ring_p2p ({k} steps, {n_outer} chunks, "
-                f"{len(local)} shards on {card}, "
+                f"{len(local)} shards on {dev}, "
                 f"{lib.lbm_ring_p2p_smem(k)} B of dynamic shared memory)")
     ex.epoch += n_outer
     return sums, partials
 
 
 def _entry(ex: Exchange, states, spares, bands, partials, sums, row_bases,
-           d):
-    """Shard d's words of the launch table, in TABLE's order: its buffers,
-    its neighbours' input states and landing buffers (peer pointers where
-    they lie on another card), then its integers."""
-    n = len(states)
+           j):
+    """The words of this process's j-th shard d in the launch table, in
+    TABLE's order: its buffers, its neighbours' input states (read only
+    with pull0, in one process; the own slots where a neighbour lies in
+    another process), its and its neighbours' landing buffers (peer or
+    IPC-mapped addresses where they lie on another card or in another
+    process), then its integers."""
+    n, d = len(ex.mesh), ex.local[j]
     p, q = (d - 1) % n, (d + 1) % n
-    lo, hi = ex.land_lo[d], ex.land_hi[d]
-    row = 9 * SLAB_ROWS * ex.nx * 4     # bytes of a landing slot
+    lo, hi = ex.slots(d)
+    slot_bytes = SLOT_BYTES * ex.nx
 
-    def halves(buf):
-        return buf.data_ptr(), buf.data_ptr() + row
+    def state(e, own):
+        return states[ex.index[e]].data_ptr() if e in ex.index else own
 
     words = dict(
-        obst=bands[d].data_ptr(), state0=states[d].data_ptr(),
-        state1=spares[d].data_ptr(), prev_in=states[p].data_ptr(),
-        next_in=states[q].data_ptr(), partials=partials[d].data_ptr(),
-        sums=sums[d].data_ptr(), h=ex.rows[d], h_prev=ex.rows[p],
-        h_next=ex.rows[q], row_base=row_bases[d])
-    words["lo0"], words["lo1"] = halves(lo)
-    words["hi0"], words["hi1"] = halves(hi)
-    words["push_lo0"], words["push_lo1"] = halves(ex.land_lo[q])
-    words["push_hi0"], words["push_hi1"] = halves(ex.land_hi[p])
+        obst=bands[j].data_ptr(), state0=states[j].data_ptr(),
+        state1=spares[j].data_ptr(), prev_in=state(p, lo),
+        next_in=state(q, hi), partials=partials[j].data_ptr(),
+        sums=sums[j].data_ptr(), h=ex.rows[d], h_prev=ex.rows[p],
+        h_next=ex.rows[q], row_base=row_bases[j])
+    for name, base in (("lo", lo), ("hi", hi), ("push_lo", ex.slots(q)[0]),
+                       ("push_hi", ex.slots(p)[1])):
+        words[name + "0"], words[name + "1"] = base, base + slot_bytes
     return [words[name] for name in TABLE]

@@ -206,13 +206,16 @@ class Simulation:
         return self._gather(self.shards, self.device)
 
     def settle(self) -> None:
-        """Finish set-up before a timed region: wait for the uploads and,
-        on the ``cuda`` backend, build and load the kernels (the reference
-        starts its clock after ``initialise``, d2q9-bgk.c:278-279)."""
+        """Finish set-up before a timed region: wait for the uploads, on the
+        ``cuda`` backend build and load the kernels, and over several
+        processes run the group's first collective, which makes NCCL's
+        communicators (the reference starts its clock after
+        ``initialise``, d2q9-bgk.c:278-279)."""
         if self.backend in ("cuda", "cuda-p2p"):
             from tpulbm_torch.ops import _build
 
             _build.library()
+        self.transport.warm()
         self._sync()
 
     def _sync(self) -> None:
