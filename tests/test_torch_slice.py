@@ -179,10 +179,15 @@ def _imports(tree):
 
 
 def test_port_never_imports_jax_or_tpulbm():
-    """An AST scan of every module of tpulbm_torch and of chip_smoke.py:
-    no jax and no tpulbm import (the GPU host has no jax)."""
+    """An AST scan of every module of tpulbm_torch, of chip_smoke.py and of
+    the port's examples: no jax and no tpulbm import (the GPU host has no
+    jax)."""
     files = sorted((ROOT / "tpulbm_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert [p.name for p in examples] == ["torch_custom_simulation.py",
+                                          "torch_run_reference_deck.py"]
+    files += examples
     assert len(files) > 20
     for name in ("dist/multihost.py", "dist/launch.py", "graft_entry.py",
                  "tools/make_deck.py", "viz.py"):
