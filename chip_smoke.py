@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py          # from the repository root; one CUDA device
     python3 chip_smoke.py --cards  # only the ring and torus over 2-4 cards
-                                   # (phase 11)
-    python3 chip_smoke.py --cards --processes   # only phase 11's processes
+                                   # (phase 12)
+    python3 chip_smoke.py --cards --processes   # only phase 12's processes
                                                 # on four cards
 
 Phases; any failure raises and exits non-zero before the result lines:
@@ -129,9 +129,22 @@ Phases; any failure raises and exits non-zero before the result lines:
    resumed Simulation and one resumed from step 10,000 and run to the end
    the uninterrupted run's bytes; each example's MLUPS and the phase's
    time beside nvidia-smi's name and power limit;
-10. one JSON line of the kernels, then the result line
+10. the float64 oracle on the card (``phase_f64``;
+   ``tpulbm_torch.tools.validate_f64`` and ``make_f64_goldens``): 256^2
+   for its full 80,000 steps, the av series within 1e-4 of the upstream
+   golden over every step, the pressure golden regenerated under build/
+   and within 1e-6 (relative) of the committed
+   ``tests/goldens/256x256.final_state.f64.npz``, and phase 4's 256^2 K2
+   run's ``final_state.dat`` through the 1 % gate against the regenerated
+   golden; the oracle's CUDA-graph path bitwise its eager path on 2,000
+   steps of 256^2 and 100 of 1024^2, both timed; the first 100 steps of
+   1024^2 within F64_PREFIX_TOL of the golden; the study of 128^2 over
+   2,000 steps, the port's f32 route (K5, launches counted) within
+   F64_STUDY_TOL of the oracle; seconds and MLUPS beside nvidia-smi's name
+   and power limit;
+11. one JSON line of the kernels, then the result line
    ``{"ok": true, "device": {...}}``;
-11. with ``--cards``, instead of phases 3-10: the ring with shard i on card
+12. with ``--cards``, instead of phases 3-11: the ring with shard i on card
     i (the cuda and the cuda-p2p ring, whose K6 hands slabs and flags
     through peer memory), and the torus with block (i, j) on card 2i + j
     (``phase_cards``);
@@ -2065,6 +2078,120 @@ def phase_examples():
     return totals
 
 
+# The float64 oracle (phase 10). Gates: the av series against the upstream
+# golden (the JAX package's oracle: 2e-12 at 256^2 over 80,000 steps and
+# 4.7e-12 at 1024^2 over 100, docs/VALIDATION.md); the regenerated pressure
+# against the committed golden (f32 storage: a few elements one ulp, ~1e-7,
+# apart); the port's f32 route against the oracle (the 1 % gate).
+F64_RUN = ("256x256", 80000)
+F64_GRAPH_RUNS = [("256x256", 2000), ("1024x1024", 100)]
+F64_PREFIX_TOL = 1e-10
+F64_STUDY = ("128x128", 2000)
+F64_STUDY_TOL = 1e-2
+F64_GOLDENS = os.path.join(OUT, "f64_goldens")
+
+
+def phase_f64():
+    """The float64 oracle on the card (see the module docstring). Returns
+    the launch counts of the study's f32 route."""
+    import numpy as np
+
+    from tpulbm_torch.ops import _build
+    from tpulbm_torch.tools import make_f64_goldens as mk
+    from tpulbm_torch.tools import validate_f64 as v
+    from tpulbm_torch.validation import check
+
+    smi = _smi()
+    data = os.path.join(ROOT, "data")
+    golden = os.path.join(ROOT, "tests", "goldens")
+    t0 = time.perf_counter()
+
+    # (a) 256^2, the whole run: the av gate, the regenerated golden against
+    # the committed one, phase 4's K2 run against the regenerated golden
+    deck, steps = F64_RUN
+    shutil.rmtree(F64_GOLDENS, ignore_errors=True)
+    path, seconds, rel = mk.make_golden(deck, device="cuda",
+                                        out_dir=F64_GOLDENS, data_dir=data,
+                                        golden_dir=golden)
+    p, _ = v.load_deck(deck, data)
+    assert p.max_iters == steps, (deck, p.max_iters)
+    log(f"[f64] {deck}: {steps} steps of the f64 oracle in {seconds:.3f} s, "
+        f"{p.nx * p.ny * steps / seconds / 1e6:.1f} MLUPS ({smi}); av_vels "
+        f"vs the upstream golden over all {steps} steps: max rel {rel:.3e} "
+        f"(<= {mk.AV_GATE:g})")
+    committed = os.path.join(golden, f"{deck}.final_state.f64.npz")
+    worst, n_diff = mk.compare(path, committed)
+    log(f"[f64] {deck}: regenerated pressure vs the committed "
+        f"{os.path.basename(committed)}: max rel {worst:.3e}, {n_diff} of "
+        f"{p.nx * p.ny} elements differ (<= {mk.COMPARE_GATE:g})")
+    if not worst <= mk.COMPARE_GATE:
+        raise AssertionError(f"{deck}: the regenerated f64 golden differs "
+                             f"from the committed one by {worst:.3e}")
+    out = os.path.join(OUT, deck)
+    ok, av_d, fs_d = check.check_results(
+        os.path.join(golden, f"{deck}.av_vels.dat"), path,
+        os.path.join(out, "av_vels.dat"), os.path.join(out, "final_state.dat"),
+        GOLDEN_TOL, verbose=False)
+    log(f"[f64] {deck}: phase 4's K2 run against the regenerated golden: "
+        f"av_vels max diff {av_d.max_diff_pcnt:.3g} %, final_state max diff "
+        f"{fs_d.max_diff_pcnt:.3g} % (<= {GOLDEN_TOL:g} %)")
+    if not ok:
+        raise AssertionError(f"{deck}: phase 4's run fails the gate against "
+                             f"the regenerated f64 golden")
+
+    # the CUDA-graph path against the eager path, both timed; (b) the
+    # 1024^2 prefix against the golden
+    for deck, steps in F64_GRAPH_RUNS:
+        p, obst = v.load_deck(deck, data)
+        runs = {}
+        for graph in (True, False):
+            t = time.perf_counter()
+            f, av = v.run_f64(p, obst, steps, device="cuda", graph=graph)
+            runs[graph] = (f, av, time.perf_counter() - t)
+        same = all(np.array_equal(a, b)
+                   for a, b in zip(runs[True][:2], runs[False][:2]))
+        ref = np.loadtxt(os.path.join(golden, f"{deck}.av_vels.dat"),
+                         usecols=[1], max_rows=steps)
+        rel = float(v.max_rel(runs[True][1], ref).max())
+        log(f"[f64] {deck}, {steps} steps: CUDA graph {runs[True][2]:.3f} s "
+            f"({p.nx * p.ny * steps / runs[True][2] / 1e6:.1f} MLUPS), eager "
+            f"{runs[False][2]:.3f} s "
+            f"({p.nx * p.ny * steps / runs[False][2] / 1e6:.1f} MLUPS) "
+            f"({smi}); the same bytes: {same}; av_vels vs the upstream golden "
+            f"max rel {rel:.3e}")
+        if not same:
+            raise AssertionError(f"{deck}: the f64 oracle's CUDA-graph path "
+                                 f"differs from its eager path")
+        if deck == "1024x1024" and not rel <= F64_PREFIX_TOL:
+            raise AssertionError(f"{deck}: the f64 oracle's first {steps} "
+                                 f"steps differ from the golden by {rel:.3e}")
+        del runs
+
+    # (c) the study: the port's f32 route (K5 at 128^2) against the oracle
+    deck, steps = F64_STUDY
+    _build.reset_launches()
+    r = v.study(deck, steps, device="cuda", data_dir=data, golden_dir=golden)
+    counts = dict(_build.LAUNCHES)
+    route = _route(r["params"], steps)
+    _check_launches(f"{deck} study", counts, [*route, "reduce_partials"],
+                    [c for c in KERNEL_COUNTERS if c not in route])
+    p = r["params"]
+    log(f"[f64] {deck}, {steps} steps: the f64 oracle {r['f64_s']:.3f} s "
+        f"({p.nx * p.ny * steps / r['f64_s'] / 1e6:.1f} MLUPS), the port's "
+        f"f32 route ({', '.join(sorted(route))}) {r['f32_s']:.3f} s "
+        f"({smi}); max rel: f64 vs goldens {r['f64_vs_golden'].max():.3e}, "
+        f"f32 vs f64 {r['f32_vs_f64'].max():.3e} (mean "
+        f"{r['f32_vs_f64'].mean():.3e}; <= {F64_STUDY_TOL:g}), f32 vs "
+        f"goldens {r['f32_vs_golden'].max():.3e}")
+    if not r["f32_vs_f64"].max() <= F64_STUDY_TOL:
+        raise AssertionError(f"{deck}: the port's f32 route is "
+                             f"{r['f32_vs_f64'].max():.3e} from the oracle")
+    del r
+    _free()
+    log(f"[f64] the f64 phase {time.perf_counter() - t0:.1f} s ({smi})")
+    return counts
+
+
 KERNELS = [
     # (counter, name, source, replaces)
     ("cluster_resident", "lbm_cluster_chunk (K5)",
@@ -2323,6 +2450,10 @@ def main(argv=None) -> int:
     log(f"[time] phases 3-9 {t7 - t0:.1f} s; of it the final-state gates "
         f"against an f64-oracle golden: {NPZ_GATES['runs']} runs, "
         f"{NPZ_GATES['s']:.1f} s")
+    for key, v in phase_f64().items():
+        launches[key] += v
+    t8 = time.perf_counter()
+    log(f"[time] f64 oracle {t8 - t7:.1f} s; phases 3-10 {t8 - t0:.1f} s")
     import torch
 
     kernels = [{"name": name, "route": "cuda", "source": source,

@@ -465,3 +465,27 @@ def test_exchange_block_crosses_processes():
         assert torch.equal(back, -vals)
     finally:
         ring_p2p._free_blocks([(0, ptr)])
+
+
+@pytest.mark.cuda
+def test_f64_oracle_on_the_card_matches_the_cpu():
+    """The float64 oracle (tools/validate_f64.py) on the card against the
+    same run on the CPU, 100 steps of the 128^2 deck (the two devices sum
+    rho and the av series in other orders: 1e-12 relative); on the card
+    the CUDA-graph path bitwise its eager path over 250 steps (two graph
+    replays and an eager remainder)."""
+    from pathlib import Path
+
+    from tpulbm_torch.tools import validate_f64 as v
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    p, obst = v.load_deck("128x128",
+                          Path(__file__).resolve().parent.parent / "data")
+    f_gpu, av_gpu = v.run_f64(p, obst, 100, device="cuda")
+    f_cpu, av_cpu = v.run_f64(p, obst, 100, device="cpu")
+    assert np.abs((f_gpu - f_cpu) / f_cpu).max() <= 1e-12
+    assert np.abs((av_gpu - av_cpu) / av_cpu).max() <= 1e-12
+    f_g, av_g = v.run_f64(p, obst, 250, device="cuda")
+    f_e, av_e = v.run_f64(p, obst, 250, device="cuda", graph=False)
+    assert np.array_equal(f_g, f_e) and np.array_equal(av_g, av_e)

@@ -190,7 +190,8 @@ def test_port_never_imports_jax_or_tpulbm():
     files += examples
     assert len(files) > 20
     for name in ("dist/multihost.py", "dist/launch.py", "graft_entry.py",
-                 "tools/make_deck.py", "viz.py"):
+                 "tools/make_deck.py", "tools/validate_f64.py",
+                 "tools/make_f64_goldens.py", "viz.py"):
         assert ROOT / "tpulbm_torch" / name in files, name
     for path in files:
         for name in _imports(ast.parse(path.read_text(), str(path))):
