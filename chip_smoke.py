@@ -13,14 +13,19 @@ Phases; any failure raises and exits non-zero before the result lines:
    name and power limit;
 2. build: nvcc compiles ``tpulbm_torch/csrc/*.cu``, one process a source
    (``ops._build``; K4's shared memory and CTAs per SM, K5's cluster
-   size, shared memory a CTA and most active clusters are logged);
+   size, shared memory a CTA and most active clusters, K2's plan at the
+   four resident shapes, and each kernel's ptxas line, by name, are
+   logged);
 3. each kernel against its plain PyTorch version on the card, on the same
    inputs (made from a seed with numpy), at the shapes the main path gives
    it, with CUDA-event times of both, a bitwise rerun and the bound (the
    least time the H100 could take for the same work): K5
    (``cluster_resident_chunk``) and K2 ``resident_chunk`` on the same
    inputs, one 512-step chunk of each small deck's shape, K5's state
-   bitwise K2's; K2 also on a 256x512 grid, the HBM-edge resident tier's;
+   bitwise K2's; K2 also on a 256x512 grid, the HBM-edge resident tier's,
+   at 512 steps and at the custom example's 392; each K2 line with its
+   plan (CTAs, halo depth h, cells a thread, shared memory a CTA), its
+   time a step and nvidia-smi's name and power limit;
    K4 ``tile_chunk`` and K1 (``skew_chunk``, 8 steps, and
    ``kstep_chunk``, 3 steps) on the same 1024^2 inputs, K4's state bitwise
    K1's; K4
@@ -62,7 +67,7 @@ Phases; any failure raises and exits non-zero before the result lines:
    128^2 and 128x256, the f64-oracle ``.f64.npz`` golden for 256^2 and
    1024^2, as on every run below that reaches the golden gate), each
    through the kernel its route names
-   (K5 at 128^2, K2 at 128x256 and 256^2, K4 at 1024^2; no K1 launch); one
+   (K2 at 128^2, 128x256 and 256^2, K4 at 1024^2; no K1 or K5 launch); one
    more 1024^2 run of 1003 steps takes the sub-8-step remainder through
    K4. The wide decks (2048^2,
    4096^2, 8192^2) through ``cli.main`` with ``--no-output`` (8192^2's
@@ -120,7 +125,7 @@ Phases; any failure raises and exits non-zero before the result lines:
    Phases 3-8 log their seconds, and their sum;
 9. the Python API's path, the two examples through their ``main`` at full
    size (``phase_examples``): ``examples/torch_run_reference_deck.py`` on
-   128^2 (40,000 steps, K5) through the golden gate;
+   128^2 (40,000 steps, K2) through the golden gate;
    ``examples/torch_custom_simulation.py``, 20,000 steps of a 256x512 box
    (the HBM-edge resident tier's shape) checkpointed every 5,000 steps,
    every chunk on K2 and none elsewhere, its K2 chunks shorter than 512
@@ -139,7 +144,7 @@ Phases; any failure raises and exits non-zero before the result lines:
    golden; the oracle's CUDA-graph path bitwise its eager path on 2,000
    steps of 256^2 and 100 of 1024^2, both timed; the first 100 steps of
    1024^2 within F64_PREFIX_TOL of the golden; the study of 128^2 over
-   2,000 steps, the port's f32 route (K5, launches counted) within
+   2,000 steps, the port's f32 route (K2, launches counted) within
    F64_STUDY_TOL of the oracle; seconds and MLUPS beside nvidia-smi's name
    and power limit;
 11. one JSON line of the kernels, then the result line
@@ -296,6 +301,8 @@ def _smi():
 
 
 def phase_build():
+    import torch
+
     from tpulbm_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -316,11 +323,36 @@ def phase_build():
             f"{lib.lbm_cluster_resident_smem()} B of dynamic shared memory a "
             f"CTA, at most {lib.lbm_cluster_resident_clusters(cells)} "
             f"cluster(s) active")
+    from tpulbm_torch.ops import resident
+
+    for deck, (ny, nx) in (("128x128", (128, 128)), ("128x256", (256, 128)),
+                           ("256x256", (256, 256)), ("256x512", (256, 512))):
+        cy, cx, h, cells, threads, smem = resident.launch_plan(
+            ny, nx, torch.device("cuda"))
+        log(f"[build] K2 at {deck}: {cy} x {cx} CTAs of {threads} threads, "
+            f"h = {h}, {cells} cell(s) a thread, {smem} B of dynamic shared "
+            f"memory a CTA")
     log_path = _build.BUILD_DIR / "build.log"
     if log_path.exists():
+        name = ""
         for line in log_path.read_text().splitlines():
-            if "ptxas info" in line and ("Used" in line or "spill" in line):
-                log(f"[build] {line.strip()}")
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                name = _kernel_name(entry.group(1))
+            elif ("ptxas info" in line and "Used" in line) or "spill" in line:
+                log(f"[build] {name}: {line.replace('ptxas info    :', '').strip()}")
+
+
+def _kernel_name(mangled):
+    """A kernel's name and template arguments from its mangled name
+    (resident_kernel<1, 512>)."""
+    arg = r"L(?:i|NS_\d+\w+?E)(\d+)E"
+    for m in re.finditer(
+            rf"(?=(\d\d?)([a-z_]\w*?kernel)((?:I(?:{arg})+E)?))", mangled):
+        if int(m.group(1)) == len(m.group(2)):
+            args = re.findall(arg, m.group(3))
+            return m.group(2) + (f"<{', '.join(args)}>" if args else "")
+    return mangled
 
 
 def _state(params, seed):
@@ -769,6 +801,22 @@ def _free():
     torch.cuda.empty_cache()
 
 
+def _k2_plan(what, p, k, ms, smi):
+    """K2's plan at p's grid (the CTA grid, threads a CTA, halo depth h,
+    cells a thread, shared memory a CTA) beside its time a call and a
+    step."""
+    import torch
+
+    from tpulbm_torch.ops import resident
+
+    cy, cx, h, cells, threads, smem = resident.launch_plan(
+        p.ny, p.nx, torch.device("cuda"))
+    log(f"[kernel] K2 {what}, {k} steps: {cy} x {cx} CTAs of {threads} "
+        f"threads, h = {h}, {cells} cell(s) a thread, {smem} B of shared "
+        f"memory a CTA; {ms:.4f} ms a call, {1e3 * ms / k:.3f} us a step "
+        f"({smi})")
+
+
 def phase_kernels():
     import numpy as np
     import torch
@@ -781,6 +829,7 @@ def phase_kernels():
     res = {}
     chunk_ms = {}   # K4 8-step chunk records of the wide decks
     k = resident.RESIDENT_K
+    smi = _smi()
     # K5 and K2 on the small decks' shapes, 512 steps, against one plain
     # result: K5's state bitwise K2's, their times in one call.
     for deck, seed in (("128x128", SEED), ("128x256", SEED + 13),
@@ -797,12 +846,13 @@ def phase_kernels():
             f"resident_chunk K2 ({deck}, {k} steps)",
             lambda: resident._resident_launch(f0, o, p, k), plain, 10, 1,
             bound_of)
+        _k2_plan(deck, p, k, k2["ms"], smi)
         f5 = cluster._resident_launch(f0, o, p, k)[0]
         same = torch.equal(f5, resident._resident_launch(f0, o, p, k)[0])
         log(f"[kernel] K5 vs K2 ({deck}, {k} steps, same input): "
             f"{k5['ms']:.4f} vs {k2['ms']:.4f} ms, K5/K2 "
             f"{k5['ms'] / k2['ms']:.3f}; state bitwise K2's {same}; route: "
-            f"{'K5' if cluster.resident_route(p.ny, p.nx) else 'K2'}")
+            f"{', '.join(sorted(_route(p, k)))}")
         if not same:
             raise AssertionError(f"K5's state differs from K2's at {deck}")
         if deck == "128x128":
@@ -817,11 +867,15 @@ def phase_kernels():
     p = p.with_free_cells(p.ny * p.nx - int(mask.sum()))
     o = torch.tensor(mask, dtype=torch.float32, device="cuda")
     f0 = _state(p, SEED + 5)
-    _compare_chunk(
-        f"resident_chunk K2 (256x512, {k} steps)",
-        lambda: resident._resident_launch(f0, o, p, k),
-        lambda: resident.resident_chunk_ref(f0, o, p, k), 10, 1,
-        chunk_bound(p.ny * p.nx, k))
+    # a full chunk, and the custom example's 392-step chunk (20,000 steps
+    # in runner calls of 5,000: 9 x 512 + 392)
+    for kk in (k, 392):
+        rec = _compare_chunk(
+            f"resident_chunk K2 (256x512, {kk} steps)",
+            lambda kk=kk: resident._resident_launch(f0, o, p, kk),
+            lambda kk=kk: resident.resident_chunk_ref(f0, o, p, kk), 10, 1,
+            chunk_bound(p.ny * p.nx, kk))
+        _k2_plan("256x512", p, kk, rec["ms"], smi)
 
     p, o = _load_deck("1024x1024")
     f0 = _state(p, SEED + 1)
@@ -2167,7 +2221,7 @@ def phase_f64():
                                  f"steps differ from the golden by {rel:.3e}")
         del runs
 
-    # (c) the study: the port's f32 route (K5 at 128^2) against the oracle
+    # (c) the study: the port's f32 route (K2 at 128^2) against the oracle
     deck, steps = F64_STUDY
     _build.reset_launches()
     r = v.study(deck, steps, device="cuda", data_dir=data, golden_dir=golden)
@@ -2194,7 +2248,8 @@ def phase_f64():
 
 KERNELS = [
     # (counter, name, source, replaces)
-    ("cluster_resident", "lbm_cluster_chunk (K5)",
+    ("cluster_resident", "lbm_cluster_chunk (K5; off the route, K2 measured "
+     "faster at every shape it holds; held bitwise against K2)",
      "tpulbm_torch/csrc/cluster.cu", "tpulbm/ops/pallas_resident.py:63"),
     ("resident_chunk", "lbm_resident_chunk (K2)",
      "tpulbm_torch/csrc/resident.cu",

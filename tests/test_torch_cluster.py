@@ -37,7 +37,8 @@ from tpulbm_torch.core.state import initial_state
 from tpulbm_torch.dist import runner as truntime
 from tpulbm_torch.io.obstacles import read_obstacles
 from tpulbm_torch.io.params_file import read_params
-from tpulbm_torch.ops import _build, cluster, kstep, kstep_tile, step_torch
+from tpulbm_torch.ops import (_build, cluster, kstep, kstep_tile, resident,
+                              step_torch)
 
 torch.set_num_threads(2)
 
@@ -192,19 +193,22 @@ def test_cluster_resident_chunk_matches_pallas_resident():
     np.testing.assert_allclose(av.numpy(), np.asarray(av_j), rtol=AV_RTOL)
 
 
-@pytest.mark.parametrize("ny,nx,cells,route", [
-    (128, 128, 2, True),     # the 128^2 deck: 8 rows a CTA, 1,024 cells
-    (128, 256, 2, False),    # 2,048 cells a CTA: K2 measured as fast
-    (256, 256, 8, False),    # 4,096 cells a CTA: K2 measured faster
-    (256, 512, 0, False),    # _kernel_hbm's shape: beyond one cluster
+@pytest.mark.parametrize("ny,nx,cells", [
+    (128, 128, 2),     # the 128^2 deck: 8 rows a CTA, 1,024 cells
+    (128, 256, 2),     # 2,048 cells a CTA
+    (256, 256, 8),     # 4,096 cells a CTA
+    (256, 512, 0),     # _kernel_hbm's shape: beyond one cluster
 ])
-def test_resident_fits(ny, nx, cells, route):
+def test_resident_fits(ny, nx, cells):
     """resident_fits and the instance at the deck shapes and at 256x512,
-    which of them K5 takes on the route, and the edges of the window: 2
-    rows a CTA, 16 rows, 258 columns."""
+    none of them on K5's route (K2 takes every resident grid), and the
+    edges of the window: 2 rows a CTA, 16 rows, 258 columns."""
     assert cluster.resident_cells(ny, nx) == cells
     assert cluster.resident_fits(ny, nx) is (cells > 0)
-    assert cluster.resident_route(ny, nx) is route
+    p = LBMParams(nx=nx, ny=ny, max_iters=12, reynolds_dim=10, density=0.1,
+                  accel=0.005, omega=1.85)
+    assert {fn for fn, _ in truntime.kernel_plan(p, 12)} == \
+        {resident.resident_chunk}
     assert cluster.resident_fits(32, 128) and not cluster.resident_fits(31, 128)
     assert cluster.resident_fits(256, 16) and not cluster.resident_fits(257, 16)
     assert cluster.resident_fits(32, 258) and not cluster.resident_fits(32, 259)
@@ -230,14 +234,15 @@ def test_resident_rule_matches_the_cuda_source():
 
 
 @pytest.mark.parametrize("ny,nx,n,fn", [
-    (64, 128, 20, cluster.cluster_resident_chunk),
+    (64, 128, 20, resident.resident_chunk),
     (100, 130, 11, kstep_tile.tile_chunk),
 ])
 def test_cluster_slice_matches_jax_runner(ny, nx, n, fn):
     """The slice end to end on the CPU: the cuda backend's plan for a grid
-    of K5's route (64x128) and of the fused family (100x130, off the 8/128
-    alignment: K4), run through the wrappers' plain versions, against the
-    JAX package's jnp runner from the same rest state."""
+    of the resident family (64x128, one that K5 holds, on K2's route) and
+    of the fused family (100x130, off the 8/128 alignment: K4), run
+    through the wrappers' plain versions, against the JAX package's jnp
+    runner from the same rest state."""
     p, mask, _ = _case(ny, nx, seed=ny)
     plan = truntime.kernel_plan(p, n)
     assert {f for f, _ in plan} == {fn} and sum(k for _, k in plan) == n

@@ -173,6 +173,52 @@ def test_cluster_chunks_match_plain_and_repeat_bitwise(case):
     _counter_is_zero(f0.device)
 
 
+def _random_state(ny, nx, seed):
+    """(params, float mask, perturbed rest state) of a seeded 10 % random
+    mask, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    p = LBMParams(nx=nx, ny=ny, max_iters=1, reynolds_dim=10,
+                  density=0.1, accel=0.005, omega=1.85)
+    rng = np.random.RandomState(seed)
+    mask = rng.rand(ny, nx) < 0.1
+    p = p.with_free_cells(ny * nx - int(mask.sum()))
+    dev = torch.device("cuda")
+    f0 = initial_state(p, dev) * torch.tensor(
+        1 + 0.01 * rng.rand(9, ny, nx), dtype=torch.float32, device=dev)
+    return p, torch.tensor(mask, dtype=torch.float32, device=dev), f0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ny,nx", [(256, 128), (256, 256), (256, 512)],
+                         ids=["128x256", "256x256", "256x512"])
+def test_resident_chunk_at_the_resident_shapes(ny, nx):
+    """K2 at the shapes it runs on the main path (the 128x256 and 256^2
+    decks' grids, the custom example's 256x512) for 1, 3, 64, 392 and 512
+    steps, against the plain version; a rerun bitwise; one launch a
+    call."""
+    p, o, f0 = _random_state(ny, nx, seed=ny + nx)
+    for k in (1, 3, 64, 392, 512):
+        _build.reset_launches()
+        got = resident.resident_chunk(f0, o, p, k)
+        assert _build.LAUNCHES["resident_chunk"] == 1
+        _close(got, resident.resident_chunk_ref(f0, o, p, k))
+        again = resident.resident_chunk(f0, o, p, k)
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ny,nx", [(128, 128), (256, 128)],
+                         ids=["128x128", "128x256"])
+def test_resident_chunk_is_bitwise_k5(ny, nx):
+    """K2 and K5 run the same cell code in two schedules: the same state
+    after 512 steps."""
+    p, o, f0 = _random_state(ny, nx, seed=ny * nx)
+    k = resident.RESIDENT_K
+    assert torch.equal(resident.resident_chunk(f0, o, p, k)[0],
+                       cluster.cluster_resident_chunk(f0, o, p, k)[0])
+
+
 @pytest.mark.cuda
 def test_ring_chunk_matches_plain_and_repeats_bitwise(case):
     """K4 ring mode on a 100-row shard whose band holds the accelerated

@@ -126,7 +126,7 @@ def test_tile_chunks_match_pallas_skew():
 
 
 @pytest.mark.parametrize("deck,n,expect", [
-    ("128x128", 40000, [("k5_resident", 512)] * 78 + [("k5_resident", 64)]),
+    ("128x128", 40000, [("resident", 512)] * 78 + [("resident", 64)]),
     ("256x256", 1030, [("resident", 512)] * 2 + [("resident", 6)]),
     ("1024x1024", 20000, [("tile", 8)] * 2500),
     ("1024x1024", 1003, [("tile", 8)] * 125 + [("tile", 3)]),
@@ -138,10 +138,9 @@ def test_tile_chunks_match_pallas_skew():
     ((256, 512), 1030, [("resident", 512)] * 2 + [("resident", 6)]),
 ])
 def test_kernel_plan_routes_like_the_jax_runner(deck, n, expect):
-    """Aligned grids of <= 135K cells (runner.py:1723-1730) -> K5 where
-    cluster.resident_route (128^2), else K2 (256^2; 256x512, the
-    _kernel_hbm shape beyond one cluster), in 512-step chunks plus a
-    remainder; the 1-D skew's grids (runner.py:1741-1746) and the wide
+    """Aligned grids of <= 135K cells (runner.py:1723-1730) -> K2 (128^2,
+    256^2; 256x512, the _kernel_hbm shape; never K5, which K2 outran at
+    every shape it holds), in 512-step chunks plus a remainder; the 1-D skew's grids (runner.py:1741-1746) and the wide
     tiers' grids (fold, 2-D skew, runner.py:1749-1777) -> K4 in 8-step
     chunks plus a shorter one."""
     if isinstance(deck, tuple):

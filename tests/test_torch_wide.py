@@ -35,7 +35,7 @@ from tpulbm_torch.dist import runner as truntime
 from tpulbm_torch.dist import tiers
 from tpulbm_torch.io.obstacles import write_obstacles
 from tpulbm_torch.io.params_file import read_params, write_params
-from tpulbm_torch.ops import cluster, kstep, kstep_tile, resident, step_torch
+from tpulbm_torch.ops import kstep, kstep_tile, resident, step_torch
 from tpulbm_torch.sim.simulation import Simulation
 
 torch.set_num_threads(2)
@@ -237,13 +237,12 @@ def _jax_family(monkeypatch, ny, nx, n):
 
 @pytest.mark.parametrize("ny,nx,n", ROUTES)
 def test_kernel_family_matches_the_jax_router(monkeypatch, ny, nx, n):
-    """The port's route (K5 or K2 for the resident family, K4 for the fused
-    and tile families) follows the family of the JAX package's
-    single-device tier for the same grid and steps."""
+    """The port's route (K2 for the resident family, K4 for the fused and
+    tile families) follows the family of the JAX package's single-device
+    tier for the same grid and steps."""
     want, p = _jax_family(monkeypatch, ny, nx, n)
     assert tiers.family(ny, nx, n) == want
-    fns = {"resident": {resident.resident_chunk,
-                        cluster.cluster_resident_chunk},
+    fns = {"resident": {resident.resident_chunk},
            "fused": {kstep_tile.tile_chunk}, "tile": {kstep_tile.tile_chunk}}
     plan = truntime.kernel_plan(p, n)
     assert {fn for fn, _ in plan} <= fns[want]

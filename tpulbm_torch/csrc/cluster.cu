@@ -6,9 +6,10 @@
 // Replaces tpulbm/ops/pallas_resident.py:63 _kernel (make_resident_step):
 // up to 512 steps of a small grid held whole in VMEM, ping-ponged there.
 // That TPU kernel keeps the grid in fast on-chip memory; Hopper's
-// counterpart is the cluster: 16 CTAs on neighbouring SMs write each
-// other's shared memory, and a cluster barrier costs far less than the
-// grid barrier of K2 (csrc/resident.cu), which keeps the state in L2.
+// counterpart here is the cluster: 16 CTAs on neighbouring SMs write each
+// other's shared memory behind cluster barriers. K2 (csrc/resident.cu)
+// holds the grid in the shared memory of 128 CTAs instead, handing edges
+// between neighbours through global memory, and runs every resident grid.
 // The 1-D skew's chunks (tpulbm/ops/pallas_kstep_skew.py:94,
 // tpulbm/ops/pallas_kstep.py:79) run on K4 (csrc/kstep_tile.cu): cluster
 // tiles of 8 stacked CTAs in this design took 1.29-1.33x K4's time at
@@ -41,8 +42,9 @@
 // (0.012 ms). The design adds the shared-memory traffic of every update
 // (ten loads, nine stores) and two cluster barriers a step, and uses 16 of
 // the 132 SMs: a step costs about 2.3 us at 1,024 cells a CTA (128^2), and
-// the time grows with the cells a CTA, so it beats K2 at 128^2 only, ties
-// at 128x256 and loses at 256^2 (PERF.md; dist.runner routes by that).
+// the time grows with the cells a CTA: K2 took 0.62x its time at 128^2,
+// 0.51x at 128x256, 0.21x at 256^2 (PERF.md), so it is on no route;
+// chip_smoke.py holds its state bitwise K2's.
 //
 // Per-step sums, no float atomics (reruns are bitwise): each CTA writes
 // its partial of step s to (k, 16) partials and, after the last barrier,

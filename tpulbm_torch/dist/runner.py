@@ -61,10 +61,9 @@ caller must not read its input after the call.
 Backends (the single-device routing of tpulbm/dist/runner.py:1720-1801):
 
 - ``cuda``: the hand-written kernels, on the family that ``dist.tiers``
-  names for the grid. ``"resident"`` runs ``cluster.cluster_resident_chunk``
-  (K5) where ``cluster.resident_route`` (128^2), else
-  ``resident.resident_chunk`` (K2: 128x256, 256^2, where K5 measured no
-  faster, and the 100K-135K-cell shapes beyond one cluster), in chunks of
+  names for the grid. ``"resident"`` runs ``resident.resident_chunk``
+  (K2, which measured faster than K5, ``cluster.cluster_resident_chunk``,
+  at every shape K5 holds; K5 is on no route), in chunks of
   ``resident.RESIDENT_K`` steps plus a remainder, as
   ``_make_resident_runner``; ``"fused"`` (``_make_skew_runner``) and
   ``"tile"`` (the fold, 2-D skew and 2-D K-step runners) run
@@ -105,8 +104,7 @@ import torch.nn.functional as F
 from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.dist import multihost, tiers
 from tpulbm_torch.dist.sharding import block_shape, ring_rows
-from tpulbm_torch.ops import (cluster, kstep, kstep_tile, resident, ring_p2p,
-                              step_torch)
+from tpulbm_torch.ops import kstep, kstep_tile, resident, ring_p2p, step_torch
 
 BACKENDS = ("auto", "cuda", "torch", "cuda-p2p")
 
@@ -135,10 +133,8 @@ def kernel_plan(params: LBMParams, n_steps: int) -> list:
     Each chunk_fn(f, obst_f, params, k) returns (f', raw sums[k])."""
     route = tiers.family(params.ny, params.nx, n_steps)
     if route == "resident":
-        fn = (cluster.cluster_resident_chunk
-              if cluster.resident_route(params.ny, params.nx)
-              else resident.resident_chunk)
-        return _chunks(fn, min(n_steps, resident.RESIDENT_K), n_steps)
+        return _chunks(resident.resident_chunk,
+                       min(n_steps, resident.RESIDENT_K), n_steps)
     return _chunks(kstep_tile.tile_chunk, kstep_tile.TILE_K, n_steps)
 
 
@@ -149,8 +145,7 @@ def _skew(f, obst_f, params, k):
 
 # The chunk functions of kernel_plan, which write into a given ``out``
 # (K1's, off every route, allocate their own).
-_TAKE_OUT = (kstep_tile.tile_chunk, resident.resident_chunk,
-             cluster.cluster_resident_chunk)
+_TAKE_OUT = (kstep_tile.tile_chunk, resident.resident_chunk)
 
 
 def run_plan(plan, f, obst_f, params: LBMParams):

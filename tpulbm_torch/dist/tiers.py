@@ -7,9 +7,7 @@ family of its tier; ``dist.runner.kernel_plan`` maps each family to the
 port's kernel that computes the same function:
 
 - ``"resident"``: the VMEM-resident tiers, ``pallas_resident._kernel`` and
-  its HBM-edge variant ``_kernel_hbm``: K5 where
-  ``ops.cluster.resident_route`` (one cluster holds the grid, and K5 was
-  measured faster than K2 there), else K2;
+  its HBM-edge variant ``_kernel_hbm``: K2 (``ops.resident``);
 - ``"fused"``: the 1-D skew and 1-D K-step tiers, and every fallback below
   the 2-D tiers (padded rows, extended columns, one step per call): K4 (K1
   computes the same function one step a launch, and stays off the route);

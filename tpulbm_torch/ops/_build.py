@@ -63,13 +63,15 @@ _counters: dict = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
+_U = ctypes.c_ulonglong
 _SIGNATURES = {
     "lbm_fused_step_blocks": ([_I], _I),
     "lbm_fused_step": (
         [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _F, _F, _F, _P], _I),
-    "lbm_resident_grid": ([_I, ctypes.POINTER(_I)], _I),
+    "lbm_resident_max_ctas": ([_I, _I, _I], _I),
     "lbm_resident_chunk": (
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P], _I),
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _I, _I, _F,
+         _F, _F, _P], _I),
     "lbm_kstep_tile_blocks": ([_I, _I], _I),
     "lbm_kstep_tile_smem": ([_I], _I),
     "lbm_kstep_tile_ctas_per_sm": ([_I], _I),

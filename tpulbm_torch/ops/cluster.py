@@ -4,9 +4,11 @@ K5 (``csrc/cluster.cu``) steps a small grid in the shared memory of one
 cluster of ``RESIDENT_CLUSTER`` CTAs that read each other's edge rows
 through distributed shared memory and step in lockstep behind cluster
 barriers, for up to ``resident.RESIDENT_K`` steps:
-``cluster_resident_chunk``, the counterpart of
-``tpulbm.ops.pallas_resident._kernel`` for the grids of ``resident_route``;
-K2 (``ops.resident``) keeps the other resident grids.
+``cluster_resident_chunk``, a counterpart of
+``tpulbm.ops.pallas_resident._kernel`` for the grids one cluster holds.
+It is on no route: K2 (``ops.resident``), which spreads the grid over
+every SM, measured faster at every shape K5 holds (``PERF.md``), and
+``chip_smoke.py`` holds K5's state bitwise K2's.
 
 It returns (f', the (k,) per-step sums of |u| over free cells), reduced in
 the kernel from fixed-order partials (``ops.kstep.reduce_partials_ref`` is
@@ -36,11 +38,6 @@ RESIDENT_MAX_K = 512      # steps of a launch
 RESIDENT_ROWS, RESIDENT_COLS = 18, 260
 # (cells a thread, threads a CTA) of the kernel's two instances
 RESIDENT_INSTANCES = ((2, 1024), (8, 512))
-# K5 takes the route (dist.runner.kernel_plan) where a CTA's band holds at
-# most this many cells: on the H100 it ran a 512-step chunk of 128^2
-# (1,024 a CTA) faster than K2, of 128x256 (2,048) even with it, and of
-# 256^2 (4,096) slower (PERF.md, chip_smoke.py's kernel phase).
-RESIDENT_ROUTE_CELLS = 1024
 
 
 def _band_rows(ny: int) -> int:
@@ -66,13 +63,6 @@ def resident_cells(ny: int, nx: int) -> int:
 def resident_fits(ny: int, nx: int) -> bool:
     """K5 holds the (ny, nx) grid in one cluster."""
     return resident_cells(ny, nx) > 0
-
-
-def resident_route(ny: int, nx: int) -> bool:
-    """The resident family's grids that run K5: it holds them and was
-    measured faster than K2 there; K2 runs the others."""
-    return (resident_fits(ny, nx)
-            and _band_rows(ny) * nx <= RESIDENT_ROUTE_CELLS)
 
 
 def cluster_resident_chunk_ref(f, obst_f, params: LBMParams, k: int,

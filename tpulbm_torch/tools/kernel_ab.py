@@ -9,9 +9,10 @@ imported beside this one, with its own wrappers, C signatures and build
 directory, and both kernel libraries are built at once. Each case calls a
 public chunk function of each side (``resident_chunk``, ``skew_chunk``,
 ``tile_chunk``, ``ring_chunk``, as the main path calls them, sums
-included; this tree's K5 ``cluster_resident_chunk`` against the base
-tree's K2, and this tree's K4 ``tile_chunk`` at 1024^2 against the base
-tree's K1 chunks, where each took the route from them) on the same input,
+included; this tree's K2 ``resident_chunk`` at 128^2 against the base
+tree's K5 ``cluster_resident_chunk``, and this tree's K4 ``tile_chunk``
+at 1024^2 against the base tree's K1 chunks, where each took the route
+from them) on the same input,
 a perturbed rest state drawn from a seed on the card, at the shapes of the
 main path; the states must be bitwise equal and the sums within 3e-4 (the
 kernels may sum the same values in another order). Times are CUDA-event ms
@@ -154,12 +155,10 @@ def _route_cases():
     """This tree's kernels against the base tree's kernels that the same
     route ran there (``--match route``)."""
     rk = resident.RESIDENT_K
-    for deck, seed in (("128x128", SEED), ("128x256", SEED + 13),
-                       ("256x256", SEED + 14)):
-        p, o, f = _deck(deck, seed)
-        yield (f"route: K5 {deck}, 512 steps vs base K2",
-               ("base", "resident", "resident_chunk", (f, o, p, rk)),
-               ("this", "cluster", "cluster_resident_chunk", (f, o, p, rk)))
+    p, o, f = _deck("128x128", SEED)
+    yield ("route: K2 128x128, 512 steps vs base K5",
+           ("base", "cluster", "cluster_resident_chunk", (f, o, p, rk)),
+           ("this", "resident", "resident_chunk", (f, o, p, rk)))
     p, o, f = _deck("1024x1024", SEED + 1)
     for k, fn, args in ((8, "skew_chunk", (f, o, p)),
                         (3, "kstep_chunk", (f, o, p, 3))):
@@ -172,9 +171,11 @@ def _same_cases():
     """(label, ops module, function, arguments): one function of both
     trees."""
     k = kstep_tile.TILE_K
-    p, o, f = _deck("128x128", SEED)
-    yield ("K2 128x128, 512 steps", "resident", "resident_chunk",
-           (f, o, p, resident.RESIDENT_K))
+    for deck, seed in (("128x128", SEED), ("128x256", SEED + 13),
+                       ("256x256", SEED + 14)):
+        p, o, f = _deck(deck, seed)
+        yield (f"K2 {deck}, 512 steps", "resident", "resident_chunk",
+               (f, o, p, resident.RESIDENT_K))
     p, o, f = _random(256, 512, SEED + 4)
     yield ("K2 256x512, 512 steps", "resident", "resident_chunk",
            (f, o, p, resident.RESIDENT_K))
