@@ -6,6 +6,7 @@
                                    # (phase 12)
     python3 chip_smoke.py --cards --processes   # only phase 12's processes
                                                 # on four cards
+    python3 chip_smoke.py --cards --torus       # only phase 12's torus
 
 Phases; any failure raises and exits non-zero before the result lines:
 
@@ -47,7 +48,14 @@ Phases; any failure raises and exits non-zero before the result lines:
    sums within AV_RTOL over the first SUMS_GATE_CHUNKS and, over all 64,
    within what a state within F_ATOL allows, ``sums_atol``), CUDA-event
    ms a launch beside the cuda ring's chunk and K4's whole-grid chunk of
-   the deck, its bound and K6's ptxas line (registers, spills).
+   the deck, its bound and K6's ptxas line (registers, spills); K6's
+   torus mode (``torus_p2p``, the one-process torus) over the 2x2 blocks
+   of 128^2 and 1024^2 for 64 chunks and of 8192^2 for 32: against
+   ``torus_p2p_chunks_ref`` over all of them (K6's gates), bitwise on a
+   rerun, its state and sums bitwise K4's torus mode with the host's
+   copies (the parent route) over all chunks and, in launches of one
+   chunk, chunk by chunk (the corners among them), CUDA-event ms a launch
+   beside the parent route's chunk, its bound and ptxas line.
    Every
    chunk kernel's in-kernel sums (the former K3, now each stepping
    kernel's epilogue) are held against ``reduce_partials_ref`` of the same
@@ -97,7 +105,9 @@ Phases; any failure raises and exits non-zero before the result lines:
    Each run logs its shard-to-card layout, MLUPS, peak device memory and
    host microseconds per chunk (the time to issue the runner call's
    chunks);
-7. the torus, through ``cli.main`` with ``--mesh-shape 2x2``: 128^2 (64
+7. the torus, through ``cli.main`` with ``--mesh-shape 2x2`` (one
+   process: K6's torus mode, ``torus_p2p`` launches and no
+   ``torus_chunk``): 128^2 (64
    columns a block, a width the TPU's torus kernel refuses) and 1024^2 at
    their full step counts through the golden gate; the first 10,000 steps
    of 1024^2 with checkpoints every CKPT_EVERY steps, whose last file then
@@ -152,7 +162,9 @@ Phases; any failure raises and exits non-zero before the result lines:
 12. with ``--cards``, instead of phases 3-11: the ring with shard i on card
     i (the cuda and the cuda-p2p ring, whose K6 hands slabs and flags
     through peer memory), and the torus with block (i, j) on card 2i + j
-    (``phase_cards``);
+    (K6's torus mode through peer memory; 1024^2 and 8192^2 bitwise one
+    card, and each on both torus routes in turns, ``tools/ring_ab.py
+    --mesh-shape 2x2``) (``phase_cards``);
     on four cards, the launcher's NCCL transport: 2 processes x 2 cards
     and 4 x 1, each on the cuda ring and on cuda-p2p (K6 across processes
     through CUDA IPC), 1024^2 (the bytes of the one-process ring, the final
@@ -792,6 +804,196 @@ def _p2p_check(deck, n, plain_chunks, seed, chunks=64):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def torus_p2p_bound(h, w, n, k, n_outer):
+    """A torus-mode launch of n_outer chunks of k steps over n (h, w)
+    blocks: the states and their mask bands in once, the states, the
+    landing slots' last slabs (two x slabs of h x k and two y slabs of
+    k x (w + 2k) a block) and the sums out once; k n_outer updates of
+    every cell (the blocks compute no cell twice)."""
+    cells = n * h * w
+    bands = n * (h + 2 * k) * (w + 2 * k)
+    slabs = n * 9 * (2 * h * k + 2 * k * (w + 2 * k))
+    return bound(4 * (9 * cells + bands + 9 * cells + slabs
+                      + n_outer * k * n),
+                 OPS_PER_UPDATE * cells * k * n_outer)
+
+
+def _torus_p2p_check(deck, chunks, seed, dy=2, dx=2):
+    """Torus mode of K6 (ring_p2p._torus_launch) over the deck's dy x dx
+    blocks on this card, `chunks` chunks of 8 steps from a perturbed state.
+    In launches of ring_p2p.outer_per_launch chunks (the first reads
+    the neighbours' states, the next ones the landing slots): bitwise on a
+    rerun; the state after all chunks and every chunk's sums bitwise K4's
+    torus mode (the parent route: the host's two-phase exchange and one
+    torus_chunk a block and chunk); against torus_p2p_chunks_ref over the
+    same chunks (the state within F_ATOL, the sums within AV_RTOL over the
+    first SUMS_GATE_CHUNKS and within sums_atol over all). In launches of
+    one chunk, in lockstep with K4's torus mode: every chunk's state (the
+    blocks' corner cells among them) and sums bitwise. The error word and
+    the ticket counter 0. CUDA-event ms of a launch (and a chunk) beside
+    the parent route's chunk (its torus_chunk launches and the host's
+    copies) and one torus_chunk launch, the plain version's over the same
+    chunks, the bound, and the kernel's ptxas line. Returns the record of
+    the kernels JSON line (one launch)."""
+    import torch
+
+    from tpulbm_torch.dist import multihost, runner, sharding
+    from tpulbm_torch.dist.mesh import get_mesh_2d
+    from tpulbm_torch.ops import _build, kstep_tile, ring_p2p
+    from tpulbm_torch.tools.p2p_ab import ptxas_lines
+
+    p, o = _load_deck(deck)
+    f0 = _state(p, seed)
+    mesh = get_mesh_2d(dy, dx)
+    n, (h, w), k = dy * dx, sharding.block_shape(p.ny, p.nx, dy, dx), 8
+    blocks, obs = sharding.shard_blocks(f0, o != 0, mesh)
+    del f0
+    tr = multihost.Transport([d for row in mesh for d in row])
+    bands = runner._torus_mask_bands(tr, obs, {k}, dy, dx, h, w)[k]
+    del obs
+    bases = [(b // dx * h - k) % p.ny for b in range(n)]
+    n_outer = ring_p2p.outer_per_launch([h], w, k)
+    pieces = runner._torus_pieces(k, dy, dx, (9,), h, w)
+
+    def k4_chunk(f):
+        """One chunk of the parent route: (the blocks, (n, k) sums)."""
+        halos = runner._torus_halos(tr, pieces, f, n)
+        step = [kstep_tile.torus_chunk(xlo, f[b], xhi, ylo, yhi, bands[b], p,
+                                       k, bases[b])
+                for b, (xlo, xhi, ylo, yhi) in enumerate(halos)]
+        return [g for g, _ in step], torch.stack([s for _, s in step])
+
+    def p2p(n_chunks, per=n_outer, each=None):
+        ex = ring_p2p.TorusExchange(mesh, h, w)
+        states = [b.clone() for b in blocks]
+        spares = [torch.empty_like(b) for b in blocks]
+        sums, first, c = [], True, 0
+        while c < n_chunks:
+            m = min(per, n_chunks - c)
+            got, _ = ring_p2p._torus_launch(ex, states, spares, bands, p, k,
+                                            m, bases, first)
+            if m % 2:
+                states, spares = spares, states
+            sums.append(torch.stack(got))
+            if each:
+                each(c, states, sums[-1])
+            c, first = c + m, False
+        torch.cuda.synchronize()
+        ex.check()
+        if _build.ticket_counter("cuda").item() != 0:
+            raise AssertionError(f"torus mode {deck}: ticket counter left "
+                                 f"non-zero")
+        return states, torch.cat(sums, 1)
+
+    f_a, s_a = p2p(chunks)
+    f_b, s_b = p2p(chunks)
+    rerun = torch.equal(s_a, s_b) and all(torch.equal(a, b)
+                                          for a, b in zip(f_a, f_b))
+    del f_b, s_b
+    f_r, sums_r = [b.clone() for b in blocks], []
+    for _ in range(chunks):
+        f_r, s = k4_chunk(f_r)
+        sums_r.append(s)
+    same_k4 = torch.equal(s_a, torch.cat(sums_r, 1)) and all(
+        torch.equal(a, b) for a, b in zip(f_a, f_r))
+    del f_r, sums_r
+    _free()
+    # launches of one chunk in lockstep with the parent route
+    lock = {"f": [b.clone() for b in blocks], "same": True, "corners": True}
+
+    def step_k4(c, states, s):
+        lock["f"], s_r = k4_chunk(lock["f"])
+        lock["same"] &= torch.equal(s, s_r) and all(
+            torch.equal(a, b) for a, b in zip(states, lock["f"]))
+        for a, b in zip(states, lock["f"]):
+            for rows in (slice(0, k), slice(h - k, h)):
+                for cols in (slice(0, k), slice(w - k, w)):
+                    lock["corners"] &= torch.equal(a[:, rows, cols],
+                                                   b[:, rows, cols])
+
+    p2p(chunks, per=1, each=step_k4)
+    del lock["f"]
+    nan = float("nan")
+    land = [{name: torch.full((2, m), nan, device="cuda")
+             for name, m in ring_p2p.torus_buffer_floats(h, w).items()}
+            for _ in range(n)]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    f_p, s_p = ring_p2p.torus_p2p_chunks_ref(
+        [b.clone() for b in blocks], bands, land, p, k, chunks, 0, bases,
+        True, dy, dx)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    del land
+    s_p = torch.stack(s_p)
+    err = max((a - b).abs().max().item() for a, b in zip(f_a, f_p))
+    rel = ((s_a - s_p).abs() / s_p.abs()).max(dim=0).values.cpu()
+    sums_abs, sums_ok, sums_bound = 0.0, True, float("inf")
+    for b in range(n):
+        mask = bands[b][k:-k, k:-k]
+        atol = min(sums_atol([g], [mask], int((mask == 0).sum().item()))[0]
+                   for g in (blocks[b], f_p[b]))
+        diff = (s_a[b] - s_p[b]).abs().max().item()
+        sums_abs, sums_bound = max(sums_abs, diff), min(sums_bound, atol)
+        sums_ok = sums_ok and diff <= atol
+    av_rel = rel.max().item()
+    sums_rel = rel[:SUMS_GATE_CHUNKS * k].max().item()
+    del f_a, s_a, f_p, s_p
+    _free()
+    # one launch of n_outer chunks, in a row (each reads the neighbours'
+    # states: the host's view of a launch after another), beside the
+    # parent route's chunk and one torus_chunk launch
+    ex = ring_p2p.TorusExchange(mesh, h, w)
+    states = [b.clone() for b in blocks]
+    spares = [torch.empty_like(b) for b in blocks]
+    reps = max(2, min(10, 2000 // n_outer))
+    ms = cuda_ms(lambda: ring_p2p._torus_launch(ex, states, spares, bands, p,
+                                                k, n_outer, bases, True),
+                 reps)
+    ex.check()
+    del states, spares
+    f = [b.clone() for b in blocks]
+    route_ms = cuda_ms(lambda: k4_chunk(f), max(2, min(50, 400 // n_outer
+                                                       * 8)))
+    *one, base = kstep_tile.torus_pieces(
+        sharding.gather_blocks(blocks, dy, dx, "cuda"), o, h * (dy - 1),
+        w * (dx - 1), h, w, k)
+    block_ms = cuda_ms(lambda: kstep_tile._torus_launch(*one, p, k, base),
+                       max(2, min(50, 400 // n_outer * 8)))
+    del f, one
+    _free()
+    bound_ms, bound_by = torus_p2p_bound(h, w, n, k, n_outer)
+    ptxas = "; ".join(line.split(": ", 1)[1].replace("ptxas info    : ", "")
+                      for line in ptxas_lines(_build.BUILD_DIR,
+                                              "torus_p2p_kernel")
+                      if line.startswith(f"k={k}:"))
+    log(f"[kernel] torus_p2p K6 torus mode ({deck} over {dy}x{dx}, "
+        f"{h}x{w} blocks, {chunks} chunks of {k} steps in launches of "
+        f"{n_outer}): max|df| {err:.3e} (<= {F_ATOL:g}), max av rel "
+        f"{av_rel:.3e} at step {int(rel.argmax())} ({sums_rel:.3e} over the "
+        f"first {SUMS_GATE_CHUNKS}, <= {AV_RTOL:g}), max abs raw sums diff "
+        f"{sums_abs:.4e} over all (<= {sums_bound:.4e} on every block: its "
+        f"free cells x the |u| error F_ATOL allows) against "
+        f"torus_p2p_chunks_ref; rerun bitwise {rerun}; state and sums "
+        f"bitwise K4's torus mode over {chunks} chunks {same_k4}, chunk by "
+        f"chunk in launches of one {lock['same']} (corners "
+        f"{lock['corners']}); "
+        f"{ms:.4f} ms a launch ({ms / n_outer:.4f} ms a chunk) vs the parent "
+        f"route (torus_chunk x {n} and the host's copies) {route_ms:.4f} ms "
+        f"a chunk, one torus_chunk launch {block_ms:.4f} ms; plain "
+        f"{plain_ms:.2f} ms for {chunks} chunks; bound {bound_ms:.4f} ms a "
+        f"launch ({bound_by}), bound/kernel {100 * bound_ms / ms:.1f} %; "
+        f"ptxas torus_p2p_kernel<{k}>: {ptxas or 'not in build.log'}")
+    if not (err <= F_ATOL and sums_rel <= AV_RTOL and sums_ok and rerun
+            and same_k4 and lock["same"]):
+        raise AssertionError(f"torus mode {deck} over {dy}x{dx}: disagrees "
+                             f"with its plain version or K4's torus mode")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
 def _free():
     import gc
 
@@ -995,6 +1197,14 @@ def phase_kernels():
     _torus_check(p, o, f0, 64, 64, 64, 64, 8, 200, 5,
                  "128x128 block (1, 1) of 2x2")
     del f0
+    # Torus mode of K6 over the 2x2 blocks of 128^2 and 1024^2 (the kernels
+    # line's record: one launch of 64 chunks), 64 chunks of 8 steps, and of
+    # 8192^2, 32 chunks (one launch): each against the plain version over
+    # all of them and bitwise K4's torus mode
+    _torus_p2p_check("128x128", 64, SEED + 19)
+    res["torus_p2p"] = _torus_p2p_check("1024x1024", 64, SEED + 20)
+    _torus_p2p_check("8192x8192", 32, SEED + 21)
+    _free()
     # K6 over the ring's shards on this card, 64 chunks of 8 steps: 128^2
     # over 2, 1024^2 over 4 (the kernels line's record: one launch of 64
     # chunks) and 8192^2 over 4 (two launches of 32), each held against the
@@ -1351,7 +1561,7 @@ P2P = ["--backend", "cuda-p2p"]
 # The launch counters that a mesh run may not touch but its own
 KERNEL_COUNTERS = ("skew_chunk", "kstep_chunk", "resident_chunk",
                    "tile_chunk", "cluster_resident", "ring_chunk",
-                   "ring_p2p", "torus_chunk")
+                   "ring_p2p", "torus_chunk", "torus_p2p")
 
 
 @contextlib.contextmanager
@@ -1389,7 +1599,8 @@ def _watch_simulation(seen):
 
 def _mesh_cli(deck, steps, mesh_args, totals, out=None, peak_gib=None):
     """One ring (``--device-count N``) or torus (``--mesh-shape DYxDX``)
-    run through cli.main: launches (ring_chunk or torus_chunk only),
+    run through cli.main: launches (ring_chunk, ring_p2p with
+    ``--backend cuda-p2p``, or torus_p2p, the one-process torus, only),
     MLUPS, peak device memory (at most peak_gib where given), host us per
     chunk, layout. Returns (the Simulation, Reynolds number)."""
     import torch
@@ -1398,8 +1609,8 @@ def _mesh_cli(deck, steps, mesh_args, totals, out=None, peak_gib=None):
     from tpulbm_torch.ops import _build, kstep_tile
 
     torus = "--mesh-shape" in mesh_args
-    p2p = "cuda-p2p" in mesh_args
-    kernel, tag = (("torus_chunk", "[torus]") if torus
+    p2p = torus or "cuda-p2p" in mesh_args
+    kernel, tag = (("torus_p2p", "[torus]") if torus
                    else ("ring_p2p" if p2p else "ring_chunk", "[ring]"))
     pf, of = deck_files(deck)
     args = [pf, of, *mesh_args]
@@ -1418,14 +1629,16 @@ def _mesh_cli(deck, steps, mesh_args, totals, out=None, peak_gib=None):
         dy, dx = len(sim.mesh), len(sim.mesh[0])
         k = min(kstep_tile.TILE_K, ny // dy, nx // dx)
         what = f"{dy}x{dx} blocks of {ny // dy}x{nx // dx}"
+        shards = dy * dx
     else:
         rows, _ = ring_rows(ny, len(sim.mesh))
         k = min(kstep_tile.TILE_K, min(rows))
         what = f"{len(rows)} shards ({'/'.join(map(str, rows))} rows)"
+        shards = len(rows)
     chunks = -(-steps // k)
     _check_launches(deck, counts, [kernel, "reduce_partials"],
                     [c for c in KERNEL_COUNTERS if c != kernel],
-                    p2p_chunks=chunks * len(sim.mesh) if p2p else 0)
+                    p2p_chunks=chunks * shards if p2p else 0)
     for key, v in counts.items():
         totals[key] += v
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1433,7 +1646,7 @@ def _mesh_cli(deck, steps, mesh_args, totals, out=None, peak_gib=None):
         f"{reynolds:.12E}, {elapsed:.3f} s, "
         f"{nx * ny * steps / elapsed / 1e6:.1f} MLUPS, peak device memory "
         f"{peak:.3f} GiB, {chunks} chunks of {k} steps"
-        f"{f' in {counts[kernel]} K6 launches' if p2p else ''}, host "
+        f"{f' in {counts[kernel]} {kernel} launches' if p2p else ''}, host "
         f"{seen['issue_s'] / chunks * 1e6:.1f} us per chunk, solve "
         f"{elapsed / chunks * 1e6:.1f} us per chunk")
     if peak_gib is not None and not peak <= peak_gib:
@@ -2286,13 +2499,18 @@ KERNELS = [
      "tpulbm/ops/pallas_kstep_rdma.py:65, "
      "tpulbm/ops/pallas_resident_rdma.py:63"),
     ("torus_chunk", "lbm_kstep_tile_torus (K4, torus_chunk: torus mode, the "
-     "per-block body of the 2-D torus)",
+     "per-block body of the 2-D torus; the route across processes)",
      "tpulbm_torch/csrc/kstep_tile.cu",
+     "tpulbm/ops/pallas_kstep.py:79 (x_halo=True)"),
+    ("torus_p2p", "lbm_torus_p2p (K6 torus mode, the one-process torus: "
+     "every block of a card for up to 64 chunks a launch, edge columns, "
+     "rows and corners handed between blocks inside the kernel)",
+     "tpulbm_torch/csrc/ring_p2p.cu",
      "tpulbm/ops/pallas_kstep.py:79 (x_halo=True)"),
 ]
 
 
-def phase_cards(processes_only=False):
+def phase_cards(processes_only=False, torus_only=False):
     """The ring and the torus across cards (``--cards``; needs two or
     more): the kernel-phase check of ``_ring_on_cards``, the 1024^2 deck
     over the cards on the cuda and the cuda-p2p ring (the same bytes), over
@@ -2304,7 +2522,9 @@ def phase_cards(processes_only=False):
     card's K4 run; on four cards, ``_processes_on_cards``.
     ``processes_only`` (``--cards --processes``, four cards): only
     ``_processes_on_cards`` and what it is held against, one card's 8192^2
-    run and the one-process ring over the four cards at 1024^2."""
+    run and the one-process ring over the four cards at 1024^2.
+    ``torus_only`` (``--cards --torus``): only the torus across cards and
+    what it is held against, one card's 8192^2 run."""
     import torch
 
     from tpulbm_torch.ops import _build
@@ -2325,6 +2545,9 @@ def phase_cards(processes_only=False):
     if processes_only:
         _mesh_golden("1024x1024", 20000, ["--device-count", str(n)], totals)
         _processes_on_cards(f_one, totals)
+        return
+    if torus_only:
+        _torus_on_cards(f_one, totals)
         return
     _ring_on_cards()
     outs = {}
@@ -2350,6 +2573,21 @@ def phase_cards(processes_only=False):
             raise AssertionError(f"{deck} over {n} cards disagrees")
         del f_ring
         _free()
+    _torus_on_cards(f_one, totals)
+    if n >= 4:
+        _processes_on_cards(f_one, totals)
+    else:
+        log("[multiproc] fewer than four cards: the NCCL transport is not "
+            "run")
+
+
+def _torus_on_cards(f_one, totals):
+    """The torus over 2x2 with block (i, j) on card (2i + j) % cards (K6's
+    torus mode, through peer memory): 1024^2 through the golden gate,
+    8192^2 bitwise one card's K4 run (``f_one``); each on both torus
+    routes in turns (``_torus_routes``)."""
+    import torch
+
     _mesh_golden("1024x1024", 20000, TORUS, totals)
     deck, steps = TORUS_WIDE_RUN
     sim, _ = _mesh_cli(deck, steps, TORUS, totals)
@@ -2362,11 +2600,33 @@ def phase_cards(processes_only=False):
         raise AssertionError(f"{deck} over 2x2 across cards disagrees")
     del f_torus
     _free()
-    if n >= 4:
-        _processes_on_cards(f_one, totals)
-    else:
-        log("[multiproc] fewer than four cards: the NCCL transport is not "
-            "run")
+    for deck, _ in (("1024x1024", 20000), TORUS_WIDE_RUN):
+        _torus_routes(deck)
+
+
+def _torus_routes(deck, pairs=2):
+    """The torus over 2x2 on both its routes in turns
+    (``tools/ring_ab.py --mesh-shape 2x2``: p2p, the one-process route,
+    and k4, K4's torus mode with the host's copies, the parent route), its
+    lines logged; logs the two medians (MLUPS, the deck's full step count a
+    call)."""
+    from tpulbm_torch.tools import ring_ab
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = ring_ab.main([*deck_files(deck), "--mesh-shape", "2x2",
+                           "--pairs", str(pairs)])
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"    {line}")
+    if rc != 0:
+        raise AssertionError(f"ring_ab {deck} --mesh-shape 2x2 returned {rc}")
+    result = json.loads(lines[-1])
+    med = result["median_mlups"]
+    log(f"[torus] {deck} over 2x2 ({_layout(result['layout'].split(','))}"
+        f"): p2p {med['p2p']:.1f} MLUPS, the parent route (k4) "
+        f"{med['k4']:.1f} MLUPS ({med['p2p'] / med['k4']:.2f}x), medians of "
+        f"{pairs} in turns")
 
 
 def _processes_on_cards(f_one, totals):
@@ -2456,12 +2716,16 @@ def main(argv=None) -> int:
         "--processes", action="store_true",
         help="with --cards: only the processes across four cards and what "
              "they are held against")
+    parser.add_argument(
+        "--torus", action="store_true",
+        help="with --cards: only the torus across cards and what it is "
+             "held against")
     args = parser.parse_args(argv)
     sys.path.insert(0, ROOT)
     kind = phase_device()
     phase_build()
     if args.cards:
-        phase_cards(processes_only=args.processes)
+        phase_cards(processes_only=args.processes, torus_only=args.torus)
         log(f"[time] the final-state gates against an f64-oracle golden: "
             f"{NPZ_GATES['runs']} runs, {NPZ_GATES['s']:.1f} s")
         import torch

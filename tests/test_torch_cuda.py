@@ -437,10 +437,11 @@ def test_torus_chunk_matches_plain_and_the_whole_grid(case):
 
 @pytest.mark.cuda
 def test_torus_runner_gives_the_single_device_state(case):
-    """The cuda torus over 2x2 and 4x2 blocks, 21 steps: one torus_chunk
-    launch per block and chunk, the state bitwise the single-device K4
-    plan's, the av series within the chunk gate; cuda-p2p refuses a 2-D
-    mesh."""
+    """The cuda torus over 2x2 and 4x2 blocks, 21 steps: the one-process
+    route, one torus_p2p launch a card for the two 8-step chunks and one
+    for the 5-step remainder (no torus_chunk launch), the state bitwise the
+    single-device K4 plan's, the av series within the chunk gate; cuda-p2p
+    refuses a 2-D mesh."""
     from tpulbm_torch.dist import sharding
     from tpulbm_torch.dist.mesh import get_mesh_2d
     from tpulbm_torch.dist.runner import run_plan
@@ -453,11 +454,85 @@ def test_torus_runner_gives_the_single_device_state(case):
         fs, obs = sharding.shard_blocks(f0, mask, mesh)
         _build.reset_launches()
         out, av = make_runner(p, 21, "cuda", mesh=mesh)(fs, obs)
-        assert _build.LAUNCHES["torus_chunk"] == 3 * dy * dx
+        cards = len({d for row in mesh for d in row})
+        assert _build.LAUNCHES["torus_p2p"] == 2 * cards
+        assert _build.LAUNCHES["torus_chunk"] == 0
+        assert _build.LAUNCHES["reduce_partials"] == 3 * dy * dx
         assert torch.equal(sharding.gather_blocks(out, dy, dx, "cuda"), f1)
         assert ((av - av1).abs() / av1.abs()).max().item() <= AV_RTOL
     with pytest.raises(ValueError, match="cuda-p2p"):
         make_runner(p, 21, "cuda-p2p", mesh=get_mesh_2d(2, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dy,dx", [(2, 2), (2, 4), (1, 4), (8, 1), (1, 1)])
+def test_torus_p2p_is_k4_torus_mode_and_the_plain_version(case, dy, dx):
+    """Torus mode of K6 (lbm_torus_p2p) over dy x dx blocks of the 200 x 136
+    grid (2x4 and 1x4: 34-column blocks, its 4-byte window loads; 1x4,
+    8x1 and 1x1: a block its own neighbour), 45 steps in two runner calls
+    of launches of 2 chunks (pull0, then the landing slots, and a 5-step
+    remainder): the state and av series bitwise the parent route's (K4
+    torus mode a block and chunk, the slabs copied by the host); the error
+    word and the ticket counter 0; its first launches of 3 chunks against
+    torus_p2p_chunks_ref (state within F_ATOL, sums within AV_RTOL)."""
+    from tpulbm_torch.dist import runner, sharding
+    from tpulbm_torch.dist.mesh import get_mesh_2d
+    from tpulbm_torch.ops import ring_p2p
+
+    p, f0, mask = case
+    mesh = get_mesh_2d(dy, dx)
+    got = []
+    for make in (lambda: runner.make_torus_runner(p, 45, mesh,
+                                                  kstep_tile.torus_chunk),
+                 lambda: runner.make_torus_p2p_runner(p, 45, mesh,
+                                                      max_outer=2)):
+        run = make()
+        # (a 1x1 block is f0 itself, which a run takes over)
+        fs, obs = sharding.shard_blocks(f0.clone(), mask, mesh)
+        avs = []
+        _build.reset_launches()
+        for _ in range(2):
+            fs, av = run(fs, obs)
+            avs.append(av)
+        got.append((sharding.gather_blocks(fs, dy, dx, "cuda"),
+                    torch.cat(avs), dict(_build.LAUNCHES)))
+    (f_k4, av_k4, n_k4), (f_p2p, av_p2p, n_p2p) = got
+    cards = len({d for row in mesh for d in row})
+    assert n_k4["torus_p2p"] == 0 and n_p2p["torus_chunk"] == 0
+    assert n_p2p["torus_p2p"] == 2 * 4 * cards
+    assert torch.equal(f_p2p, f_k4) and torch.equal(av_p2p, av_k4)
+    _counter_is_zero(f0.device)
+
+    h, w = p.ny // dy, p.nx // dx
+    k = min(8, h, w)
+    blocks, obs = sharding.shard_blocks(f0.clone(), mask, mesh)
+    ex = ring_p2p.TorusExchange(mesh, h, w)
+    bands = [torch.cat([ylo, torch.cat([xlo, o, xhi], -1), yhi], -2)
+             for o, (xlo, xhi, ylo, yhi) in zip(
+                 [o.float() for o in obs],
+                 ring_p2p.torus_halos([o.float() for o in obs], dy, dx, k))]
+    bases = [(b // dx * h - k) % p.ny for b in range(dy * dx)]
+    states = [b.clone() for b in blocks]
+    spares = [torch.empty_like(b) for b in blocks]
+    land = [{name: torch.full((2, n), float("nan"), device="cuda")
+             for name, n in ring_p2p.torus_buffer_floats(h, w).items()}
+            for _ in range(dy * dx)]
+    ref, sums_ref = [b.clone() for b in blocks], []
+    sums = []
+    for n_outer, pull0 in ((2, True), (1, False)):
+        states, spares, s = ring_p2p.torus_p2p_chunks(
+            ex, states, spares, bands, p, k, n_outer, bases, pull0)
+        sums.append(torch.stack(s))
+        ref, s = ring_p2p.torus_p2p_chunks_ref(
+            ref, bands, land, p, k, n_outer, ex.epoch - n_outer, bases,
+            pull0, dy, dx)
+        sums_ref.append(torch.stack(s))
+    ex.check()
+    assert max((a - b).abs().max().item() for a, b in zip(states, ref)) \
+        <= F_ATOL
+    s, s_ref = torch.cat(sums, 1), torch.cat(sums_ref, 1)
+    assert ((s - s_ref).abs() / s_ref.abs()).max().item() <= AV_RTOL
+    _counter_is_zero(f0.device)
 
 
 # The second process of the IPC round trip: maps the block of the handle

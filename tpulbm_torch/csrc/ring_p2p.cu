@@ -106,11 +106,45 @@
 // chunks). The design adds what K4 adds (the 1.51x recompute, the shared-
 // memory traffic of the step loop) and reads and writes each chunk's state
 // through L2 and device memory; the waits are the producer's.
+//
+// Torus mode (lbm_torus_p2p, torus_p2p_kernel) runs the same protocol over
+// the (h, w) blocks of the 2-D torus (--mesh-shape) that lie on one card:
+// the Hopper counterpart of the JAX package's torus runner
+// (tpulbm/dist/runner.py::_make_runner_2d_kstep), one program whose scan
+// holds both ppermute phases and pallas_kstep.py::_kernel with
+// x_halo=True for every chunk. It computes what K4's torus mode
+// (kstep_tile.cu::lbm_kstep_tile_torus) computes chunk by chunk with the
+// host's two-phase exchange between chunks: the same tiles, tile step,
+// window and sums, the same bits.
+//   Window: the band of K4's torus mode, ylo over xlo | block | xhi over
+//     yhi (the x slabs col_margin(k) wide, their k valid columns next to
+//     the block). Each of its nine pieces (row part x column part) is read
+//     from one buffer: the landing slots (ylo, yhi, xlo, xhi of the
+//     epoch's parity) and the block's state; on the first chunk of a
+//     runner call (pull0) the eight neighbours' input states instead.
+//   Pushes: a tile's owned cells in the block's last k columns go into the
+//     right neighbour's xlo slot, its first k into the left one's xhi; its
+//     last k rows into the lower neighbour's ylo (the slot's middle w
+//     columns), its first k into the upper one's yhi; and a corner's k x k
+//     cells into the diagonal neighbour's y slot, at the slot's margin
+//     columns: the host's exchange carried them through the x-extended
+//     band, here they are sent straight. A neighbour may be the block
+//     itself or one block may be several neighbours (one row or column of
+//     blocks, two blocks a side): each push writes its own cells.
+//   Dependencies: every tile with owned cells within k of a tile's own on
+//     the global grid, wrapping in both axes: tiles of the x, y and diagonal
+//     neighbour blocks among them (ops/ring_p2p.py::torus_graph). The slots
+//     rewritten two epochs later are read only by tiles of that relation,
+//     the diagonal readers of a corner included.
+//   The blocks' entries (kTorusWords pointers and integers a block) lie in a
+//     table in device memory, read by the producer as it posts an item, so
+//     a card holds up to kMaxTorusLocal blocks.
 
 #include <cuda_runtime.h>
 
 #include <cstring>
 #include <initializer_list>
+#include <type_traits>
 
 #include "async_copy.cuh"
 #include "lbm_cell.cuh"
@@ -146,6 +180,24 @@ constexpr int kMaxDevices = 64;
 // then h, h_prev, h_next, row_base.
 constexpr int kWords = 19;
 static_assert(kMaxDeps == 32, "one producer lane a dependency");
+// Torus mode: blocks of one launch, and the words of a block's entry in its
+// table (lbm_torus_p2p): the pointers at the indices below, then row_base.
+constexpr int kMaxTorusLocal = 64;
+constexpr int kTorusWords = 26;
+constexpr int kTObst = 0, kTState = 1, kTPartials = 3, kTSums = 4;
+constexpr int kTIn = 5;      // the 8 neighbours' input states, kNbr order
+constexpr int kTSlot = 13;   // own landing buffers: xlo, xhi, ylo, yhi
+constexpr int kTPush = 17;   // the 8 pushes' landing buffers, kPush order
+constexpr int kTRowBase = 25;
+// Neighbours: left, right, up, down, up-left, up-right, down-left,
+// down-right.
+enum Nbr { kW, kE, kN, kS, kNW, kNE, kSW, kSE };
+// Pushes, in table order: the right neighbour's xlo (the block's last k
+// columns), the left one's xhi (first k), the lower one's ylo (last k
+// rows), the upper one's yhi (first k rows), then the corners: the
+// lower-right's ylo (last rows, last columns), the lower-left's ylo, the
+// upper-right's yhi and the upper-left's yhi.
+enum Push { kToE, kToW, kToS, kToN, kToSE, kToSW, kToNE, kToNW };
 
 // One shard of a launch. state[0] holds the state at the launch's first
 // epoch; chunk c reads state[c & 1] and writes state[(c + 1) & 1].
@@ -163,14 +215,32 @@ struct Shard {
   int h, h_prev, h_next, row_base, ntiles;
 };
 
-struct Launch {
-  Shard shard[kMaxLocal];
+// The protocol's part of a launch, in both modes.
+struct Protocol {
   const int* graph;                  // (items, kRec), walk order
   const int* peer_flags[kMaxPeers];  // [0]: this card's flat flag array
   int* flags;                        // peer_flags[0], written
   int n_local, items, n_outer, base, pull0;
   int* error;              // this card's error word
   unsigned int* counter;   // this card's ticket counter, zeroed, left so
+};
+
+// The shard table first: with the protocol's fields first the ring's
+// launch ran ~0.6 % slower at 8192^2 over 4 shards (PERF.md).
+struct Launch {
+  Shard shard[kMaxLocal];
+  Protocol p;
+};
+
+// Torus mode: the (h, w) blocks of the launch in `table` (kTorusWords int64
+// a block, on the card). A block's landing buffers hold two slots each, the
+// second xstride (x) or ystride (y) floats after the first: an x slot is
+// (9, h, kx), a y slot (9, k, w + 2kx), kx = col_margin(k).
+struct TorusLaunch {
+  Protocol p;
+  const long long* table;
+  int h, w;
+  long long xstride, ystride;
 };
 
 // The stepped tile of a stage, written by the producer before it arrives
@@ -184,6 +254,16 @@ struct Job {
   int h, y0, x0, own_rows, own_cols, ntiles;
   int push_remote;         // a push goes to another card
   int live;                // 0: no more tiles
+};
+
+// Torus mode's stepped tile: as Job, its landing buffers by Push.
+struct TorusJob {
+  float* out;              // the block's next state, (9, h, w)
+  float* push[8];          // the slots of the next parity, Push order
+  float* partials;
+  int y0, x0, own_rows, own_cols, ntiles;
+  int push_remote;
+  int live;
 };
 
 // The producer's view of an item; lane l holds dependency l.
@@ -329,12 +409,78 @@ __device__ __forceinline__ void copy_window(float* stage, unsigned char* acc,
   }
 }
 
-// Copy-group thread t's part of stage st's window, then its arrivals on
-// full: once for its stores, once (cp.async.mbarrier.arrive) when its
-// copies land.
-template <int kK>
+// Torus mode's window source: band (h + 2k, w + 2kx) cell (sr, c) of
+// piece[3 ry + rx] (ry: rows [0, k), [k, k + h), [k + h, h + 2k); rx:
+// columns [0, kx), [kx, kx + w), [kx + w, w + 2kx)) is population q at
+// buf[off + sr pitch + c + q plane]; the mask band obst is (h + 2k, w + 2kx).
+struct Piece {
+  const float* buf;
+  long long off, plane;
+  int pitch;
+};
+
+struct TorusWindow {
+  Piece piece[9];
+  const float* obst;
+  int h, w, row_base, y0, x0, live;
+};
+
+// Copy-group thread t's part of torus window W, as copy_window: window
+// column wc of a tile at block column x0 is band column x0 + wc, as in
+// K4's torus mode. Cells past the band are filled as blocked cells, and so
+// are, with 4-byte copies, the x slabs' padding columns (which no step
+// reads; with 16-byte copies every 4-column segment lies in one piece and
+// is copied whole, padding included).
+template <int kK, int kSeg>
+__device__ __forceinline__ void copy_window(float* stage, unsigned char* acc,
+                                            const TorusWindow& W,
+                                            const tpulbm::LbmArgs& a, int t) {
+  constexpr int k = kK;
+  constexpr int kx = col_margin(k);
+  constexpr int wh = kTile + 2 * k;
+  constexpr int w = kTile + 2 * kx;
+  constexpr int plane = wh * w;
+  constexpr int segs = w / kSeg;
+  const int band_cols = W.w + 2 * kx;
+  for (int s = t; s < wh * segs; s += 32 * kCopyWarps) {
+    const int wy = s / segs, wc = (s - wy * segs) * kSeg;
+    const int sr = W.y0 + wy, c = W.x0 + wc;   // band row and column
+    const bool in = sr < W.h + 2 * k;
+    if (wc == 0) acc[wy] = in && wrap(W.row_base + sr, a.ny) == a.accel_row;
+    float* d = stage + wy * w + wc;
+    bool fill = !in || c >= band_cols;
+    if constexpr (kSeg == 1) fill = fill || c < kx - k || c >= kx + W.w + k;
+    if (fill) {
+      for (int e = 0; e < kSeg; ++e) {
+        for (int q = 0; q < 9; ++q) d[q * plane + e] = 0.0f;
+        d[9 * plane + e] = 1.0f;
+      }
+      continue;
+    }
+    const int ry = sr < k ? 0 : (sr < k + W.h ? 1 : 2);
+    const int rx = c < kx ? 0 : (c < kx + W.w ? 1 : 2);
+    const Piece& P = W.piece[3 * ry + rx];
+    const float* g = P.buf + (P.off + (long long)sr * P.pitch + c);
+    const float* m = W.obst + (size_t)sr * band_cols + c;
+    if constexpr (kSeg == 4) {
+#pragma unroll
+      for (int q = 0; q < 9; ++q)
+        tpulbm::cp_async16(d + q * plane, g + q * P.plane);
+      tpulbm::cp_async16(d + 9 * plane, m);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 9; ++q) d[q * plane] = __ldcg(g + q * P.plane);
+      d[9 * plane] = __ldcg(m);
+    }
+  }
+}
+
+// Copy-group thread t's part of stage st's window (a Window or a
+// TorusWindow), then its arrivals on full: once for its stores, once
+// (cp.async.mbarrier.arrive) when its copies land.
+template <int kK, class Win>
 __device__ __forceinline__ void copy_part(float* stage, unsigned char* acc,
-                                          const Window& W,
+                                          const Win& W,
                                           unsigned long long* full,
                                           const tpulbm::LbmArgs& a, int vec16,
                                           int t) {
@@ -346,15 +492,168 @@ __device__ __forceinline__ void copy_part(float* stage, unsigned char* acc,
   mbar_arrive(full);
 }
 
+// Ring mode's post of an item: the stepped tile's job and the source of
+// its window (lo | shard | hi: the landing slots of the epoch's parity, or
+// with pull0 on chunk 0 the neighbours' input states).
 template <int kK>
-__global__ void __launch_bounds__(kBlock, 1)
-    ring_p2p_kernel(const __grid_constant__ Launch L, tpulbm::LbmArgs a,
-                    int vec16) {
+__device__ __forceinline__ void post(const Launch& L, const Item& it, Job& J,
+                                     Window& W, const tpulbm::LbmArgs& a) {
+  constexpr int k = kK;
+  const Shard& S = L.shard[it.j];
+  const int e = L.p.base + it.c;
+  const size_t slab_plane = (size_t)k * a.nx;
+  const int parity = (e + 1) & 1;
+  J.out = S.state[(it.c + 1) & 1];
+  J.push_lo = S.push_lo[parity];
+  J.push_hi = S.push_hi[parity];
+  J.partials = S.partials + (size_t)it.c * k * S.ntiles + it.tile;
+  J.h = S.h;
+  J.y0 = it.y0;
+  J.x0 = it.x0;
+  J.own_rows = it.own_rows;
+  J.own_cols = it.own_cols;
+  J.ntiles = S.ntiles;
+  J.push_remote = it.duties & kPushRemote;
+  J.live = 1;
+  if (L.p.pull0 && it.c == 0) {
+    W.lo = S.prev_in + (size_t)(S.h_prev - k) * a.nx;
+    W.hi = S.next_in;
+    W.lo_plane = (size_t)S.h_prev * a.nx;
+    W.hi_plane = (size_t)S.h_next * a.nx;
+  } else {
+    W.lo = S.lo[e & 1];
+    W.hi = S.hi[e & 1];
+    W.lo_plane = W.hi_plane = slab_plane;
+  }
+  W.mid = S.state[it.c & 1];
+  W.mid_plane = (size_t)S.h * a.nx;
+  W.obst = S.obst;
+  W.h = S.h;
+  W.row_base = S.row_base;
+  W.y0 = it.y0;
+  W.x0 = it.x0;
+  W.live = 1;
+}
+
+__device__ __forceinline__ int torus_tiles(const TorusLaunch& L) {
+  return ((L.h + kTile - 1) / kTile) * ((L.w + kTile - 1) / kTile);
+}
+
+// Torus mode's post: the job, with its eight landing slots of the next
+// parity, and the window's nine pieces (TorusWindow): the block's state in
+// the middle; around it the landing slots of the epoch's parity, or with
+// pull0 on chunk 0 the neighbours' input states, at the offsets that put
+// their cells next to the block.
+template <int kK>
+__device__ __forceinline__ void post(const TorusLaunch& L, const Item& it,
+                                     TorusJob& J, TorusWindow& W,
+                                     const tpulbm::LbmArgs&) {
+  constexpr int k = kK;
+  constexpr int kx = col_margin(k);
+  const long long* tb = L.table + (size_t)it.j * kTorusWords;
+  auto ptr = [&](int i) { return reinterpret_cast<float*>(__ldg(tb + i)); };
+  const int e = L.p.base + it.c, h = L.h, w = L.w;
+  const int ntiles = torus_tiles(L);
+  J.out = ptr(kTState + ((it.c + 1) & 1));
+#pragma unroll
+  for (int d = 0; d < 8; ++d)
+    J.push[d] = ptr(kTPush + d) + ((e + 1) & 1) * (d == kToE || d == kToW
+                                                       ? L.xstride
+                                                       : L.ystride);
+  J.partials = ptr(kTPartials) + (size_t)it.c * k * ntiles + it.tile;
+  J.y0 = it.y0;
+  J.x0 = it.x0;
+  J.own_rows = it.own_rows;
+  J.own_cols = it.own_cols;
+  J.ntiles = ntiles;
+  J.push_remote = it.duties & kPushRemote;
+  J.live = 1;
+  const long long hw = (long long)h * w, yw = w + 2 * kx;
+  auto set = [&](int i, const float* buf, long long off, long long pitch,
+                 long long plane) {
+    W.piece[i] = Piece{buf, off, plane, (int)pitch};
+  };
+  set(4, ptr(kTState + (it.c & 1)), -k * (long long)w - kx, w, hw);
+  if (L.p.pull0 && it.c == 0) {
+    const long long top = (long long)(h - k) * w, mid = -(long long)k * w,
+                    bot = -(long long)(k + h) * w;
+    const long long left = w - kx, centre = -kx, right = -kx - w;
+    set(0, ptr(kTIn + kNW), top + left, w, hw);
+    set(1, ptr(kTIn + kN), top + centre, w, hw);
+    set(2, ptr(kTIn + kNE), top + right, w, hw);
+    set(3, ptr(kTIn + kW), mid + left, w, hw);
+    set(5, ptr(kTIn + kE), mid + right, w, hw);
+    set(6, ptr(kTIn + kSW), bot + left, w, hw);
+    set(7, ptr(kTIn + kS), bot + centre, w, hw);
+    set(8, ptr(kTIn + kSE), bot + right, w, hw);
+  } else {
+    const long long xo = (e & 1) * L.xstride, yo = (e & 1) * L.ystride;
+    const float* ylo = ptr(kTSlot + 2) + yo;
+    const float* yhi = ptr(kTSlot + 3) + yo;
+    for (int i = 0; i < 3; ++i) {
+      set(i, ylo, 0, yw, k * yw);
+      set(6 + i, yhi, -(long long)(k + h) * yw, yw, k * yw);
+    }
+    set(3, ptr(kTSlot) + xo, -(long long)k * kx, kx, (long long)h * kx);
+    set(5, ptr(kTSlot + 1) + xo, -(long long)k * kx - kx - w, kx,
+        (long long)h * kx);
+  }
+  W.obst = ptr(kTObst);
+  W.h = h;
+  W.w = w;
+  W.row_base = (int)__ldg(tb + kTRowBase);
+  W.y0 = it.y0;
+  W.x0 = it.x0;
+  W.live = 1;
+}
+
+// Torus mode's store of owned cell (oy, ox) of job J's tile: the block's
+// next state, and each push whose cells hold it (see Push).
+template <int kK>
+__device__ __forceinline__ void torus_store(const TorusLaunch& L,
+                                            const TorusJob& J, int oy, int ox,
+                                            const float* res) {
+  constexpr int k = kK;
+  constexpr int kx = col_margin(k);
+  const int h = L.h, w = L.w, row = J.y0 + oy, col = J.x0 + ox;
+  const size_t yw = w + 2 * kx;
+  const size_t xplane = (size_t)h * kx, yplane = k * yw;
+  auto put = [&](float* p, size_t plane) {
+#pragma unroll
+    for (int q = 0; q < 9; ++q) p[q * plane] = res[q];
+  };
+  put(J.out + (size_t)row * w + col, (size_t)h * w);
+  const bool east = col >= w - k, west = col < k;
+  const size_t ec = col - (w - kx);   // the column in a slot's left margin
+  if (east) put(J.push[kToE] + (size_t)row * kx + ec, xplane);
+  if (west) put(J.push[kToW] + (size_t)row * kx + col, xplane);
+  if (row >= h - k) {
+    const size_t r = (row - (h - k)) * yw;
+    put(J.push[kToS] + r + kx + col, yplane);
+    if (east) put(J.push[kToSE] + r + ec, yplane);
+    if (west) put(J.push[kToSW] + r + kx + w + col, yplane);
+  }
+  if (row < k) {
+    const size_t r = row * yw;
+    put(J.push[kToN] + r + kx + col, yplane);
+    if (east) put(J.push[kToNE] + r + ec, yplane);
+    if (west) put(J.push[kToNW] + r + kx + w + col, yplane);
+  }
+}
+
+// The kernel of both modes (LaunchT: Launch or TorusLaunch), one CTA.
+template <int kK, class LaunchT>
+__device__ __forceinline__ void p2p_body(const LaunchT& L,
+                                         const tpulbm::LbmArgs& a,
+                                         int vec16) {
+  constexpr bool kTorus = std::is_same_v<LaunchT, TorusLaunch>;
+  using JobT = std::conditional_t<kTorus, TorusJob, Job>;
+  using WinT = std::conditional_t<kTorus, TorusWindow, Window>;
   extern __shared__ __align__(16) float smem[];
   __shared__ float warp_sums[kMaxK][kWarps];
   __shared__ unsigned char acc_rows[2][kMaxW];
-  __shared__ Job job[2];
-  __shared__ Window win[2];
+  __shared__ JobT job[2];
+  __shared__ WinT win[2];
   // posted[s]: win[s] is set (the producer's arrival); full[s]: stage s's
   // window and job are in (the copy group's arrivals and copies); done[s]:
   // its tile is stored (one arrival)
@@ -362,8 +661,7 @@ __global__ void __launch_bounds__(kBlock, 1)
   __shared__ int go;
   constexpr int k = kK;
   constexpr int sfloats = stage_floats(k);
-  const int total = L.items * L.n_outer;
-  const size_t slab_plane = (size_t)k * a.nx;
+  const int total = L.p.items * L.p.n_outer;
   if (threadIdx.x == 0) {
     for (int s = 0; s < 2; ++s) {
       mbar_init(&posted[s], 1);
@@ -380,29 +678,43 @@ __global__ void __launch_bounds__(kBlock, 1)
     for (int n = 0;; ++n) {
       const int st = n & 1;
       mbar_wait(&full[st], (n >> 1) & 1);
-      const Job& J = job[st];
+      const JobT& J = job[st];
       if (!J.live) break;
-      step_tile<kK, kStepBar>(
-          smem + st * sfloats, acc_rows[st], J.own_rows, J.own_cols, cells,
-          warp_sums, a,
-          [&](int oy, int ox, const float* res) {
-            const int row = J.y0 + oy, col = J.x0 + ox, h = J.h;
-            float* o = J.out + (size_t)row * a.nx + col;
-            const size_t oplane = (size_t)h * a.nx;
+      auto partial = [&](int s, float v) {
+        J.partials[(size_t)s * J.ntiles] = v;
+      };
+      if constexpr (kTorus) {
+        step_tile<kK, kStepBar>(
+            smem + st * sfloats, acc_rows[st], J.own_rows, J.own_cols, cells,
+            warp_sums, a,
+            [&](int oy, int ox, const float* res) {
+              torus_store<kK>(L, J, oy, ox, res);
+            },
+            partial);
+      } else {
+        step_tile<kK, kStepBar>(
+            smem + st * sfloats, acc_rows[st], J.own_rows, J.own_cols, cells,
+            warp_sums, a,
+            [&](int oy, int ox, const float* res) {
+              const int row = J.y0 + oy, col = J.x0 + ox, h = J.h;
+              float* o = J.out + (size_t)row * a.nx + col;
+              const size_t oplane = (size_t)h * a.nx;
+              const size_t slab_plane = (size_t)k * a.nx;
 #pragma unroll
-            for (int q = 0; q < 9; ++q) o[q * oplane] = res[q];
-            if (row >= h - k) {
-              float* p = J.push_lo + (size_t)(row - (h - k)) * a.nx + col;
+              for (int q = 0; q < 9; ++q) o[q * oplane] = res[q];
+              if (row >= h - k) {
+                float* p = J.push_lo + (size_t)(row - (h - k)) * a.nx + col;
 #pragma unroll
-              for (int q = 0; q < 9; ++q) p[q * slab_plane] = res[q];
-            }
-            if (row < k) {
-              float* p = J.push_hi + (size_t)row * a.nx + col;
+                for (int q = 0; q < 9; ++q) p[q * slab_plane] = res[q];
+              }
+              if (row < k) {
+                float* p = J.push_hi + (size_t)row * a.nx + col;
 #pragma unroll
-              for (int q = 0; q < 9; ++q) p[q * slab_plane] = res[q];
-            }
-          },
-          [&](int s, float v) { J.partials[(size_t)s * J.ntiles] = v; });
+                for (int q = 0; q < 9; ++q) p[q * slab_plane] = res[q];
+              }
+            },
+            partial);
+      }
       if (J.push_remote) __threadfence_system();
       // every stepping thread's stores (and sys fence) and reads of job[st]
       // are done: the producer may release the tile and refill the stage
@@ -429,9 +741,9 @@ __global__ void __launch_bounds__(kBlock, 1)
 
     auto fetch = [&](int item) {
       Item it;
-      it.c = item / L.items;
-      it.r = item - it.c * L.items;
-      const int* rec = L.graph + (size_t)it.r * kRec;
+      it.c = item / L.p.items;
+      it.r = item - it.c * L.p.items;
+      const int* rec = L.p.graph + (size_t)it.r * kRec;
       const int hdr = __ldg(rec + (lane & (kRecDeps - 1)));
       const int dep = __ldg(rec + kRecDeps + lane);
       it.j = __shfl_sync(0xffffffffu, hdr, 0);
@@ -443,7 +755,7 @@ __global__ void __launch_bounds__(kBlock, 1)
       it.duties = __shfl_sync(0xffffffffu, hdr, 6);
       const int counts = __shfl_sync(0xffffffffu, hdr, 7);
       const int local = counts & 255, deps = local + (counts >> 8);
-      it.flag = lane < deps ? L.peer_flags[dep >> kPeerShift] +
+      it.flag = lane < deps ? L.p.peer_flags[dep >> kPeerShift] +
                                   (dep & ((1 << kPeerShift) - 1))
                             : nullptr;
       it.sys = lane >= local;
@@ -454,7 +766,7 @@ __global__ void __launch_bounds__(kBlock, 1)
     // every lane where all have finished the epoch before the item's.
     auto poll = [&](const Item& it) {
       const int ok =
-          !it.flag || load_acquire(it.flag, it.sys) >= L.base + it.c;
+          !it.flag || load_acquire(it.flag, it.sys) >= L.p.base + it.c;
       const bool all = __all_sync(0xffffffffu, ok);
       __syncwarp();
       return all;
@@ -469,9 +781,9 @@ __global__ void __launch_bounds__(kBlock, 1)
         if ((n & 31) == 0) {
           int bad = 0;
           if (lane == 0) {
-            bad = *(volatile int*)L.error;
+            bad = *(volatile int*)L.p.error;
             if (!bad && globaltimer() - t0 > kSpinNs) {
-              atomicExch(L.error, kErrTimeout);
+              atomicExch(L.p.error, kErrTimeout);
               bad = 1;
             }
           }
@@ -484,42 +796,8 @@ __global__ void __launch_bounds__(kBlock, 1)
     // The item's job and window into stage st: win[st] for the copy
     // warps (posted), this warp's part of the copy, the arrivals on full.
     auto issue = [&](const Item& it, int st) {
-      const Shard& S = L.shard[it.j];
-      const int e = L.base + it.c;
       if (lane == 0) {
-        Job& J = job[st];
-        const int parity = (e + 1) & 1;
-        J.out = S.state[(it.c + 1) & 1];
-        J.push_lo = S.push_lo[parity];
-        J.push_hi = S.push_hi[parity];
-        J.partials = S.partials + (size_t)it.c * k * S.ntiles + it.tile;
-        J.h = S.h;
-        J.y0 = it.y0;
-        J.x0 = it.x0;
-        J.own_rows = it.own_rows;
-        J.own_cols = it.own_cols;
-        J.ntiles = S.ntiles;
-        J.push_remote = it.duties & kPushRemote;
-        J.live = 1;
-        Window& W = win[st];
-        if (L.pull0 && it.c == 0) {
-          W.lo = S.prev_in + (size_t)(S.h_prev - k) * a.nx;
-          W.hi = S.next_in;
-          W.lo_plane = (size_t)S.h_prev * a.nx;
-          W.hi_plane = (size_t)S.h_next * a.nx;
-        } else {
-          W.lo = S.lo[e & 1];
-          W.hi = S.hi[e & 1];
-          W.lo_plane = W.hi_plane = slab_plane;
-        }
-        W.mid = S.state[it.c & 1];
-        W.mid_plane = (size_t)S.h * a.nx;
-        W.obst = S.obst;
-        W.h = S.h;
-        W.row_base = S.row_base;
-        W.y0 = it.y0;
-        W.x0 = it.x0;
-        W.live = 1;
+        post<kK>(L, it, job[st], win[st], a);
         mbar_arrive(&posted[st]);
       }
       __syncwarp();
@@ -540,7 +818,7 @@ __global__ void __launch_bounds__(kBlock, 1)
     // The tile's flag, after its stores (done): epoch + 1.
     auto release = [&](const Item& it) {
       if (lane == 0)
-        store_release(L.flags + it.r, L.base + it.c + 1,
+        store_release(L.p.flags + it.r, L.p.base + it.c + 1,
                       it.duties & kReadRemote);
       __syncwarp();
     };
@@ -584,18 +862,44 @@ __global__ void __launch_bounds__(kBlock, 1)
   }
 
   __syncthreads();
-  if (threadIdx.x == 0) go = *(volatile int*)L.error == 0;
+  if (threadIdx.x == 0) go = *(volatile int*)L.p.error == 0;
   __syncthreads();
-  if (go && tpulbm::last_ticket(L.counter)) {
-    for (int j = 0; j < L.n_local; ++j) {
-      const Shard& S = L.shard[j];
-      for (int c = 0; c < L.n_outer; ++c) {
-        tpulbm::reduce_rows(L.counter, S.partials + (size_t)c * k * S.ntiles,
-                            S.sums + c * k, k, S.ntiles);
+  if (go && tpulbm::last_ticket(L.p.counter)) {
+    for (int j = 0; j < L.p.n_local; ++j) {
+      const float* partials;
+      float* sums;
+      int ntiles;
+      if constexpr (kTorus) {
+        const long long* tb = L.table + (size_t)j * kTorusWords;
+        partials = reinterpret_cast<const float*>(__ldg(tb + kTPartials));
+        sums = reinterpret_cast<float*>(__ldg(tb + kTSums));
+        ntiles = torus_tiles(L);
+      } else {
+        partials = L.shard[j].partials;
+        sums = L.shard[j].sums;
+        ntiles = L.shard[j].ntiles;
+      }
+      for (int c = 0; c < L.p.n_outer; ++c) {
+        tpulbm::reduce_rows(L.p.counter, partials + (size_t)c * k * ntiles,
+                            sums + c * k, k, ntiles);
         __syncthreads();
       }
     }
   }
+}
+
+template <int kK>
+__global__ void __launch_bounds__(kBlock, 1)
+    ring_p2p_kernel(const __grid_constant__ Launch L, tpulbm::LbmArgs a,
+                    int vec16) {
+  p2p_body<kK>(L, a, vec16);
+}
+
+template <int kK>
+__global__ void __launch_bounds__(kBlock, 1)
+    torus_p2p_kernel(const __grid_constant__ TorusLaunch L,
+                     tpulbm::LbmArgs a, int vec16) {
+  p2p_body<kK>(L, a, vec16);
 }
 
 int smem_bytes(int k) { return 2 * stage_floats(k) * (int)sizeof(float); }
@@ -604,26 +908,36 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<size_t>(p) & 15) == 0;
 }
 
+// The kernel of a mode and k.
+template <bool kTorus, int kK>
+constexpr auto kernel_of() {
+  if constexpr (kTorus)
+    return torus_p2p_kernel<kK>;
+  else
+    return ring_p2p_kernel<kK>;
+}
+
 // The persistent grid of an instance on the current device, its shared-
 // memory limit set on first use: every CTA of a launch of at most this many
 // is resident at once, which the waits need.
-template <int kK>
+template <bool kTorus, int kK>
 cudaError_t configure(int* grid_cap) {
   static int cap[kMaxDevices];
+  constexpr auto kernel = kernel_of<kTorus, kK>();
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!cap[dev]) {
     int sms = 0, per_sm = 0;
-    e = cudaFuncSetAttribute(ring_p2p_kernel<kK>,
+    e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_bytes(kK));
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, ring_p2p_kernel<kK>, kBlock, smem_bytes(kK));
+          &per_sm, kernel, kBlock, smem_bytes(kK));
     if (e != cudaSuccess) return e;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     cap[dev] = per_sm * sms;
@@ -635,11 +949,11 @@ cudaError_t configure(int* grid_cap) {
 template <int kK>
 int launch(const Launch& l, const tpulbm::LbmArgs& a, cudaStream_t stream) {
   int cap = 0;
-  cudaError_t e = configure<kK>(&cap);
+  cudaError_t e = configure<false, kK>(&cap);
   if (e != cudaSuccess) return (int)e;
-  const int total = l.items * l.n_outer;
+  const int total = l.p.items * l.p.n_outer;
   bool vec16 = a.nx % 4 == 0;
-  for (int j = 0; j < l.n_local; ++j) {
+  for (int j = 0; j < l.p.n_local; ++j) {
     const Shard& s = l.shard[j];
     for (const void* p : {(const void*)s.obst, (const void*)s.state[0],
                           (const void*)s.state[1], (const void*)s.prev_in,
@@ -653,13 +967,31 @@ int launch(const Launch& l, const tpulbm::LbmArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <int kK>
+int launch_torus(const TorusLaunch& l, const tpulbm::LbmArgs& a, int vec16,
+                 cudaStream_t stream) {
+  int cap = 0;
+  cudaError_t e = configure<true, kK>(&cap);
+  if (e != cudaSuccess) return (int)e;
+  const int total = l.p.items * l.p.n_outer;
+  torus_p2p_kernel<kK><<<total < cap ? total : cap, kBlock, smem_bytes(kK),
+                         stream>>>(l, a, vec16);
+  return (int)cudaGetLastError();
+}
+
 using LaunchFn = int (*)(const Launch&, const tpulbm::LbmArgs&, cudaStream_t);
 constexpr LaunchFn kLaunch[kMaxK] = {launch<1>, launch<2>, launch<3>,
                                      launch<4>, launch<5>, launch<6>,
                                      launch<7>, launch<8>};
+using TorusLaunchFn = int (*)(const TorusLaunch&, const tpulbm::LbmArgs&, int,
+                              cudaStream_t);
+constexpr TorusLaunchFn kTorusLaunch[kMaxK] = {
+    launch_torus<1>, launch_torus<2>, launch_torus<3>, launch_torus<4>,
+    launch_torus<5>, launch_torus<6>, launch_torus<7>, launch_torus<8>};
 constexpr cudaError_t (*kConfigure[kMaxK])(int*) = {
-    configure<1>, configure<2>, configure<3>, configure<4>,
-    configure<5>, configure<6>, configure<7>, configure<8>};
+    configure<false, 1>, configure<false, 2>, configure<false, 3>,
+    configure<false, 4>, configure<false, 5>, configure<false, 6>,
+    configure<false, 7>, configure<false, 8>};
 
 // f() with `device` current; restores the current device.
 template <class F>
@@ -801,16 +1133,16 @@ int lbm_ring_p2p(const long long* table, int n_local, const int* graph,
       n_peers < 1 || n_peers > kMaxPeers || !graph)
     return (int)cudaErrorInvalidValue;
   Launch l{};
-  l.n_local = n_local;
-  l.n_outer = n_outer;
-  l.base = base;
-  l.pull0 = pull0;
-  l.graph = graph;
+  l.p.n_local = n_local;
+  l.p.n_outer = n_outer;
+  l.p.base = base;
+  l.p.pull0 = pull0;
+  l.p.graph = graph;
   for (int p = 0; p < n_peers; ++p)
-    l.peer_flags[p] = reinterpret_cast<const int*>(peer_flags[p]);
-  l.flags = reinterpret_cast<int*>(peer_flags[0]);
-  l.error = error;
-  l.counter = counter;
+    l.p.peer_flags[p] = reinterpret_cast<const int*>(peer_flags[p]);
+  l.p.flags = reinterpret_cast<int*>(peer_flags[0]);
+  l.p.error = error;
+  l.p.counter = counter;
   const int tiles_x = (nx + kTile - 1) / kTile;
   int tiles = 0;
   for (int j = 0; j < n_local; ++j) {
@@ -834,9 +1166,59 @@ int lbm_ring_p2p(const long long* table, int n_local, const int* graph,
     tiles += s.ntiles;
   }
   if (items != tiles) return (int)cudaErrorInvalidValue;
-  l.items = items;
+  l.p.items = items;
   const tpulbm::LbmArgs a{ny, nx, accel_row, omega, w1, w2};
   return kLaunch[k - 1](l, a, stream);
+}
+
+// Torus mode: n_outer (<= kMaxOuter) chunks of k (<= 8) steps of n_local
+// (<= kMaxTorusLocal) (h, w) blocks of the (ny, nx) torus, the epochs
+// base .. base + n_outer - 1. host_table and table: the same (n_local,
+// kTorusWords) int64 entries (ops/ring_p2p.py::TORUS_TABLE), on the host
+// (checked here) and on the card (read by the kernel until it ends); a
+// block's landing buffers hold two slots, 9 h 8 floats (x) and
+// 9 * 8 (w + 16) (y) apart. The rest as lbm_ring_p2p; pull0: chunk 0 reads
+// the eight neighbours' input states.
+int lbm_torus_p2p(const long long* host_table, const long long* table,
+                  int n_local, const int* graph, int items,
+                  const long long* peer_flags, int n_peers, int n_outer,
+                  int base, int pull0, int* error, unsigned int* counter,
+                  int ny, int nx, int accel_row, float omega, float w1,
+                  float w2, int k, int h, int w, cudaStream_t stream) {
+  if (k < 1 || k > kMaxK || n_local < 1 || n_local > kMaxTorusLocal ||
+      n_outer < 1 || n_outer > kMaxOuter || base < 0 || h < k || w < k ||
+      n_peers < 1 || n_peers > kMaxPeers || !graph || !table)
+    return (int)cudaErrorInvalidValue;
+  TorusLaunch l{};
+  l.p.n_local = n_local;
+  l.p.n_outer = n_outer;
+  l.p.base = base;
+  l.p.pull0 = pull0;
+  l.p.graph = graph;
+  for (int p = 0; p < n_peers; ++p)
+    l.p.peer_flags[p] = reinterpret_cast<const int*>(peer_flags[p]);
+  l.p.flags = reinterpret_cast<int*>(peer_flags[0]);
+  l.p.error = error;
+  l.p.counter = counter;
+  l.table = table;
+  l.h = h;
+  l.w = w;
+  l.xstride = 9LL * h * kMaxK;
+  l.ystride = 9LL * kMaxK * (w + 2 * kMaxK);
+  const int ntiles = ((h + kTile - 1) / kTile) * ((w + kTile - 1) / kTile);
+  if (items != n_local * ntiles) return (int)cudaErrorInvalidValue;
+  l.p.items = items;
+  // 16-byte window copies: every piece's rows start 16-B aligned
+  bool vec16 = w % 4 == 0;
+  for (int j = 0; j < n_local; ++j) {
+    const long long* t = host_table + (size_t)j * kTorusWords;
+    for (int i = 0; i < kTRowBase; ++i)
+      vec16 = vec16 && t[i] && aligned16(reinterpret_cast<void*>(t[i]));
+    if (t[kTRowBase] < 0 || t[kTRowBase] >= ny)
+      return (int)cudaErrorInvalidValue;
+  }
+  const tpulbm::LbmArgs a{ny, nx, accel_row, omega, w1, w2};
+  return kTorusLaunch[k - 1](l, a, vec16 ? 1 : 0, stream);
 }
 
 }  // extern "C"

@@ -41,7 +41,14 @@ loop, on mesh[0][0], in row-major block order, and scaled by
 runner.py:1307). The torus keeps the JAX package's even split. K4 takes
 any block width, so the TPU's ``w >= 128`` / ``supported_x_halo`` gate
 (runner.py:1532-1544), which picks between the Pallas and jnp tori there,
-chooses no route here: every block takes torus mode.
+chooses no route here: every block takes torus mode. That is the torus of
+several processes (``--multihost``). In one process the ``cuda`` backend
+runs ``make_torus_p2p_runner`` instead, the counterpart of the JAX
+runner's one program: K6's torus mode steps every block of a card for up
+to ``ring_p2p.MAX_OUTER`` chunks in one launch, the blocks handing their
+edges and corners to each other inside the kernel (the same bits as the
+K4 torus runner's, which stays its reference); a kernel that fails raises,
+with no fallback to K4.
 
 Over several processes (``--multihost``) the ring's and the torus's mesh
 is the global one (``dist.multihost``), ``None`` for another process's
@@ -176,10 +183,16 @@ def make_runner(params: LBMParams, n_steps: int, backend: str = "auto",
         mesh = [[None if d is None else torch.device(d) for d in row]
                 for row in mesh]
         backend = resolve_backend(backend, _first_local(mesh))
-        return make_torus_runner(
-            params, n_steps, mesh,
-            _plain_torus if backend == "torch" else kstep_tile.torus_chunk,
-            transport)
+        if backend == "torch":
+            return make_torus_runner(params, n_steps, mesh, _plain_torus,
+                                     transport)
+        if None in _flat(mesh) or (transport is not None
+                                   and transport.world > 1):
+            # across processes the torus keeps K4's torus mode over the
+            # Transport
+            return make_torus_runner(params, n_steps, mesh,
+                                     kstep_tile.torus_chunk, transport)
+        return make_torus_p2p_runner(params, n_steps, mesh)
     if mesh is not None and len(mesh) > 1:
         mesh = _flat(mesh)
         if (backend == "cuda-p2p" and transport is not None
@@ -488,30 +501,8 @@ def make_torus_runner(params: LBMParams, n_steps: int, mesh2d: Sequence,
     local = tr.local
 
     def runner(blocks, obst_blocks):
-        if len(blocks) != len(local) or len(obst_blocks) != len(local):
-            raise ValueError(f"torus runner over {len(local)} local blocks "
-                             f"of {dy}x{dx} got {len(blocks)} and "
-                             f"{len(obst_blocks)}")
-        for b, f, o in zip(local, blocks, obst_blocks):
-            if (f.shape != (9, h, w) or o.shape != (h, w)
-                    or f.device != devs[b] or o.device != devs[b]):
-                raise ValueError(
-                    f"block {b}: state {tuple(f.shape)} on {f.device}, mask "
-                    f"{tuple(o.shape)} on {o.device}; the torus wants "
-                    f"({h}, {w}) blocks of the ({ny}, {nx}) grid on "
-                    f"{devs[b]}")
-        # Each block's (h + 2k, w + 2 col_margin(k)) mask band, for each k
-        # of the plan: the same exchange on the float masks
-        # (the float blocks are freed before the first chunk)
-        obst_f = [o.to(torch.float32) for o in obst_blocks]
-        masks = {}
-        for k in set(plan):
-            halos = _torus_halos(tr, _torus_pieces(k, dy, dx, (), h, w),
-                                 obst_f, n)
-            masks[k] = [torch.cat([ylo, torch.cat([xlo, o, xhi], dim=-1),
-                                   yhi], dim=-2)
-                        for o, (xlo, xhi, ylo, yhi) in zip(obst_f, halos)]
-        del obst_f
+        _check_blocks(local, blocks, obst_blocks, devs, h, w, ny, nx)
+        masks = _torus_mask_bands(tr, obst_blocks, set(plan), dy, dx, h, w)
         blocks, spares = list(blocks), [None] * len(local)
         sums = [[] for _ in local]
         for k in plan:
@@ -527,5 +518,97 @@ def make_torus_runner(params: LBMParams, n_steps: int, mesh2d: Sequence,
                 sums[j].append(s)
             spares, blocks = blocks, new
         return blocks, _deferred_sum(sums, tr.device, params, tr)
+
+    return runner
+
+
+def _check_blocks(local, blocks, obst_blocks, devs, h, w, ny, nx):
+    """A torus runner's input: this process's blocks and masks, block b of
+    (h, w) cells on devs[b]."""
+    if len(blocks) != len(local) or len(obst_blocks) != len(local):
+        raise ValueError(f"torus runner over {len(local)} local blocks got "
+                         f"{len(blocks)} and {len(obst_blocks)}")
+    for b, f, o in zip(local, blocks, obst_blocks):
+        if (f.shape != (9, h, w) or o.shape != (h, w)
+                or f.device != devs[b] or o.device != devs[b]):
+            raise ValueError(
+                f"block {b}: state {tuple(f.shape)} on {f.device}, mask "
+                f"{tuple(o.shape)} on {o.device}; the torus wants ({h}, {w}) "
+                f"blocks of the ({ny}, {nx}) grid on {devs[b]}")
+
+
+def _torus_mask_bands(tr, obst_blocks, ks, dy: int, dx: int, h: int,
+                      w: int) -> dict:
+    """{k: each local block's (h + 2k, w + 2 col_margin(k)) float mask band}
+    for each k of ``ks``: the torus's exchange on the float masks (the
+    float blocks are freed before the first chunk)."""
+    obst_f = [o.to(torch.float32) for o in obst_blocks]
+    masks = {}
+    for k in ks:
+        halos = _torus_halos(tr, _torus_pieces(k, dy, dx, (), h, w), obst_f,
+                             dy * dx)
+        masks[k] = [torch.cat([ylo, torch.cat([xlo, o, xhi], dim=-1), yhi],
+                              dim=-2)
+                    for o, (xlo, xhi, ylo, yhi) in zip(obst_f, halos)]
+    return masks
+
+
+def make_torus_p2p_runner(params: LBMParams, n_steps: int, mesh2d: Sequence,
+                          max_outer: int = ring_p2p.MAX_OUTER) -> Callable:
+    """The one-process torus on the ``cuda`` backend: the counterpart of
+    ``_make_runner_2d_kstep`` (tpulbm/dist/runner.py:1213-1321), one
+    program for the whole run. Each ``ring_p2p.torus_p2p_chunks`` call runs
+    up to ``max_outer`` chunks of every block (``outer_per_launch``
+    may take fewer, for the partials' memory) in one torus-mode launch of K6
+    a card, the blocks handing their edge columns, edge rows and corners to
+    each other inside the kernel (through peer memory across cards); or, on
+    CPU blocks, its plain version. The chunks are those of
+    ``make_torus_runner``: k the least of 8, h, w and n_steps, and the
+    n_steps % k remainder one more launch of that k. The first launch of a
+    call and the remainder's read the neighbours' states for their first
+    chunk (pull0); every other chunk reads the landing slots that the chunk
+    before filled, by the parity of the epoch, which
+    ``ring_p2p.TorusExchange`` carries across launches and calls. A call
+    ends in ``Exchange.check`` (a wait of the kernel that ran out raises).
+    The mask bands are built once a call, and the sums are added as
+    ``make_torus_runner`` adds them: its bits, state and av series."""
+    dy, dx = len(mesh2d), len(mesh2d[0])
+    devs = _flat(mesh2d)
+    if len(devs) != dy * dx or None in devs:
+        raise ValueError(f"the p2p torus is a full dy x dx grid of this "
+                         f"process's blocks, got rows of "
+                         f"{[len(row) for row in mesh2d]}")
+    n, ny, nx = dy * dx, params.ny, params.nx
+    h, w = block_shape(ny, nx, dy, dx)
+    if n_steps < 1 or max_outer < 1:
+        raise ValueError(f"p2p torus runner of {n_steps} steps, {max_outer} "
+                         f"chunks a launch")
+    tr = multihost.Transport(devs)
+    k = min(kstep_tile.TILE_K, h, w, n_steps)
+    n_full, rem = divmod(n_steps, k)
+    per = min(max_outer, ring_p2p.outer_per_launch([h], w, k))
+    launches = [(k, per)] * (n_full // per)
+    launches += [(k, n_full % per)] if n_full % per else []
+    launches += [(rem, 1)] if rem else []
+    ex = ring_p2p.TorusExchange([devs[i * dx:(i + 1) * dx]
+                                 for i in range(dy)], h, w)
+
+    def runner(blocks, obst_blocks):
+        _check_blocks(range(n), blocks, obst_blocks, devs, h, w, ny, nx)
+        masks = _torus_mask_bands(tr, obst_blocks, {kk for kk, _ in launches},
+                                  dy, dx, h, w)
+        ex.barrier()
+        states = list(blocks)
+        spares = [torch.empty_like(f) for f in states]
+        sums = [[] for _ in states]
+        for i, (kk, outer) in enumerate(launches):
+            states, spares, s = ring_p2p.torus_p2p_chunks(
+                ex, states, spares, masks[kk], params, kk, outer,
+                [(b // dx * h - kk) % ny for b in range(n)],
+                pull0=i == 0 or kk != k)
+            for b, sb in enumerate(s):
+                sums[b].append(sb)
+        ex.check()
+        return states, _deferred_sum(sums, tr.device, params, tr)
 
     return runner

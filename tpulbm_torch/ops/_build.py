@@ -51,6 +51,8 @@ LAUNCHES = {
     "torus_chunk": 0,       # K4 launches made by ops.kstep_tile.torus_chunk
     "cluster_resident": 0,  # K5 launches made by cluster_resident_chunk
     "ring_p2p": 0,          # K6 launches (one a card) made by ring_p2p
+    "torus_p2p": 0,         # K6 torus-mode launches (one a card) made by
+                            # ring_p2p.torus_p2p_chunks
     # Chunks whose per-step sums the stepping kernels' epilogue reduced
     # (one per K1 chunk and K2, K4 or K5 launch, one per chunk and shard of
     # a K6 launch): the former K3 pass
@@ -102,6 +104,9 @@ _SIGNATURES = {
     "lbm_ring_p2p": (
         [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _F, _F, _F,
          _I, _P], _I),
+    "lbm_torus_p2p": (
+        [_P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _F, _F,
+         _F, _I, _I, _I, _P], _I),
     "lbm_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -56,6 +56,7 @@ import weakref
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.dist import multihost
@@ -93,8 +94,9 @@ def ntiles(h: int, nx: int) -> int:
 
 
 def outer_per_launch(rows, nx: int, k: int) -> int:
-    """Chunks a launch: MAX_OUTER, fewer where the largest shard's partials
-    would pass PARTIALS_BYTES."""
+    """Chunks a launch: MAX_OUTER, fewer where the largest shard's (or
+    torus block's: ``rows`` its height, ``nx`` its width) partials would
+    pass PARTIALS_BYTES."""
     per_chunk = 4 * k * ntiles(max(rows), nx)
     return max(1, min(MAX_OUTER, PARTIALS_BYTES // per_chunk))
 
@@ -273,10 +275,7 @@ class Exchange:
         self.graphs = {}
         n = len(self.mesh)
         if self.mesh[self.local[0]].type != "cuda":
-            self.land_lo = [torch.zeros((2, 9 * SLAB_ROWS * nx))
-                            for _ in self.local]
-            self.land_hi = [torch.zeros((2, 9 * SLAB_ROWS * nx))
-                            for _ in self.local]
+            self._cpu_slots()
             return
         places = (self.tr.places() if self.world > 1
                   else [(0, multihost.card(d)[0]) for d in self.mesh])
@@ -287,13 +286,13 @@ class Exchange:
                    for key in set(self.keys)}
         lib = _build.library()
         for d in self.local:
-            for e in ((d - 1) % n, (d + 1) % n):
+            for e in self._neighbours(d):
                 a, b = self.mesh[d], self.mesh[e]
                 if b is not None and a != b:
                     enable_peer(lib, a.index, b.index)
         self.blocks, handles, own = {}, {}, []
         for key in self.cards:
-            layout, size = block_layout(self.rows, self.on[key], nx)
+            layout, size = self._layout(self.on[key])
             ptr, handle = alloc_block(self.device[key], size,
                                       export=self.world > 1)
             self.blocks[key] = (ptr, layout)
@@ -307,11 +306,28 @@ class Exchange:
         self.open_seconds = time.perf_counter() - t0
         multihost.at_shutdown(lambda: self.close(own))
 
+    def _cpu_slots(self) -> None:
+        """The landing buffers of the plain version, per local shard."""
+        self.land_lo = [torch.zeros((2, 9 * SLAB_ROWS * self.nx))
+                        for _ in self.local]
+        self.land_hi = [torch.zeros((2, 9 * SLAB_ROWS * self.nx))
+                        for _ in self.local]
+
+    def _neighbours(self, d: int):
+        """The shards whose slots and flags shard d's tiles reach."""
+        n = len(self.mesh)
+        return (d - 1) % n, (d + 1) % n
+
+    def _layout(self, shards):
+        return block_layout(self.rows, shards, self.nx)
+
+    def _tile_graph(self, k: int):
+        return tile_graph(self.keys, self.rows, self.nx, k)
+
     def _open(self, places, handles):
         """Map the blocks of this process's shards' neighbours in other
         processes (the handles gathered from every process), each on the
         card of the shard beside it; returns [(device index, mapping)]."""
-        n = len(self.mesh)
         every = {}
         for part in self.tr.all_gather_object(handles):
             every.update(part)
@@ -319,7 +335,7 @@ class Exchange:
                    for i in range(torch.cuda.device_count())}
         opened = []
         for d in self.local:
-            for e in ((d - 1) % n, (d + 1) % n):
+            for e in self._neighbours(d):
                 key = self.keys[e]
                 if self.tr.is_local(e) or key in self.blocks:
                     continue
@@ -370,7 +386,7 @@ class Exchange:
         arrays its records name)} for k steps a chunk (``tile_graph`` keyed
         by (process, card)), made on first use."""
         if k not in self.graphs:
-            graphs = tile_graph(self.keys, self.rows, self.nx, k)
+            graphs = self._tile_graph(k)
             self.graphs[k] = {
                 key: (torch.from_numpy(graphs[key][0]).to(self.device[key]),
                       np.array([self.flags(p) for p in graphs[key][1]],
@@ -706,3 +722,416 @@ def _entry(ex: Exchange, states, spares, bands, partials, sums, row_bases,
                        ("push_hi", ex.slots(p)[1])):
         words[name + "0"], words[name + "1"] = base, base + slot_bytes
     return [words[name] for name in TABLE]
+
+
+# Torus mode (csrc/ring_p2p.cu::lbm_torus_p2p): the (h, w) blocks of a
+# dy x dx torus in one process.
+MAX_TORUS_LOCAL = 64   # blocks of one launch on one card (kMaxTorusLocal)
+# The neighbours of block (i, j), (di, dj) (csrc/ring_p2p.cu::Nbr): left,
+# right, up, down, up-left, up-right, down-left, down-right.
+NEIGHBOURS = ((0, -1), (0, 1), (-1, 0), (1, 0), (-1, -1), (-1, 1), (1, -1),
+              (1, 1))
+NBR_NAMES = ("w", "e", "n", "s", "nw", "ne", "sw", "se")
+# The pushes of a block after each chunk (csrc/ring_p2p.cu::Push): (the
+# landing buffer, the neighbour (di, dj) that holds it). The block's cells
+# in its last k rows (di = 1), its first k (di = -1) or all rows (di = 0),
+# and likewise in columns by dj, go to the buffer's slot of the next
+# epoch's parity: an x slot's k columns beside the block, a y slot's middle
+# w columns (dj = 0) or its margin columns beside them (a corner).
+TORUS_PUSHES = (("xlo", 0, 1), ("xhi", 0, -1), ("ylo", 1, 0), ("yhi", -1, 0),
+                ("ylo", 1, 1), ("ylo", 1, -1), ("yhi", -1, 1),
+                ("yhi", -1, -1))
+# Words of a block's entry in lbm_torus_p2p's table (kTorusWords): its
+# buffers, the neighbours' input states (NBR_NAMES), its own landing
+# buffers, the pushes' landing buffers (TORUS_PUSHES, named by the
+# neighbour), its first band row's global row.
+PUSH_NAMES = ("e", "w", "s", "n", "se", "sw", "ne", "nw")
+TORUS_TABLE = ("obst", "state0", "state1", "partials", "sums",
+               *(f"in_{n}" for n in NBR_NAMES), "xlo", "xhi", "ylo", "yhi",
+               *(f"to_{n}" for n in PUSH_NAMES), "row_base")
+TORUS_BUFFERS = ("xlo", "xhi", "ylo", "yhi")
+
+
+def torus_neighbour(b: int, di: int, dj: int, dy: int, dx: int) -> int:
+    """The row-major index of block b's neighbour (di, dj) on the torus."""
+    i, j = divmod(b, dx)
+    return ((i + di) % dy) * dx + (j + dj) % dx
+
+
+def _band_tiles(n_blocks: int, size: int, t: int):
+    """(first cell, cells) of every tile row (or column) of n_blocks blocks
+    of `size` rows (columns) side by side, in global order."""
+    first = [b * size + u * t for b in range(n_blocks)
+             for u in range(-(-size // t))]
+    return (np.array(first, dtype=np.int64),
+            np.array([min(t, size - u * t) for _ in range(n_blocks)
+                      for u in range(-(-size // t))], dtype=np.int64))
+
+
+def _padded(rel):
+    """Per row of a bool relation, its true columns, padded with -1."""
+    idx = [np.flatnonzero(r) for r in rel]
+    width = max(map(len, idx))
+    return np.array([list(i) + [-1] * (width - len(i)) for i in idx])
+
+
+def torus_graph(mesh2d, h: int, w: int, k: int, t: int = TILE):
+    """Each card's tile graph for torus mode: {card: (records, peers)}, as
+    ``tile_graph``. ``mesh2d``: the dy x dx card keys of the blocks. A tile
+    waits on every tile with owned cells within k cells of its own on the
+    global (dy h, dx w) grid, both axes wrapping: tiles of its block and of
+    the x, y and diagonal neighbour blocks, on this card or another (a
+    symmetric relation, the product of one on tile rows and one on tile
+    columns). Records in walk order: the card's blocks row-major, tiles
+    row-major; HEADER's block is the launch index. Duties: PUSH_REMOTE where
+    one of the tile's pushes (TORUS_PUSHES whose cells it owns) lands on
+    another card, READ_REMOTE where a tile on another card waits on it."""
+    dy, dx = len(mesh2d), len(mesh2d[0])
+    keys = [c for row in mesh2d for c in row]
+    cards = list(dict.fromkeys(keys))
+    card_of = np.array([cards.index(c) for c in keys])
+    ty_n, tx_n = -(-h // t), -(-w // t)
+    nt = ty_n * tx_n
+    r0, rl = _band_tiles(dy, h, t)
+    c0, cl = _band_tiles(dx, w, t)
+    rows = _padded(_touch(r0, rl, r0, rl, dy * h, k))
+    cols = _padded(_touch(c0, cl, c0, cl, dx * w, k))
+    flag0 = np.zeros(len(keys), dtype=np.int64)
+    launch = np.zeros(len(keys), dtype=np.int64)
+    for c in range(len(cards)):
+        on = np.flatnonzero(card_of == c)
+        flag0[on] = np.arange(len(on)) * nt
+        launch[on] = np.arange(len(on))
+    tile = np.arange(nt)
+    ty, tx = tile // tx_n, tile % tx_n
+    y0, x0 = ty * t, tx * t
+    own_r, own_c = np.minimum(t, h - y0), np.minimum(t, w - x0)
+    # the tiles whose cells a push (di, dj) takes: rows by di, columns by dj
+    rows_own = {0: np.ones(nt, bool), 1: y0 + own_r > h - k, -1: y0 < k}
+    cols_own = {0: np.ones(nt, bool), 1: x0 + own_c > w - k, -1: x0 < k}
+    out = {}
+    for c, card in enumerate(cards):
+        peers, recs = [c], []
+        for b in np.flatnonzero(card_of == c):
+            i, j = divmod(int(b), dx)
+            gr = rows[i * ty_n + ty]               # (nt, WR) global tile rows
+            gc = cols[j * tx_n + tx]               # (nt, WC)
+            dr = np.repeat(gr, gc.shape[1], axis=1)
+            dc = np.tile(gc, (1, gr.shape[1]))
+            bad = (dr < 0) | (dc < 0)
+            dr, dc = np.where(bad, 0, dr), np.where(bad, 0, dc)
+            blk = (dr // ty_n) * dx + dc // tx_n
+            ut = (dr % ty_n) * tx_n + dc % tx_n
+            dcard = card_of[blk]
+            for e in dict.fromkeys(dcard[~bad].tolist()):
+                if e not in peers:
+                    peers.append(e)
+            pidx = np.array([peers.index(e) if e in peers else 0
+                             for e in range(len(cards))])[dcard]
+            key = np.where(bad, 2, (dcard != c).astype(np.int64))
+            order = np.argsort(key, axis=1, kind="stable")
+            dep = np.take_along_axis((pidx << PEER_SHIFT) | (flag0[blk] + ut),
+                                     order, 1)
+            key = np.take_along_axis(key, order, 1)
+            n_local = (key == 0).sum(1)
+            n_remote = (key == 1).sum(1)
+            if (n_local + n_remote).max() > REC - REC_DEPS:
+                raise ValueError(f"a tile of block {b} waits on "
+                                 f"{(n_local + n_remote).max()} tiles, more "
+                                 f"than {REC - REC_DEPS}")
+            push = np.zeros(nt, bool)
+            for _, di, dj in TORUS_PUSHES:
+                dest = card_of[torus_neighbour(b, di, dj, dy, dx)]
+                push |= rows_own[di] & cols_own[dj] & (dest != c)
+            rec = np.zeros((nt, REC), dtype=np.int64)
+            rec[:, 0] = launch[b]
+            rec[:, 1] = tile
+            rec[:, 2] = y0
+            rec[:, 3] = x0
+            rec[:, 4] = own_r
+            rec[:, 5] = own_c
+            rec[:, 6] = push * PUSH_REMOTE + (n_remote > 0) * READ_REMOTE
+            rec[:, 7] = n_local | n_remote << 8
+            m = min(dep.shape[1], REC - REC_DEPS)
+            rec[:, REC_DEPS:REC_DEPS + m] = np.where(key[:, :m] < 2,
+                                                     dep[:, :m], 0)
+            recs.append(rec)
+        if len(peers) > MAX_PEERS:
+            raise ValueError(f"torus mode: the blocks on {card} wait on "
+                             f"flags of {len(peers)} cards, at most "
+                             f"{MAX_PEERS}")
+        out[card] = (np.concatenate(recs).astype(np.int32),
+                     [cards[e] for e in peers])
+    return out
+
+
+def xslot(buf, parity: int, k: int, h: int):
+    """The (9, h, col_margin(k)) x slot of landing buffer ``buf`` (2,
+    9 * h * 8) in slot ``parity``."""
+    kx = kstep_tile.col_margin(k)
+    return buf[parity, :9 * h * kx].view(9, h, kx)
+
+
+def yslot(buf, parity: int, k: int, w: int):
+    """The (9, k, w + 2 col_margin(k)) y slot of landing buffer ``buf`` (2,
+    9 * 8 * (w + 16)) in slot ``parity``."""
+    xw = w + 2 * kstep_tile.col_margin(k)
+    return buf[parity, :9 * k * xw].view(9, k, xw)
+
+
+def torus_buffer_floats(h: int, w: int):
+    """{buffer: floats of one of its two slots} of a block's landing
+    buffers."""
+    x, y = 9 * h * SLAB_ROWS, 9 * SLAB_ROWS * (w + 2 * SLAB_ROWS)
+    return {"xlo": x, "xhi": x, "ylo": y, "yhi": y}
+
+
+def torus_block_layout(blocks, h: int, w: int):
+    """Byte offsets in a card's exchange block for torus mode: the error
+    word at 0, the flag array (one int a tile of ``blocks``, in walk order)
+    at "flags", then each block b's four landing buffers, two slots each,
+    at layout[b] ({buffer: offset}). Returns (layout, bytes)."""
+    layout = {"error": 0, "flags": ALIGN}
+    at = ALIGN + _up(4 * ntiles(h, w) * len(blocks))
+    floats = torus_buffer_floats(h, w)
+    for b in blocks:
+        layout[b] = {}
+        for name in TORUS_BUFFERS:
+            layout[b][name] = at
+            at += _up(2 * 4 * floats[name])
+    return layout, at
+
+
+class TorusExchange(Exchange):
+    """The landing slots, flags, error words, tile graphs and epoch of the
+    torus over the dy x dx ``mesh2d`` of (h, w) blocks (block (i, j) on
+    mesh2d[i][j]), in one process: ``Exchange`` with four landing buffers a
+    block (xlo, xhi, ylo, yhi, two slots each) and ``torus_graph``. On the
+    CPU the slots are tensors, ``land[b][buffer]``. The cards of a block's
+    eight neighbours get peer access (raising, with the two cards, where it
+    is refused)."""
+
+    def __init__(self, mesh2d, h: int, w: int):
+        self.dy, self.dx, self.h, self.w = len(mesh2d), len(mesh2d[0]), h, w
+        flat = [d for row in mesh2d for d in row]
+        if any(d is None for d in flat):
+            raise ValueError("the torus's in-kernel exchange runs in one "
+                             "process: every block's device is needed")
+        super().__init__(flat, [h] * len(flat), w)
+
+    def _cpu_slots(self) -> None:
+        floats = torus_buffer_floats(self.h, self.w)
+        self.land = [{name: torch.zeros((2, floats[name]))
+                      for name in TORUS_BUFFERS} for _ in self.local]
+
+    def _neighbours(self, b: int):
+        return [torus_neighbour(b, di, dj, self.dy, self.dx)
+                for di, dj in NEIGHBOURS]
+
+    def _layout(self, blocks):
+        return torus_block_layout(blocks, self.h, self.w)
+
+    def _tile_graph(self, k: int):
+        keys = [self.keys[i * self.dx:(i + 1) * self.dx]
+                for i in range(self.dy)]
+        return torus_graph(keys, self.h, self.w, k)
+
+    def buffers(self, b: int):
+        """{buffer: address of slot 0} of block b's landing buffers (slot 1
+        follows torus_buffer_floats later)."""
+        ptr, layout = self.blocks[self.keys[b]]
+        return {name: ptr + off for name, off in layout[b].items()}
+
+
+def torus_halos(f, dy: int, dx: int, k: int):
+    """Per block of the row-major blocks ``f`` (or their masks), the four
+    pieces that K4's torus mode takes, cut straight from the neighbours:
+    xlo, xhi (the left neighbour's last k columns, the right one's first k,
+    in col_margin(k) columns, zeros beside them) and ylo, yhi (the upper
+    and lower neighbours' last and first k rows with the diagonal
+    neighbours' k x k corners beside them: the rows of the x-extended
+    bands that the host's two-phase exchange takes)."""
+    kx = kstep_tile.col_margin(k)
+
+    def lo(t):
+        return F.pad(t[..., -k:], (kx - k, 0))
+
+    def hi(t):
+        return F.pad(t[..., :k], (0, kx - k))
+
+    out = []
+    for b in range(dy * dx):
+        def nb(di, dj):
+            return f[torus_neighbour(b, di, dj, dy, dx)]
+
+        def band_rows(di, rows):
+            return torch.cat([lo(nb(di, -1)[..., rows, :]),
+                              nb(di, 0)[..., rows, :],
+                              hi(nb(di, 1)[..., rows, :])], dim=-1)
+
+        out.append((lo(nb(0, -1)), hi(nb(0, 1)),
+                    band_rows(-1, slice(-k, None)),
+                    band_rows(1, slice(0, k))))
+    return out
+
+
+def torus_p2p_chunks_ref(states, bands, land, params: LBMParams, k: int,
+                         n_outer: int, base: int, row_bases, pull0: bool,
+                         dy: int, dx: int):
+    """Plain version of ``torus_p2p_chunks`` over every block of the dy x dx
+    torus (row-major lists): ``n_outer`` chunks of
+    ``kstep_tile.torus_chunk_ref``. Chunk c (epoch base + c) steps block b
+    from its four pieces: ``torus_halos`` of the states where ``pull0`` and
+    c = 0, else slot (base + c) % 2 of ``land[b]``'s buffers; then writes
+    each block's pieces of the new states (``torus_halos``) into the slots
+    of parity (base + c + 1) % 2. ``bands[b]``: block b's (h + 2k,
+    w + 2 col_margin(k)) mask band, band row 0 global row ``row_bases[b]``.
+    Returns (the states after n_outer chunks, per block the (n_outer k,)
+    per-step sums); updates the landing buffers in place."""
+    h, w = states[0].shape[1:]
+    slot = {"xlo": (xslot, h), "xhi": (xslot, h), "ylo": (yslot, w),
+            "yhi": (yslot, w)}
+
+    def view(b, name, parity):
+        fn, size = slot[name]
+        return fn(land[b][name], parity, k, size)
+
+    f, sums = list(states), [[] for _ in states]
+    for c in range(n_outer):
+        e = base + c
+        if pull0 and c == 0:
+            pieces = torus_halos(f, dy, dx, k)
+        else:
+            pieces = [[view(b, name, e % 2) for name in TORUS_BUFFERS]
+                      for b in range(len(f))]
+        new = []
+        for b, (xlo, xhi, ylo, yhi) in enumerate(pieces):
+            g, s = kstep_tile.torus_chunk_ref(xlo, f[b], xhi, ylo, yhi,
+                                              bands[b], params, k,
+                                              row_bases[b])
+            new.append(g)
+            sums[b].append(s)
+        for b, got in enumerate(torus_halos(new, dy, dx, k)):
+            for name, piece in zip(TORUS_BUFFERS, got):
+                view(b, name, (e + 1) % 2).copy_(piece)
+        f = new
+    return f, [torch.cat(s) for s in sums]
+
+
+def torus_p2p_chunks(ex: TorusExchange, states, spares, bands,
+                     params: LBMParams, k: int, n_outer: int, row_bases,
+                     pull0: bool):
+    """``n_outer`` chunks of k steps of every block of ``ex``'s torus from
+    ``states`` (row-major, block b on ex.mesh[b]), epochs ex.epoch onwards;
+    advances ex.epoch. ``spares``: a second buffer a block, which the launch
+    ping-pongs with the state. One torus-mode launch of K6 a card
+    (``LAUNCHES["torus_p2p"]``), on its current stream; on CPU tensors,
+    ``torus_p2p_chunks_ref``. Returns (the states, the buffers now free,
+    per block the (n_outer k,) raw per-step sums)."""
+    if states[0].device.type == "cpu":
+        f, sums = torus_p2p_chunks_ref(states, bands, ex.land, params, k,
+                                       n_outer, ex.epoch, row_bases, pull0,
+                                       ex.dy, ex.dx)
+        ex.epoch += n_outer
+        return f, list(states), sums
+    sums = _torus_launch(ex, states, spares, bands, params, k, n_outer,
+                         row_bases, pull0)[0]
+    if n_outer % 2:
+        return list(spares), list(states), sums
+    return list(states), list(spares), sums
+
+
+def _torus_launch(ex: TorusExchange, states, spares, bands,
+                  params: LBMParams, k: int, n_outer: int, row_bases,
+                  pull0: bool):
+    """Torus mode of K6 on the CUDA blocks, one launch a card: (per block
+    the sums, per block the (n_outer k, ntiles) partials that the kernel
+    reduced into them). Each card's table of its blocks goes to the card
+    (pinned, on the card's stream) before its launch. A launch of another k
+    than the one before it is ordered after every card's launch before it
+    (``ex.barrier``), as in ``_p2p_launch``."""
+    h, w, n = ex.h, ex.w, len(ex.mesh)
+    kx = kstep_tile.col_margin(k)
+    if ex.failed:
+        raise RuntimeError("lbm_torus_p2p: an earlier launch of this torus "
+                           "failed; its flags and ticket counters are lost")
+    if not (1 <= k <= kstep_tile.TILE_K and 1 <= n_outer <= MAX_OUTER
+            and k <= min(h, w) and len(states) == n):
+        raise ValueError(f"torus mode takes 1 to {kstep_tile.TILE_K} steps "
+                         f"over blocks of at least k rows and columns and 1 "
+                         f"to {MAX_OUTER} chunks, got k {k}, {n_outer} "
+                         f"chunks, ({h}, {w}) blocks, {len(states)} states "
+                         f"for {n} blocks")
+    for b in range(n):
+        _build.require_cuda(states[b], spares[b], bands[b])
+        if (states[b].device != ex.mesh[b] or states[b].shape != (9, h, w)
+                or spares[b].shape != states[b].shape
+                or spares[b].data_ptr() == states[b].data_ptr()
+                or bands[b].shape != (h + 2 * k, w + 2 * kx)
+                or not 0 <= row_bases[b] < params.ny):
+            raise ValueError(
+                f"block {b}: state {tuple(states[b].shape)} on "
+                f"{states[b].device}, spare {tuple(spares[b].shape)}, mask "
+                f"{tuple(bands[b].shape)}, row {row_bases[b]}; the torus "
+                f"wants ({h}, {w}) blocks of the ({params.ny}, {params.nx}) "
+                f"grid on {ex.mesh[b]} and a distinct spare")
+    if ex.k_last not in (None, k):
+        ex.barrier()
+    ex.k_last = k
+    lib = _build.library()
+    nt = ntiles(h, w)
+    partials = [torch.empty((n_outer * k, nt), dtype=torch.float32,
+                            device=ex.mesh[b]) for b in range(n)]
+    sums = [torch.empty(n_outer * k, dtype=torch.float32, device=ex.mesh[b])
+            for b in range(n)]
+    graph = ex.graph(k)
+    for card in ex.cards:
+        local = [b for b in range(n) if ex.keys[b] == card]
+        if len(local) > MAX_TORUS_LOCAL:
+            raise ValueError(f"torus mode takes at most {MAX_TORUS_LOCAL} "
+                             f"blocks a card, got {len(local)} on "
+                             f"{ex.device[card]}")
+        table = np.array([_torus_entry(ex, states, spares, bands, partials,
+                                       sums, row_bases, b) for b in local],
+                         dtype=np.int64)
+        records, peer_flags = graph[card]
+        dev = ex.device[card]
+        with _build.on_device(states[local[0]]):
+            on_card = torch.from_numpy(table).pin_memory().to(
+                dev, non_blocking=True)
+            _build.LAUNCHES["torus_p2p"] += 1
+            _build.LAUNCHES["reduce_partials"] += n_outer * len(local)
+            _build.check(
+                lib.lbm_torus_p2p(
+                    table.ctypes.data, on_card.data_ptr(), len(local),
+                    records.data_ptr(), records.shape[0],
+                    peer_flags.ctypes.data, len(peer_flags), n_outer,
+                    ex.epoch, int(pull0), ex.error(card),
+                    _build.ticket_counter(dev).data_ptr(), params.ny,
+                    params.nx, params.accel_row, params.omega,
+                    params.accel_w1, params.accel_w2, k, h, w,
+                    torch.cuda.current_stream(dev).cuda_stream),
+                f"lbm_torus_p2p ({k} steps, {n_outer} chunks, "
+                f"{len(local)} ({h}, {w}) blocks on {dev}, "
+                f"{lib.lbm_ring_p2p_smem(k)} B of dynamic shared memory)")
+    ex.epoch += n_outer
+    return sums, partials
+
+
+def _torus_entry(ex: TorusExchange, states, spares, bands, partials, sums,
+                 row_bases, b: int):
+    """The words of block b in its card's launch table, in TORUS_TABLE's
+    order: its buffers, its eight neighbours' input states (read only with
+    pull0), its landing buffers, the landing buffers of its pushes (peer
+    addresses where they lie on another card), its first band row."""
+    words = dict(obst=bands[b].data_ptr(), state0=states[b].data_ptr(),
+                 state1=spares[b].data_ptr(), partials=partials[b].data_ptr(),
+                 sums=sums[b].data_ptr(), row_base=row_bases[b],
+                 **ex.buffers(b))
+    for name, (di, dj) in zip(NBR_NAMES, NEIGHBOURS):
+        e = torus_neighbour(b, di, dj, ex.dy, ex.dx)
+        words[f"in_{name}"] = states[e].data_ptr()
+    for (buf, di, dj), name in zip(TORUS_PUSHES, PUSH_NAMES):
+        e = torus_neighbour(b, di, dj, ex.dy, ex.dx)
+        words[f"to_{name}"] = ex.buffers(e)[buf]
+    return [words[name] for name in TORUS_TABLE]

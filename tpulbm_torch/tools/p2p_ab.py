@@ -61,9 +61,10 @@ SASS_OPS = ("LDL", "STL", "LDC", "MEMBAR", "FENCE", "CCTL", "ERRBAR",
             "STRONG", "BAR", "SYNCS", "LDGSTS", "UBLKCP", "NANOSLEEP")
 
 
-def ptxas_lines(build_dir: Path) -> list:
-    """The ptxas lines (registers, stack, spills) of every ring_p2p_kernel
-    instance in ``build_dir``'s build.log, each prefixed by its k."""
+def ptxas_lines(build_dir: Path, kernel: str = "ring_p2p_kernel") -> list:
+    """The ptxas lines (registers, stack, spills) of every instance of
+    ``kernel`` (K6's ring mode, or ``torus_p2p_kernel``) in
+    ``build_dir``'s build.log, each prefixed by its k."""
     log = build_dir / "build.log"
     if not log.exists():
         return []
@@ -74,7 +75,7 @@ def ptxas_lines(build_dir: Path) -> list:
         if m:
             fn = m.group(1)
             continue
-        if fn and "ring_p2p_kernel" in fn and (
+        if fn and kernel in fn and (
                 "Used" in line or "spill" in line or "stack" in line):
             k = re.search(r"ILi(\d+)E", fn)
             out.append(f"k={k.group(1) if k else '?'}: {line.strip()}")

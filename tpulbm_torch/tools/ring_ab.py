@@ -1,12 +1,21 @@
-"""Paired, alternating timing of the ring runner on several backends.
+"""Paired, alternating timing of the ring or torus runner on several
+backends.
 
     python -m tpulbm_torch.tools.ring_ab data/input_8192x8192.params \\
         data/obstacles_8192x8192.dat --device-count 4 \\
         --backends cuda,cuda-p2p --pairs 4
+    python -m tpulbm_torch.tools.ring_ab data/input_1024x1024.params \\
+        data/obstacles_1024x1024.dat --mesh-shape 2x2
 
 Loads the deck once, cuts its rest state into the ring's shards
-(``dist.sharding.shard_rows``) and builds one runner of the deck's step
-count per backend. After a warm-up call of each, it times ``--pairs``
+(``dist.sharding.shard_rows``) or, with ``--mesh-shape DYxDX``, the
+torus's blocks (``shard_blocks``), and builds one runner of the deck's
+step count per backend. The torus's backends are its routes: ``p2p``,
+the one-process torus of the ``cuda`` backend (``make_runner``: torus
+mode of K6, the exchange inside the kernel), and ``k4``, K4's torus mode
+a block and chunk with the host's two-phase exchange
+(``make_torus_runner`` with ``kstep_tile.torus_chunk``; the route of
+``--multihost``). After a warm-up call of each, it times ``--pairs``
 rounds, the backends in order on even rounds and reversed on odd ones (so
 A B B A ...): every call from a fresh copy of the same input shards, made
 before the clock starts (a runner call takes its input over and leaves a
@@ -29,17 +38,26 @@ import time
 import torch
 
 from tpulbm_torch.core.state import initial_state
-from tpulbm_torch.dist.mesh import get_mesh
-from tpulbm_torch.dist.runner import make_runner
-from tpulbm_torch.dist.sharding import shard_rows
+from tpulbm_torch.dist.mesh import get_mesh, get_mesh_2d
+from tpulbm_torch.dist.runner import make_runner, make_torus_runner
+from tpulbm_torch.dist.sharding import shard_blocks, shard_rows
 from tpulbm_torch.io.obstacles import read_obstacles
 from tpulbm_torch.io.params_file import read_params
+from tpulbm_torch.ops import kstep_tile
 
 
-def _sync(mesh) -> None:
-    for dev in set(mesh):
+def _sync(devices) -> None:
+    for dev in set(devices):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+
+
+def _torus_runner(route, params, steps, mesh):
+    if route == "p2p":
+        return make_runner(params, steps, "cuda", mesh=mesh)
+    if route == "k4":
+        return make_torus_runner(params, steps, mesh, kstep_tile.torus_chunk)
+    raise ValueError(f"the torus's routes are p2p and k4, not {route!r}")
 
 
 def main(argv=None) -> int:
@@ -47,8 +65,12 @@ def main(argv=None) -> int:
     ap.add_argument("param_file")
     ap.add_argument("obstacle_file")
     ap.add_argument("--device-count", type=int, default=None)
+    ap.add_argument("--mesh-shape", default=None,
+                    help="DYxDX: the torus's routes (p2p, k4) in place of "
+                         "the ring's backends")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--backends", default="cuda,cuda-p2p")
+    ap.add_argument("--backends", default=None,
+                    help="default cuda,cuda-p2p (ring) or p2p,k4 (torus)")
     ap.add_argument("--pairs", type=int, default=4)
     ap.add_argument("--max-iters", type=int, default=None)
     args = ap.parse_args(argv)
@@ -58,38 +80,49 @@ def main(argv=None) -> int:
         params = dataclasses.replace(params, max_iters=args.max_iters)
     mask, n_free = read_obstacles(args.obstacle_file, params.nx, params.ny)
     params = params.with_free_cells(n_free)
-    mesh = get_mesh(args.device_count, args.device)
-    if mesh[0].type == "cuda":
+    steps = params.max_iters
+    if args.mesh_shape:
+        dy, dx = map(int, args.mesh_shape.lower().split("x"))
+        mesh = get_mesh_2d(dy, dx, args.device)
+        devices = [d for row in mesh for d in row]
+        backends = (args.backends or "p2p,k4").split(",")
+        runners = {b: _torus_runner(b, params, steps, mesh)
+                   for b in backends}
+        cut = shard_blocks
+    else:
+        mesh = devices = get_mesh(args.device_count, args.device)
+        backends = (args.backends or "cuda,cuda-p2p").split(",")
+        runners = {b: make_runner(params, steps, b, mesh=mesh)
+                   for b in backends}
+        cut = shard_rows
+    if devices[0].type == "cuda":
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60)
         print(smi.stdout.strip(), flush=True)
-    obst = torch.as_tensor(mask, device=mesh[0])
-    shards, obst_shards = shard_rows(initial_state(params, mesh[0]), obst,
-                                     mesh)
-    backends = args.backends.split(",")
-    steps = params.max_iters
-    runners = {b: make_runner(params, steps, b, mesh=mesh) for b in backends}
+    obst = torch.as_tensor(mask, device=devices[0])
+    shards, obst_shards = cut(initial_state(params, devices[0]), obst, mesh)
     for b in backends:   # warm-up: kernel build, first launches
         runners[b]([s.clone() for s in shards], obst_shards)[1].cpu()
     samples = {b: [] for b in backends}
     for r in range(args.pairs):
         for b in (backends if r % 2 == 0 else backends[::-1]):
             state = [s.clone() for s in shards]
-            _sync(mesh)
+            _sync(devices)
             t0 = time.perf_counter()
             _, av = runners[b](state, obst_shards)
             av.cpu()
-            _sync(mesh)
+            _sync(devices)
             sec = time.perf_counter() - t0
             mlups = params.nx * params.ny * steps / sec / 1e6
             samples[b].append(mlups)
             print(f"[ab] round {r} {b}: {sec:.4f} s, {mlups:.1f} MLUPS",
                   flush=True)
-    layout = ",".join(str(d) for d in mesh)
+    layout = ",".join(str(d) for d in devices)
     print(json.dumps({
         "grid": [params.ny, params.nx], "steps": steps, "layout": layout,
+        "mesh_shape": args.mesh_shape,
         "mlups": samples,
         "median_mlups": {b: statistics.median(v) for b, v in samples.items()},
     }), flush=True)
