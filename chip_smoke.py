@@ -6,7 +6,9 @@
                                    # (phase 12)
     python3 chip_smoke.py --cards --processes   # only phase 12's processes
                                                 # on four cards
-    python3 chip_smoke.py --cards --torus       # only phase 12's torus
+    python3 chip_smoke.py --cards --torus       # only phase 12's torus (in
+                                                # one process and across
+                                                # processes)
 
 Phases; any failure raises and exits non-zero before the result lines:
 
@@ -115,7 +117,11 @@ Phases; any failure raises and exits non-zero before the result lines:
    run);
    8192^2 with ``--no-output``, its final state bitwise phase 4's
    single-device K4 run and its av series within 1 %; logged and bounded
-   as the ring's;
+   as the ring's; 1024^2 over 8x16 for 2,000 steps (128 blocks on the
+   card, past torus mode's 64): the runner says so on stderr and takes
+   K4's torus mode (``torus_chunk`` launches, no ``torus_p2p``), its final
+   state bitwise the single-device K4 run of the same steps and its av
+   series within 1 %;
 8. several processes, through the port's launcher (``python -m
    tpulbm_torch.dist.launch --local-smoke 2x2``: two processes of two
    shards on the one card, so the transport is gloo with the slabs staged
@@ -126,12 +132,16 @@ Phases; any failure raises and exits non-zero before the result lines:
    same two processes with ``--backend cuda-p2p`` (K6 in each process,
    the slabs and flags through CUDA IPC mappings of the other process's
    exchange block on the shared card) at its full step count, the same
-   bytes as phase 6's run; 128^2 over a 2x2 torus on two processes for
-   4,000 steps, the bytes of one process's. Launches are counted and
-   checked in each process (``--launch-counts``: the route's kernel
-   launched, no other); MLUPS, ms a chunk, the transport, and process 0's
-   host microseconds of exchange a chunk (or, on cuda-p2p, each process's
-   time to open the other processes' exchange blocks) are logged;
+   bytes as phase 6's run; the torus over 2x2 on the two processes (K6's
+   torus mode in each, the edges, corners and flags through CUDA IPC
+   mappings of the other process's exchange block): 1024^2 at its full
+   step count through the golden gate, the same bytes as phase 7's
+   one-process torus, and 128^2 for 4,000 steps, the bytes of one
+   process's. Launches are counted and checked in each process
+   (``--launch-counts``: the route's kernel launched, no other); MLUPS, ms
+   a chunk, the transport, and process 0's host microseconds of exchange a
+   chunk (or, on cuda-p2p and the torus, each process's time to open the
+   other processes' exchange blocks) are logged;
    Phases 3-8 log their seconds, and their sum;
 9. the Python API's path, the two examples through their ``main`` at full
    size (``phase_examples``): ``examples/torch_run_reference_deck.py`` on
@@ -169,8 +179,15 @@ Phases; any failure raises and exits non-zero before the result lines:
     and 4 x 1, each on the cuda ring and on cuda-p2p (K6 across processes
     through CUDA IPC), 1024^2 (the bytes of the one-process ring, the final
     state of one card) and 8192^2 (its state, from a dcp checkpoint,
-    bitwise one card's K4 run), the two backends' MLUPS side by side; then
-    the result line.
+    bitwise one card's K4 run), the two backends' MLUPS side by side; the
+    torus over 2x2 as 2 processes x 2 cards and 4 x 1 (K6's torus mode
+    across processes), 1024^2 (the bytes of the one-process torus over the
+    four cards, the final state of one card) and 8192^2 (bitwise one
+    card's K4 run), and each on both torus routes in turns across the
+    processes (``tools/ring_ab.py`` under the launcher: K6's torus mode and
+    K4's over NCCL); 128^2 over 2x4 as 8 processes, two a card (8
+    (process, card)s, 6 flag arrays a card), 1,000 steps, the bytes of one
+    process's 2x4 run on the four cards; then the result line.
 """
 
 from __future__ import annotations
@@ -187,6 +204,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "build", "chip_smoke")
+# The output directories this run has written, which a later phase may hold
+# its runs against; a directory left by an earlier run is never read.
+MADE = set()
 SEED = 20260
 # (deck, steps); the final-state golden of each is the reference's text
 # file or the f64-oracle pressure golden (validation.check.final_state_golden)
@@ -1597,21 +1617,25 @@ def _watch_simulation(seen):
         Simulation.run, Simulation._runner = run, make
 
 
-def _mesh_cli(deck, steps, mesh_args, totals, out=None, peak_gib=None):
+def _mesh_cli(deck, steps, mesh_args, totals, out=None, peak_gib=None,
+              kernel=None):
     """One ring (``--device-count N``) or torus (``--mesh-shape DYxDX``)
     run through cli.main: launches (ring_chunk, ring_p2p with
-    ``--backend cuda-p2p``, or torus_p2p, the one-process torus, only),
-    MLUPS, peak device memory (at most peak_gib where given), host us per
-    chunk, layout. Returns (the Simulation, Reynolds number)."""
+    ``--backend cuda-p2p``, or torus_p2p, the torus's in-kernel exchange;
+    ``kernel`` where another is the route's), MLUPS, peak device memory (at
+    most peak_gib where given), host us per chunk, layout. Returns (the
+    Simulation, Reynolds number)."""
     import torch
 
     from tpulbm_torch.dist.sharding import ring_rows
     from tpulbm_torch.ops import _build, kstep_tile
 
     torus = "--mesh-shape" in mesh_args
-    p2p = torus or "cuda-p2p" in mesh_args
-    kernel, tag = (("torus_p2p", "[torus]") if torus
-                   else ("ring_p2p" if p2p else "ring_chunk", "[ring]"))
+    kernel = kernel or ("torus_p2p" if torus else
+                        "ring_p2p" if "cuda-p2p" in mesh_args else
+                        "ring_chunk")
+    p2p = kernel in ("torus_p2p", "ring_p2p")
+    tag = "[torus]" if torus else "[ring]"
     pf, of = deck_files(deck)
     args = [pf, of, *mesh_args]
     args += ["--out-dir", out] if out else ["--no-output"]
@@ -1666,6 +1690,7 @@ def _mesh_golden(deck, steps, mesh_args, totals, extra=()):
     del sim
     _golden(deck, out, " ".join(mesh_args))
     _free()
+    MADE.add(out)
     return out
 
 
@@ -1793,6 +1818,9 @@ def phase_ring(one_card):
 TORUS = ["--mesh-shape", "2x2"]
 TORUS_RUNS = [("128x128", 40000), ("1024x1024", 20000)]
 TORUS_WIDE_RUN = ("8192x8192", 1000)
+# 128 blocks of 128 x 64 on the card, past torus mode's 64 a card: the
+# route of K4's torus mode (deck, steps, --mesh-shape)
+TORUS_K4_RUN = ("1024x1024", 2000, "8x16")
 CKPT_EVERY = 5000
 RESUME_STEP = 10000
 
@@ -1883,7 +1911,60 @@ def phase_torus(one_card):
         raise AssertionError(f"{deck} over 2x2 disagrees with one card")
     del f_torus, f_one
     _free()
+    _torus_k4_route(totals)
     return totals
+
+
+def _torus_k4_route(totals):
+    """TORUS_K4_RUN through cli.main: make_runner names the limit on
+    stderr and builds K4's torus mode (torus_chunk launches only); the final
+    state bitwise the single-device K4 run of the same steps, the av series
+    within GOLDEN_TOL."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tpulbm_torch.ops import _build
+    from tpulbm_torch.sim.simulation import Simulation
+
+    deck, steps, shape = TORUS_K4_RUN
+    one = Simulation.from_files(*deck_files(deck))
+    one.params = dataclasses.replace(one.params, max_iters=steps)
+    one.av_vels = np.zeros((steps,), dtype=np.float32)
+    _build.reset_launches()
+    one.run()
+    counts = dict(_build.LAUNCHES)
+    _check_launches(deck, counts, ["tile_chunk", "reduce_partials"],
+                    [c for c in KERNEL_COUNTERS if c != "tile_chunk"])
+    for key, v in counts.items():
+        totals[key] += v
+    f_one, av_one = one.f.cpu(), one.av_vels.copy()
+    del one
+    _free()
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        sim, _ = _mesh_cli(deck, steps, ["--mesh-shape", shape, "--max-iters",
+                                         str(steps)], totals,
+                           kernel="torus_chunk")
+    for line in err.getvalue().splitlines():
+        log(f"    {line}")
+    said = [line for line in err.getvalue().splitlines()
+            if "falling back to K4's torus mode" in line]
+    if len(said) != 1 or "128 blocks on (process 0, cuda:0)" not in said[0]:
+        raise AssertionError(f"{deck} over {shape}: the route's line on "
+                             f"stderr is missing")
+    f_torus, av_torus = sim.f.cpu(), sim.av_vels.copy()
+    del sim
+    _free()
+    same = torch.equal(f_torus, f_one)
+    rel = _max_rel_pct(av_torus, av_one)
+    log(f"[torus] {deck} over {shape} (K4's torus mode) vs one card's K4 "
+        f"run of {steps} steps: state bitwise {same}; av max diff "
+        f"{rel:.3g} % (<= {GOLDEN_TOL:g} %)")
+    if not (same and rel <= GOLDEN_TOL and np.isfinite(av_torus).all()
+            and av_torus.shape == (steps,)):
+        raise AssertionError(f"{deck} over {shape} disagrees with one card")
 
 
 def _time_save(path):
@@ -1986,8 +2067,10 @@ def phase_checkpoint():
 # its RESUME_STEP checkpoint resumed in one process over the same four
 # shards, the same bytes; 1024^2 over the two processes on cuda-p2p (K6
 # across processes, the two contexts time-sliced on the card), the same
-# bytes; 128^2 over a 2x2 torus on two processes for TORUS_PROCESS_STEPS
-# steps, the bytes of one process's torus.
+# bytes; the torus over 2x2 on the two processes (K6's torus mode in each,
+# through CUDA IPC): 1024^2 through the golden gate and the bytes of phase
+# 7's one-process torus, and 128^2 for TORUS_PROCESS_STEPS steps, the bytes
+# of one process's torus.
 PROCESSES = "2x2"
 TORUS_PROCESS_STEPS = 4000
 _EXCHANGE = re.compile(r"multihost: transport (.*), (\d+) chunks, host "
@@ -1997,8 +2080,10 @@ _EXCHANGE = re.compile(r"multihost: transport (.*), (\d+) chunks, host "
 # (the processes' lines may interleave on the launcher's stderr)
 _STARTED = re.compile(r"multihost: process \d+/\d+, [^,\n]*?, transport "
                       r"(gloo|nccl)")
-_OPENED = re.compile(r"cuda-p2p over \d+ processes: (\d+) exchange blocks of "
-                     r"other processes opened in ([\d.]+) ms")
+_OPENED = re.compile(r"(?:cuda-p2p|the torus) over \d+ processes: (\d+) "
+                     r"exchange blocks of other processes opened in "
+                     r"([\d.]+) ms")
+P2P_KERNELS = ("ring_p2p", "torus_p2p")
 
 
 def _last_call(metrics, deck):
@@ -2054,9 +2139,13 @@ def _launch(deck, steps, args, kernel, totals, shape=PROCESSES,
     if proc.returncode != 0:
         raise AssertionError(f"{cmd} exited {proc.returncode}")
     nx, ny = map(int, deck.split("x"))
-    shards = procs * per
-    chunks = -(-steps // min(8, ny // shards))
-    p2p = kernel == "ring_p2p"
+    if "--mesh-shape" in args:
+        dy, dx = map(int, args[args.index("--mesh-shape") + 1].split("x"))
+        k = min(8, ny // dy, nx // dx)
+    else:
+        k = min(8, ny // (procs * per))
+    chunks = -(-steps // k)
+    p2p = kernel in P2P_KERNELS
     for r in range(procs):
         with open(f"{counts}.{r}") as fh:
             got = json.load(fh)
@@ -2140,8 +2229,19 @@ def phase_multiproc():
     _same_bytes(out, ring4, f"{PROCESSES} processes x shards, cuda-p2p",
                 ref_what="phase 6's --device-count 4 run")
 
-    # the torus on two processes against one process's, for the first
-    # TORUS_PROCESS_STEPS steps: host-bound, 500 chunks show it
+    # the torus on the two processes: K6's torus mode in each, the
+    # exchange through CUDA IPC mappings on the shared card
+    deck = "1024x1024"
+    out = os.path.join(OUT, f"{deck}_multiproc_torus")
+    _launch(deck, steps, [*TORUS, "--out-dir", out], "torus_p2p", totals)
+    _golden(deck, out, f"over a 2x2 torus on {PROCESSES} (processes x "
+            f"blocks)")
+    _same_bytes(out, os.path.join(OUT, f"{deck}_mesh-shape2x2"),
+                f"the torus over {PROCESSES} (processes x blocks)",
+                ref_what="phase 7's one-process torus")
+
+    # ... and against one process's, for the first TORUS_PROCESS_STEPS
+    # steps of 128^2
     deck, steps = "128x128", TORUS_PROCESS_STEPS
     pf, of = deck_files(deck)
     one = os.path.join(OUT, f"{deck}_torus_{steps}")
@@ -2153,7 +2253,7 @@ def phase_multiproc():
     for key, v in _build.LAUNCHES.items():
         totals[key] += v
     out = os.path.join(OUT, f"{deck}_multiproc_torus")
-    _launch(deck, steps, [*TORUS, *short, "--out-dir", out], "torus_chunk",
+    _launch(deck, steps, [*TORUS, *short, "--out-dir", out], "torus_p2p",
             totals)
     _same_bytes(out, one, f"the torus over {PROCESSES} (processes x blocks)",
                 ref_what="one process's torus")
@@ -2499,12 +2599,14 @@ KERNELS = [
      "tpulbm/ops/pallas_kstep_rdma.py:65, "
      "tpulbm/ops/pallas_resident_rdma.py:63"),
     ("torus_chunk", "lbm_kstep_tile_torus (K4, torus_chunk: torus mode, the "
-     "per-block body of the 2-D torus; the route across processes)",
+     "per-block body of the 2-D torus; the route past K6 torus mode's "
+     "limits and across hosts)",
      "tpulbm_torch/csrc/kstep_tile.cu",
      "tpulbm/ops/pallas_kstep.py:79 (x_halo=True)"),
-    ("torus_p2p", "lbm_torus_p2p (K6 torus mode, the one-process torus: "
-     "every block of a card for up to 64 chunks a launch, edge columns, "
-     "rows and corners handed between blocks inside the kernel)",
+    ("torus_p2p", "lbm_torus_p2p (K6 torus mode, the torus in one process "
+     "or across processes: every block of a card for up to 64 chunks a "
+     "launch, edge columns, rows and corners handed between blocks inside "
+     "the kernel)",
      "tpulbm_torch/csrc/ring_p2p.cu",
      "tpulbm/ops/pallas_kstep.py:79 (x_halo=True)"),
 ]
@@ -2519,12 +2621,13 @@ def phase_cards(processes_only=False, torus_only=False):
     8192^2 over the cards on both rings, the state bitwise one card's K4
     run; the torus over 2x2 with block (i, j) on card (2i + j) % cards:
     1024^2 through the golden gate, and 8192^2, its state bitwise one
-    card's K4 run; on four cards, ``_processes_on_cards``.
-    ``processes_only`` (``--cards --processes``, four cards): only
-    ``_processes_on_cards`` and what it is held against, one card's 8192^2
-    run and the one-process ring over the four cards at 1024^2.
-    ``torus_only`` (``--cards --torus``): only the torus across cards and
-    what it is held against, one card's 8192^2 run."""
+    card's K4 run; on four cards, ``_processes_on_cards`` and
+    ``_torus_processes_on_cards``. ``processes_only`` (``--cards
+    --processes``, four cards): only those two and what they are held
+    against, one card's 8192^2 run, the one-process ring over the four
+    cards at 1024^2 and the one-process torus. ``torus_only`` (``--cards
+    --torus``): only the torus across cards, in one process and (on four
+    cards) across processes, and what it is held against."""
     import torch
 
     from tpulbm_torch.ops import _build
@@ -2545,9 +2648,12 @@ def phase_cards(processes_only=False, torus_only=False):
     if processes_only:
         _mesh_golden("1024x1024", 20000, ["--device-count", str(n)], totals)
         _processes_on_cards(f_one, totals)
+        _torus_processes_on_cards(f_one, totals)
         return
     if torus_only:
         _torus_on_cards(f_one, totals)
+        if n >= 4:
+            _torus_processes_on_cards(f_one, totals)
         return
     _ring_on_cards()
     outs = {}
@@ -2576,6 +2682,7 @@ def phase_cards(processes_only=False, torus_only=False):
     _torus_on_cards(f_one, totals)
     if n >= 4:
         _processes_on_cards(f_one, totals)
+        _torus_processes_on_cards(f_one, totals)
     else:
         log("[multiproc] fewer than four cards: the NCCL transport is not "
             "run")
@@ -2604,29 +2711,131 @@ def _torus_on_cards(f_one, totals):
         _torus_routes(deck)
 
 
-def _torus_routes(deck, pairs=2):
+def _torus_routes(deck, pairs=2, processes=None):
     """The torus over 2x2 on both its routes in turns
-    (``tools/ring_ab.py --mesh-shape 2x2``: p2p, the one-process route,
-    and k4, K4's torus mode with the host's copies, the parent route), its
-    lines logged; logs the two medians (MLUPS, the deck's full step count a
+    (``tools/ring_ab.py --mesh-shape 2x2``: p2p, make_runner's route, K6's
+    torus mode; and k4, K4's torus mode with the host's exchange), its
+    lines logged; with ``processes`` (PxL) across the processes of the
+    port's launcher (``--module tpulbm_torch.tools.ring_ab``), k4's
+    exchange over the transport. The two routes' states must be bitwise
+    the same; logs the two medians (MLUPS, the deck's full step count a
     call)."""
-    from tpulbm_torch.tools import ring_ab
+    args = [*deck_files(deck), "--mesh-shape", "2x2", "--pairs", str(pairs)]
+    if processes is None:
+        from tpulbm_torch.tools import ring_ab
 
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = ring_ab.main([*deck_files(deck), "--mesh-shape", "2x2",
-                           "--pairs", str(pairs)])
-    lines = buf.getvalue().splitlines()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = ring_ab.main(args)
+        text = buf.getvalue()
+    else:
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpulbm_torch.dist.launch",
+             "--local-smoke", processes, "--timeout", "600", "--module",
+             "tpulbm_torch.tools.ring_ab", *args],
+            cwd=ROOT, capture_output=True, text=True, timeout=700)
+        rc, text = proc.returncode, proc.stdout + proc.stderr
+    lines = text.splitlines()
     for line in lines:
         log(f"    {line}")
     if rc != 0:
         raise AssertionError(f"ring_ab {deck} --mesh-shape 2x2 returned {rc}")
-    result = json.loads(lines[-1])
+    result = json.loads([line for line in lines if line.startswith("{")][-1])
+    if not all(result["same_state"].values()):
+        raise AssertionError(f"ring_ab {deck}: the routes' states differ: "
+                             f"{result['same_state']}")
     med = result["median_mlups"]
-    log(f"[torus] {deck} over 2x2 ({_layout(result['layout'].split(','))}"
-        f"): p2p {med['p2p']:.1f} MLUPS, the parent route (k4) "
-        f"{med['k4']:.1f} MLUPS ({med['p2p'] / med['k4']:.2f}x), medians of "
-        f"{pairs} in turns")
+    where = (f"as {processes} processes x cards" if processes else
+             f"({_layout(result['layout'].split(','))})")
+    log(f"[torus] {deck} over 2x2 {where}: p2p {med['p2p']:.1f} MLUPS, "
+        f"K4's torus mode (k4) {med['k4']:.1f} MLUPS "
+        f"({med['p2p'] / med['k4']:.2f}x), medians of {pairs} in turns, "
+        f"the states bitwise the same")
+
+
+def _one_card(deck):
+    """The output directory of the deck's single-device run (made once a
+    run)."""
+    out = os.path.join(OUT, f"{deck}_one_card")
+    if out not in MADE:
+        log(f"[multiproc] python -m tpulbm_torch {deck} (one card)")
+        _run_cli([*deck_files(deck), "--out-dir", out])
+        MADE.add(out)
+    return out
+
+
+def _torus_processes_on_cards(f_one, totals):
+    """The torus across processes on four cards (K6's torus mode in each
+    process, the exchange through CUDA IPC mappings; the NCCL transport):
+    2 processes x 2 cards and 4 x 1 of 2x2. 1024^2: the same bytes as the
+    one-process torus over the four cards, final_state.dat one card's;
+    8192^2: its state, from a dcp checkpoint of the last step, bitwise one
+    card's K4 run (``f_one``); each on both torus routes in turns across
+    the processes (``_torus_routes``). Then 128^2 over 2x4 as 8 processes,
+    two a card (8 (process, card)s, 6 flag arrays a card): the bytes of one
+    process's 2x4 run on the four cards."""
+    import torch
+
+    from tpulbm_torch.io.params_file import read_params
+    from tpulbm_torch.ops import _build
+    from tpulbm_torch.sim import checkpoint as ckpt
+
+    deck, steps = "1024x1024", 20000
+    single = _one_card(deck)
+    torus = os.path.join(OUT, f"{deck}_mesh-shape2x2")
+    if torus not in MADE:
+        # not yet run over the cards in this run (``_torus_on_cards``)
+        _mesh_golden(deck, steps, TORUS, totals)
+    wide, wide_steps = TORUS_WIDE_RUN
+    for shape in ("2x2", "4x1"):
+        out = os.path.join(OUT, f"{deck}_torus_processes_{shape}")
+        _launch(deck, steps, [*TORUS, "--out-dir", out], "torus_p2p", totals,
+                shape, "nccl", split=True)
+        _same_bytes(out, torus, f"the torus over {shape} processes x cards",
+                    ref_what="the one-process torus over the four cards")
+        same = _read(out, "final_state.dat") == _read(single,
+                                                      "final_state.dat")
+        log(f"    final_state.dat the same bytes as one card's: {same}")
+        if not same:
+            raise AssertionError(f"{deck} over a 2x2 torus of {shape} "
+                                 f"processes x cards disagrees with one card")
+        ck = os.path.join(OUT, f"ckpt_{wide}_torus_{shape}")
+        shutil.rmtree(ck, ignore_errors=True)
+        _launch(wide, wide_steps, [*TORUS, "--no-output", "--ckpt-backend",
+                                   "dcp", "--checkpoint-every",
+                                   str(wide_steps), "--checkpoint-dir", ck],
+                "torus_p2p", totals, shape, "nccl", split=True)
+        _, f, _ = ckpt.restore(os.path.join(ck, f"ckpt_{wide_steps:08d}.dcp"),
+                               read_params(deck_files(wide)[0]))
+        same = torch.equal(torch.from_numpy(f), f_one)
+        log(f"[multiproc] {wide} over a 2x2 torus of {shape} processes x "
+            f"cards vs one card's K4 run: state bitwise {same}")
+        shutil.rmtree(ck, ignore_errors=True)
+        del f
+        if not same:
+            raise AssertionError(f"{wide} over a 2x2 torus of {shape} "
+                                 f"processes x cards disagrees with one card")
+        for d in (deck, wide):
+            _torus_routes(d, processes=shape)
+    deck, steps, mesh = "128x128", 1000, "2x4"
+    pf, of = deck_files(deck)
+    args = ["--mesh-shape", mesh, "--max-iters", str(steps)]
+    one = os.path.join(OUT, f"{deck}_mesh-shape{mesh}_{steps}")
+    log(f"[multiproc] python -m tpulbm_torch {deck} {' '.join(args)} (one "
+        f"process, the four cards)")
+    _build.reset_launches()
+    _run_cli([pf, of, *args, "--out-dir", one])
+    counts = dict(_build.LAUNCHES)
+    _check_launches(deck, counts, ["torus_p2p", "reduce_partials"],
+                    [c for c in KERNEL_COUNTERS if c != "torus_p2p"],
+                    p2p_chunks=-(-steps // 8) * 8)
+    for key, v in counts.items():
+        totals[key] += v
+    out = os.path.join(OUT, f"{deck}_torus_processes_8x1")
+    _launch(deck, steps, [*args, "--out-dir", out], "torus_p2p", totals,
+            "8x1", "gloo")
+    _same_bytes(out, one, f"{deck} over {mesh} as 8 processes, two a card",
+                ref_what=f"one process's {mesh} run on the four cards")
 
 
 def _processes_on_cards(f_one, totals):
@@ -2642,10 +2851,7 @@ def _processes_on_cards(f_one, totals):
     from tpulbm_torch.sim import checkpoint as ckpt
 
     deck, steps = "1024x1024", 20000
-    pf, of = deck_files(deck)
-    single = os.path.join(OUT, f"{deck}_one_card")
-    log(f"[multiproc] python -m tpulbm_torch {deck} (one card)")
-    _run_cli([pf, of, "--out-dir", single])
+    single = _one_card(deck)
     wide, wide_steps = TORUS_WIDE_RUN
     # one process's cuda-p2p over the four cards, the yardstick of this call
     mlups = {}

@@ -26,10 +26,9 @@ AV_RTOL = 3e-4
 K3_RTOL = 1e-6
 
 
-@pytest.fixture
-def case():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+def _make_case():
+    """The 200 x 136 case: a seeded 10 % random mask and a 1 % perturbation
+    of the rest state, on cuda:0."""
     p = LBMParams(nx=136, ny=200, max_iters=1, reynolds_dim=10,
                   density=0.1, accel=0.005, omega=1.85)
     rng = np.random.RandomState(9)
@@ -39,6 +38,13 @@ def case():
     f0 = initial_state(p, dev) * torch.tensor(
         1 + 0.01 * rng.rand(9, p.ny, p.nx), dtype=torch.float32, device=dev)
     return p, f0, torch.tensor(mask, device=dev)
+
+
+@pytest.fixture
+def case():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return _make_case()
 
 
 def _close(got, want):
@@ -514,25 +520,174 @@ def test_torus_p2p_is_k4_torus_mode_and_the_plain_version(case, dy, dx):
     bases = [(b // dx * h - k) % p.ny for b in range(dy * dx)]
     states = [b.clone() for b in blocks]
     spares = [torch.empty_like(b) for b in blocks]
-    land = [{name: torch.full((2, n), float("nan"), device="cuda")
+    land = [{name: torch.full((2, n), float("nan"), device=b.device)
              for name, n in ring_p2p.torus_buffer_floats(h, w).items()}
-            for _ in range(dy * dx)]
+            for b in blocks]
     ref, sums_ref = [b.clone() for b in blocks], []
     sums = []
     for n_outer, pull0 in ((2, True), (1, False)):
         states, spares, s = ring_p2p.torus_p2p_chunks(
             ex, states, spares, bands, p, k, n_outer, bases, pull0)
-        sums.append(torch.stack(s))
+        sums.append(torch.stack([x.cpu() for x in s]))
         ref, s = ring_p2p.torus_p2p_chunks_ref(
             ref, bands, land, p, k, n_outer, ex.epoch - n_outer, bases,
             pull0, dy, dx)
-        sums_ref.append(torch.stack(s))
+        sums_ref.append(torch.stack([x.cpu() for x in s]))
     ex.check()
     assert max((a - b).abs().max().item() for a, b in zip(states, ref)) \
         <= F_ATOL
     s, s_ref = torch.cat(sums, 1), torch.cat(sums_ref, 1)
     assert ((s - s_ref).abs() / s_ref.abs()).max().item() <= AV_RTOL
     _counter_is_zero(f0.device)
+
+
+@pytest.mark.cuda
+def test_torus_past_64_blocks_a_card_is_k4_torus_mode(case, capfd):
+    """136 blocks of 25 x 8 (8x17) on one card, past torus mode's 64 a
+    card: make_runner builds K4's torus mode and says so on stderr; 21
+    steps launch torus_chunk a block and chunk and no torus_p2p, the state
+    bitwise the single-device K4 plan's."""
+    from tpulbm_torch.dist import sharding
+    from tpulbm_torch.dist.runner import run_plan
+
+    p, f0, mask = case
+    plan = [(kstep_tile.tile_chunk, 8)] * 2 + [(kstep_tile.tile_chunk, 5)]
+    f1, av1 = run_plan(plan, f0.clone(), mask.float(), p)
+    mesh = [[f0.device] * 17 for _ in range(8)]
+    run = make_runner(p, 21, "cuda", mesh=mesh)
+    assert "136 blocks on (process 0, cuda:0), at most 64" in \
+        capfd.readouterr().err
+    fs, obs = sharding.shard_blocks(f0, mask, mesh)
+    _build.reset_launches()
+    out, av = run(fs, obs)
+    assert _build.LAUNCHES["torus_p2p"] == 0
+    assert _build.LAUNCHES["torus_chunk"] == 3 * 136
+    assert torch.equal(sharding.gather_blocks(out, 8, 17, "cuda"), f1)
+    assert ((av - av1).abs() / av1.abs()).max().item() <= AV_RTOL
+
+
+# A process of the 2x4 torus over two processes of four blocks, block
+# (i, j) on cuda:j (argv[1]: the output directory): 512 steps of the case
+# through make_runner, its blocks, av series and launch counts saved
+_TORUS_CHILD = """
+import sys
+import numpy as np
+from test_torch_cuda import _make_case
+from tpulbm_torch.dist import multihost, sharding
+from tpulbm_torch.dist.runner import make_runner
+from tpulbm_torch.ops import _build
+multihost.init_distributed("gloo")
+try:
+    p, f0, mask = _make_case()
+    mesh = multihost.global_torus_mesh(2, 4, "cuda")
+    tr = multihost.Transport([d for row in mesh for d in row])
+    run = make_runner(p, 512, "cuda", mesh=mesh, transport=tr)
+    fs, obs = sharding.shard_blocks(f0, mask, mesh)
+    _build.reset_launches()
+    out, av = run(fs, obs)
+    np.savez(f"{sys.argv[1]}/rank{tr.rank}.npz", av=av.cpu().numpy(),
+             p2p=_build.LAUNCHES["torus_p2p"],
+             k4=_build.LAUNCHES["torus_chunk"],
+             **{f"f{b}": o.cpu().numpy() for b, o in zip(tr.local, out)})
+finally:
+    multihost.shutdown()
+"""
+
+
+def _torus_children(case, tmp_path, visible=None):
+    """``_TORUS_CHILD`` in two processes (gloo at a file:// store;
+    ``visible[r]``: process r's CUDA_VISIBLE_DEVICES, else every card);
+    checks that both ran to their end with the same av series and that
+    their state is bitwise K4's torus mode in one process over this
+    process's cards. Returns (each process's npz, each one's stderr)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from tpulbm_torch.dist import runner, sharding
+    from tpulbm_torch.dist.mesh import get_mesh_2d
+
+    p, f0, mask = case
+    _build.build()
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        (str(root), str(root / "tests"))),
+        TPULBM_COORDINATOR=f"file://{tmp_path}/store", TPULBM_NUM_PROCS="2",
+        TPULBM_LOCAL_SHARDS="4", LOCAL_WORLD_SIZE="2",
+        GLOO_SOCKET_IFNAME="lo")
+    procs = []
+    for r in range(2):
+        env_r = dict(env, TPULBM_PROC_ID=str(r), LOCAL_RANK=str(r))
+        if visible is not None:
+            env_r["CUDA_VISIBLE_DEVICES"] = visible[r]
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _TORUS_CHILD, str(tmp_path)], env=env_r,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=root))
+    try:
+        outs = [proc.communicate(timeout=300) for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+    for proc, (_, err) in zip(procs, outs):
+        assert proc.returncode == 0, err[-3000:]
+    parts = [np.load(tmp_path / f"rank{r}.npz") for r in range(2)]
+    for part in parts:
+        assert np.array_equal(part["av"], parts[0]["av"])
+    got = sharding.gather_blocks(
+        [torch.from_numpy(parts[b // 4][f"f{b}"]) for b in range(8)], 2, 4,
+        "cpu")
+    mesh = get_mesh_2d(2, 4)
+    run = runner.make_torus_runner(p, 512, mesh, kstep_tile.torus_chunk)
+    fs, obs = sharding.shard_blocks(f0.clone(), mask, mesh)
+    want, av = run(fs, obs)
+    assert torch.equal(got, sharding.gather_blocks(want, 2, 4, "cpu"))
+    assert np.array_equal(parts[0]["av"], av.cpu().numpy())
+    return parts, [err for _, err in outs]
+
+
+@pytest.mark.cuda
+def test_torus_p2p_past_four_flag_arrays_is_k4_torus_mode(case, tmp_path):
+    """Torus mode with more than 4 flag arrays a card: the 2x4 torus of
+    the 200 x 136 case over two processes of four blocks, block (i, j) on
+    cuda:j, so 8 (process, card) keys and 6 flag arrays a card (the
+    neighbours in the other process through CUDA IPC). 512 steps (64
+    chunks, one launch a card and process): torus_p2p launches and no
+    torus_chunk, the state and av series bitwise K4's torus mode in one
+    process over the same cards. Needs four cards."""
+    from tpulbm_torch.ops import ring_p2p
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    keys = [[(i, j) for j in range(4)] for i in range(2)]
+    assert max(map(len, ring_p2p.torus_peers(keys).values())) == 6
+    parts, _ = _torus_children(case, tmp_path)
+    for part in parts:
+        assert int(part["p2p"]) == 4 and int(part["k4"]) == 0
+
+
+@pytest.mark.cuda
+def test_torus_with_hidden_neighbour_cards_is_k4_torus_mode(case,
+                                                            tmp_path):
+    """The same 2x4 torus where each process sees only its own card
+    (CUDA_VISIBLE_DEVICES 0 and 1, as a per-rank launcher sets it): no
+    process can map the other's blocks, so make_runner builds K4's torus
+    mode in both, each saying so on stderr; the run ends (no process left
+    waiting), torus_chunk a block and chunk and no torus_p2p, the state
+    and av series bitwise K4's torus mode in one process. Needs two
+    cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    parts, errs = _torus_children(case, tmp_path, visible=("0", "1"))
+    for part in parts:
+        assert int(part["p2p"]) == 0 and int(part["k4"]) == 4 * 64
+    assert "which process 0 cannot see" in errs[0]
+    assert "not visible in another process" in errs[1] or \
+        "which process 1 cannot see" in errs[1]
+    for err in errs:
+        assert "falling back to K4's torus mode" in err
 
 
 # The second process of the IPC round trip: maps the block of the handle

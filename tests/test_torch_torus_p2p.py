@@ -1,12 +1,15 @@
-"""The one-process torus's in-kernel exchange (``ops.ring_p2p``'s torus
-mode: ``torus_graph``, ``TorusExchange``, ``torus_p2p_chunks``;
-``dist.runner.make_torus_p2p_runner``; kernel ``csrc/ring_p2p.cu::
-lbm_torus_p2p``) on the CPU: against the port's K4 torus route (the host's
-two-phase exchange and ``kstep_tile.torus_chunk`` a block and chunk),
-against the JAX package's torus (``_make_runner_2d_kstep`` with the Pallas
-x_halo kernel in interpret mode, and the ``jnp`` torus, on the 8-device
-virtual CPU mesh of conftest.py), and an eager model of the kernel's flag
-protocol over blocks.
+"""The torus's in-kernel exchange (``ops.ring_p2p``'s torus mode:
+``torus_graph``, ``torus_peers``, ``TorusExchange``,
+``torus_p2p_chunks``; ``dist.runner.make_torus_p2p_runner`` and the route
+``make_runner`` decides when it builds the runner; kernel
+``csrc/ring_p2p.cu::lbm_torus_p2p``) on the CPU, in one process: against
+the port's K4 torus route (the host's two-phase exchange and
+``kstep_tile.torus_chunk`` a block and chunk), against the JAX package's
+torus (``_make_runner_2d_kstep`` with the Pallas x_halo kernel in
+interpret mode, and the ``jnp`` torus, on the 8-device virtual CPU mesh of
+conftest.py), and an eager model of the kernel's flag protocol over
+blocks. ``tests/test_torch_torus_p2p_multihost.py`` runs it across
+processes.
 
 The blocks lie on the CPU, so ``torus_p2p_chunks`` takes its plain
 version, ``torus_p2p_chunks_ref`` (the kernel runs only on the card;
@@ -40,7 +43,7 @@ from tpulbm_torch.core import physics
 from tpulbm_torch.core.lattice import CX, CY, NSPEEDS
 from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.core.state import initial_state
-from tpulbm_torch.dist import runner, sharding
+from tpulbm_torch.dist import multihost, runner, sharding
 from tpulbm_torch.dist.mesh import get_mesh_2d
 from tpulbm_torch.io.obstacles import read_obstacles
 from tpulbm_torch.io.params_file import read_params
@@ -144,7 +147,8 @@ def decode_torus_graph(cards, dy, dx, h, w, k, t=MODEL_TILE):
     mask = (1 << ring_p2p.PEER_SHIFT) - 1
     for card, (recs, peers) in graphs.items():
         assert peers[0] == card and len(set(peers)) == len(peers)
-        assert len(peers) <= ring_p2p.MAX_PEERS
+        assert len(peers) <= ring_p2p.MAX_TORUS_PEERS
+        assert peers == ring_p2p.torus_peers(mesh2d)[card]
         for i, rec in enumerate(recs):
             n_local, n_remote = rec[7] & 255, rec[7] >> 8
             got = []
@@ -168,6 +172,8 @@ GRAPH_CASES = [
     (2, 2, 32, 32, 8, "abcd", 32),        # 32-wide blocks: one kernel tile
     (4, 4, 32, 32, 8, "a", 32),
     (2, 2, 64, 64, 8, "ab", 32),          # 128^2 over 2x2
+    (2, 4, 12, 10, 5, "abcdefgh", MODEL_TILE),   # 8 keys, 6 flag arrays
+    (3, 3, 12, 12, 5, "abcdefghi", MODEL_TILE),  # 9 keys, 9 flag arrays
 ]
 
 
@@ -225,6 +231,7 @@ def test_torus_table_and_limits_are_the_kernels():
 
     assert const("kTorusWords") == len(ring_p2p.TORUS_TABLE)
     assert const("kMaxTorusLocal") == ring_p2p.MAX_TORUS_LOCAL
+    assert const("kMaxTorusPeers") == ring_p2p.MAX_TORUS_PEERS == 16
     for name, first in (("kTObst", "obst"), ("kTState", "state0"),
                         ("kTPartials", "partials"), ("kTSums", "sums"),
                         ("kTIn", "in_w"), ("kTSlot", "xlo"),
@@ -351,33 +358,59 @@ def test_torus_p2p_matches_jax_x_halo_kernel(n_steps):
     np.testing.assert_allclose(av.numpy(), np.asarray(av_j), rtol=1e-4)
 
 
-def test_torus_route(monkeypatch):
-    """make_runner's route on a 2-D mesh: on CUDA devices in one process the
-    p2p torus runner (no fallback to K4's torus mode); across processes
-    (--multihost) K4's torus mode over the Transport; the torch backend the
-    plain torus; cuda-p2p still refused; on the CPU the cuda backend
-    refused. (The CUDA meshes here are never touched: the runners are
-    stand-ins.)"""
+class _Transport:
+    """A stand-in transport of several processes on hosts ``hosts``
+    (``places``: process, card index, card UUID, host of each block);
+    ``elsewhere``: the flag that ``any`` combines from the other
+    processes."""
+
+    def __init__(self, places, rank=0, local=(), elsewhere=False):
+        self.world = len({pl[0] for pl in places})
+        self.rank, self.local, self._places = rank, list(local), places
+        self.elsewhere = elsewhere
+
+    def places(self):
+        return self._places
+
+    def is_local(self, d):
+        return d in self.local
+
+    def any(self, flag):
+        return bool(flag) or self.elsewhere
+
+
+def _stand_ins(monkeypatch):
+    """make_runner's torus runners replaced by stand-ins that record the
+    route: ("p2p", mesh) or ("k4", the chunk function)."""
     taken = []
     monkeypatch.setattr(runner, "make_torus_p2p_runner",
                         lambda *a, **kw: taken.append(("p2p", a[2])))
     monkeypatch.setattr(runner, "make_torus_runner",
                         lambda *a, **kw: taken.append(("k4", a[3])))
+    return taken
+
+
+def test_torus_route(monkeypatch):
+    """make_runner's route on a 2-D mesh: on CUDA devices the p2p torus
+    runner, in one process and across processes (--multihost) on one host
+    alike; the torch backend the plain torus; cuda-p2p still refused; on
+    the CPU the cuda backend refused. (The CUDA meshes here are never
+    touched: the runners are stand-ins.)"""
+    taken = _stand_ins(monkeypatch)
     p, _ = _deck()
     cuda = [[torch.device("cuda", 0)] * 2] * 2
     for backend in ("cuda", "auto"):
         runner.make_runner(p, 10, backend, mesh=cuda)
     assert taken == [("p2p", cuda), ("p2p", cuda)]
-
-    class Transport:
-        world = 2
-
     taken.clear()
-    runner.make_runner(p, 10, "cuda", mesh=[[torch.device("cuda", 0), None],
-                                            [None, None]],
-                       transport=Transport())
-    runner.make_runner(p, 10, "cuda", mesh=cuda, transport=Transport())
-    assert taken == [("k4", kstep_tile.torus_chunk)] * 2
+    monkeypatch.setattr(multihost, "visible_cards",
+                        lambda: {"uuid0", "uuid1"})
+    places = [(b // 2, b % 2, f"uuid{b % 2}", "host") for b in range(4)]
+    mesh = [[torch.device("cuda", 0), torch.device("cuda", 1)],
+            [None, None]]
+    runner.make_runner(p, 10, "cuda", mesh=mesh,
+                       transport=_Transport(places, 0, [0, 1]))
+    assert taken == [("p2p", mesh)]
     taken.clear()
     runner.make_runner(p, 10, "auto", "cpu", mesh=get_mesh_2d(2, 2, "cpu"))
     assert taken == [("k4", runner._plain_torus)]
@@ -388,9 +421,132 @@ def test_torus_route(monkeypatch):
                            mesh=get_mesh_2d(2, 2, "cpu"))
 
 
+def test_torus_peers_fit_every_layout_of_16_keys():
+    """Over every dy, dx <= 8 and 1 to 16 card keys, block (i, j) on key
+    (i dx + j) % keys (as get_mesh_2d places blocks on cards, and the
+    global mesh blocks on (process, card)s): torus_graph names at most
+    MAX_TORUS_PEERS flag arrays a card, exactly torus_peers's, and the
+    route's limits pass; the most is 15 (3x6 over 15 keys), 9 at 3x3 over
+    9 keys, 6 at 2x4 over 8."""
+    most = {}
+    for dy in range(1, 9):
+        for dx in range(1, 9):
+            for n in range(1, 17):
+                keys2d = [[(0, (i * dx + j) % n) for j in range(dx)]
+                          for i in range(dy)]
+                graphs = ring_p2p.torus_graph(keys2d, 1, 1, 1, t=1)
+                peers = ring_p2p.torus_peers(keys2d)
+                assert {c: g[1] for c, g in graphs.items()} == peers
+                most[dy, dx, n] = max(map(len, peers.values()))
+                assert most[dy, dx, n] <= ring_p2p.MAX_TORUS_PEERS
+                assert ring_p2p.torus_refusal(keys2d) == ""
+    assert max(most.values()) == most[3, 6, 15] == 15
+    assert most[3, 3, 9] == 9 and most[2, 4, 8] == 6
+    assert most[2, 3, 6] == most[4, 2, 8] == most[4, 4, 8] == 6
+
+
+def _keys_mesh(dy, dx, card):
+    """A dy x dx mesh of stand-in CUDA devices, block b on cuda:card(b)."""
+    return [[torch.device("cuda", card(i * dx + j)) for j in range(dx)]
+            for i in range(dy)]
+
+
+# (dy, dx, the card of block b) that torus mode takes in one process: 6,
+# 8, 9, 15 and 16 card keys, 6 to 15 flag arrays a card
+TORUS_MODE_LAYOUTS = [
+    (2, 3, lambda b: b), (2, 4, lambda b: b), (4, 2, lambda b: b),
+    (4, 4, lambda b: b % 8), (4, 4, lambda b: b), (3, 3, lambda b: b),
+    (3, 6, lambda b: b % 15),
+]
+
+
+@pytest.mark.parametrize("dy,dx,card", TORUS_MODE_LAYOUTS)
+def test_torus_route_takes_torus_mode_up_to_16_flag_arrays(
+        monkeypatch, capsys, dy, dx, card):
+    """Layouts past the ring's limit of 4 flag arrays a card (2x3 over 6 card
+    keys, 2x4 and 4x2 over 8, 4x4 over 8 and 16, 3x3 over 9, 3x6 over 15):
+    make_runner builds the p2p torus runner, and says nothing."""
+    taken = _stand_ins(monkeypatch)
+    p, _ = _deck()
+    mesh = _keys_mesh(dy, dx, card)
+    runner.make_runner(p, 10, "cuda", mesh=mesh)
+    assert taken == [("p2p", mesh)]
+    assert capsys.readouterr().err == ""
+
+
+def test_torus_route_falls_back_past_the_limits(monkeypatch, capsys):
+    """Past torus mode's limits make_runner builds K4's torus mode
+    (torus_chunk over the transport) and names why on stderr, one line a
+    runner: 17 flag arrays (a 6x6 torus over 35 cards, blocks (0, 0) and
+    (3, 3) on one); 128 blocks on one card (1024^2 over 8x16 on one
+    card); neighbour blocks on two hosts (across processes)."""
+    taken = _stand_ins(monkeypatch)
+    p, _ = _deck("1024x1024")
+    spread = _keys_mesh(6, 6, lambda b: 0 if b in (0, 21) else b - (b > 21))
+    keys = [[(0, d.index) for d in row] for row in spread]
+    assert len(ring_p2p.torus_peers(keys)[0, 0]) == 17
+    runner.make_runner(_case(96, 96, 1)[0], 10, "cuda", mesh=spread)
+    err = capsys.readouterr().err
+    assert "17 (process, card)s, at most 16" in err
+    assert "falling back to K4's torus mode" in err
+    assert len(err.splitlines()) == 1
+    runner.make_runner(p, 10, "cuda", mesh=_keys_mesh(8, 16, lambda b: 0))
+    err = capsys.readouterr().err
+    assert "128 blocks on (process 0, cuda:0), at most 64 a card" in err
+    assert "8x16 torus of 128x64 blocks" in err
+    places = [(b // 2, 0, "uuid", f"host{b // 2}") for b in range(4)]
+    mesh = [[torch.device("cuda", 0)] * 2, [None, None]]
+    runner.make_runner(p, 10, "cuda", mesh=mesh,
+                       transport=_Transport(places, 0, [0, 1]))
+    err = capsys.readouterr().err
+    assert "on host0" in err and "on host1" in err
+    assert "CUDA IPC does not cross hosts" in err
+    assert taken == [("k4", kstep_tile.torus_chunk)] * 3
+    # 64 blocks on one card still take torus mode
+    runner.make_runner(p, 10, "cuda", mesh=_keys_mesh(8, 8, lambda b: 0))
+    assert taken[-1][0] == "p2p" and capsys.readouterr().err == ""
+
+
+def test_torus_route_falls_back_where_a_neighbour_card_is_hidden(
+        monkeypatch, capsys):
+    """Across processes on one host, where a process cannot see the card
+    of a neighbour block of another process (one card visible a process,
+    as a per-rank CUDA_VISIBLE_DEVICES gives), its block cannot be mapped:
+    make_runner builds K4's torus mode with one stderr line, in the process
+    that cannot see it and, through the transport's ``any``, in every other
+    process alike."""
+    taken = _stand_ins(monkeypatch)
+    p, _ = _deck()
+    places = [(b // 2, 0, f"uuid{b // 2}", "host") for b in range(4)]
+    mesh = [[torch.device("cuda", 0)] * 2, [None, None]]
+    monkeypatch.setattr(multihost, "visible_cards", lambda: {"uuid0"})
+    runner.make_runner(p, 10, "cuda", mesh=mesh,
+                       transport=_Transport(places, 0, [0, 1]))
+    err = capsys.readouterr().err
+    assert "block 2 of process 1 lies on card uuid1, which process 0 " \
+        "cannot see" in err
+    assert "falling back to K4's torus mode" in err
+    assert len(err.splitlines()) == 1
+    monkeypatch.setattr(multihost, "visible_cards",
+                        lambda: {"uuid0", "uuid1"})
+    runner.make_runner(p, 10, "cuda", mesh=mesh,
+                       transport=_Transport(places, 0, [0, 1],
+                                            elsewhere=True))
+    err = capsys.readouterr().err
+    assert "not visible in another process" in err
+    assert len(err.splitlines()) == 1
+    assert taken == [("k4", kstep_tile.torus_chunk)] * 2
+    runner.make_runner(p, 10, "cuda", mesh=mesh,
+                       transport=_Transport(places, 0, [0, 1]))
+    assert taken[-1] == ("p2p", mesh) and capsys.readouterr().err == ""
+
+
 def test_torus_p2p_refuses_without_the_card():
-    """The torus-mode launcher refuses CPU tensors before it touches nvcc,
-    and a mesh of another process's blocks has no p2p torus."""
+    """The torus-mode launcher refuses CPU tensors before it touches nvcc;
+    an exchange over another process's blocks holds this process's blocks'
+    slots (the plain version's; across processes the kernel's blocks are
+    mapped through CUDA IPC), and without a process group such a mesh is
+    refused by the transport."""
     p, mask, f0 = _case(32, 32, 3)
     mesh = get_mesh_2d(2, 2, device="cpu")
     ex = ring_p2p.TorusExchange(mesh, 16, 16)
@@ -402,8 +558,13 @@ def test_torus_p2p_refuses_without_the_card():
         ring_p2p._torus_launch(ex, blocks, [b.clone() for b in blocks],
                                bands, p, 8, 1, [0] * 4, True)
     assert _build.LAUNCHES["torus_p2p"] == 0
-    with pytest.raises(ValueError, match="one process"):
-        ring_p2p.TorusExchange([[torch.device("cpu"), None]], 16, 16)
+    cpu = torch.device("cpu")
+    places = [(b // 2, -1, "", "host") for b in range(4)]
+    ex = ring_p2p.TorusExchange([[cpu, cpu], [None, None]], 16, 16,
+                                _Transport(places, 0, [0, 1]))
+    assert ex.local == [0, 1] and len(ex.land) == 2
+    with pytest.raises(ValueError, match="the mesh places shard"):
+        ring_p2p.TorusExchange([[cpu, None]], 16, 16)
 
 
 # --- a model of the kernel's flag protocol ---------------------------------
@@ -727,13 +888,15 @@ def _plain_calls(p, mask, states, dy, dx, k, calls):
     (2, 2, 24, 40, "a", 1), (2, 2, 24, 40, "a", 5), (2, 2, 24, 40, "ab", 7),
     (2, 2, 24, 40, "abcd", None), (1, 4, 24, 40, "ab", 3),
     (4, 1, 48, 20, "a", 9), (2, 3, 24, 42, "abc", 11), (1, 1, 24, 20, "a", 2),
+    (2, 4, 24, 48, "abcdef", 13), (3, 3, 36, 36, "abcdefghi", 17),
 ])
 def test_flag_model_reads_nothing_stale_and_is_the_plain_version(
         dy, dx, ny, nx, cards, grid):
     """The model of torus mode over dy x dx blocks (8 x 8 model tiles,
     k = 5: ragged tile rows and columns, so the slabs and corners reach
     across two tiles; one row, one column and 1x1, where a block is its own
-    neighbour) on 1-4 cards, for grids of 1 CTA to every tile of a chunk:
+    neighbour) on 1-4 cards, 2x4 over 6 and 3x3 over 9 (6 and 9 flag
+    arrays a card), for grids of 1 CTA to every tile of a chunk:
     it finishes, reads no stale cell, and ends bitwise equal to
     torus_p2p_chunks_ref over the same calls, state and per-step sums."""
     p, mask, states, on, k = _model_case(dy, dx, ny, nx, cards)

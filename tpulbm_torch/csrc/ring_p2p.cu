@@ -138,7 +138,14 @@
 //     the diagonal readers of a corner included.
 //   The blocks' entries (kTorusWords pointers and integers a block) lie in a
 //     table in device memory, read by the producer as it posts an item, so
-//     a card holds up to kMaxTorusLocal blocks.
+//     a card holds up to kMaxTorusLocal blocks, whose records name up to
+//     kMaxTorusPeers flag arrays.
+//   Across processes as ring mode: a block of another process counts as
+//     another card, its slots and flags reached through an IPC mapping at
+//     system scope; before a runner call's first launch the runner pushes
+//     each block's input edges and corners into its neighbours' slots
+//     (ops/ring_p2p.py::TorusExchange.enter), which then runs with
+//     pull0 = 0.
 
 #include <cuda_runtime.h>
 
@@ -156,7 +163,12 @@ using namespace tpulbm::tile;
 
 constexpr int kMaxLocal = 16;       // shards of one launch
 constexpr int kMaxOuter = 64;       // chunks of one launch
-constexpr int kMaxPeers = 4;        // flag arrays a card's records name
+// Flag arrays a card's records name, its own first: ring mode's, and torus
+// mode's (every layout of up to 16 (process, card) keys; PERF.md). The
+// array lies in the launch's parameters; the ring keeps 4, so its launch
+// keeps the parameter layout it was tuned with.
+constexpr int kMaxPeers = 4;
+constexpr int kMaxTorusPeers = 16;
 // A tile's record in the graph: shard, tile, y0, x0, owned rows, owned
 // columns, duties, local | remote << 8 dependency counts, then the
 // dependencies, local ones first.
@@ -215,10 +227,11 @@ struct Shard {
   int h, h_prev, h_next, row_base, ntiles;
 };
 
-// The protocol's part of a launch, in both modes.
+// The protocol's part of a launch, in both modes (kPeers flag arrays).
+template <int kPeers>
 struct Protocol {
   const int* graph;                  // (items, kRec), walk order
-  const int* peer_flags[kMaxPeers];  // [0]: this card's flat flag array
+  const int* peer_flags[kPeers];     // [0]: this card's flat flag array
   int* flags;                        // peer_flags[0], written
   int n_local, items, n_outer, base, pull0;
   int* error;              // this card's error word
@@ -229,7 +242,7 @@ struct Protocol {
 // launch ran ~0.6 % slower at 8192^2 over 4 shards (PERF.md).
 struct Launch {
   Shard shard[kMaxLocal];
-  Protocol p;
+  Protocol<kMaxPeers> p;
 };
 
 // Torus mode: the (h, w) blocks of the launch in `table` (kTorusWords int64
@@ -237,7 +250,7 @@ struct Launch {
 // second xstride (x) or ystride (y) floats after the first: an x slot is
 // (9, h, kx), a y slot (9, k, w + 2kx), kx = col_margin(k).
 struct TorusLaunch {
-  Protocol p;
+  Protocol<kMaxTorusPeers> p;
   const long long* table;
   int h, w;
   long long xstride, ystride;
@@ -1178,7 +1191,7 @@ int lbm_ring_p2p(const long long* table, int n_local, const int* graph,
 // (checked here) and on the card (read by the kernel until it ends); a
 // block's landing buffers hold two slots, 9 h 8 floats (x) and
 // 9 * 8 (w + 16) (y) apart. The rest as lbm_ring_p2p; pull0: chunk 0 reads
-// the eight neighbours' input states.
+// the eight neighbours' input states; n_peers <= kMaxTorusPeers.
 int lbm_torus_p2p(const long long* host_table, const long long* table,
                   int n_local, const int* graph, int items,
                   const long long* peer_flags, int n_peers, int n_outer,
@@ -1187,7 +1200,7 @@ int lbm_torus_p2p(const long long* host_table, const long long* table,
                   float w2, int k, int h, int w, cudaStream_t stream) {
   if (k < 1 || k > kMaxK || n_local < 1 || n_local > kMaxTorusLocal ||
       n_outer < 1 || n_outer > kMaxOuter || base < 0 || h < k || w < k ||
-      n_peers < 1 || n_peers > kMaxPeers || !graph || !table)
+      n_peers < 1 || n_peers > kMaxTorusPeers || !graph || !table)
     return (int)cudaErrorInvalidValue;
   TorusLaunch l{};
   l.p.n_local = n_local;

@@ -3,7 +3,7 @@
 mpi_submit:1-64).
 
     python -m tpulbm_torch.dist.launch [--local-smoke PxL] [--timeout S] \\
-        <paramfile> <obstaclefile> [CLI options]
+        [--module M] <paramfile> <obstaclefile> [CLI options]
 
 Without ``--local-smoke`` it runs one process of the CLI with
 ``--multihost``, for a host of a group whose environment is already set:
@@ -18,7 +18,10 @@ which meet at a ``file://`` store in a fresh temporary directory. On the
 ``cuda`` device it builds the kernel library once before it starts them,
 so they load it instead of compiling it all at once. When one process
 fails (or ``--timeout`` seconds pass) it stops the others; it exits with
-the first non-zero code (124 on the timeout). As torchrun, it sets
+the first non-zero code (124 on the timeout). ``--module M`` runs
+``python -m M`` in place of the CLI, with the same arguments and
+``--multihost`` (``tpulbm_torch.tools.ring_ab`` times a ring's or torus's
+routes in turns across the processes). As torchrun, it sets
 ``OMP_NUM_THREADS`` (the machine's cores over P) where it is not set, and
 it points gloo's and NCCL's sockets at the loopback interface
 (``GLOO_SOCKET_IFNAME``, ``NCCL_SOCKET_IFNAME``) unless told otherwise.
@@ -60,9 +63,10 @@ def _stop(procs, grace_s: float = 5.0) -> None:
             p.wait()
 
 
-def local_smoke(procs: int, shards: int, cli_args, timeout=None) -> int:
-    """Run ``python -m tpulbm_torch <cli_args> --multihost`` in ``procs``
-    local processes of ``shards`` shards each; returns the exit code."""
+def local_smoke(procs: int, shards: int, cli_args, timeout=None,
+                module: str = "tpulbm_torch") -> int:
+    """Run ``python -m <module> <cli_args> --multihost`` in ``procs`` local
+    processes of ``shards`` shards each; returns the exit code."""
     if (_option(cli_args, "--device", "cuda") == "cuda"
             and _option(cli_args, "--backend") != "torch"):
         from tpulbm_torch.ops import _build
@@ -81,7 +85,7 @@ def local_smoke(procs: int, shards: int, cli_args, timeout=None) -> int:
     env.update(TPULBM_COORDINATOR=f"file://{store}/store",
                TPULBM_NUM_PROCS=str(procs), TPULBM_LOCAL_SHARDS=str(shards),
                LOCAL_WORLD_SIZE=str(procs))
-    cmd = [sys.executable, "-m", "tpulbm_torch", *cli_args, "--multihost"]
+    cmd = [sys.executable, "-m", module, *cli_args, "--multihost"]
     running = []
     rc = 0
     try:
@@ -113,18 +117,20 @@ def local_smoke(procs: int, shards: int, cli_args, timeout=None) -> int:
 
 def main(argv=None) -> int:
     args = list(sys.argv[1:] if argv is None else argv)
-    shape, timeout = None, None
-    while args and args[0] in ("--local-smoke", "--timeout"):
+    shape, timeout, module = None, None, "tpulbm_torch"
+    while args and args[0] in ("--local-smoke", "--timeout", "--module"):
         if len(args) < 2:
             print(f"Error: {args[0]} needs a value", file=sys.stderr)
             return 2
         if args[0] == "--local-smoke":
             shape = args[1]
+        elif args[0] == "--module":
+            module = args[1]
         else:
             timeout = float(args[1])
         args = args[2:]
     if shape is None:
-        return subprocess.call([sys.executable, "-m", "tpulbm_torch", *args,
+        return subprocess.call([sys.executable, "-m", module, *args,
                                 "--multihost"], timeout=timeout)
     procs, sep, shards = shape.partition("x")
     if not (sep and procs.isdigit() and shards.isdigit()
@@ -132,7 +138,7 @@ def main(argv=None) -> int:
         print(f"Error: --local-smoke must be PxL (e.g. 2x2), got {shape!r}",
               file=sys.stderr)
         return 2
-    return local_smoke(int(procs), int(shards), args, timeout)
+    return local_smoke(int(procs), int(shards), args, timeout, module)
 
 
 if __name__ == "__main__":

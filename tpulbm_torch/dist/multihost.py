@@ -275,6 +275,12 @@ def card(device: torch.device) -> tuple:
     return index, str(torch.cuda.get_device_properties(index).uuid)
 
 
+def visible_cards() -> set:
+    """The UUIDs of the CUDA cards this process can see."""
+    return {card(torch.device("cuda", i))[1]
+            for i in range(torch.cuda.device_count())}
+
+
 def global_torus_mesh(dy: int, dx: int, device="cuda") -> list:
     """The dy x dx torus with its row-major blocks shared out as the
     ring's shards: ``None`` for another process's block."""

@@ -41,14 +41,21 @@ loop, on mesh[0][0], in row-major block order, and scaled by
 runner.py:1307). The torus keeps the JAX package's even split. K4 takes
 any block width, so the TPU's ``w >= 128`` / ``supported_x_halo`` gate
 (runner.py:1532-1544), which picks between the Pallas and jnp tori there,
-chooses no route here: every block takes torus mode. That is the torus of
-several processes (``--multihost``). In one process the ``cuda`` backend
-runs ``make_torus_p2p_runner`` instead, the counterpart of the JAX
-runner's one program: K6's torus mode steps every block of a card for up
-to ``ring_p2p.MAX_OUTER`` chunks in one launch, the blocks handing their
-edges and corners to each other inside the kernel (the same bits as the
-K4 torus runner's, which stays its reference); a kernel that fails raises,
-with no fallback to K4.
+chooses no route here. The ``cuda`` backend runs ``make_torus_p2p_runner``,
+the counterpart of the JAX runner's one program: K6's torus mode steps
+every block of a card for up to ``ring_p2p.MAX_OUTER`` chunks in one
+launch, the blocks handing their edges and corners to each other inside
+the kernel (the same bits as the K4 torus runner's, which stays its
+reference), in one process or across processes (through CUDA IPC
+mappings). ``make_runner`` decides the route when it builds the runner:
+where a card would hold more than ``ring_p2p.MAX_TORUS_LOCAL`` blocks,
+where a card's blocks would wait on more than ``ring_p2p.MAX_TORUS_PEERS``
+flag arrays (one a (process, card)), where neighbour blocks lie on
+different hosts, or where a process cannot see the card of a neighbour
+block of another process (every process takes the same route), it says
+why on stderr and builds the K4 torus runner
+(``kstep_tile.torus_chunk`` over the ``Transport``); a kernel that fails
+raises, with no fallback.
 
 Over several processes (``--multihost``) the ring's and the torus's mesh
 is the global one (``dist.multihost``), ``None`` for another process's
@@ -101,6 +108,7 @@ serve (tpulbm/dist/runner.py:1709-1719).
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 from typing import Callable, Sequence
@@ -186,13 +194,19 @@ def make_runner(params: LBMParams, n_steps: int, backend: str = "auto",
         if backend == "torch":
             return make_torus_runner(params, n_steps, mesh, _plain_torus,
                                      transport)
-        if None in _flat(mesh) or (transport is not None
-                                   and transport.world > 1):
-            # across processes the torus keeps K4's torus mode over the
-            # Transport
+        tr = transport or multihost.Transport(_flat(mesh))
+        why = _torus_refusal(mesh, tr)
+        if why:
+            dy, dx = len(mesh), len(mesh[0])
+            h, w = block_shape(params.ny, params.nx, dy, dx)
+            # in the style of the cuda-p2p fallbacks below
+            print(f"tpulbm_torch: the torus's in-kernel exchange (K6's torus "
+                  f"mode) unsupported for the {dy}x{dx} torus of {h}x{w} "
+                  f"blocks ({why}); falling back to K4's torus mode with the "
+                  f"host's exchange", file=sys.stderr, flush=True)
             return make_torus_runner(params, n_steps, mesh,
-                                     kstep_tile.torus_chunk, transport)
-        return make_torus_p2p_runner(params, n_steps, mesh)
+                                     kstep_tile.torus_chunk, tr)
+        return make_torus_p2p_runner(params, n_steps, mesh, tr)
     if mesh is not None and len(mesh) > 1:
         mesh = _flat(mesh)
         if (backend == "cuda-p2p" and transport is not None
@@ -245,15 +259,61 @@ def make_runner(params: LBMParams, n_steps: int, backend: str = "auto",
     return runner
 
 
-def _host_seam(places) -> str:
-    """The first pair of ring neighbours on different hosts, as text, or
-    "" (``places``: ``Transport.places``)."""
-    n = len(places)
-    for d in range(n):
-        a, b = places[d], places[(d + 1) % n]
+def _neighbour_pairs(n: int, mesh_shape=None) -> list:
+    """(d, e) for each shard d and each neighbour e whose slots and flags
+    its tiles reach: ring neighbours, or with ``mesh_shape`` (dy, dx) each
+    torus block and its eight neighbours."""
+    if mesh_shape is None:
+        return [(d, (d + 1) % n) for d in range(n)]
+    return [(b, ring_p2p.torus_neighbour(b, di, dj, *mesh_shape))
+            for b in range(n) for di, dj in ring_p2p.NEIGHBOURS]
+
+
+def _host_seam(places, mesh_shape=None) -> str:
+    """The first pair of neighbours (``_neighbour_pairs``) on different
+    hosts, as text, or "" (``places``: ``Transport.places``)."""
+    what = "shard" if mesh_shape is None else "block"
+    for d, e in _neighbour_pairs(len(places), mesh_shape):
+        a, b = places[d], places[e]
         if a[3] != b[3]:
-            return (f"shard {d} of process {a[0]} on {a[3]}, shard "
-                    f"{(d + 1) % n} of process {b[0]} on {b[3]}")
+            return (f"{what} {d} of process {a[0]} on {a[3]}, {what} {e} of "
+                    f"process {b[0]} on {b[3]}")
+    return ""
+
+
+def _torus_refusal(mesh2d, tr) -> str:
+    """Why the torus over ``mesh2d`` cannot take K6's torus mode, or "":
+    neighbour blocks on different hosts (CUDA IPC does not cross hosts), a
+    limit of the kernel (``ring_p2p.torus_refusal`` over the blocks'
+    (process, card) keys), or, in any process, a neighbour block of another
+    process on a card that this process cannot see (its block must be
+    mapped here); the same answer in every process."""
+    dy, dx = len(mesh2d), len(mesh2d[0])
+    if tr.world == 1:
+        keys = [(0, d.index) for d in _flat(mesh2d)]
+        return ring_p2p.torus_refusal([keys[i * dx:(i + 1) * dx]
+                                       for i in range(dy)])
+    places = tr.places()
+    seam = _host_seam(places, (dy, dx))
+    if seam:
+        return f"{seam}: CUDA IPC does not cross hosts"
+    keys = [tuple(pl[:2]) for pl in places]
+    why = ring_p2p.torus_refusal([keys[i * dx:(i + 1) * dx]
+                                  for i in range(dy)])
+    if why:
+        return why
+    visible, hidden = multihost.visible_cards(), ""
+    for d, e in _neighbour_pairs(len(places), (dy, dx)):
+        if (tr.is_local(d) and not tr.is_local(e) and places[e][2]
+                and places[e][2] not in visible):
+            hidden = (f"block {e} of process {places[e][0]} lies on card "
+                      f"{places[e][2]}, which process {tr.rank} cannot see "
+                      f"(CUDA_VISIBLE_DEVICES="
+                      f"{os.environ.get('CUDA_VISIBLE_DEVICES')!r})")
+            break
+    if tr.any(bool(hidden)):
+        return hidden or ("a neighbour block's card is not visible in "
+                          "another process")
     return ""
 
 
@@ -554,36 +614,43 @@ def _torus_mask_bands(tr, obst_blocks, ks, dy: int, dx: int, h: int,
 
 
 def make_torus_p2p_runner(params: LBMParams, n_steps: int, mesh2d: Sequence,
+                          transport=None,
                           max_outer: int = ring_p2p.MAX_OUTER) -> Callable:
-    """The one-process torus on the ``cuda`` backend: the counterpart of
+    """The torus on the ``cuda`` backend: the counterpart of
     ``_make_runner_2d_kstep`` (tpulbm/dist/runner.py:1213-1321), one
-    program for the whole run. Each ``ring_p2p.torus_p2p_chunks`` call runs
-    up to ``max_outer`` chunks of every block (``outer_per_launch``
-    may take fewer, for the partials' memory) in one torus-mode launch of K6
-    a card, the blocks handing their edge columns, edge rows and corners to
-    each other inside the kernel (through peer memory across cards); or, on
-    CPU blocks, its plain version. The chunks are those of
+    program for the whole run, over one process or, with a ``transport`` of
+    several (``dist.multihost``), a global mesh of every process's blocks.
+    Each ``ring_p2p.torus_p2p_chunks`` call runs up to ``max_outer`` chunks
+    of this process's blocks (``outer_per_launch`` may take fewer, for the
+    partials' memory) in one torus-mode launch of K6 a card, the blocks
+    handing their edge columns, edge rows and corners to each other inside
+    the kernel (through peer memory across cards, CUDA IPC mappings across
+    processes); or, on CPU blocks, its plain version (the other processes'
+    pieces through the transport). The chunks are those of
     ``make_torus_runner``: k the least of 8, h, w and n_steps, and the
     n_steps % k remainder one more launch of that k. The first launch of a
     call and the remainder's read the neighbours' states for their first
-    chunk (pull0); every other chunk reads the landing slots that the chunk
-    before filled, by the parity of the epoch, which
-    ``ring_p2p.TorusExchange`` carries across launches and calls. A call
-    ends in ``Exchange.check`` (a wait of the kernel that ran out raises).
-    The mask bands are built once a call, and the sums are added as
-    ``make_torus_runner`` adds them: its bits, state and av series."""
+    chunk (pull0; across processes the states' edges and corners pushed
+    into the slots first, ``ring_p2p.TorusExchange.enter``); every other
+    chunk reads the landing slots that the chunk before filled, by the
+    parity of the epoch, which ``ring_p2p.TorusExchange`` carries across
+    launches and calls. A call ends in ``Exchange.check`` (a wait of the
+    kernel that ran out raises; over several processes it returns once no
+    launch of the call runs on any). The mask bands are built once a call,
+    and the sums are added as ``make_torus_runner`` adds them: its bits,
+    state and av series."""
     dy, dx = len(mesh2d), len(mesh2d[0])
     devs = _flat(mesh2d)
-    if len(devs) != dy * dx or None in devs:
-        raise ValueError(f"the p2p torus is a full dy x dx grid of this "
-                         f"process's blocks, got rows of "
+    if len(devs) != dy * dx:
+        raise ValueError(f"a torus mesh is a full dy x dx grid, got rows of "
                          f"{[len(row) for row in mesh2d]}")
-    n, ny, nx = dy * dx, params.ny, params.nx
+    ny, nx = params.ny, params.nx
     h, w = block_shape(ny, nx, dy, dx)
     if n_steps < 1 or max_outer < 1:
         raise ValueError(f"p2p torus runner of {n_steps} steps, {max_outer} "
                          f"chunks a launch")
-    tr = multihost.Transport(devs)
+    tr = transport or multihost.Transport(devs)
+    local = tr.local
     k = min(kstep_tile.TILE_K, h, w, n_steps)
     n_full, rem = divmod(n_steps, k)
     per = min(max_outer, ring_p2p.outer_per_launch([h], w, k))
@@ -591,10 +658,15 @@ def make_torus_p2p_runner(params: LBMParams, n_steps: int, mesh2d: Sequence,
     launches += [(k, n_full % per)] if n_full % per else []
     launches += [(rem, 1)] if rem else []
     ex = ring_p2p.TorusExchange([devs[i * dx:(i + 1) * dx]
-                                 for i in range(dy)], h, w)
+                                 for i in range(dy)], h, w, tr)
+    if ex.world > 1 and ex.mesh[local[0]].type == "cuda":
+        print(f"tpulbm_torch: the torus over {ex.world} processes: "
+              f"{len(ex.opened)} exchange blocks of other processes opened "
+              f"in {ex.open_seconds * 1e3:.1f} ms", file=sys.stderr,
+              flush=True)
 
     def runner(blocks, obst_blocks):
-        _check_blocks(range(n), blocks, obst_blocks, devs, h, w, ny, nx)
+        _check_blocks(local, blocks, obst_blocks, devs, h, w, ny, nx)
         masks = _torus_mask_bands(tr, obst_blocks, {kk for kk, _ in launches},
                                   dy, dx, h, w)
         ex.barrier()
@@ -604,10 +676,10 @@ def make_torus_p2p_runner(params: LBMParams, n_steps: int, mesh2d: Sequence,
         for i, (kk, outer) in enumerate(launches):
             states, spares, s = ring_p2p.torus_p2p_chunks(
                 ex, states, spares, masks[kk], params, kk, outer,
-                [(b // dx * h - kk) % ny for b in range(n)],
+                [(b // dx * h - kk) % ny for b in local],
                 pull0=i == 0 or kk != k)
-            for b, sb in enumerate(s):
-                sums[b].append(sb)
+            for j, sj in enumerate(s):
+                sums[j].append(sj)
         ex.check()
         return states, _deferred_sum(sums, tr.device, params, tr)
 

@@ -19,10 +19,12 @@ The predicates are copies of the JAX package's, in plain integer Python
 budgets: they decide the route so that the two packages run every deck
 through the same function chunk for chunk, not anything about the H100.
 
-The 2-D torus (``--mesh-shape``) takes K4's torus mode whatever the block
-shape: the JAX package's torus gate (``w >= 128`` and
-``pallas_kstep.supported_x_halo``, runner.py:1532-1544), which chooses
-between its Pallas and jnp tori, has no counterpart here.
+The 2-D torus (``--mesh-shape``) is routed by ``dist.runner.make_runner``
+alone, whatever the block shape: K6's torus mode, or K4's torus mode where
+the torus passes K6's limits or crosses hosts. The JAX package's torus
+gate (``w >= 128`` and ``pallas_kstep.supported_x_halo``,
+runner.py:1532-1544), which chooses between its Pallas and jnp tori, has
+no counterpart here.
 """
 
 from __future__ import annotations

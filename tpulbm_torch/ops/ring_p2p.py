@@ -39,6 +39,12 @@ process after the pushes (the TPU kernel's entry,
 pallas_resident_rdma.py:127-147), and ``Exchange.check`` ORs the error
 words of every process at the end of a runner call.
 
+Torus mode (``torus_p2p_chunks``, ``TorusExchange``) runs the same
+protocol over the blocks of the 2-D torus, in one process or across
+processes alike: there ``TorusExchange.enter`` pushes each block's input
+edges and corners into its eight neighbours' slots before a call's first
+launch.
+
 ``p2p_chunks`` runs one launch a card; on CPU tensors it takes the plain
 version, ``p2p_chunks_ref``: ``n_outer`` chunks of ``ring_chunk_ref`` over
 every shard (this process's, the slabs of others through the transport),
@@ -84,6 +90,7 @@ HEADER = ("shard", "tile", "y0", "x0", "own_rows", "own_cols", "duties",
           "counts")
 PEER_SHIFT = 24
 MAX_PEERS = 4       # flag arrays a card's records name, its own first
+MAX_TORUS_PEERS = 16    # ... in torus mode (kMaxTorusPeers)
 PUSH_REMOTE = 1     # duty: the tile pushes an edge row onto another card
 READ_REMOTE = 2     # duty: a tile on another card waits on its flag
 
@@ -260,8 +267,12 @@ class Exchange:
     scope. Over several processes the blocks' IPC handles are gathered
     once, and each process maps the blocks of its shards' neighbours in
     other processes on the card of the shard beside them
-    (``open_seconds``); neighbour cards of one process get peer access
-    (raising, with the two cards, where it is refused)."""
+    (``open_seconds``), once for each of this process's cards that a
+    neighbour's tiles reach from; neighbour cards of one process get peer
+    access (raising, with the two cards, where it is refused). The
+    addresses of a block are taken as one card sees them (``via``, the
+    (process, card) key of the card whose launch uses them): its own
+    allocation, or that card's mapping of it."""
 
     def __init__(self, mesh, rows, nx: int, transport=None):
         self.mesh, self.rows, self.nx = list(mesh), list(rows), nx
@@ -290,7 +301,7 @@ class Exchange:
                 a, b = self.mesh[d], self.mesh[e]
                 if b is not None and a != b:
                     enable_peer(lib, a.index, b.index)
-        self.blocks, handles, own = {}, {}, []
+        self.blocks, self.mapped, handles, own = {}, {}, {}, []
         for key in self.cards:
             layout, size = self._layout(self.on[key])
             ptr, handle = alloc_block(self.device[key], size,
@@ -326,18 +337,19 @@ class Exchange:
 
     def _open(self, places, handles):
         """Map the blocks of this process's shards' neighbours in other
-        processes (the handles gathered from every process), each on the
-        card of the shard beside it; returns [(device index, mapping)]."""
+        processes (the handles gathered from every process), on each card
+        of a shard beside them (``self.mapped[via, key]``); returns
+        [(device index, mapping)]."""
         every = {}
         for part in self.tr.all_gather_object(handles):
             every.update(part)
-        visible = {multihost.card(torch.device("cuda", i))[1]
-                   for i in range(torch.cuda.device_count())}
+        visible = multihost.visible_cards()
         opened = []
         for d in self.local:
+            via = self.keys[d]
             for e in self._neighbours(d):
                 key = self.keys[e]
-                if self.tr.is_local(e) or key in self.blocks:
+                if self.tr.is_local(e) or (via, key) in self.mapped:
                     continue
                 dev = self.mesh[d]
                 if places[e][2] not in visible:
@@ -349,8 +361,7 @@ class Exchange:
                         f"neighbour's card must be visible in each process")
                 ptr = open_block(dev, every[key])
                 opened.append((_index(dev), ptr))
-                self.blocks[key] = (ptr, block_layout(self.rows, self.on[key],
-                                                      self.nx)[0])
+                self.mapped[via, key] = (ptr, self._layout(self.on[key])[0])
         return opened
 
     def close(self, own) -> None:
@@ -367,14 +378,20 @@ class Exchange:
         self.tr.barrier()
         _free_blocks(own)
 
-    def slots(self, d: int):
+    def _block(self, key, via):
+        """(address, layout) of ``key``'s block as card ``via`` sees it."""
+        if key in self.blocks:
+            return self.blocks[key]
+        return self.mapped[via, key]
+
+    def slots(self, d: int, via=None):
         """(lo, hi): the addresses of shard d's landing buffers (slot 0;
-        slot 1 follows it), in its block or this process's mapping of it."""
-        ptr, layout = self.blocks[self.keys[d]]
+        slot 1 follows it), in its block or card ``via``'s mapping of it."""
+        ptr, layout = self._block(self.keys[d], via)
         return ptr + layout[d][0], ptr + layout[d][1]
 
-    def flags(self, key) -> int:
-        ptr, layout = self.blocks[key]
+    def flags(self, key, via=None) -> int:
+        ptr, layout = self._block(key, via)
         return ptr + layout["flags"]
 
     def error(self, key) -> int:
@@ -389,7 +406,7 @@ class Exchange:
             graphs = self._tile_graph(k)
             self.graphs[k] = {
                 key: (torch.from_numpy(graphs[key][0]).to(self.device[key]),
-                      np.array([self.flags(p) for p in graphs[key][1]],
+                      np.array([self.flags(p, key) for p in graphs[key][1]],
                                dtype=np.int64))
                 for key in self.cards}
         return self.graphs[k]
@@ -430,9 +447,9 @@ class Exchange:
         n, nx, parity = len(self.mesh), self.nx, self.epoch % 2
         width = k * nx * 4          # bytes of a slab's plane
         for j, d in enumerate(self.local):
-            h, src = self.rows[d], states[j].data_ptr()
-            lo = self.slots((d + 1) % n)[0] + parity * SLOT_BYTES * nx
-            hi = self.slots((d - 1) % n)[1] + parity * SLOT_BYTES * nx
+            h, src, via = self.rows[d], states[j].data_ptr(), self.keys[d]
+            lo = self.slots((d + 1) % n, via)[0] + parity * SLOT_BYTES * nx
+            hi = self.slots((d - 1) % n, via)[1] + parity * SLOT_BYTES * nx
             for dst, off in ((lo, (h - k) * nx * 4), (hi, 0)):
                 copy_rows(dst, width, src + off, h * nx * 4, width, 9,
                           states[j].device)
@@ -718,14 +735,16 @@ def _entry(ex: Exchange, states, spares, bands, partials, sums, row_bases,
         next_in=state(q, hi), partials=partials[j].data_ptr(),
         sums=sums[j].data_ptr(), h=ex.rows[d], h_prev=ex.rows[p],
         h_next=ex.rows[q], row_base=row_bases[j])
-    for name, base in (("lo", lo), ("hi", hi), ("push_lo", ex.slots(q)[0]),
-                       ("push_hi", ex.slots(p)[1])):
+    via = ex.keys[d]
+    for name, base in (("lo", lo), ("hi", hi),
+                       ("push_lo", ex.slots(q, via)[0]),
+                       ("push_hi", ex.slots(p, via)[1])):
         words[name + "0"], words[name + "1"] = base, base + slot_bytes
     return [words[name] for name in TABLE]
 
 
 # Torus mode (csrc/ring_p2p.cu::lbm_torus_p2p): the (h, w) blocks of a
-# dy x dx torus in one process.
+# dy x dx torus, in one process or across processes.
 MAX_TORUS_LOCAL = 64   # blocks of one launch on one card (kMaxTorusLocal)
 # The neighbours of block (i, j), (di, dj) (csrc/ring_p2p.cu::Nbr): left,
 # right, up, down, up-left, up-right, down-left, down-right.
@@ -775,6 +794,50 @@ def _padded(rel):
     return np.array([list(i) + [-1] * (width - len(i)) for i in idx])
 
 
+def torus_peers(keys2d) -> dict:
+    """{card key: the card keys whose flag arrays the records of its blocks
+    name, its own first} for the torus whose block (i, j) lies on card key
+    keys2d[i][j]: the keys of its blocks and of their eight neighbours, in
+    row-major order. A tile waits only on tiles of its block and of the
+    eight neighbour blocks (k <= min(h, w)), and on a tile of each of them
+    (the neighbours' edge tiles lie within one cell), whatever k."""
+    dy, dx = len(keys2d), len(keys2d[0])
+    keys = [c for row in keys2d for c in row]
+    out = {}
+    for b, key in enumerate(keys):
+        peers = out.setdefault(key, [key])
+        for di in (-1, 0, 1):
+            for dj in (-1, 0, 1):
+                e = keys[torus_neighbour(b, di, dj, dy, dx)]
+                if e not in peers:
+                    peers.append(e)
+    return out
+
+
+def torus_refusal(keys2d) -> str:
+    """Why torus mode cannot run the torus whose block (i, j) lies on card
+    key keys2d[i][j] ((process, card index)): a card of more than
+    MAX_TORUS_LOCAL blocks (one launch holds every block of its card: its
+    tiles wait on each other's flags), or one whose blocks' records name
+    more than MAX_TORUS_PEERS flag arrays (``torus_peers``); "" where it
+    can. ``dist.runner.make_runner`` asks it when it builds the runner."""
+    keys = [c for row in keys2d for c in row]
+    for key in dict.fromkeys(keys):
+        if keys.count(key) > MAX_TORUS_LOCAL:
+            return (f"{keys.count(key)} blocks on {_key_text(key)}, at most "
+                    f"{MAX_TORUS_LOCAL} a card")
+    for key, peers in torus_peers(keys2d).items():
+        if len(peers) > MAX_TORUS_PEERS:
+            return (f"the blocks on {_key_text(key)} wait on the flag arrays "
+                    f"of {len(peers)} (process, card)s, at most "
+                    f"{MAX_TORUS_PEERS}")
+    return ""
+
+
+def _key_text(key) -> str:
+    return f"(process {key[0]}, cuda:{key[1]})"
+
+
 def torus_graph(mesh2d, h: int, w: int, k: int, t: int = TILE):
     """Each card's tile graph for torus mode: {card: (records, peers)}, as
     ``tile_graph``. ``mesh2d``: the dy x dx card keys of the blocks. A tile
@@ -785,11 +848,16 @@ def torus_graph(mesh2d, h: int, w: int, k: int, t: int = TILE):
     columns). Records in walk order: the card's blocks row-major, tiles
     row-major; HEADER's block is the launch index. Duties: PUSH_REMOTE where
     one of the tile's pushes (TORUS_PUSHES whose cells it owns) lands on
-    another card, READ_REMOTE where a tile on another card waits on it."""
+    another card, READ_REMOTE where a tile on another card waits on it.
+    peers: ``torus_peers``'s (1 <= k <= min(h, w))."""
     dy, dx = len(mesh2d), len(mesh2d[0])
+    if not 1 <= k <= min(h, w):
+        raise ValueError(f"torus mode takes 1 <= k <= min(h, w), got k {k} "
+                         f"for ({h}, {w}) blocks")
     keys = [c for row in mesh2d for c in row]
     cards = list(dict.fromkeys(keys))
     card_of = np.array([cards.index(c) for c in keys])
+    peer_keys = torus_peers(mesh2d)
     ty_n, tx_n = -(-h // t), -(-w // t)
     nt = ty_n * tx_n
     r0, rl = _band_tiles(dy, h, t)
@@ -811,7 +879,10 @@ def torus_graph(mesh2d, h: int, w: int, k: int, t: int = TILE):
     cols_own = {0: np.ones(nt, bool), 1: x0 + own_c > w - k, -1: x0 < k}
     out = {}
     for c, card in enumerate(cards):
-        peers, recs = [c], []
+        peers = [cards.index(e) for e in peer_keys[card]]
+        pidx = np.zeros(len(cards), dtype=np.int64)
+        pidx[peers] = np.arange(len(peers))
+        recs = []
         for b in np.flatnonzero(card_of == c):
             i, j = divmod(int(b), dx)
             gr = rows[i * ty_n + ty]               # (nt, WR) global tile rows
@@ -823,15 +894,10 @@ def torus_graph(mesh2d, h: int, w: int, k: int, t: int = TILE):
             blk = (dr // ty_n) * dx + dc // tx_n
             ut = (dr % ty_n) * tx_n + dc % tx_n
             dcard = card_of[blk]
-            for e in dict.fromkeys(dcard[~bad].tolist()):
-                if e not in peers:
-                    peers.append(e)
-            pidx = np.array([peers.index(e) if e in peers else 0
-                             for e in range(len(cards))])[dcard]
             key = np.where(bad, 2, (dcard != c).astype(np.int64))
             order = np.argsort(key, axis=1, kind="stable")
-            dep = np.take_along_axis((pidx << PEER_SHIFT) | (flag0[blk] + ut),
-                                     order, 1)
+            dep = np.take_along_axis(
+                (pidx[dcard] << PEER_SHIFT) | (flag0[blk] + ut), order, 1)
             key = np.take_along_axis(key, order, 1)
             n_local = (key == 0).sum(1)
             n_remote = (key == 1).sum(1)
@@ -856,12 +922,7 @@ def torus_graph(mesh2d, h: int, w: int, k: int, t: int = TILE):
             rec[:, REC_DEPS:REC_DEPS + m] = np.where(key[:, :m] < 2,
                                                      dep[:, :m], 0)
             recs.append(rec)
-        if len(peers) > MAX_PEERS:
-            raise ValueError(f"torus mode: the blocks on {card} wait on "
-                             f"flags of {len(peers)} cards, at most "
-                             f"{MAX_PEERS}")
-        out[card] = (np.concatenate(recs).astype(np.int32),
-                     [cards[e] for e in peers])
+        out[card] = (np.concatenate(recs).astype(np.int32), peer_keys[card])
     return out
 
 
@@ -905,19 +966,18 @@ def torus_block_layout(blocks, h: int, w: int):
 class TorusExchange(Exchange):
     """The landing slots, flags, error words, tile graphs and epoch of the
     torus over the dy x dx ``mesh2d`` of (h, w) blocks (block (i, j) on
-    mesh2d[i][j]), in one process: ``Exchange`` with four landing buffers a
+    mesh2d[i][j]; ``None`` for a block of another process, whose
+    ``transport`` the torus's): ``Exchange`` with four landing buffers a
     block (xlo, xhi, ylo, yhi, two slots each) and ``torus_graph``. On the
-    CPU the slots are tensors, ``land[b][buffer]``. The cards of a block's
-    eight neighbours get peer access (raising, with the two cards, where it
-    is refused)."""
+    CPU the slots are tensors, ``land[j][buffer]`` of this process's j-th
+    block. The cards of a block's eight neighbours get peer access
+    (raising, with the two cards, where it is refused); across processes
+    the neighbours' blocks are mapped as the ring's."""
 
-    def __init__(self, mesh2d, h: int, w: int):
+    def __init__(self, mesh2d, h: int, w: int, transport=None):
         self.dy, self.dx, self.h, self.w = len(mesh2d), len(mesh2d[0]), h, w
         flat = [d for row in mesh2d for d in row]
-        if any(d is None for d in flat):
-            raise ValueError("the torus's in-kernel exchange runs in one "
-                             "process: every block's device is needed")
-        super().__init__(flat, [h] * len(flat), w)
+        super().__init__(flat, [h] * len(flat), w, transport)
 
     def _cpu_slots(self) -> None:
         floats = torus_buffer_floats(self.h, self.w)
@@ -936,22 +996,67 @@ class TorusExchange(Exchange):
                 for i in range(self.dy)]
         return torus_graph(keys, self.h, self.w, k)
 
-    def buffers(self, b: int):
+    def buffers(self, b: int, via=None):
         """{buffer: address of slot 0} of block b's landing buffers (slot 1
-        follows torus_buffer_floats later)."""
-        ptr, layout = self.blocks[self.keys[b]]
+        follows torus_buffer_floats later), as card ``via`` sees them."""
+        ptr, layout = self._block(self.keys[b], via)
         return {name: ptr + off for name, off in layout[b].items()}
 
+    def enter(self, states, k: int) -> None:
+        """``Exchange.enter`` for the torus: each of this process's blocks
+        pushes its input's pieces into its eight neighbours' slots of the
+        launch's first epoch's parity, the cells of the kernel's pushes
+        (TORUS_PUSHES): its last and first k columns into the right and
+        left neighbours' xlo and xhi, its last and first k rows into the
+        lower and upper neighbours' ylo and yhi (the middle w columns), its
+        k x k corners into the diagonal neighbours' y slots' margin
+        columns; a copy on its card's stream. Then the entry order: every
+        card of this process synchronised and a host barrier. The order
+        before a push is the ring's: the slot was last read two epochs
+        earlier by tiles of the neighbour within one cell of this block,
+        which this block's launch of the epoch between waited on."""
+        h, w, parity = self.h, self.w, self.epoch % 2
+        kx = kstep_tile.col_margin(k)
+        yw = w + 2 * kx
+        floats = torus_buffer_floats(h, w)
+        span = {0: (0, w), 1: (w - k, k), -1: (0, k)}    # columns by dj
+        for j, b in enumerate(self.local):
+            src, dev, via = states[j].data_ptr(), states[j].device, self.keys[b]
+            for buf, di, dj in TORUS_PUSHES:
+                e = torus_neighbour(b, di, dj, self.dy, self.dx)
+                dst = self.buffers(e, via)[buf] + parity * 4 * floats[buf]
+                c0, cols = span[dj]
+                if di == 0:
+                    # an x slot (9, h, kx): the k columns next to the block
+                    at = kx - k if dj == 1 else 0
+                    copy_rows(dst + 4 * at, 4 * kx, src + 4 * c0, 4 * w,
+                              4 * cols, 9 * h, dev)
+                    continue
+                # a y slot (9, k, w + 2 kx): the middle columns or a margin
+                at = {0: kx, 1: kx - k, -1: kx + w}[dj]
+                r0 = h - k if di == 1 else 0
+                for q in range(9):
+                    copy_rows(dst + 4 * (q * k * yw + at), 4 * yw,
+                              src + 4 * ((q * h + r0) * w + c0), 4 * w,
+                              4 * cols, k, dev)
+        for dev in dict.fromkeys(self.device.values()):
+            torch.cuda.synchronize(dev)
+        self.tr.barrier()
 
-def torus_halos(f, dy: int, dx: int, k: int):
-    """Per block of the row-major blocks ``f`` (or their masks), the four
-    pieces that K4's torus mode takes, cut straight from the neighbours:
-    xlo, xhi (the left neighbour's last k columns, the right one's first k,
-    in col_margin(k) columns, zeros beside them) and ylo, yhi (the upper
-    and lower neighbours' last and first k rows with the diagonal
-    neighbours' k x k corners beside them: the rows of the x-extended
-    bands that the host's two-phase exchange takes)."""
+
+def torus_halo_pieces(k: int, dy: int, dx: int, lead: tuple, h: int, w: int):
+    """The pieces that K4's torus mode takes for a chunk of k steps, for
+    every block of the dy x dx torus, as ``Transport.move`` pieces (src,
+    dst, shape, cut), eight a block in this order: xlo and xhi (the left
+    neighbour's last k columns in the last k of col_margin(k) columns, the
+    right one's first k in the first, zeros beside them); ylo in three
+    parts, the upper-left neighbour's last k rows' last k columns (in
+    col_margin(k) columns as xlo), the upper neighbour's last k rows and
+    the upper-right's last k rows' first k columns (as xhi); yhi in three
+    likewise from the lower neighbours' first k rows. ``lead``: (9,) for
+    states, () for masks."""
     kx = kstep_tile.col_margin(k)
+    x, y, m = (*lead, h, kx), (*lead, k, kx), (*lead, k, w)
 
     def lo(t):
         return F.pad(t[..., -k:], (kx - k, 0))
@@ -959,61 +1064,96 @@ def torus_halos(f, dy: int, dx: int, k: int):
     def hi(t):
         return F.pad(t[..., :k], (0, kx - k))
 
+    def up(cut):
+        return lambda t: cut(t[..., -k:, :])
+
+    def down(cut):
+        return lambda t: cut(t[..., :k, :])
+
+    def whole(t):
+        return t
+
     out = []
     for b in range(dy * dx):
         def nb(di, dj):
-            return f[torus_neighbour(b, di, dj, dy, dx)]
+            return torus_neighbour(b, di, dj, dy, dx)
 
-        def band_rows(di, rows):
-            return torch.cat([lo(nb(di, -1)[..., rows, :]),
-                              nb(di, 0)[..., rows, :],
-                              hi(nb(di, 1)[..., rows, :])], dim=-1)
+        out += [(nb(0, -1), b, x, lo), (nb(0, 1), b, x, hi),
+                (nb(-1, -1), b, y, up(lo)), (nb(-1, 0), b, m, up(whole)),
+                (nb(-1, 1), b, y, up(hi)), (nb(1, -1), b, y, down(lo)),
+                (nb(1, 0), b, m, down(whole)), (nb(1, 1), b, y, down(hi))]
+    return out
 
-        out.append((lo(nb(0, -1)), hi(nb(0, 1)),
-                    band_rows(-1, slice(-k, None)),
-                    band_rows(1, slice(0, k))))
+
+def torus_halos(f, dy: int, dx: int, k: int, transport=None):
+    """Per block of the row-major blocks ``f`` (or their masks), the four
+    pieces that K4's torus mode takes, cut straight from the neighbours
+    (``torus_halo_pieces``): xlo, xhi, and ylo, yhi with the diagonal
+    neighbours' k x k corners beside the rows (the rows of the x-extended
+    bands that the host's two-phase exchange takes), on the block's
+    device. With a ``transport``
+    of several processes, ``f`` and the result are this process's blocks
+    (``transport.local``'s order), the other processes' pieces moved
+    through it."""
+    n = dy * dx
+    h, w = f[0].shape[-2:]
+    pieces = torus_halo_pieces(k, dy, dx, tuple(f[0].shape[:-2]), h, w)
+    if transport is None:
+        got = [cut(f[src]).to(f[dst].device) for src, dst, _, cut in pieces]
+        local = range(n)
+    else:
+        got = transport.move(pieces, multihost.by_shard(transport.local, f,
+                                                        n))
+        local = transport.local
+    out = []
+    for b in local:
+        xlo, xhi, *y = got[8 * b:8 * b + 8]
+        out.append((xlo, xhi, torch.cat(y[:3], dim=-1),
+                    torch.cat(y[3:], dim=-1)))
     return out
 
 
 def torus_p2p_chunks_ref(states, bands, land, params: LBMParams, k: int,
                          n_outer: int, base: int, row_bases, pull0: bool,
-                         dy: int, dx: int):
+                         dy: int, dx: int, transport=None):
     """Plain version of ``torus_p2p_chunks`` over every block of the dy x dx
-    torus (row-major lists): ``n_outer`` chunks of
-    ``kstep_tile.torus_chunk_ref``. Chunk c (epoch base + c) steps block b
-    from its four pieces: ``torus_halos`` of the states where ``pull0`` and
-    c = 0, else slot (base + c) % 2 of ``land[b]``'s buffers; then writes
-    each block's pieces of the new states (``torus_halos``) into the slots
-    of parity (base + c + 1) % 2. ``bands[b]``: block b's (h + 2k,
-    w + 2 col_margin(k)) mask band, band row 0 global row ``row_bases[b]``.
+    torus (row-major lists; or, with a ``transport`` of several processes,
+    over this process's blocks, every list in ``transport.local``'s
+    order): ``n_outer`` chunks of ``kstep_tile.torus_chunk_ref``. Chunk c
+    (epoch base + c) steps block b from its four pieces: ``torus_halos`` of
+    the states where ``pull0`` and c = 0, else slot (base + c) % 2 of its
+    ``land`` buffers; then writes each block's pieces of the new states
+    (``torus_halos``, the other processes' through the transport) into the
+    slots of parity (base + c + 1) % 2. ``bands[j]``: the block's (h + 2k,
+    w + 2 col_margin(k)) mask band, band row 0 global row ``row_bases[j]``.
     Returns (the states after n_outer chunks, per block the (n_outer k,)
     per-step sums); updates the landing buffers in place."""
     h, w = states[0].shape[1:]
     slot = {"xlo": (xslot, h), "xhi": (xslot, h), "ylo": (yslot, w),
             "yhi": (yslot, w)}
 
-    def view(b, name, parity):
+    def view(j, name, parity):
         fn, size = slot[name]
-        return fn(land[b][name], parity, k, size)
+        return fn(land[j][name], parity, k, size)
 
     f, sums = list(states), [[] for _ in states]
     for c in range(n_outer):
         e = base + c
         if pull0 and c == 0:
-            pieces = torus_halos(f, dy, dx, k)
+            pieces = torus_halos(f, dy, dx, k, transport)
         else:
-            pieces = [[view(b, name, e % 2) for name in TORUS_BUFFERS]
-                      for b in range(len(f))]
+            pieces = [[view(j, name, e % 2) for name in TORUS_BUFFERS]
+                      for j in range(len(f))]
         new = []
-        for b, (xlo, xhi, ylo, yhi) in enumerate(pieces):
-            g, s = kstep_tile.torus_chunk_ref(xlo, f[b], xhi, ylo, yhi,
-                                              bands[b], params, k,
-                                              row_bases[b])
+        for j, (xlo, xhi, ylo, yhi) in enumerate(pieces):
+            g, s = kstep_tile.torus_chunk_ref(xlo, f[j], xhi, ylo, yhi,
+                                              bands[j], params, k,
+                                              row_bases[j])
             new.append(g)
-            sums[b].append(s)
-        for b, got in enumerate(torus_halos(new, dy, dx, k)):
+            sums[j].append(s)
+        for j, got in enumerate(torus_halos(new, dy, dx, k, transport)):
             for name, piece in zip(TORUS_BUFFERS, got):
-                view(b, name, (e + 1) % 2).copy_(piece)
+                view(j, name, (e + 1) % 2).copy_(piece)
         f = new
     return f, [torch.cat(s) for s in sums]
 
@@ -1021,17 +1161,19 @@ def torus_p2p_chunks_ref(states, bands, land, params: LBMParams, k: int,
 def torus_p2p_chunks(ex: TorusExchange, states, spares, bands,
                      params: LBMParams, k: int, n_outer: int, row_bases,
                      pull0: bool):
-    """``n_outer`` chunks of k steps of every block of ``ex``'s torus from
-    ``states`` (row-major, block b on ex.mesh[b]), epochs ex.epoch onwards;
-    advances ex.epoch. ``spares``: a second buffer a block, which the launch
-    ping-pongs with the state. One torus-mode launch of K6 a card
-    (``LAUNCHES["torus_p2p"]``), on its current stream; on CPU tensors,
-    ``torus_p2p_chunks_ref``. Returns (the states, the buffers now free,
-    per block the (n_outer k,) raw per-step sums)."""
+    """``n_outer`` chunks of k steps of this process's blocks of ``ex``'s
+    torus from ``states`` (lists in ``ex.local``'s order, block b on
+    ex.mesh[b]), epochs ex.epoch onwards; advances ex.epoch. ``spares``: a
+    second buffer a block, which the launch ping-pongs with the state. One
+    torus-mode launch of K6 a card (``LAUNCHES["torus_p2p"]``), on its
+    current stream; on CPU tensors, ``torus_p2p_chunks_ref`` (its pieces
+    across processes through ``ex.tr``). Returns (the states, the buffers
+    now free, per block the (n_outer k,) raw per-step sums)."""
     if states[0].device.type == "cpu":
         f, sums = torus_p2p_chunks_ref(states, bands, ex.land, params, k,
                                        n_outer, ex.epoch, row_bases, pull0,
-                                       ex.dy, ex.dx)
+                                       ex.dy, ex.dx,
+                                       ex.tr if ex.world > 1 else None)
         ex.epoch += n_outer
         return f, list(states), sums
     sums = _torus_launch(ex, states, spares, bands, params, k, n_outer,
@@ -1044,66 +1186,67 @@ def torus_p2p_chunks(ex: TorusExchange, states, spares, bands,
 def _torus_launch(ex: TorusExchange, states, spares, bands,
                   params: LBMParams, k: int, n_outer: int, row_bases,
                   pull0: bool):
-    """Torus mode of K6 on the CUDA blocks, one launch a card: (per block
-    the sums, per block the (n_outer k, ntiles) partials that the kernel
-    reduced into them). Each card's table of its blocks goes to the card
-    (pinned, on the card's stream) before its launch. A launch of another k
-    than the one before it is ordered after every card's launch before it
-    (``ex.barrier``), as in ``_p2p_launch``."""
-    h, w, n = ex.h, ex.w, len(ex.mesh)
+    """Torus mode of K6 on this process's CUDA blocks (lists in
+    ``ex.local``'s order), one launch a card: (per block the sums, per
+    block the (n_outer k, ntiles) partials that the kernel reduced into
+    them). Each card's table of its blocks goes to the card (pinned, on the
+    card's stream) before its launch. Over several processes a launch with
+    ``pull0`` runs ``ex.enter`` and reads the slots instead; in one process
+    a launch of another k than the one before it is ordered after every
+    card's launch before it (``ex.barrier``), as in ``_p2p_launch``."""
+    h, w, local = ex.h, ex.w, ex.local
     kx = kstep_tile.col_margin(k)
     if ex.failed:
         raise RuntimeError("lbm_torus_p2p: an earlier launch of this torus "
                            "failed; its flags and ticket counters are lost")
     if not (1 <= k <= kstep_tile.TILE_K and 1 <= n_outer <= MAX_OUTER
-            and k <= min(h, w) and len(states) == n):
+            and k <= min(h, w) and len(states) == len(local)):
         raise ValueError(f"torus mode takes 1 to {kstep_tile.TILE_K} steps "
                          f"over blocks of at least k rows and columns and 1 "
                          f"to {MAX_OUTER} chunks, got k {k}, {n_outer} "
                          f"chunks, ({h}, {w}) blocks, {len(states)} states "
-                         f"for {n} blocks")
-    for b in range(n):
-        _build.require_cuda(states[b], spares[b], bands[b])
-        if (states[b].device != ex.mesh[b] or states[b].shape != (9, h, w)
-                or spares[b].shape != states[b].shape
-                or spares[b].data_ptr() == states[b].data_ptr()
-                or bands[b].shape != (h + 2 * k, w + 2 * kx)
-                or not 0 <= row_bases[b] < params.ny):
+                         f"for {len(local)} blocks")
+    for j, b in enumerate(local):
+        _build.require_cuda(states[j], spares[j], bands[j])
+        if (states[j].device != ex.mesh[b] or states[j].shape != (9, h, w)
+                or spares[j].shape != states[j].shape
+                or spares[j].data_ptr() == states[j].data_ptr()
+                or bands[j].shape != (h + 2 * k, w + 2 * kx)
+                or not 0 <= row_bases[j] < params.ny):
             raise ValueError(
-                f"block {b}: state {tuple(states[b].shape)} on "
-                f"{states[b].device}, spare {tuple(spares[b].shape)}, mask "
-                f"{tuple(bands[b].shape)}, row {row_bases[b]}; the torus "
+                f"block {b}: state {tuple(states[j].shape)} on "
+                f"{states[j].device}, spare {tuple(spares[j].shape)}, mask "
+                f"{tuple(bands[j].shape)}, row {row_bases[j]}; the torus "
                 f"wants ({h}, {w}) blocks of the ({params.ny}, {params.nx}) "
                 f"grid on {ex.mesh[b]} and a distinct spare")
-    if ex.k_last not in (None, k):
+    if pull0 and ex.world > 1:
+        ex.enter(states, k)
+        pull0 = False
+    elif ex.k_last not in (None, k):
         ex.barrier()
     ex.k_last = k
     lib = _build.library()
     nt = ntiles(h, w)
     partials = [torch.empty((n_outer * k, nt), dtype=torch.float32,
-                            device=ex.mesh[b]) for b in range(n)]
+                            device=ex.mesh[b]) for b in local]
     sums = [torch.empty(n_outer * k, dtype=torch.float32, device=ex.mesh[b])
-            for b in range(n)]
+            for b in local]
     graph = ex.graph(k)
     for card in ex.cards:
-        local = [b for b in range(n) if ex.keys[b] == card]
-        if len(local) > MAX_TORUS_LOCAL:
-            raise ValueError(f"torus mode takes at most {MAX_TORUS_LOCAL} "
-                             f"blocks a card, got {len(local)} on "
-                             f"{ex.device[card]}")
+        on = [j for j, b in enumerate(local) if ex.keys[b] == card]
         table = np.array([_torus_entry(ex, states, spares, bands, partials,
-                                       sums, row_bases, b) for b in local],
+                                       sums, row_bases, j) for j in on],
                          dtype=np.int64)
         records, peer_flags = graph[card]
         dev = ex.device[card]
-        with _build.on_device(states[local[0]]):
+        with _build.on_device(states[on[0]]):
             on_card = torch.from_numpy(table).pin_memory().to(
                 dev, non_blocking=True)
             _build.LAUNCHES["torus_p2p"] += 1
-            _build.LAUNCHES["reduce_partials"] += n_outer * len(local)
+            _build.LAUNCHES["reduce_partials"] += n_outer * len(on)
             _build.check(
                 lib.lbm_torus_p2p(
-                    table.ctypes.data, on_card.data_ptr(), len(local),
+                    table.ctypes.data, on_card.data_ptr(), len(on),
                     records.data_ptr(), records.shape[0],
                     peer_flags.ctypes.data, len(peer_flags), n_outer,
                     ex.epoch, int(pull0), ex.error(card),
@@ -1112,26 +1255,31 @@ def _torus_launch(ex: TorusExchange, states, spares, bands,
                     params.accel_w1, params.accel_w2, k, h, w,
                     torch.cuda.current_stream(dev).cuda_stream),
                 f"lbm_torus_p2p ({k} steps, {n_outer} chunks, "
-                f"{len(local)} ({h}, {w}) blocks on {dev}, "
+                f"{len(on)} ({h}, {w}) blocks on {dev}, "
                 f"{lib.lbm_ring_p2p_smem(k)} B of dynamic shared memory)")
     ex.epoch += n_outer
     return sums, partials
 
 
 def _torus_entry(ex: TorusExchange, states, spares, bands, partials, sums,
-                 row_bases, b: int):
-    """The words of block b in its card's launch table, in TORUS_TABLE's
-    order: its buffers, its eight neighbours' input states (read only with
-    pull0), its landing buffers, the landing buffers of its pushes (peer
-    addresses where they lie on another card), its first band row."""
-    words = dict(obst=bands[b].data_ptr(), state0=states[b].data_ptr(),
-                 state1=spares[b].data_ptr(), partials=partials[b].data_ptr(),
-                 sums=sums[b].data_ptr(), row_base=row_bases[b],
+                 row_bases, j: int):
+    """The words of this process's j-th block b in its card's launch table,
+    in TORUS_TABLE's order: its buffers, its eight neighbours' input states
+    (read only with pull0, in one process; across processes, where a
+    neighbour lies in another, the block's own state stands in), its
+    landing buffers, the landing buffers of its pushes (peer or IPC-mapped
+    addresses where they lie on another card or in another process), its
+    first band row."""
+    b = ex.local[j]
+    via = ex.keys[b]
+    words = dict(obst=bands[j].data_ptr(), state0=states[j].data_ptr(),
+                 state1=spares[j].data_ptr(), partials=partials[j].data_ptr(),
+                 sums=sums[j].data_ptr(), row_base=row_bases[j],
                  **ex.buffers(b))
     for name, (di, dj) in zip(NBR_NAMES, NEIGHBOURS):
         e = torus_neighbour(b, di, dj, ex.dy, ex.dx)
-        words[f"in_{name}"] = states[e].data_ptr()
+        words[f"in_{name}"] = states[ex.index.get(e, j)].data_ptr()
     for (buf, di, dj), name in zip(TORUS_PUSHES, PUSH_NAMES):
         e = torus_neighbour(b, di, dj, ex.dy, ex.dx)
-        words[f"to_{name}"] = ex.buffers(e)[buf]
+        words[f"to_{name}"] = ex.buffers(e, via)[buf]
     return [words[name] for name in TORUS_TABLE]
