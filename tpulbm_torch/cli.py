@@ -196,7 +196,7 @@ def _main(args) -> int:
     from tpulbm_torch.io.obstacles import ObstacleFileError
     from tpulbm_torch.io.params_file import ParamFileError
     from tpulbm_torch.sim.simulation import Simulation
-    from tpulbm_torch.utils.profiling import trace_region
+    from tpulbm_torch.utils.profiling import totals, trace_region
 
     if args.device == "cuda" and not torch.cuda.is_available():
         return die("--device cuda, but no CUDA device is available "
@@ -233,6 +233,7 @@ def _main(args) -> int:
             return die(f"cannot resume: {e}")
 
     sim.settle()
+    before = totals().get("lbm.dist.exchange", (0, 0.0))
     tic = time.time()
     try:
         with trace_region("mainloop",
@@ -259,9 +260,11 @@ def _main(args) -> int:
         print("Elapsed user CPU time:\t\t%.6f (s)" % ru.ru_utime)
         print("Elapsed system CPU time:\t%.6f (s)" % ru.ru_stime)
     tr = sim.transport
-    if args.multihost and sim.output and tr.chunks:
-        print(f"multihost: transport {tr.backend}, {tr.chunks} chunks, "
-              f"host exchange {tr.seconds / tr.chunks * 1e6:.1f} us a chunk",
+    chunks, seconds = (a - b for a, b in zip(
+        totals().get("lbm.dist.exchange", (0, 0.0)), before))
+    if args.multihost and sim.output and chunks:
+        print(f"multihost: transport {tr.backend}, {chunks} chunks, "
+              f"host exchange {seconds / chunks * 1e6:.1f} us a chunk",
               file=sys.stderr, flush=True)
 
     if not args.no_output:

@@ -43,7 +43,6 @@ import math
 import os
 import socket
 import sys
-import time
 from datetime import timedelta
 from typing import List, Optional, Sequence
 
@@ -326,8 +325,6 @@ class Transport:
                 torch.cuda.set_device(self.device)
         # messages staged from a card go through page-locked host memory
         self.pinned = self.comm.type == "cpu" and self.device.type == "cuda"
-        self.seconds = 0.0     # host seconds spent in exchanges
-        self.chunks = 0        # chunks whose halos this transport moved
         self._places = None
 
     def owner(self, d: int) -> int:
@@ -403,11 +400,6 @@ class Transport:
         host memory when the slabs are staged from a card)."""
         return torch.empty(numel, dtype=torch.float32, device=self.comm,
                            pin_memory=self.pinned)
-
-    def timed(self, t0: float) -> None:
-        """Account one chunk's exchange, begun at perf_counter() ``t0``."""
-        self.seconds += time.perf_counter() - t0
-        self.chunks += 1
 
     def all_gather(self, values: Sequence[torch.Tensor]) -> list:
         """The local shards' same-shape ``values`` (in shard order), and

@@ -66,6 +66,11 @@ message where not; the raw sums of every shard are gathered to every
 process and added there in shard order, so the series is bitwise that of
 one process driving every shard.
 
+Each runner call is one span ``lbm.dist.call`` (``utils.profiling``), in
+which the ring's and the K4 torus's host-issued exchange of a chunk is
+``lbm.dist.exchange`` and the sums' addition ``lbm.dist.sums``; there is
+no span a kernel launch.
+
 Every runner takes ownership of its input, as the JAX runners do with
 ``donate_argnums=0``: a chunk writes its state into the storage that the
 chunk before it read (``ops.kstep.output``), so a run holds two states,
@@ -110,7 +115,6 @@ from __future__ import annotations
 
 import os
 import sys
-import time
 from typing import Callable, Sequence
 
 import torch
@@ -120,6 +124,7 @@ from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.dist import multihost, tiers
 from tpulbm_torch.dist.sharding import block_shape, ring_rows
 from tpulbm_torch.ops import kstep, kstep_tile, resident, ring_p2p, step_torch
+from tpulbm_torch.utils.profiling import span, spanned, totals
 
 BACKENDS = ("auto", "cuda", "torch", "cuda-p2p")
 
@@ -174,9 +179,10 @@ def run_plan(plan, f, obst_f, params: LBMParams):
         else:
             f, s = chunk_fn(f, obst_f, params, k)
         sums.append(s)
-    free_inv = torch.tensor(params.free_cells_inv, dtype=torch.float32,
-                            device=f.device)
-    return f, torch.cat(sums) * free_inv
+    with span("lbm.dist.sums"):
+        free_inv = torch.tensor(params.free_cells_inv, dtype=torch.float32,
+                                device=f.device)
+        return f, torch.cat(sums) * free_inv
 
 
 def make_runner(params: LBMParams, n_steps: int, backend: str = "auto",
@@ -244,6 +250,7 @@ def make_runner(params: LBMParams, n_steps: int, backend: str = "auto",
                     f"a tensor on {t.device}")
 
     if backend == "torch":
+        @spanned("lbm.dist.call")
         def runner(f, obstacles):
             check_device(f, obstacles)
             return step_torch.run_steps(f, obstacles, params, n_steps)
@@ -252,6 +259,7 @@ def make_runner(params: LBMParams, n_steps: int, backend: str = "auto",
 
     plan = kernel_plan(params, n_steps)
 
+    @spanned("lbm.dist.call")
     def runner(f, obstacles):
         check_device(f, obstacles)
         return run_plan(plan, f, obstacles.to(torch.float32), params)
@@ -335,6 +343,7 @@ def _plain_torus(xlo, block, xhi, ylo, yhi, obst_band, params, k, row_base,
     return kstep.into(out, f), sums
 
 
+@spanned("lbm.dist.sums")
 def _deferred_sum(sums, device, params: LBMParams, transport):
     """The local shards' lists of raw per-step sums and every other
     process's (``transport.all_gather``), added on ``device`` in shard order
@@ -346,6 +355,11 @@ def _deferred_sum(sums, device, params: LBMParams, transport):
         av = s if av is None else av + s
     return av * torch.tensor(params.free_cells_inv, dtype=torch.float32,
                              device=device)
+
+
+def _seconds(name: str) -> float:
+    """The seconds of the spans named ``name`` in this process so far."""
+    return totals().get(name, (0, 0.0))[1]
 
 
 def _flat(mesh):
@@ -379,6 +393,7 @@ def make_ring_runner(params: LBMParams, n_steps: int, mesh: Sequence,
     slabs = {k: multihost.ring_pieces(k, n, (9,), nx) for k in set(plan)}
     local = tr.local
 
+    @spanned("lbm.dist.call")
     def runner(shards, obst_shards):
         _check_shards(local, shards, obst_shards, rows, mesh, ny, nx)
         # Shard d's (h + 2 k_max, nx) mask band; a chunk of k steps takes
@@ -387,9 +402,9 @@ def make_ring_runner(params: LBMParams, n_steps: int, mesh: Sequence,
         shards, spares = list(shards), [None] * len(local)
         sums = [[] for _ in local]
         for k in plan:
-            t0 = time.perf_counter()
-            halo = tr.move(slabs[k], multihost.by_shard(local, shards, n))
-            tr.timed(t0)
+            with span("lbm.dist.exchange"):
+                halo = tr.move(slabs[k],
+                               multihost.by_shard(local, shards, n))
             new = []
             for j, d in enumerate(local):
                 band = masks[j][k_max - k:k_max + rows[d] + k]
@@ -463,13 +478,15 @@ def make_p2p_runner(params: LBMParams, n_steps: int, mesh: Sequence,
     launches = [(k, per)] * (n_full // per)
     launches += [(k, n_full % per)] if n_full % per else []
     launches += [(rem, 1)] if rem else []
+    opened = _seconds("lbm.dist.ipc_open")
     ex = ring_p2p.Exchange(mesh, rows, nx, tr)
     if ex.world > 1 and ex.mesh[ex.local[0]].type == "cuda":
+        ms = (_seconds("lbm.dist.ipc_open") - opened) * 1e3
         print(f"tpulbm_torch: cuda-p2p over {ex.world} processes: "
               f"{len(ex.opened)} exchange blocks of other processes opened "
-              f"in {ex.open_seconds * 1e3:.1f} ms", file=sys.stderr,
-              flush=True)
+              f"in {ms:.1f} ms", file=sys.stderr, flush=True)
 
+    @spanned("lbm.dist.call")
     def runner(shards, obst_shards):
         _check_shards(tr.local, shards, obst_shards, rows, mesh, ny, nx)
         masks = _mask_bands(tr, obst_shards, k, n, nx)
@@ -560,15 +577,15 @@ def make_torus_runner(params: LBMParams, n_steps: int, mesh2d: Sequence,
     pieces = {k: _torus_pieces(k, dy, dx, (9,), h, w) for k in set(plan)}
     local = tr.local
 
+    @spanned("lbm.dist.call")
     def runner(blocks, obst_blocks):
         _check_blocks(local, blocks, obst_blocks, devs, h, w, ny, nx)
         masks = _torus_mask_bands(tr, obst_blocks, set(plan), dy, dx, h, w)
         blocks, spares = list(blocks), [None] * len(local)
         sums = [[] for _ in local]
         for k in plan:
-            t0 = time.perf_counter()
-            halos = _torus_halos(tr, pieces[k], blocks, n)
-            tr.timed(t0)
+            with span("lbm.dist.exchange"):
+                halos = _torus_halos(tr, pieces[k], blocks, n)
             new = []
             for j, (b, (xlo, xhi, ylo, yhi)) in enumerate(zip(local, halos)):
                 f, s = chunk_fn(xlo, blocks[j], xhi, ylo, yhi, masks[k][j],
@@ -657,14 +674,16 @@ def make_torus_p2p_runner(params: LBMParams, n_steps: int, mesh2d: Sequence,
     launches = [(k, per)] * (n_full // per)
     launches += [(k, n_full % per)] if n_full % per else []
     launches += [(rem, 1)] if rem else []
+    opened = _seconds("lbm.dist.ipc_open")
     ex = ring_p2p.TorusExchange([devs[i * dx:(i + 1) * dx]
                                  for i in range(dy)], h, w, tr)
     if ex.world > 1 and ex.mesh[local[0]].type == "cuda":
+        ms = (_seconds("lbm.dist.ipc_open") - opened) * 1e3
         print(f"tpulbm_torch: the torus over {ex.world} processes: "
               f"{len(ex.opened)} exchange blocks of other processes opened "
-              f"in {ex.open_seconds * 1e3:.1f} ms", file=sys.stderr,
-              flush=True)
+              f"in {ms:.1f} ms", file=sys.stderr, flush=True)
 
+    @spanned("lbm.dist.call")
     def runner(blocks, obst_blocks):
         _check_blocks(local, blocks, obst_blocks, devs, h, w, ny, nx)
         masks = _torus_mask_bands(tr, obst_blocks, {kk for kk, _ in launches},

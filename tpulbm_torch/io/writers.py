@@ -20,6 +20,7 @@ import numpy as np
 from tpulbm_torch.core.lattice import C_SQ
 from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.io import native
+from tpulbm_torch.utils.profiling import spanned
 
 
 def final_state_fields(f: np.ndarray, obstacles: np.ndarray, params: LBMParams):
@@ -43,6 +44,7 @@ def final_state_fields(f: np.ndarray, obstacles: np.ndarray, params: LBMParams):
     return u_x, u_y, u, pressure
 
 
+@spanned("lbm.io.final_state")
 def write_final_state(
     path: str | os.PathLike,
     f: np.ndarray,
@@ -76,6 +78,7 @@ def write_final_state(
         fp.write("".join(lines))
 
 
+@spanned("lbm.io.av_vels")
 def write_av_vels(path: str | os.PathLike, av_vels: np.ndarray) -> None:
     av = np.asarray(av_vels, dtype=np.float32)
     if native.available():

@@ -57,7 +57,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import time
 import weakref
 
 import numpy as np
@@ -67,6 +66,7 @@ import torch.nn.functional as F
 from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.dist import multihost
 from tpulbm_torch.ops import _build, kstep_tile
+from tpulbm_torch.utils.profiling import span
 
 MAX_OUTER = 64      # chunks of one launch (csrc/ring_p2p.cu::kMaxOuter)
 MAX_LOCAL = 16      # shards of one launch on one card (kMaxLocal)
@@ -266,8 +266,8 @@ class Exchange:
     flags and slots are reached through a CUDA IPC mapping, at system
     scope. Over several processes the blocks' IPC handles are gathered
     once, and each process maps the blocks of its shards' neighbours in
-    other processes on the card of the shard beside them
-    (``open_seconds``), once for each of this process's cards that a
+    other processes on the card of the shard beside them (the span
+    ``lbm.dist.ipc_open``), once for each of this process's cards that a
     neighbour's tiles reach from; neighbour cards of one process get peer
     access (raising, with the two cards, where it is refused). The
     addresses of a block are taken as one card sees them (``via``, the
@@ -281,7 +281,6 @@ class Exchange:
         self.index = {d: j for j, d in enumerate(self.local)}
         self.epoch = 0
         self.failed = False
-        self.open_seconds = 0.0
         self.k_last = None
         self.graphs = {}
         n = len(self.mesh)
@@ -312,9 +311,8 @@ class Exchange:
         if self.world == 1:
             weakref.finalize(self, _free_blocks, own).atexit = False
             return
-        t0 = time.perf_counter()
-        self.opened = self._open(places, handles)
-        self.open_seconds = time.perf_counter() - t0
+        with span("lbm.dist.ipc_open"):
+            self.opened = self._open(places, handles)
         multihost.at_shutdown(lambda: self.close(own))
 
     def _cpu_slots(self) -> None:

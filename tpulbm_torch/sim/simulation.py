@@ -32,6 +32,14 @@ own shards, and each process reads back only the rows it owns.
 A runner call takes ownership of the state it is handed (its storage holds
 a later chunk's output, as the JAX runners donate theirs): ``run`` keeps no
 reference to the shards during the call.
+
+Each part of that work is a span (``utils.profiling.span``):
+``lbm.sim.init``, ``lbm.sim.settle``, ``lbm.sim.run`` and inside it, a
+runner call at a time, ``lbm.dist.make_runner`` (on the runner's first
+call), ``lbm.dist.call``, ``lbm.sim.readback`` and ``lbm.sim.record`` (the
+bookkeeping between calls), then ``lbm.sim.result`` (the history copy and
+``lbm.sim.reynolds``); ``lbm.io.write`` holds ``lbm.diag.planes`` and the
+writers' ``lbm.io.final_state`` and ``lbm.io.av_vels``.
 """
 
 from __future__ import annotations
@@ -68,6 +76,7 @@ from tpulbm_torch.io.obstacles import read_obstacles
 from tpulbm_torch.io.params_file import read_params
 from tpulbm_torch.io.writers import write_av_vels, write_final_state
 from tpulbm_torch.sim import checkpoint as ckpt
+from tpulbm_torch.utils.profiling import span, spanned
 
 
 @dataclasses.dataclass
@@ -95,6 +104,7 @@ class SimulationResult:
 
 
 class Simulation:
+    @spanned("lbm.sim.init")
     def __init__(
         self,
         params: LBMParams,
@@ -205,6 +215,7 @@ class Simulation:
         collective, None but on process 0)."""
         return self._gather(self.shards, self.device)
 
+    @spanned("lbm.sim.settle")
     def settle(self) -> None:
         """Finish set-up before a timed region: wait for the uploads, on the
         ``cuda`` backend build and load the kernels, and over several
@@ -225,9 +236,11 @@ class Simulation:
 
     def _runner(self, n_steps: int):
         if n_steps not in self._runners:
-            self._runners[n_steps] = make_runner(
-                self.params, n_steps, backend=self.backend,
-                device=self.device, mesh=self.mesh, transport=self.transport)
+            with span("lbm.dist.make_runner"):
+                self._runners[n_steps] = make_runner(
+                    self.params, n_steps, backend=self.backend,
+                    device=self.device, mesh=self.mesh,
+                    transport=self.transport)
         return self._runners[n_steps]
 
     def _advance(self, n_steps: int):
@@ -241,7 +254,8 @@ class Simulation:
         else:
             shards, av = self._runner(n_steps)(shards, self.obst_shards)
         self.shards = shards
-        return av.cpu().numpy()
+        with span("lbm.sim.readback"):
+            return av.cpu().numpy()
 
     @staticmethod
     def _plan_chunks(start: int, total: int, chunk: int,
@@ -270,6 +284,7 @@ class Simulation:
             pos += n
         return sizes
 
+    @spanned("lbm.sim.run")
     def run(
         self,
         n_steps: Optional[int] = None,
@@ -311,56 +326,61 @@ class Simulation:
         try:
             for n in plan:
                 av_np = self._advance(n)
-                if not np.isfinite(av_np[-1]):
-                    # Divergence check, the runtime form of the reference's
-                    # disabled FP traps (d2q9-bgk.c:60,195): BGK goes
-                    # unstable for omega near 2 or too strong a forcing.
-                    # Bookkeeping advances through the last finite step
-                    # first (the state itself is past the divergence).
-                    bad = int(np.argmax(~np.isfinite(av_np)))
-                    self.av_vels[self.step_count : self.step_count + bad] = (
-                        av_np[:bad])
-                    self.step_count += bad
-                    raise FloatingPointError(
-                        f"simulation diverged (non-finite average velocity "
-                        f"at step {self.step_count}); check omega "
-                        f"({self.params.omega}) and accel "
-                        f"({self.params.accel})"
-                    )
-                self.av_vels[self.step_count : self.step_count + n] = av_np
-                self.step_count += n
-                done += n
-                if progress and self.output:
-                    print(
-                        f"step {self.step_count}/{self.params.max_iters} "
-                        f"av_vel={av_np[-1]:.6E}",
-                        flush=True,
-                    )
-                if debug:
-                    # The reference's DEBUG block (d2q9-bgk.c:380-393).
-                    density = self._shard_sum(lambda f, _: total_density(f))
-                    if self.output:
-                        print(f"==timestep: {self.step_count - 1}==")
-                        print(f"av velocity: {av_np[-1]:.12E}")
-                        print(f"tot density: {float(density):.12E}",
-                              flush=True)
-                if metrics_fp is not None:
-                    wall = max(time.perf_counter() - t0, 1e-9)
-                    metrics_fp.write(json.dumps({
-                        "step": self.step_count,
-                        "av_vel": float(av_np[-1]),
-                        "wall_s": round(wall, 4),
-                        # this run's steps over this run's wall time
-                        "steps_per_s": round(done / wall, 2),
-                    }) + "\n")
-                    metrics_fp.flush()
-                if checkpoint_every and checkpoint_dir and (
-                    self.step_count % checkpoint_every == 0
-                    or done >= total
-                ):
-                    # the write overlaps the next chunk on a thread, from a
-                    # host copy (the next chunk reuses the state's storage)
-                    self._checkpoint(checkpoint_dir, self._async_ckpt.submit)
+                with span("lbm.sim.record"):
+                    if not np.isfinite(av_np[-1]):
+                        # Divergence check, the runtime form of the
+                        # reference's disabled FP traps (d2q9-bgk.c:60,195):
+                        # BGK goes unstable for omega near 2 or too strong a
+                        # forcing. Bookkeeping advances through the last
+                        # finite step first (the state itself is past the
+                        # divergence).
+                        bad = int(np.argmax(~np.isfinite(av_np)))
+                        at = self.step_count
+                        self.av_vels[at : at + bad] = av_np[:bad]
+                        self.step_count += bad
+                        raise FloatingPointError(
+                            f"simulation diverged (non-finite average "
+                            f"velocity at step {self.step_count}); check "
+                            f"omega ({self.params.omega}) and accel "
+                            f"({self.params.accel})"
+                        )
+                    self.av_vels[self.step_count : self.step_count + n] = av_np
+                    self.step_count += n
+                    done += n
+                    if progress and self.output:
+                        print(
+                            f"step {self.step_count}/{self.params.max_iters} "
+                            f"av_vel={av_np[-1]:.6E}",
+                            flush=True,
+                        )
+                    if debug:
+                        # The reference's DEBUG block (d2q9-bgk.c:380-393).
+                        density = self._shard_sum(
+                            lambda f, _: total_density(f))
+                        if self.output:
+                            print(f"==timestep: {self.step_count - 1}==")
+                            print(f"av velocity: {av_np[-1]:.12E}")
+                            print(f"tot density: {float(density):.12E}",
+                                  flush=True)
+                    if metrics_fp is not None:
+                        wall = max(time.perf_counter() - t0, 1e-9)
+                        metrics_fp.write(json.dumps({
+                            "step": self.step_count,
+                            "av_vel": float(av_np[-1]),
+                            "wall_s": round(wall, 4),
+                            # this run's steps over this run's wall time
+                            "steps_per_s": round(done / wall, 2),
+                        }) + "\n")
+                        metrics_fp.flush()
+                    if checkpoint_every and checkpoint_dir and (
+                        self.step_count % checkpoint_every == 0
+                        or done >= total
+                    ):
+                        # the write overlaps the next chunk on a thread, from
+                        # a host copy (the next chunk reuses the state's
+                        # storage)
+                        self._checkpoint(checkpoint_dir,
+                                         self._async_ckpt.submit)
         finally:
             # join the in-flight checkpoint (surfacing its errors) and close
             # the metrics file even when a chunk raised
@@ -374,16 +394,17 @@ class Simulation:
                       file=sys.stderr)
             if metrics_fp is not None:
                 metrics_fp.close()
-        self._sync()
-        elapsed = time.perf_counter() - t0
-        return SimulationResult(
-            params=self.params,
-            av_vels=self.av_vels[: self.step_count].copy(),
-            reynolds=self.reynolds(),
-            elapsed_s=elapsed,
-            sim=self,
-            epoch=self.epoch,
-        )
+        with span("lbm.sim.result"):
+            self._sync()
+            elapsed = time.perf_counter() - t0
+            return SimulationResult(
+                params=self.params,
+                av_vels=self.av_vels[: self.step_count].copy(),
+                reynolds=self.reynolds(),
+                elapsed_s=elapsed,
+                sim=self,
+                epoch=self.epoch,
+            )
 
     # -- observables ------------------------------------------------------
     def _av_velocity(self) -> torch.Tensor:
@@ -391,22 +412,26 @@ class Simulation:
             self.params.free_cells_inv, dtype=torch.float32,
             device=self.device)
 
+    @spanned("lbm.sim.reynolds")
     def reynolds(self) -> float:
         return float(reynolds_of(self._av_velocity(), self.params))
 
+    @spanned("lbm.sim.reynolds")
     def average_velocity(self) -> float:
         return float(self._av_velocity())
 
     # -- persistence ------------------------------------------------------
+    @spanned("lbm.io.write")
     def write_outputs(self, out_dir: str | os.PathLike = ".") -> None:
         """Write final_state.dat + av_vels.dat; the output planes are
         computed on each shard's device and read back once. Under several
         processes process 0 gathers them and writes; the others return
         after the gather."""
-        planes = [output_fields(f, o, self.params.density)
-                  for f, o in zip(self.shards, self.obst_shards)]
-        fields = [self._gather([p[i].cpu() for p in planes], "cpu")
-                  for i in range(4)]
+        with span("lbm.diag.planes"):
+            planes = [output_fields(f, o, self.params.density)
+                      for f, o in zip(self.shards, self.obst_shards)]
+            fields = [self._gather([p[i].cpu() for p in planes], "cpu")
+                      for i in range(4)]
         if not self.output:
             return
         os.makedirs(out_dir, exist_ok=True)
