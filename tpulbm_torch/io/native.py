@@ -1,15 +1,23 @@
-"""ctypes bindings to the native C++ IO runtime (``native/io_native.cpp``).
+"""ctypes bindings to the port's native C++ IO runtime
+(``tpulbm_torch/csrc/io_native.cpp``).
 
-The same library as ``tpulbm.io.native``, built by the port into its own
-git-ignored directory ``build/tpulbm_torch/`` with g++ on first use:
-formatting a million "%.12E" lines from Python is 10-20x slower than C
-stdio. Every caller has a pure Python/numpy path giving the same bytes for
-hosts without g++ (or with ``TPULBM_NO_NATIVE`` set).
+g++ builds it on first use into the git-ignored ``build/tpulbm_torch/``,
+under a file name that carries a hash of the source, so a library built
+from another source text is never loaded. Its writers print each float32
+"%.12E" exactly in integer arithmetic, with the bytes of C's printf and a
+fraction of its time (formatting from Python is slower still). Every
+caller has a pure Python/numpy path giving the same bytes for hosts without
+g++ (or with ``TPULBM_NO_NATIVE`` set).
+
+``FALLBACKS`` counts the values the writers formatted on their slow path
+(subnormal, below 1e-32 or from 1e13 in magnitude, NaN, Inf); zero is
+exact on the fast one.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import tempfile
@@ -19,35 +27,46 @@ from pathlib import Path
 import numpy as np
 
 _ROOT = Path(__file__).resolve().parents[2]
-_SRC = _ROOT / "native" / "io_native.cpp"
+_SRC = _ROOT / "tpulbm_torch" / "csrc" / "io_native.cpp"
 _BUILD_DIR = _ROOT / "build" / "tpulbm_torch"
-_LIB_PATH = _BUILD_DIR / "libtpulbm_io.so"
+
+# Values formatted on the writers' slow path (see the module docstring).
+FALLBACKS = 0
 
 _lock = threading.Lock()
 _lib = None
 _tried = False
 
 
-def _build() -> bool:
+def _lib_path() -> Path | None:
+    """The library of ``_SRC``'s text, or None without the source."""
     try:
-        src_mtime = _SRC.stat().st_mtime
+        text = _SRC.read_bytes()
     except OSError:
-        return False
-    if _LIB_PATH.exists() and _LIB_PATH.stat().st_mtime >= src_mtime:
-        return True
+        return None
+    digest = hashlib.sha256(text).hexdigest()[:16]
+    return _BUILD_DIR / f"libtpulbm_io_{digest}.so"
+
+
+def _build() -> Path | None:
+    """The library of the source as it stands, compiled unless it exists;
+    None where g++ fails or is absent."""
+    lib_path = _lib_path()
+    if lib_path is None or lib_path.exists():
+        return lib_path
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
     cmd = ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", str(_SRC), "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        os.replace(tmp, _LIB_PATH)
+        os.replace(tmp, lib_path)
     except (subprocess.SubprocessError, FileNotFoundError):
-        return False
+        return None
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return True
+    return lib_path
 
 
 def _load():
@@ -56,10 +75,11 @@ def _load():
         if _tried:
             return _lib
         _tried = True
-        if os.environ.get("TPULBM_NO_NATIVE") or not _build():
+        lib_path = None if os.environ.get("TPULBM_NO_NATIVE") else _build()
+        if lib_path is None:
             return None
         try:
-            lib = ctypes.CDLL(str(_LIB_PATH))
+            lib = ctypes.CDLL(str(lib_path))
         except OSError:
             return None
         f32p = np.ctypeslib.ndpointer(dtype=np.float32, flags="C_CONTIGUOUS")
@@ -68,9 +88,9 @@ def _load():
             ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
             f32p, f32p, f32p, f32p, i32p,
         ]
-        lib.tpulbm_write_final_state.restype = ctypes.c_int
+        lib.tpulbm_write_final_state.restype = ctypes.c_longlong
         lib.tpulbm_write_av_vels.argtypes = [ctypes.c_char_p, ctypes.c_int, f32p]
-        lib.tpulbm_write_av_vels.restype = ctypes.c_int
+        lib.tpulbm_write_av_vels.restype = ctypes.c_longlong
         lib.tpulbm_read_obstacles.argtypes = [
             ctypes.c_char_p, ctypes.c_int, ctypes.c_int, i32p,
         ]
@@ -81,6 +101,14 @@ def _load():
 
 def available() -> bool:
     return _load() is not None
+
+
+def _count(rc: int, what: str, path) -> None:
+    """A writer's return: -1 a failure, else its slow-path values."""
+    global FALLBACKS
+    if rc < 0:
+        raise IOError(f"native {what} write failed: {path}")
+    FALLBACKS += rc
 
 
 def write_final_state(path, u_x, u_y, u, pressure, obstacles_i32) -> None:
@@ -94,16 +122,14 @@ def write_final_state(path, u_x, u_y, u, pressure, obstacles_i32) -> None:
         np.ascontiguousarray(pressure, dtype=np.float32),
         np.ascontiguousarray(obstacles_i32, dtype=np.int32),
     )
-    if rc != 0:
-        raise IOError(f"native final_state write failed: {path}")
+    _count(rc, "final_state", path)
 
 
 def write_av_vels(path, av_vels) -> None:
     lib = _load()
     av = np.ascontiguousarray(av_vels, dtype=np.float32)
     rc = lib.tpulbm_write_av_vels(path.encode(), av.size, av)
-    if rc != 0:
-        raise IOError(f"native av_vels write failed: {path}")
+    _count(rc, "av_vels", path)
 
 
 def read_obstacles(path, nx, ny):

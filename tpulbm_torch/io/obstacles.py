@@ -7,8 +7,8 @@ True = blocked) and the free-cell count; duplicate entries count once
 
 Parsing uses numpy's C tokenizer rather than a Python loop; files over
 ``_NATIVE_THRESHOLD`` bytes go through the native C++ parser
-(native/io_native.cpp) when the toolchain is available. Both paths are
-differential-tested against each other.
+(tpulbm_torch/csrc/io_native.cpp) when the toolchain is available. Both
+paths are differential-tested against each other.
 """
 
 from __future__ import annotations

@@ -7,8 +7,9 @@
 - ``av_vels.dat``: ``"%d:\\t%.12E"`` per timestep (d2q9-bgk.c:1136).
 
 The formatted-text hot path (a million lines for 1024x1024) is delegated to
-the native C++ writer (tpulbm_torch.io.native) when it is available; the
-pure-Python path produces identical bytes (C and Python "%.12E" agree).
+the port's native C++ writer (tpulbm_torch.io.native), which formats each
+float32 exactly without stdio, when it is available; the pure-Python path
+produces identical bytes (it and C's printf "%.12E" agree).
 """
 
 from __future__ import annotations
