@@ -542,6 +542,51 @@ def test_torus_p2p_is_k4_torus_mode_and_the_plain_version(case, dy, dx):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("torus", [False, True], ids=["ring4", "torus2x2"])
+def test_k6_counts_its_waits_and_launches(case, torus):
+    """K6's counters (ring_p2p.WAITS), ring mode over 4 row shards and
+    torus mode over 2x2 blocks of the 200 x 136 case, runner calls of 8
+    steps (one launch a card, then the call's check): after each call every
+    card's launches one more, 0 <= remote_ns <= wait_ns <= cta_ns and
+    cta_ns > 0; remote_ns 0 where every shard lies on one card (no flag
+    of another card to wait on); the state bitwise the route without
+    K6's exchange (the cuda ring, K4 torus mode)."""
+    from tpulbm_torch.dist import runner, sharding
+    from tpulbm_torch.dist.mesh import get_mesh, get_mesh_2d
+    from tpulbm_torch.ops import ring_p2p
+
+    p, f0, mask = case
+    if torus:
+        mesh = get_mesh_2d(2, 2)
+        devs = [d for row in mesh for d in row]
+        cut = sharding.shard_blocks
+        p2p = runner.make_torus_p2p_runner(p, 8, mesh)
+        other = runner.make_torus_runner(p, 8, mesh, kstep_tile.torus_chunk)
+    else:
+        mesh = devs = get_mesh(4)
+        cut = sharding.shard_rows
+        p2p = runner.make_p2p_runner(p, 8, mesh)
+        other = runner.make_ring_runner(p, 8, mesh, kstep_tile.ring_chunk)
+    cards = sorted({d.index for d in devs})
+    fs, obs = cut(f0.clone(), mask, mesh)
+    gs = [f.clone() for f in fs]
+    ring_p2p.reset_waits()
+    for call in range(1, 5):
+        fs, _ = p2p(fs, obs)
+        gs, _ = other(gs, obs)
+        assert sorted(ring_p2p.WAITS) == cards
+        for c in cards:
+            w = ring_p2p.WAITS[c]
+            assert w["launches"] == call
+            assert 0 <= w["remote_ns"] <= w["wait_ns"] <= w["cta_ns"]
+            assert w["cta_ns"] > 0
+            if len(cards) == 1:
+                assert w["remote_ns"] == 0
+    assert all(torch.equal(f, g) for f, g in zip(fs, gs))
+    _counter_is_zero(f0.device)
+
+
+@pytest.mark.cuda
 def test_torus_past_64_blocks_a_card_is_k4_torus_mode(case, capfd):
     """136 blocks of 25 x 8 (8x17) on one card, past torus mode's 64 a
     card: make_runner builds K4's torus mode and says so on stderr; 21

@@ -216,8 +216,9 @@ def test_p2p_chunks_ref_slots_by_parity():
 
 def test_outer_per_launch_and_the_table():
     """Chunks a launch: 64, but 32 for an 8192^2 shard of 4 (16 MiB of
-    partials); the table of a launch, the tile graph's record and the
-    limits are csrc/ring_p2p.cu's."""
+    partials); the table of a launch, the tile graph's record, the limits
+    and the counter words are csrc/ring_p2p.cu's, the counters between
+    the error word and the flags of both modes' exchange blocks."""
     assert ring_p2p.outer_per_launch([256] * 4, 1024, 8) == 64
     assert ring_p2p.outer_per_launch([2048] * 4, 8192, 8) == 32
     assert ring_p2p.outer_per_launch([8192], 8192, 8) == 8
@@ -241,6 +242,15 @@ def test_outer_per_launch_and_the_table():
         field = re.sub(r"(\w+?)(\d)$", r"\1[\2]", name)
         assert re.search(rf"s\.{re.escape(field)} = [^;]*"
                          rf"(ptr\({i}\)|t\[{i}\])", src), (i, name)
+    words = ("kCtaNs", "kWaitNs", "kRemoteNs", "kLaunches")
+    assert len(words) == len(ring_p2p.WAIT_WORDS)
+    for i, word in enumerate(words):
+        assert re.search(rf"\b{word} = {i}\b", src), word
+    for layout, _ in (ring_p2p.block_layout([256] * 4, [0, 1], 1024),
+                      ring_p2p.torus_block_layout([0, 1], 64, 64)):
+        assert layout["error"] == 0 and layout["waits"] % 8 == 0
+        assert 4 <= layout["waits"] == ring_p2p.WAITS_AT
+        assert layout["waits"] + 8 * len(words) <= layout["flags"]
 
 
 def test_p2p_route(capsys):

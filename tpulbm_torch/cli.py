@@ -266,6 +266,18 @@ def _main(args) -> int:
         print(f"multihost: transport {tr.backend}, {chunks} chunks, "
               f"host exchange {seconds / chunks * 1e6:.1f} us a chunk",
               file=sys.stderr, flush=True)
+    from tpulbm_torch.ops import ring_p2p
+
+    # K6's own wait counters (cuda-p2p and the torus), the mean over this
+    # process's cards
+    waits = [w for w in ring_p2p.WAITS.values() if w["cta_ns"]]
+    if sim.output and waits:
+        wait, remote = (100 * sum(w[key] / w["cta_ns"] for w in waits)
+                        / len(waits) for key in ("wait_ns", "remote_ns"))
+        where = " (process 0's cards)" if args.multihost else ""
+        print(f"K6 waited {wait:.1f} % of its CTA time on neighbours' flags "
+              f"({remote:.1f} % on other cards'){where}", file=sys.stderr,
+              flush=True)
 
     if not args.no_output:
         sim.write_outputs(args.out_dir)

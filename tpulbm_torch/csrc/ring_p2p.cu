@@ -91,13 +91,27 @@
 //     stops its CTA, and every producer of the card gives up once it sees
 //     the word. The runner reads the word with the av series and raises: a
 //     broken protocol fails, it never hangs.
+//   Wait counters: a wait whose first poll fails is timed until every flag
+//     is done (a wait that never blocks costs a compare), and counts as
+//     remote where a flag of another card was among those not done at that
+//     first poll; each CTA also times its own life, entry to exit, by
+//     %globaltimer. The waits are timed in SM cycles (clock64): a wait's end
+//     is on the path of the next tile's issue, and a %globaltimer read
+//     there, used at once, cost the ring 3.5 % at 1024^2 over four H100s
+//     (PERF.md); the CTA's life in both clocks converts them to ns at its
+//     exit. Then the CTA adds them into the card's counter words (kCtaNs
+//     ... kLaunches, u64, after the error word in the card's exchange
+//     block), and CTA 0 counts the launch. The runner reads them with the
+//     error word (ops/ring_p2p.py::WAITS). Nothing else in the step, the
+//     copies or the flags changes: the same bits.
 //   One instance per k (1 to 8), as K4.
 //   Across processes each process launches on its own shards; a card's
-//     landing slots, flag array and error word lie in one cudaMalloc block
-//     (lbm_ring_p2p_alloc) that the processes of its shards' neighbours map
-//     by CUDA IPC (lbm_ring_p2p_open). A shard of another process counts
-//     as another card, even on the same physical card: its flags are read
-//     and released, and the pushes to it fenced, at system scope.
+//     landing slots, flag array, error word and counter words lie in one
+//     cudaMalloc block (lbm_ring_p2p_alloc) that the processes of its
+//     shards' neighbours map by CUDA IPC (lbm_ring_p2p_open). A shard of
+//     another process counts as another card, even on the same physical
+//     card: its flags are read and released, and the pushes to it fenced,
+//     at system scope.
 //
 // Bound. One launch moves the shards' states and masks in once and the
 // states out once (76 B a cell, the slabs are a few rows) and does 94 fp32
@@ -187,6 +201,9 @@ constexpr int kBlock = kThreads + 32 * kCopyWarps;
 constexpr int kStepBar = 1;         // named barrier of the stepping warps
 constexpr long long kSpinNs = 10000000000LL;
 constexpr int kErrTimeout = 1;      // the error word: a wait ran out
+// The counter words (unsigned long long): the CTAs' lives, their producers'
+// blocked waits, the part of those that waited on another card, launches.
+constexpr int kCtaNs = 0, kWaitNs = 1, kRemoteNs = 2, kLaunches = 3;
 constexpr int kMaxDevices = 64;
 // Words of a shard's entry in the host table (lbm_ring_p2p): 15 pointers,
 // then h, h_prev, h_next, row_base.
@@ -236,6 +253,7 @@ struct Protocol {
   int n_local, items, n_outer, base, pull0;
   int* error;              // this card's error word
   unsigned int* counter;   // this card's ticket counter, zeroed, left so
+  unsigned long long* waits;   // this card's counter words (kCtaNs ...)
 };
 
 // The shard table first: with the protocol's fields first the ring's
@@ -672,10 +690,16 @@ __device__ __forceinline__ void p2p_body(const LaunchT& L,
   // its tile is stored (one arrival)
   __shared__ unsigned long long posted[2], full[2], done[2];
   __shared__ int go;
+  // the CTA's entry in both clocks; its producer's waits (cycles): all,
+  // and those on another card
+  __shared__ long long t_entry, c_entry;
+  __shared__ unsigned long long waited[2];
   constexpr int k = kK;
   constexpr int sfloats = stage_floats(k);
   const int total = L.p.items * L.p.n_outer;
   if (threadIdx.x == 0) {
+    t_entry = globaltimer();
+    c_entry = clock64();
     for (int s = 0; s < 2; ++s) {
       mbar_init(&posted[s], 1);
       mbar_init(&full[s], 32 * kCopyWarps);
@@ -775,22 +799,31 @@ __device__ __forceinline__ void p2p_body(const LaunchT& L,
       return it;
     };
 
-    // One poll of the item's flags (ld.acquire, one lane a flag): true in
-    // every lane where all have finished the epoch before the item's.
+    // One poll of the item's flags (ld.acquire, one lane a flag): in every
+    // lane, the lanes whose flag has not finished the epoch before the
+    // item's (0: all done).
     auto poll = [&](const Item& it) {
       const int ok =
           !it.flag || load_acquire(it.flag, it.sys) >= L.p.base + it.c;
-      const bool all = __all_sync(0xffffffffu, ok);
+      const unsigned pending = __ballot_sync(0xffffffffu, !ok);
       __syncwarp();
-      return all;
+      return pending;
     };
 
+    // The blocked waits (SM cycles): all of them, and those that found a
+    // flag of another card not done at their first poll.
+    unsigned long long wait_cyc = 0, remote_cyc = 0;
+
     // Polls until the item's flags are done: false where the card's error
-    // word is set (this or another CTA gave up) or the bound ran out.
+    // word is set (this or another CTA gave up) or the bound ran out. A
+    // wait whose first poll fails is timed into wait_cyc (and remote_cyc).
     auto wait = [&](const Item& it) {
-      const long long t0 = globaltimer();
+      const unsigned pending = poll(it);
+      if (!pending) return true;
+      const bool remote = (pending & __ballot_sync(0xffffffffu, it.sys)) != 0;
+      const long long t0 = globaltimer(), c0 = clock64();
+      bool ok = false;
       for (int n = 1;; ++n) {
-        if (poll(it)) return true;
         if ((n & 31) == 0) {
           int bad = 0;
           if (lane == 0) {
@@ -800,10 +833,18 @@ __device__ __forceinline__ void p2p_body(const LaunchT& L,
               bad = 1;
             }
           }
-          if (__shfl_sync(0xffffffffu, bad, 0)) return false;
+          if (__shfl_sync(0xffffffffu, bad, 0)) break;
         }
         __nanosleep(100);
+        if (!poll(it)) {
+          ok = true;
+          break;
+        }
       }
+      const unsigned long long dc = clock64() - c0;
+      wait_cyc += dc;
+      if (remote) remote_cyc += dc;
+      return ok;
     };
 
     // The item's job and window into stage st: win[st] for the copy
@@ -850,7 +891,7 @@ __device__ __forceinline__ void p2p_body(const LaunchT& L,
         if (next < total) {
           // While tile n steps: the next window, once its flags are done.
           nt = fetch(next);
-          while (!(have = poll(nt)) && !mbar_test(&done[st], phase)) {
+          while (!(have = !poll(nt)) && !mbar_test(&done[st], phase)) {
           }
           if (have) issue(nt, st ^ 1);
         }
@@ -870,6 +911,10 @@ __device__ __forceinline__ void p2p_body(const LaunchT& L,
         item = next;
         it = nt;
       }
+    }
+    if (lane == 0) {
+      waited[0] = wait_cyc;
+      waited[1] = remote_cyc;
     }
     tpulbm::cp_async_wait<0>();
   }
@@ -898,6 +943,15 @@ __device__ __forceinline__ void p2p_body(const LaunchT& L,
         __syncthreads();
       }
     }
+  }
+  if (threadIdx.x == 0) {
+    const long long life = globaltimer() - t_entry;
+    const long long cycles = clock64() - c_entry;
+    const double ns = cycles > 0 ? (double)life / (double)cycles : 0.0;
+    atomicAdd(L.p.waits + kCtaNs, (unsigned long long)life);
+    atomicAdd(L.p.waits + kWaitNs, (unsigned long long)(waited[0] * ns));
+    atomicAdd(L.p.waits + kRemoteNs, (unsigned long long)(waited[1] * ns));
+    if (blockIdx.x == 0) atomicAdd(L.p.waits + kLaunches, 1ull);
   }
 }
 
@@ -1130,20 +1184,21 @@ int lbm_ring_p2p_copy(void* dst, long long dpitch, const void* src,
 // device; graph: the card's (items, kRec) int32 tile graph on the device,
 // items the shards' tiles; peer_flags: n_peers (<= kMaxPeers) flag arrays
 // that the graph names, this card's first; pull0: chunk 0 reads prev_in /
-// next_in, not the slots; error: the device's error word; counter: a
-// zeroed unsigned int of the device, left zeroed (the last CTA resets it),
-// not shared with a launch that may run at the same time. Launches on the
+// next_in, not the slots; error: the device's error word; waits: the
+// device's 4 counter words (kCtaNs ...), added to; counter: a zeroed
+// unsigned int of the device, left zeroed (the last CTA resets it), not
+// shared with a launch that may run at the same time. Launches on the
 // current device and stream; returns cudaGetLastError(), or the error of
 // configuring the kernel.
 int lbm_ring_p2p(const long long* table, int n_local, const int* graph,
                  int items, const long long* peer_flags, int n_peers,
                  int n_outer, int base, int pull0, int* error,
-                 unsigned int* counter, int ny, int nx, int accel_row,
-                 float omega, float w1, float w2, int k,
-                 cudaStream_t stream) {
+                 unsigned long long* waits, unsigned int* counter, int ny,
+                 int nx, int accel_row, float omega, float w1, float w2,
+                 int k, cudaStream_t stream) {
   if (k < 1 || k > kMaxK || n_local < 1 || n_local > kMaxLocal ||
       n_outer < 1 || n_outer > kMaxOuter || nx < 1 || base < 0 ||
-      n_peers < 1 || n_peers > kMaxPeers || !graph)
+      n_peers < 1 || n_peers > kMaxPeers || !graph || !waits)
     return (int)cudaErrorInvalidValue;
   Launch l{};
   l.p.n_local = n_local;
@@ -1156,6 +1211,7 @@ int lbm_ring_p2p(const long long* table, int n_local, const int* graph,
   l.p.flags = reinterpret_cast<int*>(peer_flags[0]);
   l.p.error = error;
   l.p.counter = counter;
+  l.p.waits = waits;
   const int tiles_x = (nx + kTile - 1) / kTile;
   int tiles = 0;
   for (int j = 0; j < n_local; ++j) {
@@ -1195,12 +1251,13 @@ int lbm_ring_p2p(const long long* table, int n_local, const int* graph,
 int lbm_torus_p2p(const long long* host_table, const long long* table,
                   int n_local, const int* graph, int items,
                   const long long* peer_flags, int n_peers, int n_outer,
-                  int base, int pull0, int* error, unsigned int* counter,
-                  int ny, int nx, int accel_row, float omega, float w1,
-                  float w2, int k, int h, int w, cudaStream_t stream) {
+                  int base, int pull0, int* error, unsigned long long* waits,
+                  unsigned int* counter, int ny, int nx, int accel_row,
+                  float omega, float w1, float w2, int k, int h, int w,
+                  cudaStream_t stream) {
   if (k < 1 || k > kMaxK || n_local < 1 || n_local > kMaxTorusLocal ||
       n_outer < 1 || n_outer > kMaxOuter || base < 0 || h < k || w < k ||
-      n_peers < 1 || n_peers > kMaxTorusPeers || !graph || !table)
+      n_peers < 1 || n_peers > kMaxTorusPeers || !graph || !table || !waits)
     return (int)cudaErrorInvalidValue;
   TorusLaunch l{};
   l.p.n_local = n_local;
@@ -1213,6 +1270,7 @@ int lbm_torus_p2p(const long long* host_table, const long long* table,
   l.p.flags = reinterpret_cast<int*>(peer_flags[0]);
   l.p.error = error;
   l.p.counter = counter;
+  l.p.waits = waits;
   l.table = table;
   l.h = h;
   l.w = w;

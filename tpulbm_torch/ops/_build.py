@@ -102,11 +102,11 @@ _SIGNATURES = {
     "lbm_ring_p2p_close": ([_I, _P], _I),
     "lbm_ring_p2p_copy": ([_P, _L, _P, _L, _L, _L, _P], _I),
     "lbm_ring_p2p": (
-        [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _F, _F, _F,
-         _I, _P], _I),
+        [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _F, _F,
+         _F, _I, _P], _I),
     "lbm_torus_p2p": (
-        [_P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _F, _F,
-         _F, _I, _I, _I, _P], _I),
+        [_P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _F,
+         _F, _F, _I, _I, _I, _P], _I),
     "lbm_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -20,8 +20,8 @@ global chunk count (the epoch); on the card, a flat array of one flag a
 tile of the card's shards, one error word a card, and, for each k, the
 card's tile graph (``tile_graph``): a record a tile in the kernel's walk
 order, with its dependencies as indices into the flag arrays. The slots,
-flags and error word of a card lie in one ``cudaMalloc`` block. The sums'
-epilogue draws its tickets on the card's ticket counter
+flags, error word and wait counters of a card lie in one ``cudaMalloc``
+block. The sums' epilogue draws its tickets on the card's ticket counter
 (``_build.ticket_counter``), as K4's does. The epoch rises across launches
 and calls and no flag is ever reset (a reset on one card would race a
 kernel on another that reads the flag).
@@ -38,6 +38,16 @@ shard's input edge rows into the neighbours' slots first and orders every
 process after the pushes (the TPU kernel's entry,
 pallas_resident_rdma.py:127-147), and ``Exchange.check`` ORs the error
 words of every process at the end of a runner call.
+
+K6 counts its own waits: each CTA times its producer's waits that block
+on a neighbour tile's flag (and the part of them that found a flag of
+another card not done) in SM cycles, and its own life by
+``%globaltimer``, which converts the cycles to ns, and adds them into
+counter words of its card's block (``WAIT_WORDS``, after the error word),
+with a count of launches. ``Exchange.check`` reads them in
+the same copy as the error word and adds what each card counted since
+its last read to ``WAITS[card index]``, this process's cards only;
+``reset_waits`` clears it.
 
 Torus mode (``torus_p2p_chunks``, ``TorusExchange``) runs the same
 protocol over the blocks of the 2-D torus, in one process or across
@@ -93,6 +103,19 @@ MAX_PEERS = 4       # flag arrays a card's records name, its own first
 MAX_TORUS_PEERS = 16    # ... in torus mode (kMaxTorusPeers)
 PUSH_REMOTE = 1     # duty: the tile pushes an edge row onto another card
 READ_REMOTE = 2     # duty: a tile on another card waits on its flag
+# K6's counter words, uint64 from byte WAITS_AT of a card's exchange block
+# (csrc/ring_p2p.cu::kCtaNs ... kLaunches): the CTAs' lives, their blocked
+# waits, the part of those that waited on another card (ns), and launches.
+WAIT_WORDS = ("cta_ns", "wait_ns", "remote_ns", "launches")
+WAITS_AT = 8
+# What K6 counted on each card of this process since the last
+# reset_waits(): {card index: {word: count}} (in the style of
+# _build.LAUNCHES), added to by Exchange.check.
+WAITS: dict = {}
+
+
+def reset_waits() -> None:
+    WAITS.clear()
 
 
 def ntiles(h: int, nx: int) -> int:
@@ -238,12 +261,13 @@ def _up(n: int) -> int:
 
 def block_layout(rows, shards, nx: int):
     """Byte offsets in a card's exchange block (one of each process and
-    card, ``lbm_ring_p2p_alloc``): the error word at 0, the flag array
-    (one int a tile of ``shards``, in walk order) at "flags", then each
-    shard d's lo and hi landing buffers, two slots each, at layout[d].
-    Returns (layout, bytes); every process computes any block's."""
+    card, ``lbm_ring_p2p_alloc``): the error word at 0, K6's counter words
+    (``WAIT_WORDS``) at "waits", the flag array (one int a tile of
+    ``shards``, in walk order) at "flags", then each shard d's lo and hi
+    landing buffers, two slots each, at layout[d]. Returns (layout,
+    bytes); every process computes any block's."""
     buf = _up(2 * SLOT_BYTES * nx)
-    layout = {"error": 0, "flags": ALIGN}
+    layout = {"error": 0, "waits": WAITS_AT, "flags": ALIGN}
     at = ALIGN + _up(4 * sum(ntiles(rows[d], nx) for d in shards))
     for d in shards:
         layout[d] = (at, at + buf)
@@ -301,6 +325,8 @@ class Exchange:
                 if b is not None and a != b:
                     enable_peer(lib, a.index, b.index)
         self.blocks, self.mapped, handles, own = {}, {}, {}, []
+        self.counted = {key: np.zeros(len(WAIT_WORDS), dtype=np.uint64)
+                        for key in self.cards}
         for key in self.cards:
             layout, size = self._layout(self.on[key])
             ptr, handle = alloc_block(self.device[key], size,
@@ -396,6 +422,10 @@ class Exchange:
         ptr, layout = self.blocks[key]
         return ptr + layout["error"]
 
+    def waits(self, key) -> int:
+        ptr, layout = self.blocks[key]
+        return ptr + layout["waits"]
+
     def graph(self, k: int):
         """{this process's card: (its tile graph on the card, the flag
         arrays its records name)} for k steps a chunk (``tile_graph`` keyed
@@ -458,18 +488,30 @@ class Exchange:
     def check(self) -> None:
         """Raise where a card's error word is set: a wait of K6 ran out
         (csrc/ring_p2p.cu::kSpinNs). Reads this process's words to the host
-        (after its launches); over several processes the flags are ORed over
-        the host group, so every process raises together, and when it
-        returns no launch of the call runs on any process."""
+        (after its launches), each card's error word and counter words in
+        one copy (the span ``lbm.dist.check``), and adds what the counters
+        gained since the last read to ``WAITS``; over several processes the
+        flags are ORed over the host group, so every process raises
+        together, and when it returns no launch of the call runs on any
+        process."""
         if self.mesh[self.local[0]].type != "cuda":
             return
         bad = []
-        for key in self.cards:
-            word = ctypes.c_int(0)
-            copy_bytes(ctypes.addressof(word), self.error(key), 4,
-                       self.device[key])
-            if word.value:
-                bad.append(str(self.device[key]))
+        n = len(WAIT_WORDS)
+        with span("lbm.dist.check"):
+            for key in self.cards:
+                # the error word (int32, then padding) and the counters
+                head = np.zeros(1 + n, dtype=np.uint64)
+                copy_bytes(head.ctypes.data, self.error(key),
+                           WAITS_AT + 8 * n, self.device[key])
+                if head[:1].view(np.int32)[0]:
+                    bad.append(str(self.device[key]))
+                gained = head[1:] - self.counted[key]
+                self.counted[key] = head[1:]
+                card = WAITS.setdefault(_index(self.device[key]),
+                                        dict.fromkeys(WAIT_WORDS, 0))
+                for word, value in zip(WAIT_WORDS, gained.tolist()):
+                    card[word] += value
         if self.tr.any(bool(bad)):
             self.failed = True
             raise RuntimeError(
@@ -699,7 +741,7 @@ def _p2p_launch(ex: Exchange, states, spares, bands, params: LBMParams,
                     table.ctypes.data, len(local), records.data_ptr(),
                     records.shape[0], peer_flags.ctypes.data,
                     len(peer_flags), n_outer, ex.epoch,
-                    int(pull0), ex.error(card),
+                    int(pull0), ex.error(card), ex.waits(card),
                     _build.ticket_counter(dev).data_ptr(), params.ny, nx,
                     params.accel_row, params.omega, params.accel_w1,
                     params.accel_w2, k,
@@ -947,10 +989,11 @@ def torus_buffer_floats(h: int, w: int):
 
 def torus_block_layout(blocks, h: int, w: int):
     """Byte offsets in a card's exchange block for torus mode: the error
-    word at 0, the flag array (one int a tile of ``blocks``, in walk order)
-    at "flags", then each block b's four landing buffers, two slots each,
-    at layout[b] ({buffer: offset}). Returns (layout, bytes)."""
-    layout = {"error": 0, "flags": ALIGN}
+    word at 0, the counter words at "waits", the flag array (one int a tile
+    of ``blocks``, in walk order) at "flags", then each block b's four
+    landing buffers, two slots each, at layout[b] ({buffer: offset}).
+    Returns (layout, bytes)."""
+    layout = {"error": 0, "waits": WAITS_AT, "flags": ALIGN}
     at = ALIGN + _up(4 * ntiles(h, w) * len(blocks))
     floats = torus_buffer_floats(h, w)
     for b in blocks:
@@ -1247,7 +1290,7 @@ def _torus_launch(ex: TorusExchange, states, spares, bands,
                     table.ctypes.data, on_card.data_ptr(), len(on),
                     records.data_ptr(), records.shape[0],
                     peer_flags.ctypes.data, len(peer_flags), n_outer,
-                    ex.epoch, int(pull0), ex.error(card),
+                    ex.epoch, int(pull0), ex.error(card), ex.waits(card),
                     _build.ticket_counter(dev).data_ptr(), params.ny,
                     params.nx, params.accel_row, params.omega,
                     params.accel_w1, params.accel_w2, k, h, w,
