@@ -57,7 +57,15 @@ Phases; any failure raises and exits non-zero before the result lines:
    rerun, its state and sums bitwise K4's torus mode with the host's
    copies (the parent route) over all chunks and, in launches of one
    chunk, chunk by chunk (the corners among them), CUDA-event ms a launch
-   beside the parent route's chunk, its bound and ptxas line.
+   beside the parent route's chunk, its bound and ptxas line; K6's grid
+   kind (``grid_p2p``, the one-card wide route) on the 1024^2, 2048^2,
+   4096^2 and 8192^2 decks and a ragged 100 x 130 grid: one launch of 3
+   chunks at each k of 1-8 and launches of up to 64 chunks, state and sums
+   bitwise K4's whole-grid chunks, bitwise on a rerun, against
+   ``grid_p2p_chunks_ref`` (K6's gates), two runner calls (the epoch
+   carried) bitwise K4's in state, av series and Reynolds number,
+   CUDA-event ms a chunk beside K4's chunk and the plain version's, its
+   bound and ptxas line.
    Every
    chunk kernel's in-kernel sums (the former K3, now each stepping
    kernel's epilogue) are held against ``reduce_partials_ref`` of the same
@@ -77,24 +85,25 @@ Phases; any failure raises and exits non-zero before the result lines:
    128^2 and 128x256, the f64-oracle ``.f64.npz`` golden for 256^2 and
    1024^2, as on every run below that reaches the golden gate), each
    through the kernel its route names
-   (K2 at 128^2, 128x256 and 256^2, K4 at 1024^2; no K1 or K5 launch); one
-   more 1024^2 run of 1003 steps takes the sub-8-step remainder through
-   K4. The wide decks (2048^2,
+   (K2 at 128^2, 128x256 and 256^2, K6's grid kind at 1024^2; no K1, K4
+   or K5 launch); one more 1024^2 run of 1003 steps takes the sub-8-step
+   remainder through a launch of its own. The wide decks (2048^2,
    4096^2, 8192^2) through ``cli.main`` with ``--no-output`` (8192^2's
-   final_state.dat would be 67M lines) at their full step counts, on K4:
+   final_state.dat would be 67M lines) at their full step counts, on the
+   grid kind:
    launches, MLUPS, peak device memory (at most PEAK_8192_GIB at 8192^2:
    a run holds two states); their av series, from a
    ``Simulation`` rerun that gives the same Reynolds bits, within 1 % of
    the same deck run through K1; 2048^2 for 1003 steps takes the remainder
-   through ``tile_chunk``, its Reynolds number within 1 % of the K1
-   route's;
+   through a grid-kind launch of 3 steps, its Reynolds number within 1 %
+   of the K1 route's;
 5. checkpoints and profiling on one device: 1024^2 with
    ``--checkpoint-every``, then a second process that resumes its
    10,000-step file with ``--resume`` and runs to the end: both runs'
    output files the same bytes as phase 4's uninterrupted run; the time
    of one checkpoint write; a short ``--profile-dir`` run, the process's
-   first profiler session, whose Chrome trace must hold every K4 launch
-   of its run;
+   first profiler session, whose Chrome trace must hold every grid-kind
+   launch of its run;
 6. the ring, through ``cli.main`` with ``--device-count``: the three
    small reference decks over 2 shards and 1024^2 over 4, each on the
    cuda ring and with ``--backend cuda-p2p`` (K6), at their full step
@@ -219,7 +228,8 @@ WIDE_DECKS = [("2048x2048", 4000), ("4096x4096", 2000), ("8192x8192", 1000)]
 WIDE_REMAINDER_RUN = ("2048x2048", 1003)
 # Peak device memory of the 8192^2 deck on one card: a runner call takes its
 # input over and each chunk writes where the chunk before it read, so a run
-# holds two states (2 x 2.25 GiB) and the bool and float masks (0.3125 GiB).
+# holds two states (2 x 2.25 GiB) and the bool and float masks (0.3125 GiB),
+# and the grid kind a launch's partials (16 MiB) and its tile graph (10 MiB).
 PEAK_8192_GIB = 4.9
 # ... and over a ring of 4 or a 2x2 torus on one card, which hold the bool
 # mask's shards (0.0625 GiB), float mask bands in place of the float mask
@@ -824,6 +834,129 @@ def _p2p_check(deck, n, plain_chunks, seed, chunks=64):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def _grid_p2p_check(p, o, f0, what, chunks, plain_chunks, reps):
+    """K6's grid kind (ring_p2p._grid_launch, the one-card wide route) on
+    the whole grid p from f0: one launch of 3 chunks at each k of 1-8 (state
+    and sums bitwise K4's whole-grid chunks, the ticket counter 0); then
+    `chunks` chunks of 8 steps in launches of outer_per_launch chunks,
+    bitwise on a rerun and, state and sums, bitwise K4's chain over the
+    same chunks, each launch's sums the reduction of its partials; over
+    the first plain_chunks chunks against grid_p2p_chunks_ref (the state
+    within F_ATOL, the sums within AV_RTOL over the first SUMS_GATE_CHUNKS
+    and within sums_atol over all); then two runner calls of make_runner
+    (launches of several chunks and a remainder, the epoch carried): state,
+    av series and Reynolds number bitwise the same calls on K4. CUDA-event
+    ms of a launch a chunk beside K4's chunk and the plain version's, the
+    bound of a launch (chunk_bound over its steps), the ptxas line of
+    grid_p2p_kernel<8>. Returns the record of the kernels JSON line (a
+    chunk)."""
+    import torch
+
+    from tpulbm_torch.diag.observables import calc_reynolds
+    from tpulbm_torch.dist import runner
+    from tpulbm_torch.ops import _build, kstep, kstep_tile, ring_p2p
+    from tpulbm_torch.tools.p2p_ab import ptxas_lines
+
+    def k4(f, k, n):
+        sums = []
+        for _ in range(n):
+            f, s = kstep_tile.tile_chunk(f, o, p, k)
+            sums.append(s)
+        return f, torch.cat(sums)
+
+    def grid(f, k, n, per):
+        f, spare, sums = f.clone(), torch.empty_like(f), []
+        while n:
+            m = min(per, n)
+            s, parts = ring_p2p._grid_launch(f, spare, o, p, k, m)
+            for c in range(m):
+                _check_epilogue(f"grid_p2p {what}", s[c * k:(c + 1) * k],
+                                parts[c * k:(c + 1) * k])
+            if m % 2:
+                f, spare = spare, f
+            sums.append(s)
+            n -= m
+        return f, torch.cat(sums)
+
+    for k in range(1, 9):
+        got, want = grid(f0, k, 3, 3), k4(f0, k, 3)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"grid_p2p {what}, k = {k}: not K4's bits")
+        del got, want
+    k = kstep_tile.TILE_K
+    per = ring_p2p.outer_per_launch([p.ny], p.nx, k)
+    f_a, s_a = grid(f0, k, chunks, per)
+    f_b, s_b = grid(f0, k, chunks, per)
+    rerun = torch.equal(f_a, f_b) and torch.equal(s_a, s_b)
+    del f_b, s_b
+    f_r, s_r = k4(f0, k, chunks)
+    same_k4 = torch.equal(f_a, f_r) and torch.equal(s_a, s_r)
+    del f_a, s_a, f_r, s_r
+    _free()
+    f_c, s_c = grid(f0, k, plain_chunks, per)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f_p, s_p = ring_p2p.grid_p2p_chunks_ref(f0, o, p, k, plain_chunks)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / plain_chunks
+    err = (f_c - f_p).abs().max().item()
+    rel = ((s_c - s_p).abs() / s_p.abs()).cpu()
+    head = rel[:SUMS_GATE_CHUNKS * k].max().item()
+    free = int((o == 0).sum().item())
+    atol = min(sums_atol([g], [o], free)[0] for g in (f0, f_p))
+    diff = (s_c - s_p).abs().max().item()
+    del f_c, s_c, f_p, s_p
+    _free()
+    n = 8 * (per + 2) + 3
+    run = runner.make_runner(p, n, "cuda", "cuda")
+    plan = runner._chunks(kstep_tile.tile_chunk, k, n)
+    f, g = f0.clone(), f0.clone()
+    calls = True
+    for _ in range(2):
+        f, av = run(f, o != 0)
+        g, av_k4 = runner.run_plan(plan, g, o, p)
+        calls = calls and torch.equal(f, g) and torch.equal(av, av_k4)
+    calls = calls and (calc_reynolds(f, o != 0, p).item()
+                       == calc_reynolds(g, o != 0, p).item())
+    del f, g
+    _free()
+    f, spare = f0.clone(), torch.empty_like(f0)
+    ms = cuda_ms(lambda: ring_p2p._grid_launch(f, spare, o, p, k, per),
+                 reps) / per
+    del f, spare
+    k4_ms = cuda_ms(lambda: kstep_tile._tile_launch(f0, o, p, k),
+                    max(1, reps * per // 4))
+    ring_p2p.grid_exchange(f0.device, p.ny, p.nx).check()
+    bound_ms, bound_by = chunk_bound(p.ny * p.nx, k * per)
+    bound_ms /= per
+    ptxas = "; ".join(line.split(": ", 1)[1].replace("ptxas info    : ", "")
+                      for line in ptxas_lines(_build.BUILD_DIR,
+                                              "grid_p2p_kernel")
+                      if line.startswith(f"k={k}:"))
+    log(f"[kernel] grid_p2p K6 grid kind ({what}, {chunks} chunks of {k} "
+        f"steps in launches of {per}): bitwise K4's whole-grid chain "
+        f"{same_k4} (and at k = 1-8, 3 chunks a launch: True), rerun "
+        f"bitwise {rerun}; two runner calls bitwise K4's (state, av, "
+        f"Reynolds) {calls}; against grid_p2p_chunks_ref over "
+        f"{plain_chunks} chunks: max|df| {err:.3e} (<= {F_ATOL:g}), max av "
+        f"rel {head:.3e} over the first {SUMS_GATE_CHUNKS} (<= {AV_RTOL:g}), "
+        f"max abs raw sums diff {diff:.4e} (<= {atol:.4e}); {ms:.4f} ms a "
+        f"chunk vs K4's whole-grid chunk {k4_ms:.4f} ms, grid/K4 "
+        f"{ms / k4_ms:.3f}; plain {plain_ms:.3f} ms a chunk; bound "
+        f"{bound_ms:.4f} ms a chunk ({bound_by}, a launch of {per}), "
+        f"bound/kernel {100 * bound_ms / ms:.1f} %; ptxas "
+        f"grid_p2p_kernel<{k}>: {ptxas or 'not in build.log'}")
+    if not (same_k4 and rerun and calls and err <= F_ATOL
+            and head <= AV_RTOL and diff <= atol):
+        raise AssertionError(f"grid_p2p {what}: not K4's bits, or off its "
+                             f"plain version")
+    if _build.ticket_counter("cuda").item() != 0:
+        raise AssertionError("the ticket counter is not 0 after grid_p2p")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "k4_ms": k4_ms}
+
+
 def torus_p2p_bound(h, w, n, k, n_outer):
     """A torus-mode launch of n_outer chunks of k steps over n (h, w)
     blocks: the states and their mask bands in once, the states, the
@@ -1015,11 +1148,18 @@ def _torus_p2p_check(deck, chunks, seed, dy=2, dx=2):
 
 
 def _free():
+    """Release what the checks left on the card: garbage, the grid kind's
+    exchanges (the flags and tile graphs of every shape and k that the
+    checks ran: ~0.1 GiB after the 8192^2 check's k = 1-8; a later runner
+    makes its own afresh) and the allocator's cache."""
     import gc
 
     import torch
 
+    from tpulbm_torch.ops import ring_p2p
+
     gc.collect()
+    ring_p2p._GRIDS.clear()
     torch.cuda.empty_cache()
 
 
@@ -1127,11 +1267,19 @@ def phase_kernels():
     # chunk's shape (8, nblocks), its plain version and torch.sum on the
     # same partials beside it.
     res["reduce_partials"] = _epilogue_record(p, f0, o)
+    # K6's grid kind, the one-card wide route, bitwise K4's whole-grid
+    # chunks: 1024^2 (the kernels line's record) and a ragged 100 x 130
+    # (4-byte window loads); 2048^2, 4096^2 and 8192^2 below
+    res["grid_p2p"] = _grid_p2p_check(p, o, f0, "1024x1024", 64, 8, 10)
+    p, o, f0 = _random_case(100, 130, SEED + 130)
+    _grid_p2p_check(p, o, f0, "100x130", 64, 8, 20)
     # K4 at the wide decks' shapes: whole grid (8 steps, and the 3-step
     # remainder) and the seam bands of the TPU tiers it replaces.
     p, o = _load_deck("2048x2048")
     f0 = _state(p, SEED + 6)
-    chunk_ms["2048x2048"] = _compare_chunk(
+    chunk_ms["2048x2048"] = _grid_p2p_check(p, o, f0, "2048x2048", 64, 4,
+                                            5)
+    _compare_chunk(
         "tile_chunk K4 (2048x2048, 8 steps)",
         lambda: kstep_tile._tile_launch(f0, o, p, 8),
         lambda: kstep_tile.tile_chunk_ref(f0, o, p, 8), 50, 2,
@@ -1155,7 +1303,9 @@ def phase_kernels():
 
     p, o = _load_deck("8192x8192")
     f0 = _state(p, SEED + 7)
-    res["tile_chunk"] = chunk_ms["8192x8192"] = _compare_chunk(
+    chunk_ms["8192x8192"] = _grid_p2p_check(p, o, f0, "8192x8192", 16, 2,
+                                            3)
+    res["tile_chunk"] = _compare_chunk(
         "tile_chunk K4 (8192x8192, 8 steps)",
         lambda: kstep_tile._tile_launch(f0, o, p, 8),
         lambda: kstep_tile.tile_chunk_ref(f0, o, p, 8), 10, 1,
@@ -1181,7 +1331,9 @@ def phase_kernels():
     # The fold fix's band at 4096^2 (F=4): rows [-(m+K), m+K), m = 14
     p, o = _load_deck("4096x4096")
     f0 = _state(p, SEED + 8)
-    chunk_ms["4096x4096"] = _compare_chunk(
+    chunk_ms["4096x4096"] = _grid_p2p_check(p, o, f0, "4096x4096", 32, 2,
+                                            5)
+    _compare_chunk(
         "tile_chunk K4 (4096x4096, 8 steps)",
         lambda: kstep_tile._tile_launch(f0, o, p, 8),
         lambda: kstep_tile.tile_chunk_ref(f0, o, p, 8), 20, 1,
@@ -1356,8 +1508,9 @@ def _check_launches(deck, counts, needed, absent=(), p2p_chunks=0):
     """Every kernel of `needed` launched, none of `absent`; the chunks'
     sums all reduced in-kernel: one reduction per chunk (a K2 or K4 launch,
     8 K1 launches, one K1 remainder chunk per runner call, and p2p_chunks,
-    the chunks times the shards that K6 launches ran), and the library has
-    no second-pass entry point (lbm_reduce_partials) to launch."""
+    the chunks times the shards that K6 launches ran, or the chunks of the
+    grid kind's launches, _grid_chunks), and the library has no
+    second-pass entry point (lbm_reduce_partials) to launch."""
     from tpulbm_torch.ops import _build
 
     log(f"    launches: {counts}")
@@ -1377,6 +1530,16 @@ def _check_launches(deck, counts, needed, absent=(), p2p_chunks=0):
                              f"reductions for {chunks} chunks")
     if hasattr(_build.library(), "lbm_reduce_partials"):
         raise AssertionError("the library still has lbm_reduce_partials")
+
+
+def _grid_chunks(p, calls):
+    """The chunks that the grid kind's launches run over runner calls of
+    `calls` steps (kernel_plan's)."""
+    from tpulbm_torch.dist import runner
+    from tpulbm_torch.ops import ring_p2p
+
+    return sum(n for c in calls for fn, _, n in runner.kernel_plan(p, c)
+               if fn is ring_p2p.grid_p2p_chunks)
 
 
 def _max_rel_pct(av, ref):
@@ -1421,17 +1584,18 @@ def _run_wide(deck, steps, totals, chunk_ms):
     reynolds, elapsed = _run_cli([pf, of, "--no-output"])
     counts = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    _check_launches(deck, counts, ["tile_chunk", "reduce_partials"],
+    chunks = _grid_chunks(p, [steps])
+    _check_launches(deck, counts, ["grid_p2p", "reduce_partials"],
                     ["skew_chunk", "kstep_chunk", "resident_chunk",
-                     "cluster_resident"])
+                     "cluster_resident", "tile_chunk"], chunks)
     for k, v in counts.items():
         totals[k] += v
     mlups = p.nx * p.ny * steps / elapsed / 1e6
-    busy = counts["tile_chunk"] * chunk_ms / 1e3 / elapsed
+    busy = chunks * chunk_ms / 1e3 / elapsed
     log(f"[main] {deck}: Reynolds {reynolds:.12E}, {elapsed:.3f} s, "
-        f"{mlups:.1f} MLUPS, peak device memory {peak / 2**30:.3f} GiB; K4 "
-        f"chunks {counts['tile_chunk']} x {chunk_ms:.4f} ms = "
-        f"{100 * busy:.1f} % of the solve")
+        f"{mlups:.1f} MLUPS, peak device memory {peak / 2**30:.3f} GiB; "
+        f"grid-kind chunks {chunks} ({counts['grid_p2p']} launches) x "
+        f"{chunk_ms:.4f} ms = {100 * busy:.1f} % of the solve")
     if deck == "8192x8192" and not peak / 2**30 <= PEAK_8192_GIB:
         raise AssertionError(f"{deck}: peak device memory {peak / 2**30:.3f} "
                              f"GiB over {PEAK_8192_GIB} GiB")
@@ -1487,8 +1651,8 @@ def phase_main_path(chunk_ms):
         _check_launches(deck, counts, [*route, "reduce_partials"],
                         [c for c in ("cluster_resident", "resident_chunk",
                                      "skew_chunk", "kstep_chunk",
-                                     "tile_chunk")
-                         if c not in route])
+                                     "tile_chunk", "grid_p2p")
+                         if c not in route], _grid_chunks(p, [steps]))
         log(f"    route ({tiers.family(p.ny, p.nx, steps)} family): "
             f"{', '.join(sorted(route))}")
         for k, v in counts.items():
@@ -1503,15 +1667,17 @@ def phase_main_path(chunk_ms):
     deck, steps = REMAINDER_RUN
     pf, of = deck_files(deck)
     out = os.path.join(OUT, f"{deck}_{steps}")
+    p = read_params(pf)
     log(f"[main] python -m tpulbm_torch {deck} --max-iters {steps}")
     _build.reset_launches()
     _run_cli([pf, of, "--out-dir", out, "--max-iters", str(steps)])
     counts = dict(_build.LAUNCHES)
-    _check_launches(deck, counts, ["tile_chunk", "reduce_partials"],
-                    ["skew_chunk", "kstep_chunk"])
-    if counts["tile_chunk"] != -(-steps // kstep_tile.TILE_K):
-        raise AssertionError(f"{deck} x {steps}: {counts['tile_chunk']} "
-                             f"tile_chunk launches")
+    _check_launches(deck, counts, ["grid_p2p", "reduce_partials"],
+                    ["skew_chunk", "kstep_chunk", "tile_chunk"],
+                    _grid_chunks(p, [steps]))
+    if counts["grid_p2p"] != len(runner.kernel_plan(p, steps)):
+        raise AssertionError(f"{deck} x {steps}: {counts['grid_p2p']} "
+                             f"grid_p2p launches")
     for k, v in counts.items():
         totals[k] += v
     av = np.loadtxt(os.path.join(out, "av_vels.dat"), usecols=[1])
@@ -1541,12 +1707,14 @@ def phase_main_path(chunk_ms):
     _build.reset_launches()
     reynolds, _ = _run_cli([pf, of, "--no-output", "--max-iters", str(steps)])
     counts = dict(_build.LAUNCHES)
-    n_chunks = -(-steps // kstep_tile.TILE_K)
-    _check_launches(deck, counts, ["tile_chunk", "reduce_partials"],
-                    ["skew_chunk", "kstep_chunk"])
-    if counts["tile_chunk"] != n_chunks:
-        raise AssertionError(f"{deck} x {steps}: {counts['tile_chunk']} "
-                             f"tile_chunk launches, not {n_chunks}")
+    p = read_params(pf)
+    n_launches = len(runner.kernel_plan(p, steps))
+    _check_launches(deck, counts, ["grid_p2p", "reduce_partials"],
+                    ["skew_chunk", "kstep_chunk", "tile_chunk"],
+                    _grid_chunks(p, [steps]))
+    if counts["grid_p2p"] != n_launches:
+        raise AssertionError(f"{deck} x {steps}: {counts['grid_p2p']} "
+                             f"grid_p2p launches, not {n_launches}")
     for k, v in counts.items():
         totals[k] += v
     p, obst_f = _load_deck(deck)
@@ -1581,7 +1749,7 @@ P2P = ["--backend", "cuda-p2p"]
 # The launch counters that a mesh run may not touch but its own
 KERNEL_COUNTERS = ("skew_chunk", "kstep_chunk", "resident_chunk",
                    "tile_chunk", "cluster_resident", "ring_chunk",
-                   "ring_p2p", "torus_chunk", "torus_p2p")
+                   "ring_p2p", "torus_chunk", "torus_p2p", "grid_p2p")
 
 
 @contextlib.contextmanager
@@ -1863,6 +2031,7 @@ def phase_torus(one_card):
     import numpy as np
     import torch
 
+    from tpulbm_torch.io.params_file import read_params
     from tpulbm_torch.ops import _build
 
     totals = dict.fromkeys(_build.LAUNCHES, 0)
@@ -1885,9 +2054,11 @@ def phase_torus(one_card):
     _build.reset_launches()
     _run_cli([pf, of, "--resume", path, "--out-dir", out])
     counts = dict(_build.LAUNCHES)
-    _check_launches(deck, counts, ["tile_chunk", "reduce_partials"],
+    p = read_params(pf)
+    _check_launches(deck, counts, ["grid_p2p", "reduce_partials"],
                     ["torus_chunk", "ring_chunk", "skew_chunk",
-                     "kstep_chunk"])
+                     "kstep_chunk", "tile_chunk"],
+                    _grid_chunks(p, [p.max_iters - RESUME_STEP]))
     for key, v in counts.items():
         totals[key] += v
     _same_bytes(out, os.path.join(OUT, deck), "torus checkpoint resumed",
@@ -1935,8 +2106,9 @@ def _torus_k4_route(totals):
     _build.reset_launches()
     one.run()
     counts = dict(_build.LAUNCHES)
-    _check_launches(deck, counts, ["tile_chunk", "reduce_partials"],
-                    [c for c in KERNEL_COUNTERS if c != "tile_chunk"])
+    _check_launches(deck, counts, ["grid_p2p", "reduce_partials"],
+                    [c for c in KERNEL_COUNTERS if c != "grid_p2p"],
+                    _grid_chunks(one.params, [steps]))
     for key, v in counts.items():
         totals[key] += v
     f_one, av_one = one.f.cpu(), one.av_vels.copy()
@@ -1996,6 +2168,7 @@ def _time_save(path):
 def phase_checkpoint():
     """Checkpoints and profiling on one device (see the module docstring):
     the resumed run is a second process, as a user would start it."""
+    from tpulbm_torch.io.params_file import read_params
     from tpulbm_torch.ops import _build
 
     totals = dict.fromkeys(_build.LAUNCHES, 0)
@@ -2011,9 +2184,11 @@ def phase_checkpoint():
     _run_cli([pf, of, "--checkpoint-every", str(CKPT_EVERY),
               "--checkpoint-dir", ck, "--out-dir", out])
     counts = dict(_build.LAUNCHES)
-    _check_launches(deck, counts, ["tile_chunk", "reduce_partials"],
+    p = read_params(pf)
+    _check_launches(deck, counts, ["grid_p2p", "reduce_partials"],
                     ["torus_chunk", "ring_chunk", "skew_chunk",
-                     "kstep_chunk"])
+                     "kstep_chunk", "tile_chunk"],
+                    _grid_chunks(p, [CKPT_EVERY] * (steps // CKPT_EVERY)))
     for key, v in counts.items():
         totals[key] += v
     path = _expect_checkpoints(ck, steps)
@@ -2043,19 +2218,20 @@ def phase_checkpoint():
     _run_cli([pf, of, "--max-iters", "80", "--no-output", "--profile-dir",
               trace])
     counts = dict(_build.LAUNCHES)
-    _check_launches(deck, counts, ["tile_chunk", "reduce_partials"])
+    _check_launches(deck, counts, ["grid_p2p", "reduce_partials"],
+                    p2p_chunks=_grid_chunks(p, [80]))
     for key, v in counts.items():
         totals[key] += v
     with open(os.path.join(trace, "mainloop.pt.trace.json")) as fh:
         events = json.load(fh)["traceEvents"]
     region = any(e.get("name") == "mainloop" for e in events)
-    k4 = sum(1 for e in events if e.get("cat") == "kernel"
-             and "kstep_tile_kernel" in e.get("name", ""))
+    k6 = sum(1 for e in events if e.get("cat") == "kernel"
+             and "grid_p2p_kernel" in e.get("name", ""))
     log(f"    trace: {len(events)} events, the mainloop region {region}, "
-        f"{k4} K4 kernel events (of {counts['tile_chunk']} launches)")
-    if not (region and k4 == counts["tile_chunk"]):
+        f"{k6} grid-kind kernel events (of {counts['grid_p2p']} launches)")
+    if not (region and k6 == counts["grid_p2p"]):
         raise AssertionError("the --profile-dir trace lacks its region or "
-                             "some of its K4 launches")
+                             "some of its grid-kind launches")
     return totals
 
 
@@ -2214,7 +2390,7 @@ def phase_multiproc():
     counts = dict(_build.LAUNCHES)
     _check_launches(deck, counts, ["ring_chunk", "reduce_partials"],
                     ["torus_chunk", "tile_chunk", "skew_chunk",
-                     "kstep_chunk", "ring_p2p"])
+                     "kstep_chunk", "ring_p2p", "grid_p2p"])
     for key, v in counts.items():
         totals[key] += v
     _same_bytes(resumed, ring4, "dcp checkpoint resumed in one process",
@@ -2288,12 +2464,12 @@ def _route(p, steps):
     """The launch counters of the chunk functions of the cuda route that
     kernel_plan picks for a runner call of ``steps``."""
     from tpulbm_torch.dist import runner
-    from tpulbm_torch.ops import cluster, kstep_tile, resident
+    from tpulbm_torch.ops import cluster, resident, ring_p2p
 
     counter = {cluster.cluster_resident_chunk: "cluster_resident",
-               kstep_tile.tile_chunk: "tile_chunk",
+               ring_p2p.grid_p2p_chunks: "grid_p2p",
                resident.resident_chunk: "resident_chunk"}
-    return {counter[fn] for fn, _ in runner.kernel_plan(p, steps)}
+    return {counter[fn] for fn, _, _ in runner.kernel_plan(p, steps)}
 
 
 def phase_examples():
@@ -2347,7 +2523,7 @@ def phase_examples():
     steps = p.max_iters
     calls = Simulation._plan_chunks(0, steps, EXAMPLE_CKPT_EVERY,
                                     EXAMPLE_CKPT_EVERY)
-    plan = [(fn, k) for n in calls for fn, k in runner.kernel_plan(p, n)]
+    plan = [(fn, k) for n in calls for fn, k, _ in runner.kernel_plan(p, n)]
     short = sorted({k for _, k in plan if k < resident.RESIDENT_K})
     _check_launches("256x512 example", counts,
                     ["resident_chunk", "reduce_partials"],
@@ -2576,7 +2752,8 @@ KERNELS = [
      "lbm_reduce_partials, now the epilogue of K1, K2, K4 and K5; launches "
      "count the chunks it reduced)",
      "tpulbm_torch/csrc/lbm_cell.cuh", "tpulbm/ops/window_step.py:384"),
-    ("tile_chunk", "lbm_kstep_tile (K4, tile_chunk: whole grid)",
+    ("tile_chunk", "lbm_kstep_tile (K4, tile_chunk: whole grid; off the "
+     "route, the bitwise reference of K6's grid kind)",
      "tpulbm_torch/csrc/kstep_tile.cu",
      "tpulbm/ops/pallas_kstep_skew.py:94, tpulbm/ops/pallas_kstep.py:79, "
      "tpulbm/ops/pallas_kstep_skew_fold.py:118, "
@@ -2609,6 +2786,15 @@ KERNELS = [
      "the kernel)",
      "tpulbm_torch/csrc/ring_p2p.cu",
      "tpulbm/ops/pallas_kstep.py:79 (x_halo=True)"),
+    ("grid_p2p", "lbm_grid_p2p (K6's grid kind, the one-card wide route: "
+     "the whole periodic grid for up to 64 chunks a launch, the tiles "
+     "handing off between chunks through epoch flags)",
+     "tpulbm_torch/csrc/ring_p2p.cu",
+     "tpulbm/ops/pallas_kstep_skew.py:94, tpulbm/ops/pallas_kstep.py:79, "
+     "tpulbm/ops/pallas_kstep_skew_fold.py:118, "
+     "tpulbm/ops/pallas_kstep_skew_fold.py:497, "
+     "tpulbm/ops/pallas_kstep_skew2d.py:112, "
+     "tpulbm/ops/pallas_kstep_skew.py:751, tpulbm/ops/pallas_kstep2d.py:79"),
 ]
 
 

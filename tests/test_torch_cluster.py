@@ -38,7 +38,7 @@ from tpulbm_torch.dist import runner as truntime
 from tpulbm_torch.io.obstacles import read_obstacles
 from tpulbm_torch.io.params_file import read_params
 from tpulbm_torch.ops import (_build, cluster, kstep, kstep_tile, resident,
-                              step_torch)
+                              ring_p2p, step_torch)
 
 torch.set_num_threads(2)
 
@@ -207,7 +207,7 @@ def test_resident_fits(ny, nx, cells):
     assert cluster.resident_fits(ny, nx) is (cells > 0)
     p = LBMParams(nx=nx, ny=ny, max_iters=12, reynolds_dim=10, density=0.1,
                   accel=0.005, omega=1.85)
-    assert {fn for fn, _ in truntime.kernel_plan(p, 12)} == \
+    assert {fn for fn, _, _ in truntime.kernel_plan(p, 12)} == \
         {resident.resident_chunk}
     assert cluster.resident_fits(32, 128) and not cluster.resident_fits(31, 128)
     assert cluster.resident_fits(256, 16) and not cluster.resident_fits(257, 16)
@@ -235,17 +235,18 @@ def test_resident_rule_matches_the_cuda_source():
 
 @pytest.mark.parametrize("ny,nx,n,fn", [
     (64, 128, 20, resident.resident_chunk),
-    (100, 130, 11, kstep_tile.tile_chunk),
+    (100, 130, 11, ring_p2p.grid_p2p_chunks),
 ])
 def test_cluster_slice_matches_jax_runner(ny, nx, n, fn):
     """The slice end to end on the CPU: the cuda backend's plan for a grid
     of the resident family (64x128, one that K5 holds, on K2's route) and
-    of the fused family (100x130, off the 8/128 alignment: K4), run
-    through the wrappers' plain versions, against the JAX package's jnp
-    runner from the same rest state."""
+    of the fused family (100x130, off the 8/128 alignment: K6's grid kind),
+    run through the wrappers' plain versions, against the JAX package's
+    jnp runner from the same rest state."""
     p, mask, _ = _case(ny, nx, seed=ny)
     plan = truntime.kernel_plan(p, n)
-    assert {f for f, _ in plan} == {fn} and sum(k for _, k in plan) == n
+    assert {f for f, _, _ in plan} == {fn}
+    assert sum(k * c for _, k, c in plan) == n
     f, av = truntime.run_plan(plan, initial_state(p),
                               torch.tensor(mask, dtype=torch.float32), p)
     f_j, av_j = jrunner.make_runner(_jp(p), n, get_mesh(n_devices=1),

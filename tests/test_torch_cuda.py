@@ -112,13 +112,15 @@ def test_cuda_runner_goes_through_the_kernels(case):
     """The cuda backend's runner launches the kernels of its route and
     agrees with the torch backend (canonical vs pair-symmetric: same gate).
     136 columns are off the resident gate's 128-alignment: the fused
-    family, K4, 2 x 8 + 5 steps, and no K1 launch."""
+    family, K6's grid kind, one launch of 2 x 8 steps and one of 5, and no
+    K1 or K4 launch."""
     p, f0, mask = case
     assert tiers.family(p.ny, p.nx, 21) == "fused"
     _build.reset_launches()
     # a runner takes its input over, so each gets a copy
     f, av = make_runner(p, 21, "cuda", "cuda")(f0.clone(), mask)
-    assert _build.LAUNCHES["tile_chunk"] == 3
+    assert _build.LAUNCHES["grid_p2p"] == 2
+    assert _build.LAUNCHES["tile_chunk"] == 0
     assert _build.LAUNCHES["skew_chunk"] == _build.LAUNCHES["kstep_chunk"] == 0
     _counter_is_zero(f0.device)
     # in-kernel reductions, one per chunk (two 8-step chunks, one of 5)
@@ -126,6 +128,117 @@ def test_cuda_runner_goes_through_the_kernels(case):
     assert not hasattr(_build.library(), "lbm_reduce_partials")
     f_r, av_r = make_runner(p, 21, "torch", "cuda")(f0, mask)
     _close((f, av), (f_r, av_r))
+
+
+def _grid_case(ny, nx, seed):
+    """A (ny, nx) grid with a seeded 10 % random mask and a 1 % perturbed
+    rest state on cuda:0 (random numbers from torch's generator on the
+    card, so that 8192^2 is made in bulk)."""
+    p = LBMParams(nx=nx, ny=ny, max_iters=1, reynolds_dim=10, density=0.1,
+                  accel=0.005, omega=1.85)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mask = torch.rand((ny, nx), generator=gen, device="cuda") < 0.1
+    p = p.with_free_cells(ny * nx - int(mask.sum().item()))
+    f0 = initial_state(p, "cuda") * (1 + 0.01 * torch.rand(
+        (9, ny, nx), generator=gen, device="cuda"))
+    return p, f0, mask
+
+
+def _k4_chain(f, o, p, k, n):
+    """n chunks of K4's whole-grid mode: (the state, the sums)."""
+    sums = []
+    for _ in range(n):
+        f, s = kstep_tile.tile_chunk(f, o, p, k)
+        sums.append(s)
+    return f, torch.cat(sums)
+
+
+# The runner's steps a call at each shape: full launches of outer_per_launch
+# chunks (64; 8 at 8192^2), a shorter one and a remainder launch
+GRID_STEPS = {(100, 130): 8 * 66 + 3, (1024, 1024): 8 * 66 + 3,
+              (2048, 2048): 8 * 66 + 3, (8192, 8192): 8 * 9 + 5}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(GRID_STEPS),
+                         ids=[f"{y}x{x}" for y, x in GRID_STEPS])
+def test_grid_p2p_is_k4s_whole_grid_chain(shape):
+    """K6's grid kind, the one-card wide route, bitwise K4's whole-grid
+    chunks at 100 x 130 (ragged tiles, 4-byte window loads), 1024^2,
+    2048^2 and 8192^2: one launch of 3 chunks at each k of 1-8 (state and
+    sums bitwise the K4 chain's, each chunk's sums the reduction of its
+    partials within K3_RTOL); then two runner calls of make_runner (the
+    epoch carried across them, launches of several chunks and a
+    remainder): the state, the av series and the Reynolds number bitwise
+    those of the same calls run on K4 (run_plan over tile_chunk), grid_p2p
+    launches alone, the error word clear and the ticket counter 0."""
+    from tpulbm_torch.diag.observables import calc_reynolds
+    from tpulbm_torch.dist.runner import _chunks, kernel_plan, run_plan
+    from tpulbm_torch.ops import ring_p2p
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ny, nx = shape
+    p, f0, mask = _grid_case(ny, nx, ny + nx)
+    o = mask.float()
+    for k in range(1, 9):
+        f, spare = f0.clone(), torch.empty_like(f0)
+        sums, partials = ring_p2p._grid_launch(f, spare, o, p, k, 3)
+        want, want_sums = _k4_chain(f0, o, p, k, 3)
+        torch.cuda.synchronize()
+        _counter_is_zero(f0.device)
+        assert torch.equal(spare, want) and torch.equal(sums, want_sums)
+        for c in range(3):
+            ref = kstep.reduce_partials_ref(partials[c * k:(c + 1) * k])
+            got = sums[c * k:(c + 1) * k]
+            assert ((got - ref).abs() / ref.abs()).max().item() <= K3_RTOL
+        del f, spare, want, partials
+    n = GRID_STEPS[shape]
+    plan = kernel_plan(p, n)
+    assert {fn for fn, _, _ in plan} == {ring_p2p.grid_p2p_chunks}
+    assert len(plan) == 3 and plan[-1][1:] == (n % 8, 1)
+    run = make_runner(p, n, "cuda", "cuda")
+    k4 = _chunks(kstep_tile.tile_chunk, kstep_tile.TILE_K, n)
+    f, g = f0.clone(), f0.clone()
+    _build.reset_launches()
+    for _ in range(2):
+        f, av = run(f, mask)
+        g, av_k4 = run_plan(k4, g, o, p)
+        torch.cuda.synchronize()
+        _counter_is_zero(f0.device)
+        assert torch.equal(f, g) and torch.equal(av, av_k4)
+    assert _build.LAUNCHES["grid_p2p"] == 2 * len(plan)
+    assert calc_reynolds(f, mask, p).item() == calc_reynolds(g, mask, p).item()
+
+
+@pytest.mark.cuda
+def test_grid_p2p_with_a_stuck_flag_raises(case):
+    """A tile's flag planted below the epoch (a tile that never finished):
+    the next runner call's launch waits on it, its producers give up after
+    the 10 s bound, and the call raises (no hang) within a minute; the
+    ticket counter is zeroed and the grid's flags dropped, so the call after
+    runs from fresh flags, bitwise K4's chunks."""
+    import time
+
+    from tpulbm_torch.dist.runner import _chunks, run_plan
+    from tpulbm_torch.ops import ring_p2p
+
+    p, f0, mask = case
+    run = make_runner(p, 16, "cuda", "cuda")
+    f, _ = run(f0.clone(), mask)
+    ex = ring_p2p.grid_exchange(f.device, p.ny, p.nx)
+    assert ex.epoch >= 2
+    ex.flags[5] = ex.epoch - 2
+    t0 = time.perf_counter()
+    with pytest.raises(RuntimeError, match="ran out"):
+        run(f, mask)
+    assert time.perf_counter() - t0 < 60
+    _counter_is_zero(f0.device)
+    assert ring_p2p.grid_exchange(f.device, p.ny, p.nx) is not ex
+    got, av = run(f0.clone(), mask)
+    want, av_k4 = run_plan(_chunks(kstep_tile.tile_chunk, 8, 16), f0.clone(),
+                           mask.float(), p)
+    assert torch.equal(got, want) and torch.equal(av, av_k4)
 
 
 @pytest.mark.cuda
@@ -264,7 +377,8 @@ def test_ring_runners_give_the_single_device_state(case):
     from tpulbm_torch.dist.runner import run_plan
 
     p, f0, mask = case
-    plan = [(kstep_tile.tile_chunk, 8)] * 2 + [(kstep_tile.tile_chunk, 5)]
+    plan = [(kstep_tile.tile_chunk, 8, 1)] * 2 + [
+        (kstep_tile.tile_chunk, 5, 1)]
     # a run takes its input over: its third chunk writes where the first read
     f1, av1 = run_plan(plan, f0.clone(), mask.float(), p)
     for n in (3, 4):
@@ -453,7 +567,8 @@ def test_torus_runner_gives_the_single_device_state(case):
     from tpulbm_torch.dist.runner import run_plan
 
     p, f0, mask = case
-    plan = [(kstep_tile.tile_chunk, 8)] * 2 + [(kstep_tile.tile_chunk, 5)]
+    plan = [(kstep_tile.tile_chunk, 8, 1)] * 2 + [
+        (kstep_tile.tile_chunk, 5, 1)]
     f1, av1 = run_plan(plan, f0.clone(), mask.float(), p)
     for dy, dx in ((2, 2), (4, 2)):
         mesh = get_mesh_2d(dy, dx)
@@ -596,7 +711,8 @@ def test_torus_past_64_blocks_a_card_is_k4_torus_mode(case, capfd):
     from tpulbm_torch.dist.runner import run_plan
 
     p, f0, mask = case
-    plan = [(kstep_tile.tile_chunk, 8)] * 2 + [(kstep_tile.tile_chunk, 5)]
+    plan = [(kstep_tile.tile_chunk, 8, 1)] * 2 + [
+        (kstep_tile.tile_chunk, 5, 1)]
     f1, av1 = run_plan(plan, f0.clone(), mask.float(), p)
     mesh = [[f0.device] * 17 for _ in range(8)]
     run = make_runner(p, 21, "cuda", mesh=mesh)

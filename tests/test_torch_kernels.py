@@ -29,7 +29,8 @@ from tpulbm_torch.core.state import initial_state
 from tpulbm_torch.dist import runner as truntime
 from tpulbm_torch.io.obstacles import read_obstacles
 from tpulbm_torch.io.params_file import read_params
-from tpulbm_torch.ops import _build, cluster, kstep, kstep_tile, resident
+from tpulbm_torch.ops import (_build, cluster, kstep, kstep_tile, resident,
+                              ring_p2p)
 
 torch.set_num_threads(2)
 
@@ -126,34 +127,40 @@ def test_tile_chunks_match_pallas_skew():
 
 
 @pytest.mark.parametrize("deck,n,expect", [
-    ("128x128", 40000, [("resident", 512)] * 78 + [("resident", 64)]),
-    ("256x256", 1030, [("resident", 512)] * 2 + [("resident", 6)]),
-    ("1024x1024", 20000, [("tile", 8)] * 2500),
-    ("1024x1024", 1003, [("tile", 8)] * 125 + [("tile", 3)]),
-    ("1024x1024", 5, [("tile", 5)]),
-    ("2048x2048", 4000, [("tile", 8)] * 500),
-    ("4096x4096", 2000, [("tile", 8)] * 250),
-    ("8192x8192", 1000, [("tile", 8)] * 125),
-    ("4096x4096", 1003, [("tile", 8)] * 125 + [("tile", 3)]),
-    ((256, 512), 1030, [("resident", 512)] * 2 + [("resident", 6)]),
+    ("128x128", 40000,
+     [("resident", 512, 1)] * 78 + [("resident", 64, 1)]),
+    ("256x256", 1030, [("resident", 512, 1)] * 2 + [("resident", 6, 1)]),
+    ("1024x1024", 20000, [("grid", 8, 64)] * 39 + [("grid", 8, 4)]),
+    ("1024x1024", 1003,
+     [("grid", 8, 64), ("grid", 8, 61), ("grid", 3, 1)]),
+    ("1024x1024", 5, [("grid", 5, 1)]),
+    ("2048x2048", 4000, [("grid", 8, 64)] * 7 + [("grid", 8, 52)]),
+    # past 1024^2 outer_per_launch caps the partials at 16 MiB a launch
+    ("4096x4096", 2000, [("grid", 8, 32)] * 7 + [("grid", 8, 26)]),
+    ("8192x8192", 1000, [("grid", 8, 8)] * 15 + [("grid", 8, 5)]),
+    ("4096x4096", 1003,
+     [("grid", 8, 32)] * 3 + [("grid", 8, 29), ("grid", 3, 1)]),
+    ((256, 512), 1030, [("resident", 512, 1)] * 2 + [("resident", 6, 1)]),
 ])
 def test_kernel_plan_routes_like_the_jax_runner(deck, n, expect):
     """Aligned grids of <= 135K cells (runner.py:1723-1730) -> K2 (128^2,
     256^2; 256x512, the _kernel_hbm shape; never K5, which K2 outran at
-    every shape it holds), in 512-step chunks plus a remainder; the 1-D skew's grids (runner.py:1741-1746) and the wide
-    tiers' grids (fold, 2-D skew, runner.py:1749-1777) -> K4 in 8-step
-    chunks plus a shorter one."""
+    every shape it holds), in 512-step chunks plus a remainder; the 1-D
+    skew's grids (runner.py:1741-1746) and the wide tiers' grids (fold, 2-D
+    skew, runner.py:1749-1777) -> K6's grid kind in launches of up to 64
+    chunks of 8 steps (fewer where the partials would pass 16 MiB) plus one
+    launch of a shorter chunk."""
     if isinstance(deck, tuple):
         p = LBMParams(nx=deck[1], ny=deck[0], max_iters=n, reynolds_dim=10,
                       density=0.1, accel=0.005, omega=1.85)
     else:
         p = read_params(os.path.join(DATA, f"input_{deck}.params"))
     names = {resident.resident_chunk: "resident",
-             kstep_tile.tile_chunk: "tile",
+             ring_p2p.grid_p2p_chunks: "grid",
              cluster.cluster_resident_chunk: "k5_resident"}
     plan = truntime.kernel_plan(p, n)
-    assert [(names[fn], k) for fn, k in plan] == expect
-    assert sum(k for _, k in plan) == n
+    assert [(names[fn], k, c) for fn, k, c in plan] == expect
+    assert sum(k * c for _, k, c in plan) == n
 
 
 def test_run_plan_matches_plain_runner():
@@ -165,7 +172,8 @@ def test_run_plan_matches_plain_runner():
     obst = torch.tensor(mask)
     f_ref, av_ref = truntime.make_runner(p, n, "torch", "cpu")(
         initial_state(p), obst)
-    plan = [(truntime._skew, 8), (truntime._skew, 8), (kstep.kstep_chunk, 5)]
+    plan = [(truntime._skew, 8, 1), (truntime._skew, 8, 1),
+            (kstep.kstep_chunk, 5, 1)]
     f, av = truntime.run_plan(plan, initial_state(p), obst.float(), p)
     assert av.shape == (n,)
     np.testing.assert_allclose(f.numpy(), f_ref.numpy(), rtol=0, atol=F_ATOL)

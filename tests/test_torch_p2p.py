@@ -19,6 +19,7 @@ sums bitwise. The model: bitwise the plain version, and no stale read.
 """
 
 import dataclasses
+import functools
 import re
 from pathlib import Path
 
@@ -382,6 +383,33 @@ def decode_graph(cards, rows, nx, k, t=MODEL_TILE):
     return deps, header
 
 
+def decode_grid(ny, nx, k, t=MODEL_TILE):
+    """ring_p2p.grid_graph's records decoded: ({tile: [tiles it waits on,
+    in record order]}, {tile: its header}); every dependency a flag of this
+    card."""
+    deps, header = {}, {}
+    for i, rec in enumerate(ring_p2p.grid_graph(ny, nx, k, t)):
+        n_local, n_remote = rec[7] & 255, rec[7] >> 8
+        assert n_remote == 0
+        got = [int(e) for e in rec[ring_p2p.REC_DEPS:ring_p2p.REC_DEPS
+                                   + n_local]]
+        assert all(e >> ring_p2p.PEER_SHIFT == 0 for e in got)
+        deps[i] = got
+        header[i] = dict(zip(ring_p2p.HEADER, map(int, rec)))
+    return deps, header
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_relation(ny, nx, k, t):
+    return decode_grid(ny, nx, k, t)[0]
+
+
+def grid_graph_deps(rows, nx, d, tile, k, t):
+    """The model's relation from the grid kind's graph (one shard, d = 0,
+    of rows[0] rows)."""
+    return [(0, u) for u in _grid_relation(rows[0], nx, k, t)[tile]]
+
+
 def graph_deps(cards):
     """The model's relation from the tile graph of shards on ``cards``."""
     memo = {}
@@ -428,14 +456,19 @@ class FlagModel:
     its launch before, pushes its shards' input edge rows into the
     neighbours' slots of the launch's first parity, and, with
     ``entry_order``, no card starts the launch before every card has
-    pushed; its chunk 0 then reads the slots."""
+    pushed; its chunk 0 then reads the slots. ``grid``: the grid kind, one
+    shard (the whole grid) on one card, its window rows wrapping into the
+    state itself, no slots, no pushes and no pull0 (the relation, where
+    ``deps`` is None, ring_p2p.grid_graph's)."""
 
     def __init__(self, params, rows, offsets, cards, mask, states, k,
                  deps=None, t=MODEL_TILE, early_release=False,
-                 processes=False, entry_order=True):
+                 processes=False, entry_order=True, grid=False):
         self.p, self.rows, self.offsets, self.cards = params, rows, offsets, cards
-        self.k, self.t = k, t
-        self.deps = graph_deps(cards) if deps is None else deps
+        self.k, self.t, self.grid = k, t, grid
+        if deps is None:
+            deps = grid_graph_deps if grid else graph_deps(cards)
+        self.deps = deps
         self.early_release = early_release
         self.processes, self.entry_order = processes, entry_order
         self.nx = params.nx
@@ -481,6 +514,8 @@ class FlagModel:
         chunk c: shard row r (may be < 0 or >= h)."""
         h, k, e = self.rows[d], self.k, launch["base"] + c
         n = len(self.rows)
+        if self.grid:
+            r %= h
         if 0 <= r < h:
             b = launch["cur"] ^ (c % 2)
             return self.buf[d][b][:, r], self.tag[d][b][r]
@@ -537,6 +572,9 @@ class FlagModel:
             row = y0 + i
             self.buf[d][out][:, row, cols] = f[:, i, cols]
             self.tag[d][out][row, cols] = e + 1
+            if self.grid:
+                yield "work"
+                continue
             if row >= h - k:
                 q = (d + 1) % n
                 self.slots["lo"][q][(e + 1) % 2][:, row - (h - k), cols] = (
@@ -1009,3 +1047,166 @@ def test_tile_graph_at_the_kernel_tile():
         for tile, want in enumerate(cone[d]):
             assert sorted(deps[d, tile]) == want
             assert len(want) == 9
+
+
+# The grid kind (ring_p2p.grid_p2p_chunks, the one-card wide route): one
+# shard, the whole periodic grid, on one card; its graph and the model on
+# it. Calls of launches (n_outer, pull0): no pull0, odd and even launches.
+GRID_CALLS = [[(3, False), (1, False)], [(2, False), (3, False)]]
+
+
+@pytest.mark.parametrize("ny,nx", [
+    (44, 36), (51, 36), (51, 45),   # even, and ragged last tile rows, columns
+    (6, 36), (8, 29),               # one tile row (6 rows: fewer than k)
+    (44, 5), (44, 8),               # one tile column
+    (7, 5),                         # one tile, its own neighbour every way
+])
+@pytest.mark.parametrize("k", range(1, 9))
+def test_grid_graph_is_the_cone(ny, nx, k):
+    """The grid kind's tile graph, decoded from its records: every tile
+    waits on exactly the tiles with owned cells within k of its own, both
+    axes wrapping (by cells, _brute_cone of one shard of ny rows), itself
+    included (a grid of one tile row or column is its own neighbour across
+    the wrap), a symmetric relation; headers in row-major walk order,
+    duties 0, no flag of another card."""
+    t, tiles_x = MODEL_TILE, -(-nx // MODEL_TILE)
+    deps, header = decode_grid(ny, nx, k)
+    cone = _brute_cone([ny], nx, k, t)[0]
+    assert len(deps) == len(cone)
+    for tile, want in enumerate(cone):
+        assert sorted((0, u) for u in deps[tile]) == want
+        assert tile in deps[tile]
+        for u in deps[tile]:
+            assert tile in deps[u]
+        ty, tx = divmod(tile, tiles_x)
+        assert header[tile] == dict(
+            shard=0, tile=tile, y0=ty * t, x0=tx * t,
+            own_rows=min(t, ny - ty * t), own_cols=min(t, nx - tx * t),
+            duties=0, counts=len(deps[tile]))
+
+
+def test_grid_graph_at_the_kernel_tile():
+    """At the kernel's 32 x 32 tiles and k = 8: 9 tiles a tile at 1024^2;
+    on a ragged 100 x 130 grid (a 4-row last tile row, a 2-column last tile
+    column) a corner tile waits on 4 x 4; both the cone by cells."""
+    for ny, nx in ((1024, 1024), (100, 130)):
+        deps, _ = decode_grid(ny, nx, 8, ring_p2p.TILE)
+        cone = _brute_cone([ny], nx, 8, ring_p2p.TILE)[0]
+        for tile, want in enumerate(cone):
+            assert sorted((0, u) for u in deps[tile]) == want
+        if ny == 1024:
+            assert {len(d) for d in deps.values()} == {9}
+    assert len(deps[0]) == 16
+
+
+def _plain_grid_calls(p, mask, f, k, calls):
+    """grid_p2p_chunks_ref over the same calls: (the state, [(base,
+    n_outer, the launch's sums)])."""
+    obst = torch.tensor(mask, dtype=torch.float32)
+    base, sums = 0, []
+    for launches in calls:
+        for n_outer, _ in launches:
+            f, s = ring_p2p.grid_p2p_chunks_ref(f, obst, p, k, n_outer)
+            sums.append((base, n_outer, s))
+            base += n_outer
+    return f, sums
+
+
+def _grid_model(ny=51, nx=36, k=5, seed=3, **kw):
+    """The model of the grid kind on a ny x nx grid (8 x 8 model tiles, k =
+    5: at 51 x 36 a 3-row last tile row and a 4-column last tile column,
+    narrower than k), and its first state."""
+    p, mask, f0 = _case(ny, nx, seed)
+    state = torch.tensor(f0)
+    return (FlagModel(p, [ny], [0], ["a"], mask, [state], k, grid=True,
+                      **kw), p, mask, state)
+
+
+@pytest.mark.parametrize("ny,nx,grid", [
+    (51, 36, 1), (51, 36, 7), (51, 36, 29), (44, 36, None), (6, 36, 3),
+    (44, 5, 4),
+])
+def test_flag_model_on_the_grid_graph(ny, nx, grid):
+    """The model of the grid kind (the whole grid one shard on one card,
+    window rows wrapping into the state itself) on the grid graph, for
+    grids of 1 CTA to every tile of a chunk, grids of one tile row (fewer
+    rows than k) or column: it finishes, reads no stale cell and ends
+    bitwise equal to grid_p2p_chunks_ref over the same calls, state and
+    per-step sums."""
+    model, p, mask, state = _grid_model(ny, nx)
+    rng = np.random.RandomState(ny * 100 + nx + (grid or 0))
+    for launches in GRID_CALLS:
+        model.call(launches, grid or model.ntiles(0), rng)
+    assert model.stale == []
+    want, sums = _plain_grid_calls(p, mask, state, model.k, GRID_CALLS)
+    assert torch.equal(model.states()[0], want)
+    for base, n_outer, s in sums:
+        got = torch.stack([kstep_tile.rows_sum(
+            model.speed[(base + c, 0)][j], 0, ny)
+            for c in range(n_outer) for j in range(model.k)])
+        assert torch.equal(got, s)
+
+
+def _narrow_grid(axis):
+    """The grid graph's relation cut to the tile rows (axis 0) or columns
+    (1) next to the tile's own: where the last tile row or column is
+    narrower than k, the cone reaches one further."""
+    def deps(rows, nx, d, tile, k, t):
+        shape = (-(-rows[0] // t), -(-nx // t))
+        own = divmod(tile, shape[1])[axis]
+        n = shape[axis]
+        return [(e, u) for e, u in grid_graph_deps(rows, nx, d, tile, k, t)
+                if (divmod(u, shape[1])[axis] - own) % n in (0, 1, n - 1)]
+    return deps
+
+
+def _caught_grid(deps, grid, seeds=4, **kw):
+    """The seeds of 4 whose run of the grid kind's model (51 x 36,
+    GRID_CALLS) with ``deps`` read a stale cell or deadlocked."""
+    caught = 0
+    for seed in range(seeds):
+        model = _grid_model(deps=deps, **kw)[0]
+        try:
+            _run_model(model, GRID_CALLS, grid, seed)
+        except AssertionError:
+            caught += 1
+            continue
+        caught += bool(model.stale)
+    return caught
+
+
+@pytest.mark.parametrize("axis", [0, 1], ids=["three_rows", "three_cols"])
+def test_flag_model_on_the_grid_catches_a_narrow_neighbourhood(axis):
+    """On the grid graph, a relation cut to the next tile row or column
+    each way reads a stale cell: every seed, at 23 CTAs (at 29, the rows'
+    cut on every seed and the columns' on 2 of 4)."""
+    assert _caught_grid(_narrow_grid(axis), 23) == 4
+
+
+def test_flag_model_on_the_grid_catches_an_early_release():
+    """On the grid graph, a producer that releases a tile's flag once its
+    window is loaded reads a stale cell: every seed, at 7 CTAs."""
+    assert _caught_grid(None, 7, early_release=True) == 4
+
+
+def test_grid_p2p_chunks_ref_is_k4s_plain_chain():
+    """grid_p2p_chunks on CPU tensors (its plain version) over two
+    launches of 3 and 2 chunks of 8 steps and a remainder launch of 5
+    steps, on a ragged 100 x 130 grid: state and per-step sums bitwise
+    K4's plain chain (tile_chunk_ref chunk by chunk); each launch's state
+    in the buffer the kernel leaves it in (the spare after an odd count of
+    chunks, the input after an even one), the other returned free."""
+    p, mask, f0 = _case(100, 130, 7)
+    obst = torch.tensor(mask, dtype=torch.float32)
+    f, spare = torch.tensor(f0), torch.empty(9, 100, 130)
+    want, got, sums = torch.tensor(f0), [], []
+    for k, n in ((8, 3), (8, 2), (5, 1)):
+        bufs = (f, spare)
+        f, spare, s = ring_p2p.grid_p2p_chunks(f, spare, obst, p, k, n)
+        assert f is bufs[n % 2] and spare is bufs[1 - n % 2]
+        got.append(s)
+        for _ in range(n):
+            want, s_ref = kstep_tile.tile_chunk_ref(want, obst, p, k)
+            sums.append(s_ref)
+    assert torch.equal(f, want)
+    assert torch.equal(torch.cat(got), torch.cat(sums))

@@ -288,7 +288,7 @@ def test_resident_plan(ny, nx, plan):
         resident.RESIDENT_MAX_SMEM
     p = LBMParams(nx=nx, ny=ny, max_iters=12, reynolds_dim=10, density=0.1,
                   accel=0.005, omega=1.85)
-    assert {fn for fn, _ in truntime.kernel_plan(p, 12)} == \
+    assert {fn for fn, _, _ in truntime.kernel_plan(p, 12)} == \
         {resident.resident_chunk}
 
 

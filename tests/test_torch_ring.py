@@ -263,7 +263,7 @@ def test_ring_state_equals_the_single_device_route(n_shards):
     p, mask = _deck("128x256")
     f0 = _perturbed(p, 14)
     f, av = _ring(p, mask, f0, 21, n_shards, kstep_tile.ring_chunk)
-    plan = [(kstep_tile.tile_chunk, 8)] * 2 + [(kstep_tile.tile_chunk, 5)]
+    plan = runner._chunks(kstep_tile.tile_chunk, 8, 21)
     f1, av1 = runner.run_plan(plan, torch.tensor(f0),
                               torch.tensor(mask, dtype=torch.float32), p)
     assert np.array_equal(f, f1.numpy())

@@ -35,7 +35,7 @@ from tpulbm_torch.dist import runner as truntime
 from tpulbm_torch.dist import tiers
 from tpulbm_torch.io.obstacles import write_obstacles
 from tpulbm_torch.io.params_file import read_params, write_params
-from tpulbm_torch.ops import kstep, kstep_tile, resident, step_torch
+from tpulbm_torch.ops import kstep, kstep_tile, resident, ring_p2p, step_torch
 from tpulbm_torch.sim.simulation import Simulation
 
 torch.set_num_threads(2)
@@ -237,16 +237,17 @@ def _jax_family(monkeypatch, ny, nx, n):
 
 @pytest.mark.parametrize("ny,nx,n", ROUTES)
 def test_kernel_family_matches_the_jax_router(monkeypatch, ny, nx, n):
-    """The port's route (K2 for the resident family, K4 for the fused and
-    tile families) follows the family of the JAX package's single-device
-    tier for the same grid and steps."""
+    """The port's route (K2 for the resident family, K6's grid kind for the
+    fused and tile families) follows the family of the JAX package's
+    single-device tier for the same grid and steps."""
     want, p = _jax_family(monkeypatch, ny, nx, n)
     assert tiers.family(ny, nx, n) == want
-    fns = {"resident": {resident.resident_chunk},
-           "fused": {kstep_tile.tile_chunk}, "tile": {kstep_tile.tile_chunk}}
+    grid = {ring_p2p.grid_p2p_chunks}
+    fns = {"resident": {resident.resident_chunk}, "fused": grid,
+           "tile": grid}
     plan = truntime.kernel_plan(p, n)
-    assert {fn for fn, _ in plan} <= fns[want]
-    assert sum(k for _, k in plan) == n
+    assert {fn for fn, _, _ in plan} <= fns[want]
+    assert sum(k * c for _, k, c in plan) == n
 
 
 def test_row_inner_grid_routes_to_k4(monkeypatch):
@@ -262,28 +263,30 @@ def test_row_inner_grid_routes_to_k4(monkeypatch):
 
 
 @pytest.mark.parametrize("ny,nx,expect", [
-    (256, 512, [("resident", 12)]),            # 131,072 cells: _kernel_hbm
-    (100, 130, [("tile", 8), ("tile", 4)]),   # not 8/128-aligned
-    (100, 128, [("tile", 8), ("tile", 4)]),   # ny % 8 != 0
+    (256, 512, [("resident", 12, 1)]),         # 131,072 cells: _kernel_hbm
+    (100, 130, [("grid", 8, 1), ("grid", 4, 1)]),   # not 8/128-aligned
+    (100, 128, [("grid", 8, 1), ("grid", 4, 1)]),   # ny % 8 != 0
 ])
 def test_kernel_plan_resident_gate(ny, nx, expect):
     """The resident family takes the JAX resident gate, supported or
     supported_hbm (pallas_resident.py:35-60): 8/128-aligned grids of at
     most 135K cells, whatever the step count (here K2: 256x512 is beyond
-    one cluster); the others go to the fused family, K4."""
+    one cluster); the others go to the fused family, K6's grid kind."""
     p = LBMParams(nx=nx, ny=ny, max_iters=12, reynolds_dim=10, density=0.1,
                   accel=0.005, omega=1.85)
     names = {resident.resident_chunk: "resident",
-             kstep_tile.tile_chunk: "tile"}
-    assert [(names[fn], k) for fn, k in truntime.kernel_plan(p, 12)] == expect
+             ring_p2p.grid_p2p_chunks: "grid"}
+    assert [(names[fn], k, c)
+            for fn, k, c in truntime.kernel_plan(p, 12)] == expect
 
 
 def test_wide_deck_end_to_end(tmp_path):
     """A 72x2048 deck with a random mask, 11 steps: above the resident gate
     and too wide for the 1-D skew, so the JAX router folds it (F=2) and the
-    port routes it to K4. The port's Simulation (plain oracle on the CPU)
-    and its cuda plan (through the K4 wrappers' plain versions) against the
-    JAX Simulation on the fold runner: state and av series."""
+    port routes it to K6's grid kind. The port's Simulation (plain oracle
+    on the CPU) and its cuda plan (through the grid kind's plain version,
+    K4's plain chain) against the JAX Simulation on the fold runner: state
+    and av series."""
     ny, nx, n = 72, 2048, 11
     rng = np.random.RandomState(9)
     mask = rng.rand(ny, nx) < 0.05
@@ -304,7 +307,8 @@ def test_wide_deck_end_to_end(tmp_path):
     assert abs(res.reynolds - jres.reynolds) < 1e-4 * abs(jres.reynolds)
 
     plan = truntime.kernel_plan(sim.params, n)
-    assert plan == [(kstep_tile.tile_chunk, K), (kstep_tile.tile_chunk, 3)]
+    assert plan == [(ring_p2p.grid_p2p_chunks, K, 1),
+                    (ring_p2p.grid_p2p_chunks, 3, 1)]
     f, av = truntime.run_plan(plan, initial_state(sim.params),
                               sim.obstacles.float(), sim.params)
     _close(f.numpy(), av.numpy(), jsim.f, jres.av_vels)

@@ -12,6 +12,9 @@
 //     (make_skew_fix_tiled): the 8192^2 deck;
 //   tpulbm/ops/pallas_kstep2d.py::_kernel (make_kstep2d): the sub-8-step
 //     remainder on those grids.
+// On one card the route runs K6's grid kind (ring_p2p.cu::lbm_grid_p2p)
+// instead, many chunks a launch with the same window and tile step: whole-
+// grid mode, chunk by chunk, is its bitwise reference.
 // Ring mode is the per-shard body of the 1-D ring (k steps of one shard
 // given the k-row slabs of its two neighbours, and the per-step sum over
 // the shard's rows): the function that every ring tier of the JAX package

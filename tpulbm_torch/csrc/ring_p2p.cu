@@ -160,6 +160,23 @@
 //     each block's input edges and corners into its neighbours' slots
 //     (ops/ring_p2p.py::TorusExchange.enter), which then runs with
 //     pull0 = 0.
+//
+// Grid kind (lbm_grid_p2p, grid_p2p_kernel) runs the same pipeline over the
+// whole periodic (ny, nx) grid of one card: the one-card wide route
+// (dist/runner.py::kernel_plan), in place of one launch of K4's whole-grid
+// mode (kstep_tile.cu::lbm_kstep_tile) a chunk, whose bits it computes:
+// the same tiles, window, tile step and sums.
+//   Window: K4's whole-grid window, its rows and columns wrapping modulo
+//     (ny, nx), loaded by the copy group straight from the state (16-B
+//     copies where nx % 4 == 0, as K4). No landing slots, pushes, pull0,
+//     peers or system-scope fences: chunk c reads state[c & 1] and writes
+//     state[(c + 1) & 1], and the cone relation (ops/ring_p2p.py::
+//     grid_graph, the periodic grid's, both axes wrapping) orders each
+//     write after every read of the buffer it overwrites.
+//   Flags: one int a tile of this card, never reset, the epoch carried
+//     across launches and runner calls (ops/ring_p2p.py::GridExchange).
+//   Not torus mode over a 1 x 1 block: that would push four edge slabs
+//     and the corners every chunk into slots only the block itself reads.
 
 #include <cuda_runtime.h>
 
@@ -274,6 +291,16 @@ struct TorusLaunch {
   long long xstride, ystride;
 };
 
+// Grid kind: the whole (ny, nx) grid, its tiles row-major. state[0] holds
+// the state at the launch's first epoch, as a ring shard's.
+struct GridLaunch {
+  Protocol<1> p;
+  const float* obst;       // (ny, nx) mask
+  float* state[2];
+  float* partials;         // (n_outer k, items)
+  float* sums;             // (n_outer k,)
+};
+
 // The stepped tile of a stage, written by the producer before it arrives
 // on the stage's `full` barrier: the stepping warps read it from shared
 // memory, not from registers live across the step loop.
@@ -294,6 +321,14 @@ struct TorusJob {
   float* partials;
   int y0, x0, own_rows, own_cols, ntiles;
   int push_remote;
+  int live;
+};
+
+// Grid kind's stepped tile: as Job, with no pushes.
+struct GridJob {
+  float* out;              // the grid's next state, (9, ny, nx)
+  float* partials;
+  int y0, x0, own_rows, own_cols, ntiles;
   int live;
 };
 
@@ -506,8 +541,53 @@ __device__ __forceinline__ void copy_window(float* stage, unsigned char* acc,
   }
 }
 
-// Copy-group thread t's part of stage st's window (a Window or a
-// TorusWindow), then its arrivals on full: once for its stores, once
+// Grid kind's window source: the (9, ny, nx) state src and the (ny, nx)
+// mask; window row wy of a tile at (y0, x0) is grid row y0 - k + wy and
+// window column wc grid column x0 - kx + wc, both wrapping, as in K4's
+// whole-grid mode.
+struct GridWindow {
+  const float* src;
+  const float* obst;
+  int y0, x0, live;
+};
+
+// Copy-group thread t's part of grid window W, as copy_window: with nx % 4
+// == 0 every 4-column segment starts at a multiple of 4 and lies in one
+// row of the grid.
+template <int kK, int kSeg>
+__device__ __forceinline__ void copy_window(float* stage, unsigned char* acc,
+                                            const GridWindow& W,
+                                            const tpulbm::LbmArgs& a, int t) {
+  constexpr int k = kK;
+  constexpr int kx = col_margin(k);
+  constexpr int wh = kTile + 2 * k;
+  constexpr int w = kTile + 2 * kx;
+  constexpr int plane = wh * w;
+  constexpr int segs = w / kSeg;
+  const size_t gplane = (size_t)a.ny * a.nx;
+  for (int s = t; s < wh * segs; s += 32 * kCopyWarps) {
+    const int wy = s / segs, wc = (s - wy * segs) * kSeg;
+    const int r = wrap(W.y0 - k + wy, a.ny);
+    if (wc == 0) acc[wy] = r == a.accel_row;
+    const int col = wrap(W.x0 - kx + wc, a.nx);
+    const float* g = W.src + (size_t)r * a.nx + col;
+    const float* m = W.obst + (size_t)r * a.nx + col;
+    float* d = stage + wy * w + wc;
+    if constexpr (kSeg == 4) {
+#pragma unroll
+      for (int q = 0; q < 9; ++q)
+        tpulbm::cp_async16(d + q * plane, g + q * gplane);
+      tpulbm::cp_async16(d + 9 * plane, m);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 9; ++q) d[q * plane] = __ldcg(g + q * gplane);
+      d[9 * plane] = __ldcg(m);
+    }
+  }
+}
+
+// Copy-group thread t's part of stage st's window (a Window, TorusWindow
+// or GridWindow), then its arrivals on full: once for its stores, once
 // (cp.async.mbarrier.arrive) when its copies land.
 template <int kK, class Win>
 __device__ __forceinline__ void copy_part(float* stage, unsigned char* acc,
@@ -638,6 +718,27 @@ __device__ __forceinline__ void post(const TorusLaunch& L, const Item& it,
   W.live = 1;
 }
 
+// Grid kind's post: the job and the window, state[c & 1] read and
+// state[(c + 1) & 1] written.
+template <int kK>
+__device__ __forceinline__ void post(const GridLaunch& L, const Item& it,
+                                     GridJob& J, GridWindow& W,
+                                     const tpulbm::LbmArgs&) {
+  J.out = L.state[(it.c + 1) & 1];
+  J.partials = L.partials + (size_t)it.c * kK * L.p.items + it.tile;
+  J.y0 = it.y0;
+  J.x0 = it.x0;
+  J.own_rows = it.own_rows;
+  J.own_cols = it.own_cols;
+  J.ntiles = L.p.items;
+  J.live = 1;
+  W.src = L.state[it.c & 1];
+  W.obst = L.obst;
+  W.y0 = it.y0;
+  W.x0 = it.x0;
+  W.live = 1;
+}
+
 // Torus mode's store of owned cell (oy, ox) of job J's tile: the block's
 // next state, and each push whose cells hold it (see Push).
 template <int kK>
@@ -672,14 +773,18 @@ __device__ __forceinline__ void torus_store(const TorusLaunch& L,
   }
 }
 
-// The kernel of both modes (LaunchT: Launch or TorusLaunch), one CTA.
+// The kernel of every kind (LaunchT: Launch, TorusLaunch or GridLaunch),
+// one CTA.
 template <int kK, class LaunchT>
 __device__ __forceinline__ void p2p_body(const LaunchT& L,
                                          const tpulbm::LbmArgs& a,
                                          int vec16) {
   constexpr bool kTorus = std::is_same_v<LaunchT, TorusLaunch>;
-  using JobT = std::conditional_t<kTorus, TorusJob, Job>;
-  using WinT = std::conditional_t<kTorus, TorusWindow, Window>;
+  constexpr bool kGrid = std::is_same_v<LaunchT, GridLaunch>;
+  using JobT = std::conditional_t<
+      kTorus, TorusJob, std::conditional_t<kGrid, GridJob, Job>>;
+  using WinT = std::conditional_t<
+      kTorus, TorusWindow, std::conditional_t<kGrid, GridWindow, Window>>;
   extern __shared__ __align__(16) float smem[];
   __shared__ float warp_sums[kMaxK][kWarps];
   __shared__ unsigned char acc_rows[2][kMaxW];
@@ -728,6 +833,17 @@ __device__ __forceinline__ void p2p_body(const LaunchT& L,
               torus_store<kK>(L, J, oy, ox, res);
             },
             partial);
+      } else if constexpr (kGrid) {
+        step_tile<kK, kStepBar>(
+            smem + st * sfloats, acc_rows[st], J.own_rows, J.own_cols, cells,
+            warp_sums, a,
+            [&](int oy, int ox, const float* res) {
+              float* o = J.out + (size_t)(J.y0 + oy) * a.nx + J.x0 + ox;
+              const size_t oplane = (size_t)a.ny * a.nx;
+#pragma unroll
+              for (int q = 0; q < 9; ++q) o[q * oplane] = res[q];
+            },
+            partial);
       } else {
         step_tile<kK, kStepBar>(
             smem + st * sfloats, acc_rows[st], J.own_rows, J.own_cols, cells,
@@ -752,7 +868,9 @@ __device__ __forceinline__ void p2p_body(const LaunchT& L,
             },
             partial);
       }
-      if (J.push_remote) __threadfence_system();
+      if constexpr (!kGrid) {
+        if (J.push_remote) __threadfence_system();
+      }
       // every stepping thread's stores (and sys fence) and reads of job[st]
       // are done: the producer may release the tile and refill the stage
       step_sync<kStepBar>();
@@ -932,6 +1050,10 @@ __device__ __forceinline__ void p2p_body(const LaunchT& L,
         partials = reinterpret_cast<const float*>(__ldg(tb + kTPartials));
         sums = reinterpret_cast<float*>(__ldg(tb + kTSums));
         ntiles = torus_tiles(L);
+      } else if constexpr (kGrid) {
+        partials = L.partials;
+        sums = L.sums;
+        ntiles = L.p.items;
       } else {
         partials = L.shard[j].partials;
         sums = L.shard[j].sums;
@@ -969,17 +1091,28 @@ __global__ void __launch_bounds__(kBlock, 1)
   p2p_body<kK>(L, a, vec16);
 }
 
+template <int kK>
+__global__ void __launch_bounds__(kBlock, 1)
+    grid_p2p_kernel(const __grid_constant__ GridLaunch L, tpulbm::LbmArgs a,
+                    int vec16) {
+  p2p_body<kK>(L, a, vec16);
+}
+
 int smem_bytes(int k) { return 2 * stage_floats(k) * (int)sizeof(float); }
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<size_t>(p) & 15) == 0;
 }
 
-// The kernel of a mode and k.
-template <bool kTorus, int kK>
+enum class Kind { kRing, kTorus, kGrid };
+
+// The kernel of a kind and k.
+template <Kind kKind, int kK>
 constexpr auto kernel_of() {
-  if constexpr (kTorus)
+  if constexpr (kKind == Kind::kTorus)
     return torus_p2p_kernel<kK>;
+  else if constexpr (kKind == Kind::kGrid)
+    return grid_p2p_kernel<kK>;
   else
     return ring_p2p_kernel<kK>;
 }
@@ -987,10 +1120,10 @@ constexpr auto kernel_of() {
 // The persistent grid of an instance on the current device, its shared-
 // memory limit set on first use: every CTA of a launch of at most this many
 // is resident at once, which the waits need.
-template <bool kTorus, int kK>
+template <Kind kKind, int kK>
 cudaError_t configure(int* grid_cap) {
   static int cap[kMaxDevices];
-  constexpr auto kernel = kernel_of<kTorus, kK>();
+  constexpr auto kernel = kernel_of<kKind, kK>();
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -1016,7 +1149,7 @@ cudaError_t configure(int* grid_cap) {
 template <int kK>
 int launch(const Launch& l, const tpulbm::LbmArgs& a, cudaStream_t stream) {
   int cap = 0;
-  cudaError_t e = configure<false, kK>(&cap);
+  cudaError_t e = configure<Kind::kRing, kK>(&cap);
   if (e != cudaSuccess) return (int)e;
   const int total = l.p.items * l.p.n_outer;
   bool vec16 = a.nx % 4 == 0;
@@ -1034,15 +1167,22 @@ int launch(const Launch& l, const tpulbm::LbmArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int kK>
-int launch_torus(const TorusLaunch& l, const tpulbm::LbmArgs& a, int vec16,
-                 cudaStream_t stream) {
+// A launch of torus mode or the grid kind (LaunchT: TorusLaunch or
+// GridLaunch), vec16 decided by the caller.
+template <Kind kKind, int kK, class LaunchT>
+int launch_kind(const LaunchT& l, const tpulbm::LbmArgs& a, int vec16,
+                cudaStream_t stream) {
   int cap = 0;
-  cudaError_t e = configure<true, kK>(&cap);
+  cudaError_t e = configure<kKind, kK>(&cap);
   if (e != cudaSuccess) return (int)e;
   const int total = l.p.items * l.p.n_outer;
-  torus_p2p_kernel<kK><<<total < cap ? total : cap, kBlock, smem_bytes(kK),
-                         stream>>>(l, a, vec16);
+  const int grid = total < cap ? total : cap;
+  if constexpr (kKind == Kind::kTorus)
+    torus_p2p_kernel<kK><<<grid, kBlock, smem_bytes(kK), stream>>>(l, a,
+                                                                   vec16);
+  else
+    grid_p2p_kernel<kK><<<grid, kBlock, smem_bytes(kK), stream>>>(l, a,
+                                                                  vec16);
   return (int)cudaGetLastError();
 }
 
@@ -1053,12 +1193,30 @@ constexpr LaunchFn kLaunch[kMaxK] = {launch<1>, launch<2>, launch<3>,
 using TorusLaunchFn = int (*)(const TorusLaunch&, const tpulbm::LbmArgs&, int,
                               cudaStream_t);
 constexpr TorusLaunchFn kTorusLaunch[kMaxK] = {
-    launch_torus<1>, launch_torus<2>, launch_torus<3>, launch_torus<4>,
-    launch_torus<5>, launch_torus<6>, launch_torus<7>, launch_torus<8>};
+    launch_kind<Kind::kTorus, 1, TorusLaunch>,
+    launch_kind<Kind::kTorus, 2, TorusLaunch>,
+    launch_kind<Kind::kTorus, 3, TorusLaunch>,
+    launch_kind<Kind::kTorus, 4, TorusLaunch>,
+    launch_kind<Kind::kTorus, 5, TorusLaunch>,
+    launch_kind<Kind::kTorus, 6, TorusLaunch>,
+    launch_kind<Kind::kTorus, 7, TorusLaunch>,
+    launch_kind<Kind::kTorus, 8, TorusLaunch>};
+using GridLaunchFn = int (*)(const GridLaunch&, const tpulbm::LbmArgs&, int,
+                             cudaStream_t);
+constexpr GridLaunchFn kGridLaunch[kMaxK] = {
+    launch_kind<Kind::kGrid, 1, GridLaunch>,
+    launch_kind<Kind::kGrid, 2, GridLaunch>,
+    launch_kind<Kind::kGrid, 3, GridLaunch>,
+    launch_kind<Kind::kGrid, 4, GridLaunch>,
+    launch_kind<Kind::kGrid, 5, GridLaunch>,
+    launch_kind<Kind::kGrid, 6, GridLaunch>,
+    launch_kind<Kind::kGrid, 7, GridLaunch>,
+    launch_kind<Kind::kGrid, 8, GridLaunch>};
 constexpr cudaError_t (*kConfigure[kMaxK])(int*) = {
-    configure<false, 1>, configure<false, 2>, configure<false, 3>,
-    configure<false, 4>, configure<false, 5>, configure<false, 6>,
-    configure<false, 7>, configure<false, 8>};
+    configure<Kind::kRing, 1>, configure<Kind::kRing, 2>,
+    configure<Kind::kRing, 3>, configure<Kind::kRing, 4>,
+    configure<Kind::kRing, 5>, configure<Kind::kRing, 6>,
+    configure<Kind::kRing, 7>, configure<Kind::kRing, 8>};
 
 // f() with `device` current; restores the current device.
 template <class F>
@@ -1290,6 +1448,47 @@ int lbm_torus_p2p(const long long* host_table, const long long* table,
   }
   const tpulbm::LbmArgs a{ny, nx, accel_row, omega, w1, w2};
   return kTorusLaunch[k - 1](l, a, vec16 ? 1 : 0, stream);
+}
+
+// Grid kind: n_outer (<= kMaxOuter) chunks of k (<= 8) steps of the whole
+// (ny, nx) grid, the epochs base .. base + n_outer - 1: state0 holds the
+// state at epoch base, chunk c reads state[c % 2] and writes
+// state[(c + 1) % 2] (state0, state1 (9, ny, nx), distinct); obst the
+// (ny, nx) float32 mask; partials (n_outer k, items), sums (n_outer k,);
+// graph the card's (items, kRec) int32 tile graph of the grid, items its
+// tiles (ops/ring_p2p.py::grid_graph); flags its flag array (one int a
+// tile). The rest as lbm_ring_p2p.
+int lbm_grid_p2p(float* state0, float* state1, const float* obst,
+                 float* partials, float* sums, const int* graph, int items,
+                 int* flags, int n_outer, int base, int* error,
+                 unsigned long long* waits, unsigned int* counter, int ny,
+                 int nx, int accel_row, float omega, float w1, float w2, int k,
+                 cudaStream_t stream) {
+  if (k < 1 || k > kMaxK || n_outer < 1 || n_outer > kMaxOuter || ny < 1 ||
+      nx < 1 || base < 0 || !graph || !flags || !waits || !error ||
+      state0 == state1 ||
+      items != ((ny + kTile - 1) / kTile) * ((nx + kTile - 1) / kTile))
+    return (int)cudaErrorInvalidValue;
+  GridLaunch l{};
+  l.p.n_local = 1;
+  l.p.n_outer = n_outer;
+  l.p.base = base;
+  l.p.graph = graph;
+  l.p.peer_flags[0] = flags;
+  l.p.flags = flags;
+  l.p.items = items;
+  l.p.error = error;
+  l.p.counter = counter;
+  l.p.waits = waits;
+  l.obst = obst;
+  l.state[0] = state0;
+  l.state[1] = state1;
+  l.partials = partials;
+  l.sums = sums;
+  const bool vec16 = nx % 4 == 0 && aligned16(state0) && aligned16(state1) &&
+                     aligned16(obst);
+  const tpulbm::LbmArgs a{ny, nx, accel_row, omega, w1, w2};
+  return kGridLaunch[k - 1](l, a, vec16 ? 1 : 0, stream);
 }
 
 }  // extern "C"

@@ -85,8 +85,12 @@ Backends (the single-device routing of tpulbm/dist/runner.py:1720-1801):
   at every shape K5 holds; K5 is on no route), in chunks of
   ``resident.RESIDENT_K`` steps plus a remainder, as
   ``_make_resident_runner``; ``"fused"`` (``_make_skew_runner``) and
-  ``"tile"`` (the fold, 2-D skew and 2-D K-step runners) run
-  ``kstep_tile.tile_chunk`` (K4) in 8-step chunks plus one remainder chunk.
+  ``"tile"`` (the fold, 2-D skew and 2-D K-step runners) run K6's grid
+  kind, ``ring_p2p.grid_p2p_chunks``: up to ``ring_p2p.MAX_OUTER`` 8-step
+  chunks of the whole periodic grid in one persistent launch, the tiles
+  handing off between chunks through epoch flags, then one launch of the
+  remainder; it computes the bits of K4's whole-grid chunks
+  (``kstep_tile.tile_chunk``), which stay its reference, off the route.
   The kernels take any shape, so the TPU tiers' 8/128 alignment conditions
   only choose the route. K1 (``kstep.skew_chunk``, ``kstep.kstep_chunk``)
   is on no route: it is the one-pass-per-step kernel that ``chip_smoke.py``
@@ -143,19 +147,38 @@ def resolve_backend(backend: str, device) -> str:
 
 
 def _chunks(fn, k: int, n_steps: int, rem_fn=None) -> list:
-    """[(fn, k)] * (n_steps // k) plus [(rem_fn or fn, the remainder)]."""
+    """[(fn, k, 1)] * (n_steps // k) plus [(rem_fn or fn, the remainder,
+    1)]: a plan of one chunk a call."""
     n_full, rem = divmod(n_steps, k)
-    return [(fn, k)] * n_full + ([(rem_fn or fn, rem)] if rem else [])
+    return [(fn, k, 1)] * n_full + ([(rem_fn or fn, rem, 1)] if rem else [])
+
+
+def _grouped(k: int, n_steps: int, per: int) -> list:
+    """The launches of a kernel that runs up to ``per`` chunks of k steps a
+    launch: [(k, chunks)], full launches of ``per`` chunks, one of the
+    chunks left, then one of a single chunk of the n_steps % k steps
+    left."""
+    n_full, rem = divmod(n_steps, k)
+    launches = [(k, per)] * (n_full // per)
+    launches += [(k, n_full % per)] if n_full % per else []
+    return launches + ([(rem, 1)] if rem else [])
 
 
 def kernel_plan(params: LBMParams, n_steps: int) -> list:
-    """The ``cuda`` backend's chunks: [(chunk_fn, k), ...] covering n_steps.
-    Each chunk_fn(f, obst_f, params, k) returns (f', raw sums[k])."""
+    """The ``cuda`` backend's launches: [(fn, k, n), ...], n chunks of k
+    steps a call of fn, covering n_steps. The resident family: K2's chunks
+    (``resident.resident_chunk``, n = 1). The fused and tile families: the
+    grid kind of K6 (``ring_p2p.grid_p2p_chunks``), up to
+    ``ring_p2p.outer_per_launch`` chunks of 8 steps a launch, then one
+    launch of the remainder."""
     route = tiers.family(params.ny, params.nx, n_steps)
     if route == "resident":
         return _chunks(resident.resident_chunk,
                        min(n_steps, resident.RESIDENT_K), n_steps)
-    return _chunks(kstep_tile.tile_chunk, kstep_tile.TILE_K, n_steps)
+    k = min(kstep_tile.TILE_K, n_steps)
+    per = ring_p2p.outer_per_launch([params.ny], params.nx, k)
+    return [(ring_p2p.grid_p2p_chunks, kk, n)
+            for kk, n in _grouped(k, n_steps, per)]
 
 
 def _skew(f, obst_f, params, k):
@@ -163,22 +186,32 @@ def _skew(f, obst_f, params, k):
     return kstep.skew_chunk(f, obst_f, params)
 
 
-# The chunk functions of kernel_plan, which write into a given ``out``
-# (K1's, off every route, allocate their own).
+# The chunk functions that write into a given ``out`` (K1's, off every
+# route, allocate their own).
 _TAKE_OUT = (kstep_tile.tile_chunk, resident.resident_chunk)
 
 
 def run_plan(plan, f, obst_f, params: LBMParams):
-    """Run the chunks of ``plan`` from state ``f``, which the run takes
-    over: each chunk of the routes writes into the storage that the chunk
-    before it read. Returns (f', av_vels)."""
-    sums, spare = [], None
-    for chunk_fn, k in plan:
-        if chunk_fn in _TAKE_OUT:
-            spare, (f, s) = f, chunk_fn(f, obst_f, params, k, out=spare)
+    """Run the launches of ``plan`` ([(fn, k, n)], ``kernel_plan``'s) from
+    state ``f``, which the run takes over: each launch writes into the
+    storage that the launch before it read (the grid kind ping-pongs the
+    two inside a launch). The grid kind's error word and wait counters are
+    read once, after the last launch (``ring_p2p.GridExchange.check``).
+    Returns (f', av_vels)."""
+    sums, spare, grid = [], None, False
+    for fn, k, n in plan:
+        if fn is ring_p2p.grid_p2p_chunks:
+            if spare is None:
+                spare = torch.empty_like(f)
+            f, spare, s = fn(f, spare, obst_f, params, k, n)
+            grid = True
+        elif fn in _TAKE_OUT:
+            spare, (f, s) = f, fn(f, obst_f, params, k, out=spare)
         else:
-            f, s = chunk_fn(f, obst_f, params, k)
+            f, s = fn(f, obst_f, params, k)
         sums.append(s)
+    if grid and f.device.type == "cuda":
+        ring_p2p.grid_exchange(f.device, params.ny, params.nx).check()
     with span("lbm.dist.sums"):
         free_inv = torch.tensor(params.free_cells_inv, dtype=torch.float32,
                                 device=f.device)
@@ -389,7 +422,7 @@ def make_ring_runner(params: LBMParams, n_steps: int, mesh: Sequence,
     if n_steps < 1:
         raise ValueError(f"ring runner of {n_steps} steps")
     k_max = min(kstep_tile.TILE_K, min(rows), n_steps)
-    plan = [k for _, k in _chunks(None, k_max, n_steps)]
+    plan = [k for _, k, _ in _chunks(None, k_max, n_steps)]
     slabs = {k: multihost.ring_pieces(k, n, (9,), nx) for k in set(plan)}
     local = tr.local
 
@@ -473,11 +506,8 @@ def make_p2p_runner(params: LBMParams, n_steps: int, mesh: Sequence,
         raise ValueError(f"p2p ring runner of {n_steps} steps, "
                          f"{max_outer} chunks a launch")
     k = min(kstep_tile.TILE_K, min(rows), n_steps)
-    n_full, rem = divmod(n_steps, k)
-    per = min(max_outer, ring_p2p.outer_per_launch(rows, nx, k))
-    launches = [(k, per)] * (n_full // per)
-    launches += [(k, n_full % per)] if n_full % per else []
-    launches += [(rem, 1)] if rem else []
+    launches = _grouped(k, n_steps, min(
+        max_outer, ring_p2p.outer_per_launch(rows, nx, k)))
     opened = _seconds("lbm.dist.ipc_open")
     ex = ring_p2p.Exchange(mesh, rows, nx, tr)
     if ex.world > 1 and ex.mesh[ex.local[0]].type == "cuda":
@@ -572,8 +602,8 @@ def make_torus_runner(params: LBMParams, n_steps: int, mesh2d: Sequence,
     h, w = block_shape(ny, nx, dy, dx)
     if n_steps < 1:
         raise ValueError(f"torus runner of {n_steps} steps")
-    plan = [k for _, k in _chunks(None, min(kstep_tile.TILE_K, h, w,
-                                            n_steps), n_steps)]
+    plan = [k for _, k, _ in _chunks(None, min(kstep_tile.TILE_K, h, w,
+                                               n_steps), n_steps)]
     pieces = {k: _torus_pieces(k, dy, dx, (9,), h, w) for k in set(plan)}
     local = tr.local
 
@@ -669,11 +699,8 @@ def make_torus_p2p_runner(params: LBMParams, n_steps: int, mesh2d: Sequence,
     tr = transport or multihost.Transport(devs)
     local = tr.local
     k = min(kstep_tile.TILE_K, h, w, n_steps)
-    n_full, rem = divmod(n_steps, k)
-    per = min(max_outer, ring_p2p.outer_per_launch([h], w, k))
-    launches = [(k, per)] * (n_full // per)
-    launches += [(k, n_full % per)] if n_full % per else []
-    launches += [(rem, 1)] if rem else []
+    launches = _grouped(k, n_steps, min(
+        max_outer, ring_p2p.outer_per_launch([h], w, k)))
     opened = _seconds("lbm.dist.ipc_open")
     ex = ring_p2p.TorusExchange([devs[i * dx:(i + 1) * dx]
                                  for i in range(dy)], h, w, tr)

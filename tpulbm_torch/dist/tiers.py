@@ -9,10 +9,12 @@ port's kernel that computes the same function:
 - ``"resident"``: the VMEM-resident tiers, ``pallas_resident._kernel`` and
   its HBM-edge variant ``_kernel_hbm``: K2 (``ops.resident``);
 - ``"fused"``: the 1-D skew and 1-D K-step tiers, and every fallback below
-  the 2-D tiers (padded rows, extended columns, one step per call): K4 (K1
-  computes the same function one step a launch, and stays off the route);
+  the 2-D tiers (padded rows, extended columns, one step per call): K6's
+  grid kind (``ops.ring_p2p.grid_p2p_chunks``), many chunks a launch, the
+  bits of K4's whole-grid chunks (K4 and K1, which computes the same
+  function one step a launch, stay off the route);
 - ``"tile"``: the wide tiers, the lane-folded skew, the 2-D skew, the 2-D
-  K-step and the band-major K-step: K4.
+  K-step and the band-major K-step: K6's grid kind.
 
 The predicates are copies of the JAX package's, in plain integer Python
 (the port imports nothing of ``tpulbm``). Their budgets are TPU VMEM

@@ -53,9 +53,11 @@ LAUNCHES = {
     "ring_p2p": 0,          # K6 launches (one a card) made by ring_p2p
     "torus_p2p": 0,         # K6 torus-mode launches (one a card) made by
                             # ring_p2p.torus_p2p_chunks
+    "grid_p2p": 0,          # K6 grid-kind launches made by
+                            # ring_p2p.grid_p2p_chunks
     # Chunks whose per-step sums the stepping kernels' epilogue reduced
     # (one per K1 chunk and K2, K4 or K5 launch, one per chunk and shard of
-    # a K6 launch): the former K3 pass
+    # a K6 launch, one per chunk of a grid-kind launch): the former K3 pass
     "reduce_partials": 0,
 }
 
@@ -107,6 +109,9 @@ _SIGNATURES = {
     "lbm_torus_p2p": (
         [_P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _F,
          _F, _F, _I, _I, _I, _P], _I),
+    "lbm_grid_p2p": (
+        [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F,
+         _F, _F, _I, _P], _I),
     "lbm_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -55,6 +55,13 @@ processes alike: there ``TorusExchange.enter`` pushes each block's input
 edges and corners into its eight neighbours' slots before a call's first
 launch.
 
+The grid kind (``grid_p2p_chunks``, ``GridExchange``) runs the same
+pipeline over the whole periodic grid of one card, the one-card wide route
+(``dist.runner.kernel_plan``): up to ``MAX_OUTER`` chunks a launch, the
+tiles handing off between chunks through their flags alone (no slots, no
+pushes), the bits of K4's whole-grid chunks (``kstep_tile.tile_chunk``),
+which stay its reference; on CPU tensors, ``grid_p2p_chunks_ref``.
+
 ``p2p_chunks`` runs one launch a card; on CPU tensors it takes the plain
 version, ``p2p_chunks_ref``: ``n_outer`` chunks of ``ring_chunk_ref`` over
 every shard (this process's, the slabs of others through the transport),
@@ -76,6 +83,7 @@ import torch.nn.functional as F
 from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.dist import multihost
 from tpulbm_torch.ops import _build, kstep_tile
+from tpulbm_torch.ops.kstep import check_chunk
 from tpulbm_torch.utils.profiling import span
 
 MAX_OUTER = 64      # chunks of one launch (csrc/ring_p2p.cu::kMaxOuter)
@@ -506,18 +514,24 @@ class Exchange:
                            WAITS_AT + 8 * n, self.device[key])
                 if head[:1].view(np.int32)[0]:
                     bad.append(str(self.device[key]))
-                gained = head[1:] - self.counted[key]
-                self.counted[key] = head[1:]
-                card = WAITS.setdefault(_index(self.device[key]),
-                                        dict.fromkeys(WAIT_WORDS, 0))
-                for word, value in zip(WAIT_WORDS, gained.tolist()):
-                    card[word] += value
+                self.counted[key] = _count_waits(self.device[key], head[1:],
+                                                 self.counted[key])
         if self.tr.any(bool(bad)):
             self.failed = True
             raise RuntimeError(
                 f"lbm_ring_p2p: a wait on a neighbour's flag ran out on "
                 f"{', '.join(bad) or 'a card of another process'}; the "
                 f"ring's state is lost")
+
+
+def _count_waits(device, words, counted):
+    """Add what a card's counter words (``WAIT_WORDS``, uint64) gained
+    since ``counted`` to ``WAITS``; returns the words, the next call's
+    ``counted``."""
+    card = WAITS.setdefault(_index(device), dict.fromkeys(WAIT_WORDS, 0))
+    for word, value in zip(WAIT_WORDS, (words - counted).tolist()):
+        card[word] += value
+    return words
 
 
 def enable_peer(lib, a: int, b: int) -> None:
@@ -1324,3 +1338,150 @@ def _torus_entry(ex: TorusExchange, states, spares, bands, partials, sums,
         e = torus_neighbour(b, di, dj, ex.dy, ex.dx)
         words[f"to_{name}"] = ex.buffers(e, via)[buf]
     return [words[name] for name in TORUS_TABLE]
+
+
+# The grid kind (csrc/ring_p2p.cu::lbm_grid_p2p): the whole periodic
+# (ny, nx) grid of one card, the one-card wide route.
+
+
+def grid_graph(ny: int, nx: int, k: int, t: int = TILE):
+    """The grid kind's tile graph of the whole periodic (ny, nx) grid:
+    (items, REC) int32 records of its tiles, row-major (the kernel's walk
+    and the flag array's order), a tile waiting on every tile with owned
+    cells within k cells of its own, both axes wrapping (a symmetric
+    relation), duties 0. It is ``tile_graph``'s of a ring of one shard on
+    one card, whose rows wrap modulo ny as its columns modulo nx."""
+    return tile_graph([0], [ny], nx, k, t)[0][0]
+
+
+class GridExchange:
+    """What the grid kind keeps on one card for one (ny, nx) grid: the flag
+    array, one int32 a tile (row-major); one int64 tensor of the error word
+    (word 0) and K6's counter words (``WAIT_WORDS`` after it, at byte
+    ``WAITS_AT``, as a card's exchange block holds them); each k's tile
+    graph on the card (``grid_graph``, made on first use); and the epoch.
+    No flag is ever reset: the epoch rises across launches and runner
+    calls, so every runner of the grid on the card shares one
+    (``grid_exchange``). Its launches run on the card's current stream, as
+    K4's, whose ticket counter they share."""
+
+    def __init__(self, device, ny: int, nx: int):
+        self.device, self.ny, self.nx = device, ny, nx
+        self.flags = torch.zeros(ntiles(ny, nx), dtype=torch.int32,
+                                 device=device)
+        self.words = torch.zeros(1 + len(WAIT_WORDS), dtype=torch.int64,
+                                 device=device)
+        self.counted = np.zeros(len(WAIT_WORDS), dtype=np.uint64)
+        self.epoch = 0
+        self.graphs = {}
+
+    def graph(self, k: int) -> torch.Tensor:
+        if k not in self.graphs:
+            self.graphs[k] = torch.from_numpy(
+                grid_graph(self.ny, self.nx, k)).to(self.device)
+        return self.graphs[k]
+
+    def check(self) -> None:
+        """Raise where the error word is set: a wait ran out (kSpinNs).
+        Reads the error word and the counter words to the host in one copy
+        after the card's launches (the span ``lbm.dist.check``) and adds
+        what the counters gained to ``WAITS``. A failed launch leaves the
+        flags and the card's ticket counter in no known state: the exchange
+        leaves the cache, so the next launch on the grid starts from fresh
+        flags, and the ticket counter is zeroed."""
+        with span("lbm.dist.check"):
+            head = self.words.cpu().numpy().view(np.uint64)
+        self.counted = _count_waits(self.device, head[1:], self.counted)
+        if head[0]:
+            _GRIDS.pop((self.device, self.ny, self.nx), None)
+            _build.ticket_counter(self.device).zero_()
+            raise RuntimeError(
+                f"lbm_grid_p2p: a wait on a neighbour tile's flag ran out on "
+                f"{self.device} ({self.ny} x {self.nx} grid); the grid's "
+                f"state is lost")
+
+
+# {(card, ny, nx): GridExchange} of this process
+_GRIDS: dict = {}
+
+
+def grid_exchange(device, ny: int, nx: int) -> GridExchange:
+    """The ``GridExchange`` of a CUDA card and grid shape, made on first
+    use."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (device, ny, nx)
+    if key not in _GRIDS:
+        _GRIDS[key] = GridExchange(device, ny, nx)
+    return _GRIDS[key]
+
+
+def grid_p2p_chunks_ref(f, obst_f, params: LBMParams, k: int, n_outer: int):
+    """Plain version of ``grid_p2p_chunks``: K4's plain chain,
+    ``kstep_tile.tile_chunk_ref`` chunk by chunk. Returns (the state after
+    n_outer chunks of k steps, the (n_outer k,) raw per-step sums)."""
+    sums = []
+    for _ in range(n_outer):
+        f, s = kstep_tile.tile_chunk_ref(f, obst_f, params, k)
+        sums.append(s)
+    return f, torch.cat(sums)
+
+
+def grid_p2p_chunks(f, spare, obst_f, params: LBMParams, k: int,
+                    n_outer: int):
+    """``n_outer`` chunks of k <= 8 steps of the whole periodic (9, ny, nx)
+    grid ``f`` over its (ny, nx) float32 mask ``obst_f`` (nonzero =
+    blocked): one grid-kind launch of K6 (``LAUNCHES["grid_p2p"]``) on f's
+    card and current stream, the epochs its ``grid_exchange``'s. ``spare``
+    (f's shape, apart from it) is the second buffer, which the launch
+    ping-pongs with f: the state lands in f after an even count of chunks,
+    in spare after an odd one. On CPU tensors, ``grid_p2p_chunks_ref``,
+    its result written where the kernel's lands. Returns (the state, the
+    buffer now free, the (n_outer k,) raw per-step sums)."""
+    bufs = (f, spare)
+    if f.device.type == "cpu":
+        g, sums = grid_p2p_chunks_ref(f, obst_f, params, k, n_outer)
+        bufs[n_outer % 2].copy_(g)
+    else:
+        sums = _grid_launch(f, spare, obst_f, params, k, n_outer)[0]
+    return bufs[n_outer % 2], bufs[1 - n_outer % 2], sums
+
+
+def _grid_launch(f, spare, obst_f, params: LBMParams, k: int, n_outer: int):
+    """The grid kind of K6 on CUDA tensors: (the (n_outer k,) sums, the
+    (n_outer k, ntiles) partials that the kernel reduced into them)."""
+    check_chunk(f, obst_f, params, k)
+    _build.require_cuda(f, spare)
+    if not (1 <= k <= kstep_tile.TILE_K and 1 <= n_outer <= MAX_OUTER
+            and spare.shape == f.shape
+            and spare.data_ptr() != f.data_ptr()):
+        raise ValueError(f"the grid kind takes 1 to {kstep_tile.TILE_K} "
+                         f"steps, 1 to {MAX_OUTER} chunks and a spare of "
+                         f"the state's shape apart from it, got k {k}, "
+                         f"{n_outer} chunks, spare {tuple(spare.shape)}")
+    ny, nx = params.ny, params.nx
+    ex = grid_exchange(f.device, ny, nx)
+    lib = _build.library()
+    with _build.on_device(f):
+        items = ntiles(ny, nx)
+        partials = torch.empty((n_outer * k, items), dtype=torch.float32,
+                               device=f.device)
+        sums = torch.empty(n_outer * k, dtype=torch.float32, device=f.device)
+        words = ex.words.data_ptr()
+        _build.LAUNCHES["grid_p2p"] += 1
+        _build.LAUNCHES["reduce_partials"] += n_outer
+        _build.check(
+            lib.lbm_grid_p2p(
+                f.data_ptr(), spare.data_ptr(), obst_f.data_ptr(),
+                partials.data_ptr(), sums.data_ptr(), ex.graph(k).data_ptr(),
+                items, ex.flags.data_ptr(), n_outer, ex.epoch, words,
+                words + WAITS_AT, _build.ticket_counter(f.device).data_ptr(),
+                ny, nx, params.accel_row, params.omega, params.accel_w1,
+                params.accel_w2, k,
+                torch.cuda.current_stream(f.device).cuda_stream),
+            f"lbm_grid_p2p ({k} steps, {n_outer} chunks, {ny} x {nx} on "
+            f"{f.device}, {lib.lbm_ring_p2p_smem(k)} B of dynamic shared "
+            f"memory)")
+    ex.epoch += n_outer
+    return sums, partials

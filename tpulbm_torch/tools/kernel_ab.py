@@ -11,8 +11,10 @@ public chunk function of each side (``resident_chunk``, ``skew_chunk``,
 ``tile_chunk``, ``ring_chunk``, as the main path calls them, sums
 included; this tree's K2 ``resident_chunk`` at 128^2 against the base
 tree's K5 ``cluster_resident_chunk``, and this tree's K4 ``tile_chunk``
-at 1024^2 against the base tree's K1 chunks, where each took the route
-from them) on the same input,
+at 1024^2 against the base tree's K1 chunks, and this tree's K6 grid kind,
+``grid_p2p_chunks``, over a launch of chunks at 1024^2, 2048^2 and 8192^2
+against the base tree's K4 ``tile_chunk`` chunk by chunk, where each took
+the route from them) on the same input,
 a perturbed rest state drawn from a seed on the card, at the shapes of the
 main path; the states must be bitwise equal and the sums within 3e-4 (the
 kernels may sum the same values in another order). Times are CUDA-event ms
@@ -41,11 +43,12 @@ from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.core.state import initial_state
 from tpulbm_torch.io.obstacles import read_obstacles
 from tpulbm_torch.io.params_file import read_params
-from tpulbm_torch.ops import _build, cluster, kstep, kstep_tile, resident
+from tpulbm_torch.ops import (_build, cluster, kstep, kstep_tile, resident,
+                              ring_p2p)
 
 ROOT = Path(__file__).resolve().parents[2]
 PKG = "tpulbm_torch"
-OPS = ("_build", "cluster", "kstep", "kstep_tile", "resident")
+OPS = ("_build", "cluster", "kstep", "kstep_tile", "resident", "ring_p2p")
 SEED = 20260
 SUMS_RTOL = 3e-4
 
@@ -142,10 +145,38 @@ def _ring_args(p, o, f, off, h, k):
             (off - k) % p.ny)
 
 
+def _k4_chain(n):
+    """A side's n chunks of K4's whole grid (``tile_chunk``) as one call:
+    (its ops modules) -> fn(f, o, p, k) -> (the state, the sums)."""
+    def make(mods):
+        def run(f, o, p, k):
+            sums = []
+            for _ in range(n):
+                f, s = mods["kstep_tile"].tile_chunk(f, o, p, k)
+                sums.append(s)
+            return f, torch.cat(sums)
+        return run
+    return make
+
+
+def _grid(n):
+    """A side's grid-kind launch of n chunks (``grid_p2p_chunks``), as
+    _k4_chain; it takes f over (f holds a later state after the call)."""
+    def make(mods):
+        def run(f, o, p, k):
+            g, _, s = mods["ring_p2p"].grid_p2p_chunks(
+                f, torch.empty_like(f), o, p, k, n)
+            return g, s
+        return run
+    return make
+
+
 def cases():
     """(label, (side, ops module, function, arguments) of the base and of
     this tree) at the main path's shapes, grouped by input so that one grid
-    is on the card at a time; side "base" or "this"."""
+    is on the card at a time; side "base" or "this". A function is a name
+    in the module, or a callable that makes it from the side's modules
+    (the module then None)."""
     for label, mod, fn, args in _same_cases():
         yield label, ("base", mod, fn, args), ("this", mod, fn, args)
     yield from _route_cases()
@@ -165,6 +196,15 @@ def _route_cases():
         yield (f"route: K4 1024x1024, {k} steps vs base K1",
                ("base", "kstep", fn, args),
                ("this", "kstep_tile", "tile_chunk", (f, o, p, k)))
+    k = kstep_tile.TILE_K
+    for deck, seed in (("1024x1024", SEED + 1), ("2048x2048", SEED + 6),
+                       ("8192x8192", SEED + 7)):
+        p, o, f = _deck(deck, seed)
+        n = ring_p2p.outer_per_launch([p.ny], p.nx, k)
+        yield (f"route: K6 grid kind {deck}, {n} chunks of {k} steps in a "
+               f"launch vs base K4",
+               ("base", None, _k4_chain(n), (f, o, p, k)),
+               ("this", None, _grid(n), (f, o, p, k)))
 
 
 def _same_cases():
@@ -243,8 +283,14 @@ def main(argv=None) -> int:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     base = import_tree(args.base)
     this = {"_build": _build, "cluster": cluster, "kstep": kstep,
-            "kstep_tile": kstep_tile, "resident": resident}
+            "kstep_tile": kstep_tile, "resident": resident,
+            "ring_p2p": ring_p2p}
     sides = {"base": base, "this": this}
+
+    def resolve(side, mod, fn):
+        return fn(sides[side]) if callable(fn) else getattr(sides[side][mod],
+                                                            fn)
+
     with ThreadPoolExecutor(2) as pool:
         for lib in pool.map(lambda b: b.library(),
                             (base["_build"], _build)):
@@ -254,8 +300,8 @@ def main(argv=None) -> int:
         label, (bs, bmod, bfn, bargs), (ts, tmod, tfn, targs) = case
         if args.match not in label:
             continue
-        records.append(run_case(label, getattr(sides[bs][bmod], bfn), bargs,
-                                getattr(sides[ts][tmod], tfn), targs))
+        records.append(run_case(label, resolve(bs, bmod, bfn), bargs,
+                                resolve(ts, tmod, tfn), targs))
         del case, bargs, targs
         torch.cuda.empty_cache()
     print(json.dumps({"device": torch.cuda.get_device_name(0),
