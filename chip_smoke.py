@@ -15,20 +15,20 @@ Phases; any failure raises and exits non-zero before the result lines:
 1. the device: ``torch.cuda.is_available()``, its name, and nvidia-smi's
    name and power limit;
 2. build: nvcc compiles ``tpulbm_torch/csrc/*.cu``, one process a source
-   (``ops._build``; K4's shared memory and CTAs per SM, K5's cluster
-   size, shared memory a CTA and most active clusters, K2's plan at the
+   (``ops._build``; K4's shared memory and CTAs per SM, K2's plan at the
    four resident shapes, and each kernel's ptxas line, by name, are
    logged);
 3. each kernel against its plain PyTorch version on the card, on the same
    inputs (made from a seed with numpy), at the shapes the main path gives
    it, with CUDA-event times of both, a bitwise rerun and the bound (the
-   least time the H100 could take for the same work): K5
-   (``cluster_resident_chunk``) and K2 ``resident_chunk`` on the same
-   inputs, one 512-step chunk of each small deck's shape, K5's state
-   bitwise K2's; K2 also on a 256x512 grid, the HBM-edge resident tier's,
-   at 512 steps and at the custom example's 392; each K2 line with its
-   plan (CTAs, halo depth h, cells a thread, shared memory a CTA), its
-   time a step and nvidia-smi's name and power limit;
+   least time the H100 could take for the same work): K2
+   ``resident_chunk``, one 512-step chunk of each small deck's shape, and
+   K4 ``tile_chunk`` over the whole grid, 64 chunks of 8 steps, on the
+   same inputs, K2's state bitwise K4's; K2 also on a 256x512 grid, the
+   HBM-edge resident tier's, at 512 steps and at the custom example's
+   392; each K2 line with its plan (CTAs, halo depth h, cells a thread,
+   shared memory a CTA), its time a step and nvidia-smi's name and power
+   limit;
    K4 ``tile_chunk`` and K1 (``skew_chunk``, 8 steps, and
    ``kstep_chunk``, 3 steps) on the same 1024^2 inputs, K4's state bitwise
    K1's; K4
@@ -85,8 +85,8 @@ Phases; any failure raises and exits non-zero before the result lines:
    128^2 and 128x256, the f64-oracle ``.f64.npz`` golden for 256^2 and
    1024^2, as on every run below that reaches the golden gate), each
    through the kernel its route names
-   (K2 at 128^2, 128x256 and 256^2, K6's grid kind at 1024^2; no K1, K4
-   or K5 launch); one more 1024^2 run of 1003 steps takes the sub-8-step
+   (K2 at 128^2, 128x256 and 256^2, K6's grid kind at 1024^2; no K1 or
+   K4 launch); one more 1024^2 run of 1003 steps takes the sub-8-step
    remainder through a launch of its own. The wide decks (2048^2,
    4096^2, 8192^2) through ``cli.main`` with ``--no-output`` (8192^2's
    final_state.dat would be 67M lines) at their full step counts, on the
@@ -354,17 +354,6 @@ def phase_build():
         log(f"[build] K4 at k = {k}: {_build.library().lbm_kstep_tile_smem(k)} "
             f"B of dynamic shared memory, "
             f"{_build.library().lbm_kstep_tile_ctas_per_sm(k)} CTA(s) per SM")
-    from tpulbm_torch.ops import cluster
-
-    lib = _build.library()
-    for deck, (ny, nx) in (("128x128", (128, 128)), ("128x256", (128, 256)),
-                           ("256x256", (256, 256))):
-        cells = cluster.resident_cells(ny, nx)
-        log(f"[build] K5 at {deck}: a cluster of {cluster.RESIDENT_CLUSTER} "
-            f"CTAs, {cells} cells a thread, "
-            f"{lib.lbm_cluster_resident_smem()} B of dynamic shared memory a "
-            f"CTA, at most {lib.lbm_cluster_resident_clusters(cells)} "
-            f"cluster(s) active")
     from tpulbm_torch.ops import resident
 
     for deck, (ny, nx) in (("128x128", (128, 128)), ("128x256", (256, 128)),
@@ -1186,42 +1175,53 @@ def phase_kernels():
     from tpulbm_torch.core.params import LBMParams
     from tpulbm_torch.dist import runner, sharding
     from tpulbm_torch.dist.mesh import get_mesh
-    from tpulbm_torch.ops import cluster, kstep, kstep_tile, resident
+    from tpulbm_torch.ops import kstep, kstep_tile, resident
 
     res = {}
     chunk_ms = {}   # K4 8-step chunk records of the wide decks
     k = resident.RESIDENT_K
     smi = _smi()
-    # K5 and K2 on the small decks' shapes, 512 steps, against one plain
-    # result: K5's state bitwise K2's, their times in one call.
+    # K2 and K4 (64 whole-grid chunks of 8 steps) on the small decks'
+    # shapes, 512 steps, against one plain result: K2's state bitwise K4's,
+    # their times in one call.
     for deck, seed in (("128x128", SEED), ("128x256", SEED + 13),
                        ("256x256", SEED + 14)):
         p, o = _load_deck(deck)
         f0 = _state(p, seed)
         plain = _plain(lambda: resident.resident_chunk_ref(f0, o, p, k), 1)
         bound_of = chunk_bound(p.ny * p.nx, k)
-        k5 = _compare_chunk(
-            f"cluster_resident_chunk K5 ({deck}, {k} steps)",
-            lambda: cluster._resident_launch(f0, o, p, k), plain, 10, 1,
-            bound_of)
+        bufs = (torch.empty_like(f0), torch.empty_like(f0))
+
+        def k4_chain():
+            """K4 whole grid, k // 8 chunks of 8 steps from f0: (f, sums,
+            partials) of them all."""
+            f, sums, parts = f0, [], []
+            for c in range(k // kstep_tile.TILE_K):
+                f, s, pp = kstep_tile._tile_launch(
+                    f, o, p, kstep_tile.TILE_K, out=bufs[c % 2])
+                sums.append(s)
+                parts.append(pp)
+            return f, torch.cat(sums), torch.cat(parts)
+
+        k4 = _compare_chunk(
+            f"tile_chunk K4 ({deck}, {k // kstep_tile.TILE_K} chunks of "
+            f"{kstep_tile.TILE_K} steps)", k4_chain, plain, 10, 1, bound_of)
         k2 = _compare_chunk(
             f"resident_chunk K2 ({deck}, {k} steps)",
             lambda: resident._resident_launch(f0, o, p, k), plain, 10, 1,
             bound_of)
         _k2_plan(deck, p, k, k2["ms"], smi)
-        f5 = cluster._resident_launch(f0, o, p, k)[0]
-        same = torch.equal(f5, resident._resident_launch(f0, o, p, k)[0])
-        log(f"[kernel] K5 vs K2 ({deck}, {k} steps, same input): "
-            f"{k5['ms']:.4f} vs {k2['ms']:.4f} ms, K5/K2 "
-            f"{k5['ms'] / k2['ms']:.3f}; state bitwise K2's {same}; route: "
+        same = torch.equal(k4_chain()[0],
+                           resident._resident_launch(f0, o, p, k)[0])
+        log(f"[kernel] K4 vs K2 ({deck}, {k} steps, same input): "
+            f"{k4['ms']:.4f} vs {k2['ms']:.4f} ms, K4/K2 "
+            f"{k4['ms'] / k2['ms']:.3f}; state bitwise K4's {same}; route: "
             f"{', '.join(sorted(_route(p, k)))}")
         if not same:
-            raise AssertionError(f"K5's state differs from K2's at {deck}")
-        if deck == "128x128":
-            res["cluster_resident"] = k5
+            raise AssertionError(f"K2's state differs from K4's at {deck}")
         if deck == "256x256":
             res["resident_chunk"] = k2
-        del f0, f5, plain
+        del f0, plain, bufs
     # The HBM-edge resident tier's shape (100K-135K aligned cells)
     p = LBMParams(nx=512, ny=256, max_iters=1, reynolds_dim=10, density=0.1,
                   accel=0.005, omega=1.85)
@@ -1522,7 +1522,6 @@ def _check_launches(deck, counts, needed, absent=(), p2p_chunks=0):
         raise AssertionError(f"{deck}: launches of {stray} off its route")
     chunks = (counts["resident_chunk"] + counts["tile_chunk"]
               + counts["ring_chunk"] + counts["torus_chunk"]
-              + counts["cluster_resident"]
               + counts["skew_chunk"] // 8
               + (counts["kstep_chunk"] > 0) + p2p_chunks)
     if counts["reduce_partials"] != chunks:
@@ -1549,8 +1548,9 @@ def _max_rel_pct(av, ref):
 
 
 def _k1_plan(n_steps):
-    """The K1 route for n_steps (8-step skew chunks, kstep remainder), as
-    kernel_plan builds it for the shapes it sends to K1."""
+    """A plan of K1 for n_steps (8-step skew chunks, kstep remainder),
+    which no route takes: the one-pass-per-step reference that the wide
+    decks' av series and Reynolds numbers are held against."""
     from tpulbm_torch.dist import runner
     from tpulbm_torch.ops import kstep
 
@@ -1587,7 +1587,7 @@ def _run_wide(deck, steps, totals, chunk_ms):
     chunks = _grid_chunks(p, [steps])
     _check_launches(deck, counts, ["grid_p2p", "reduce_partials"],
                     ["skew_chunk", "kstep_chunk", "resident_chunk",
-                     "cluster_resident", "tile_chunk"], chunks)
+                     "tile_chunk"], chunks)
     for k, v in counts.items():
         totals[k] += v
     mlups = p.nx * p.ny * steps / elapsed / 1e6
@@ -1632,7 +1632,7 @@ def phase_main_path(chunk_ms):
 
     from tpulbm_torch.core.state import initial_state
     from tpulbm_torch.diag.observables import calc_reynolds
-    from tpulbm_torch.dist import runner, tiers
+    from tpulbm_torch.dist import runner
     from tpulbm_torch.io.params_file import read_params
     from tpulbm_torch.ops import _build, kstep_tile
 
@@ -1649,12 +1649,10 @@ def phase_main_path(chunk_ms):
         counts = dict(_build.LAUNCHES)
         route = _route(p, steps)
         _check_launches(deck, counts, [*route, "reduce_partials"],
-                        [c for c in ("cluster_resident", "resident_chunk",
-                                     "skew_chunk", "kstep_chunk",
-                                     "tile_chunk", "grid_p2p")
+                        [c for c in ("resident_chunk", "skew_chunk",
+                                     "kstep_chunk", "tile_chunk", "grid_p2p")
                          if c not in route], _grid_chunks(p, [steps]))
-        log(f"    route ({tiers.family(p.ny, p.nx, steps)} family): "
-            f"{', '.join(sorted(route))}")
+        log(f"    route: {', '.join(sorted(route))}")
         for k, v in counts.items():
             totals[k] += v
         ok, msg = _gate(deck, out)
@@ -1748,7 +1746,7 @@ RING_WIDE_RUN = ("8192x8192", 1000, 4)
 P2P = ["--backend", "cuda-p2p"]
 # The launch counters that a mesh run may not touch but its own
 KERNEL_COUNTERS = ("skew_chunk", "kstep_chunk", "resident_chunk",
-                   "tile_chunk", "cluster_resident", "ring_chunk",
+                   "tile_chunk", "ring_chunk",
                    "ring_p2p", "torus_chunk", "torus_p2p", "grid_p2p")
 
 
@@ -2464,10 +2462,9 @@ def _route(p, steps):
     """The launch counters of the chunk functions of the cuda route that
     kernel_plan picks for a runner call of ``steps``."""
     from tpulbm_torch.dist import runner
-    from tpulbm_torch.ops import cluster, resident, ring_p2p
+    from tpulbm_torch.ops import resident, ring_p2p
 
-    counter = {cluster.cluster_resident_chunk: "cluster_resident",
-               ring_p2p.grid_p2p_chunks: "grid_p2p",
+    counter = {ring_p2p.grid_p2p_chunks: "grid_p2p",
                resident.resident_chunk: "resident_chunk"}
     return {counter[fn] for fn, _, _ in runner.kernel_plan(p, steps)}
 
@@ -2737,9 +2734,6 @@ def phase_f64():
 
 KERNELS = [
     # (counter, name, source, replaces)
-    ("cluster_resident", "lbm_cluster_chunk (K5; off the route, K2 measured "
-     "faster at every shape it holds; held bitwise against K2)",
-     "tpulbm_torch/csrc/cluster.cu", "tpulbm/ops/pallas_resident.py:63"),
     ("resident_chunk", "lbm_resident_chunk (K2)",
      "tpulbm_torch/csrc/resident.cu",
      "tpulbm/ops/pallas_resident.py:63, tpulbm/ops/pallas_resident.py:107"),
@@ -2749,11 +2743,11 @@ KERNELS = [
     ("kstep_chunk", "lbm_fused_step (K1, kstep_chunk; off the route)",
      "tpulbm_torch/csrc/fused_step.cu", "tpulbm/ops/pallas_kstep.py:79"),
     ("reduce_partials", "reduce_row / reduce_rows (the former K3 "
-     "lbm_reduce_partials, now the epilogue of K1, K2, K4 and K5; launches "
+     "lbm_reduce_partials, now the epilogue of K1, K2, K4 and K6; launches "
      "count the chunks it reduced)",
      "tpulbm_torch/csrc/lbm_cell.cuh", "tpulbm/ops/window_step.py:384"),
     ("tile_chunk", "lbm_kstep_tile (K4, tile_chunk: whole grid; off the "
-     "route, the bitwise reference of K6's grid kind)",
+     "route, the bitwise reference of K6's grid kind and of K2)",
      "tpulbm_torch/csrc/kstep_tile.cu",
      "tpulbm/ops/pallas_kstep_skew.py:94, tpulbm/ops/pallas_kstep.py:79, "
      "tpulbm/ops/pallas_kstep_skew_fold.py:118, "

@@ -17,9 +17,8 @@ import torch
 
 from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.core.state import initial_state
-from tpulbm_torch.dist import tiers
-from tpulbm_torch.dist.runner import make_runner
-from tpulbm_torch.ops import _build, cluster, kstep, kstep_tile, resident
+from tpulbm_torch.dist.runner import make_runner, resident_route
+from tpulbm_torch.ops import _build, kstep, kstep_tile, resident
 
 F_ATOL = 5e-7
 AV_RTOL = 3e-4
@@ -111,11 +110,10 @@ def test_kstep_tile_chunks_match_plain_and_repeat_bitwise(case):
 def test_cuda_runner_goes_through_the_kernels(case):
     """The cuda backend's runner launches the kernels of its route and
     agrees with the torch backend (canonical vs pair-symmetric: same gate).
-    136 columns are off the resident gate's 128-alignment: the fused
-    family, K6's grid kind, one launch of 2 x 8 steps and one of 5, and no
-    K1 or K4 launch."""
+    136 columns are off the resident gate's 128-alignment: K6's grid kind,
+    one launch of 2 x 8 steps and one of 5, and no K1 or K4 launch."""
     p, f0, mask = case
-    assert tiers.family(p.ny, p.nx, 21) == "fused"
+    assert not resident_route(p.ny, p.nx)
     _build.reset_launches()
     # a runner takes its input over, so each gets a copy
     f, av = make_runner(p, 21, "cuda", "cuda")(f0.clone(), mask)
@@ -259,7 +257,6 @@ def test_fused_sums_reduce_the_partials_and_reset_the_counter(case):
         lambda: kstep_tile._tile_launch(f0, o, p, 8),
         lambda: kstep_tile._tile_launch(f0, o, p, 3),
         lambda: kstep_tile._ring_launch(lo, shard, hi, ob, p, 8, 32),
-        lambda: cluster._resident_launch(f0, o, p, 64),
     ]
     _counter_is_zero(f0.device)
     for launch in launches:
@@ -272,24 +269,6 @@ def test_fused_sums_reduce_the_partials_and_reset_the_counter(case):
         torch.cuda.synchronize()
         _counter_is_zero(f0.device)
         assert torch.equal(sums, again)
-
-
-@pytest.mark.cuda
-def test_cluster_chunks_match_plain_and_repeat_bitwise(case):
-    """K5 against the plain version over 16 CTAs for 64 steps: its state
-    bitwise K2's, reruns bitwise, one launch counted a call, the ticket
-    counter (which K5 does not use) still 0."""
-    p, f0, mask = case
-    o = mask.float()
-    assert cluster.resident_fits(p.ny, p.nx)
-    _build.reset_launches()
-    got = cluster.cluster_resident_chunk(f0, o, p, 64)
-    assert _build.LAUNCHES["cluster_resident"] == 1
-    _close(got, cluster.cluster_resident_chunk_ref(f0, o, p, 64))
-    again = cluster.cluster_resident_chunk(f0, o, p, 64)
-    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
-    assert torch.equal(got[0], resident.resident_chunk(f0, o, p, 64)[0])
-    _counter_is_zero(f0.device)
 
 
 def _random_state(ny, nx, seed):
@@ -327,15 +306,18 @@ def test_resident_chunk_at_the_resident_shapes(ny, nx):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ny,nx", [(128, 128), (256, 128)],
-                         ids=["128x128", "128x256"])
-def test_resident_chunk_is_bitwise_k5(ny, nx):
-    """K2 and K5 run the same cell code in two schedules: the same state
-    after 512 steps."""
+@pytest.mark.parametrize("ny,nx", [(128, 128), (256, 128), (256, 256)],
+                         ids=["128x128", "128x256", "256x256"])
+def test_resident_chunk_is_bitwise_k4(ny, nx):
+    """K2 and K4 run the same cell code in two schedules: one K2 chunk of
+    512 steps gives the state of 64 K4 whole-grid chunks of 8."""
     p, o, f0 = _random_state(ny, nx, seed=ny * nx)
     k = resident.RESIDENT_K
-    assert torch.equal(resident.resident_chunk(f0, o, p, k)[0],
-                       cluster.cluster_resident_chunk(f0, o, p, k)[0])
+    f, bufs = f0, (torch.empty_like(f0), torch.empty_like(f0))
+    for c in range(k // kstep_tile.TILE_K):
+        f, _ = kstep_tile.tile_chunk(f, o, p, kstep_tile.TILE_K,
+                                     out=bufs[c % 2])
+    assert torch.equal(resident.resident_chunk(f0, o, p, k)[0], f)
 
 
 @pytest.mark.cuda

@@ -22,15 +22,15 @@ import torch
 from tpulbm.core.params import LBMParams as JParams
 from tpulbm.core.state import initial_state as j_initial_state
 from tpulbm.dist.mesh import get_mesh
-from tpulbm.dist.runner import _make_resident_runner, _make_skew_runner
+from tpulbm.dist.runner import (_make_resident_runner, _make_skew_runner,
+                                make_runner as j_make_runner)
 from tpulbm.ops.pallas_resident import supported_hbm
 from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.core.state import initial_state
 from tpulbm_torch.dist import runner as truntime
 from tpulbm_torch.io.obstacles import read_obstacles
 from tpulbm_torch.io.params_file import read_params
-from tpulbm_torch.ops import (_build, cluster, kstep, kstep_tile, resident,
-                              ring_p2p)
+from tpulbm_torch.ops import _build, kstep, kstep_tile, resident, ring_p2p
 
 torch.set_num_threads(2)
 
@@ -110,7 +110,7 @@ def test_skew_and_kstep_chunks_match_pallas_skew():
 
 
 def test_tile_chunks_match_pallas_skew():
-    """The fused family's route: an 8-step tile_chunk (K4) plus a 3-step
+    """The 1-D skew tier's function on K4: an 8-step tile_chunk plus a 3-step
     one vs the fused-fix skew runner, whose 3-step remainder runs
     pallas_kstep._kernel, on a 128x128 random mask."""
     p, mask = _random_case(128, 128)
@@ -144,23 +144,44 @@ def test_tile_chunks_match_pallas_skew():
 ])
 def test_kernel_plan_routes_like_the_jax_runner(deck, n, expect):
     """Aligned grids of <= 135K cells (runner.py:1723-1730) -> K2 (128^2,
-    256^2; 256x512, the _kernel_hbm shape; never K5, which K2 outran at
-    every shape it holds), in 512-step chunks plus a remainder; the 1-D
-    skew's grids (runner.py:1741-1746) and the wide tiers' grids (fold, 2-D
-    skew, runner.py:1749-1777) -> K6's grid kind in launches of up to 64
-    chunks of 8 steps (fewer where the partials would pass 16 MiB) plus one
-    launch of a shorter chunk."""
+    256^2; 256x512, the _kernel_hbm shape), in 512-step chunks plus a
+    remainder; the 1-D skew's grids (runner.py:1741-1746) and the wide
+    tiers' grids (fold, 2-D skew, runner.py:1749-1777) -> K6's grid kind in
+    launches of up to 64 chunks of 8 steps (fewer where the partials would
+    pass 16 MiB) plus one launch of a shorter chunk."""
     if isinstance(deck, tuple):
         p = LBMParams(nx=deck[1], ny=deck[0], max_iters=n, reynolds_dim=10,
                       density=0.1, accel=0.005, omega=1.85)
     else:
         p = read_params(os.path.join(DATA, f"input_{deck}.params"))
     names = {resident.resident_chunk: "resident",
-             ring_p2p.grid_p2p_chunks: "grid",
-             cluster.cluster_resident_chunk: "k5_resident"}
+             ring_p2p.grid_p2p_chunks: "grid"}
     plan = truntime.kernel_plan(p, n)
     assert [(names[fn], k, c) for fn, k, c in plan] == expect
     assert sum(k * c for _, k, c in plan) == n
+
+
+@pytest.mark.parametrize("ny,nx,n,fn", [
+    (64, 128, 20, resident.resident_chunk),
+    (100, 130, 11, ring_p2p.grid_p2p_chunks),
+])
+def test_plan_slice_matches_jax_runner(ny, nx, n, fn):
+    """The slice end to end on the CPU: the cuda backend's plan for a grid
+    inside the resident gate (64x128: K2) and for one outside it (100x130,
+    off the 8/128 alignment: K6's grid kind), run through the wrappers'
+    plain versions, against the JAX package's jnp runner from the same
+    rest state."""
+    p, mask = _random_case(ny, nx, seed=ny)
+    plan = truntime.kernel_plan(p, n)
+    assert {f for f, _, _ in plan} == {fn}
+    assert sum(k * c for _, k, c in plan) == n
+    f, av = truntime.run_plan(plan, initial_state(p),
+                              torch.tensor(mask, dtype=torch.float32), p)
+    f_j, av_j = _jax_run(j_make_runner(JParams(**dataclasses.asdict(p)), n,
+                                       get_mesh(n_devices=1), backend="jnp"),
+                         p, mask)
+    np.testing.assert_allclose(f.numpy(), f_j, rtol=0, atol=F_ATOL)
+    np.testing.assert_allclose(av.numpy(), av_j, rtol=AV_RTOL)
 
 
 def test_run_plan_matches_plain_runner():
@@ -255,8 +276,7 @@ def test_epilogue_order_matches_the_plain_sum(k, n):
 def test_nvcc_flags_and_sources():
     """The build covers every .cu of csrc for sm_90a, without fast math."""
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-        "cluster.cu", "fused_step.cu", "kstep_tile.cu", "resident.cu",
-        "ring_p2p.cu"}
+        "fused_step.cu", "kstep_tile.cu", "resident.cu", "ring_p2p.cu"}
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags

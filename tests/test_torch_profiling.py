@@ -182,15 +182,15 @@ def test_ring_counts_one_exchange_a_chunk(tmp_path):
 
 @pytest.mark.cuda
 def test_k4_run_puts_no_span_on_the_card():
-    """1024^2 on the cuda backend (K4) under a CUDA session: the spans are
-    host operations of the trace, and none of them is on the card's
-    timeline."""
+    """1024^2 on the cuda backend (K6's grid kind) under a CUDA session: the
+    spans are host operations of the trace, and none of them is on the
+    card's timeline."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from tpulbm_torch.dist import tiers
+    from tpulbm_torch.dist.runner import resident_route
 
     p = _params(max_iters=64, n=1024)
-    assert tiers.family(p.ny, p.nx, 64) != "resident"
+    assert not resident_route(p.ny, p.nx)
     sim = Simulation(p, _mask(1024), backend="cuda", device="cuda")
     sim.settle()
     sim.run(n_steps=16)
@@ -203,7 +203,7 @@ def test_k4_run_puts_no_span_on_the_card():
                if e.device_type() == torch.autograd.DeviceType.CUDA]
     on_host = [e.name() for e in events
                if e.device_type() == torch.autograd.DeviceType.CPU]
-    assert any("kstep_tile" in n for n in on_card)
+    assert any("grid_p2p" in n for n in on_card)
     assert not [n for n in on_card if n.startswith("lbm.")]
     assert {"lbm.sim.run", "lbm.dist.call", "lbm.sim.readback"} <= set(
         on_host)

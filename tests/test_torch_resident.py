@@ -17,7 +17,7 @@ window value carries the step it holds, so a read of a stale or early
 value fails. The per-step partial adds the band's |u| in the kernel's
 thread order. Plain float32 arithmetic in the kernel's per-cell order, so
 the model's state is bitwise the plain chunk's; its sums differ only by
-the summation order (1e-6, as the K5 model of test_torch_cluster).
+the summation order (1e-6, as the K4 model of test_torch_wide).
 """
 
 import random
@@ -32,8 +32,7 @@ from tpulbm_torch.core.lattice import CX, CY
 from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.core.state import initial_state
 from tpulbm_torch.dist import runner as truntime
-from tpulbm_torch.ops import (_build, cluster, kstep, kstep_tile, resident,
-                              step_torch)
+from tpulbm_torch.ops import _build, kstep, resident, step_torch
 
 torch.set_num_threads(2)
 
@@ -227,15 +226,17 @@ def _launch(f, o, p, k, plan, mem, base, rng):
     return out, partials, base + -(-k // h)
 
 
-# (ny, nx, cy, cx, h): the 128x256 and 256^2 decks' shapes over a few CTAs
-# (blocks of 32 x 32, the 4-cell instance), a ragged grid (blocks of 24
-# or 23 rows by 23 or 22 columns), a grid whose accelerated row 32 is the
-# first row of block row 16 and in block row 15's upper halo, one whose
-# accelerated row 38 is in block row 4's last h rows and in block row 0's
-# lower halo, h = 1, and one column and one row of CTAs (a CTA is its own
-# left and right, or lower and upper, neighbour); each at k = 1, h - 1
-# (where h > 1), h and 3h + 1 steps.
-SHAPES = [(256, 128, 8, 4, 2), (256, 256, 8, 8, 4), (70, 90, 3, 4, 3),
+# (ny, nx, cy, cx, h): the three resident decks at the plans they run
+# (test_resident_plan's: 128 CTAs, h = 5), the 128x256 and 256^2 decks'
+# shapes over a few CTAs (blocks of 32 x 32, the 4-cell instance), a ragged
+# grid (blocks of 24 or 23 rows by 23 or 22 columns), a grid whose
+# accelerated row 32 is the first row of block row 16 and in block row 15's
+# upper halo, one whose accelerated row 38 is in block row 4's last h rows
+# and in block row 0's lower halo, h = 1, and one column and one row of
+# CTAs (a CTA is its own left and right, or lower and upper, neighbour);
+# each at k = 1, h - 1 (where h > 1), h and 3h + 1 steps.
+SHAPES = [(128, 128, 8, 16, 5), (256, 128, 16, 8, 5), (256, 256, 8, 16, 5),
+          (256, 128, 8, 4, 2), (256, 256, 8, 8, 4), (70, 90, 3, 4, 3),
           (34, 64, 17, 2, 2), (40, 130, 5, 3, 2), (64, 48, 4, 4, 1),
           (64, 48, 8, 1, 2), (24, 64, 1, 8, 2)]
 CASES = [(shape, k) for shape in SHAPES
@@ -271,7 +272,7 @@ def test_resident_schedule_model(shape, k, late):
 
 
 @pytest.mark.parametrize("ny,nx,plan", [
-    (128, 128, (8, 16, 5, 1, 512)),     # off K5's route since K2 beat it
+    (128, 128, (8, 16, 5, 1, 512)),     # the 128^2 deck
     (256, 128, (16, 8, 5, 1, 768)),     # the 128x256 deck
     (256, 256, (8, 16, 5, 1, 1024)),    # the 256^2 deck
     (256, 512, (8, 16, 5, 2, 1024)),    # _kernel_hbm's shape
@@ -281,7 +282,7 @@ def test_resident_schedule_model(shape, k, late):
 ])
 def test_resident_plan(ny, nx, plan):
     """The plan at the deck shapes, at 256x512 and at the edges of the
-    resident family (8 rows of 16,384 and 17,280 cells): the CTA grid,
+    resident gate (8 rows of 16,384 and 17,280 cells): the CTA grid,
     h, the instance; the window fits, and the route is K2's."""
     assert resident.resident_plan(ny, nx) == plan
     assert resident.window_smem(ny, nx, *plan[:3]) <= \

@@ -32,7 +32,6 @@ from tpulbm_torch.core.lattice import CX, CY
 from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.core.state import initial_state
 from tpulbm_torch.dist import runner as truntime
-from tpulbm_torch.dist import tiers
 from tpulbm_torch.io.obstacles import write_obstacles
 from tpulbm_torch.io.params_file import read_params, write_params
 from tpulbm_torch.ops import kstep, kstep_tile, resident, ring_p2p, step_torch
@@ -200,53 +199,41 @@ ROUTES = [
 ]
 
 
-def _jax_family(monkeypatch, ny, nx, n):
-    """The kernel family of the tier the JAX make_runner picks, spied on
-    its makers (nothing is built or compiled)."""
+def _jax_resident(monkeypatch, ny, nx, n):
+    """Whether the JAX make_runner picks its resident tier for the grid,
+    spied on its makers (nothing is built or compiled)."""
     hit = []
 
-    def spy(family):
+    def spy(name):
         def fn(*a, **kw):
-            fam = family(kw) if callable(family) else family
-            hit.append(fam)
+            hit.append(name)
             return lambda f, o: (f, None)
         return fn
 
-    two_d = (pallas_kstep_skew2d.make_skew2d, pallas_kstep2d.make_kstep2d)
-    monkeypatch.setattr(jrunner, "_make_resident_runner",
-                        spy("resident"))
-    monkeypatch.setattr(
-        jrunner, "_make_skew_runner",
-        spy(lambda kw: "tile" if kw.get("maker") in two_d else "fused"))
-    monkeypatch.setattr(
-        jrunner, "_make_kstep_runner",
-        spy(lambda kw: "tile" if kw.get("maker") in two_d else "fused"))
+    monkeypatch.setattr(jrunner, "_make_resident_runner", spy("resident"))
+    for maker in ("_make_skew_runner", "_make_kstep_runner",
+                  "_make_kstep_bands_runner", "_make_xpad_runner"):
+        monkeypatch.setattr(jrunner, maker, spy(maker))
     monkeypatch.setattr(pallas_kstep_skew_fold, "make_fold_runner",
-                        spy("tile"))
-    monkeypatch.setattr(jrunner, "_make_kstep_bands_runner",
-                        spy("tile"))
-    monkeypatch.setattr(jrunner, "_make_xpad_runner", spy("fused"))
+                        spy("fold"))
     p = LBMParams(nx=nx, ny=ny, max_iters=n, reynolds_dim=10, density=0.1,
                   accel=0.005, omega=1.85).with_free_cells(nx * ny)
     jrunner.make_runner(_jp(p), n, get_mesh(n_devices=1), backend="pallas")
     assert len(hit) <= 1
-    # nothing spied on: the one-step-per-call or jnp fallback, the fused
-    # family
-    return (hit or ["fused"])[0], p
+    return hit == ["resident"], p
 
 
 @pytest.mark.parametrize("ny,nx,n", ROUTES)
 def test_kernel_family_matches_the_jax_router(monkeypatch, ny, nx, n):
-    """The port's route (K2 for the resident family, K6's grid kind for the
-    fused and tile families) follows the family of the JAX package's
-    single-device tier for the same grid and steps."""
-    want, p = _jax_family(monkeypatch, ny, nx, n)
-    assert tiers.family(ny, nx, n) == want
-    grid = {ring_p2p.grid_p2p_chunks}
-    fns = {"resident": {resident.resident_chunk}, "fused": grid,
-           "tile": grid}
+    """The port's route follows the JAX package's single-device router for
+    the same grid and steps: K2 where it picks its resident tier, K6's grid
+    kind wherever it picks another."""
+    resident_tier, p = _jax_resident(monkeypatch, ny, nx, n)
+    assert truntime.resident_route(ny, nx) is resident_tier
+    want = resident.resident_chunk if resident_tier else \
+        ring_p2p.grid_p2p_chunks
     plan = truntime.kernel_plan(p, n)
-    assert {fn for fn, _, _ in plan} <= fns[want]
+    assert {fn for fn, _, _ in plan} == {want}
     assert sum(k * c for _, k, c in plan) == n
 
 
@@ -254,12 +241,14 @@ def test_row_inner_grid_routes_to_k4(monkeypatch):
     """At 272x8192 and 16 steps the JAX router builds the 2-D K-step tier
     with exact_all=True at k = 8, whose tile passes the row_inner test of
     _make_kstep_runner (tpulbm/dist/runner.py:215-221): the grid runs
-    pallas_kstep2d._kernel_row_inner. The port sends it to K4."""
-    want, _ = _jax_family(monkeypatch, 272, 8192, 16)
+    pallas_kstep2d._kernel_row_inner. The port sends it to K6's grid
+    kind, two chunks of 8 steps in one launch."""
+    resident_tier, p = _jax_resident(monkeypatch, 272, 8192, 16)
     tile = pallas_kstep2d.pick_tile(272, 8192)
-    assert want == "tile" and tile is not None
+    assert not resident_tier and tile is not None
     assert tile[0] >= pallas_kstep2d._MY + K and 272 // tile[0] >= 2
-    assert tiers.family(272, 8192, 16) == "tile"
+    assert not truntime.resident_route(272, 8192)
+    assert truntime.kernel_plan(p, 16) == [(ring_p2p.grid_p2p_chunks, K, 2)]
 
 
 @pytest.mark.parametrize("ny,nx,expect", [
@@ -268,10 +257,10 @@ def test_row_inner_grid_routes_to_k4(monkeypatch):
     (100, 128, [("grid", 8, 1), ("grid", 4, 1)]),   # ny % 8 != 0
 ])
 def test_kernel_plan_resident_gate(ny, nx, expect):
-    """The resident family takes the JAX resident gate, supported or
-    supported_hbm (pallas_resident.py:35-60): 8/128-aligned grids of at
-    most 135K cells, whatever the step count (here K2: 256x512 is beyond
-    one cluster); the others go to the fused family, K6's grid kind."""
+    """K2 takes the JAX resident gate, supported or supported_hbm
+    (pallas_resident.py:35-60): 8/128-aligned grids of at most 135K cells,
+    whatever the step count (256x512 is _kernel_hbm's shape); the others go
+    to K6's grid kind."""
     p = LBMParams(nx=nx, ny=ny, max_iters=12, reynolds_dim=10, density=0.1,
                   accel=0.005, omega=1.85)
     names = {resident.resident_chunk: "resident",

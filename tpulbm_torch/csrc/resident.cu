@@ -28,7 +28,7 @@
 //
 // The step. Every load of a step is a shared-memory load at a constant
 // offset from the cell (lbm_cell.cuh's lbm_cell, the cell code of every
-// kernel of the port, so the state is bitwise K4's and K5's): a thread
+// kernel of the port, so the state is bitwise K4's): a thread
 // computes its cells (kCells, the instance's) from one copy into the
 // other, and one block barrier publishes the new state. The warps' sums of
 // step s are summed by the last warp after that barrier, off the next
@@ -77,7 +77,8 @@
 // chip_smoke.py's kernel phase, tools/resident_sweep.py for every CTA grid
 // and h): a 512-step chunk in 0.72 ms at 128^2 (1.40 us a step), 0.81 ms at
 // 128x256 (1.58), 1.04 ms at 256^2 (2.04) and 1.66 ms at 256x512 (3.23),
-// 0.48-0.58x the grid-barrier design it replaced and 0.62x K5 at 128^2.
+// 0.48-0.58x the grid-barrier design it replaced and 0.62x K5, a since
+// removed design in one thread block cluster, at 128^2.
 // A step costs at least ~1.4 us (~2,770 cycles at 1980 MHz) even at a few
 // hundred cells a CTA: one cell update's dependent chain a thread; without
 // the barrier, the sums or the handoff a step is only 2-7 % shorter.

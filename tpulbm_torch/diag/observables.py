@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from tpulbm_torch.core.params import LBMParams
+from tpulbm_torch.ops.step_torch import scale_sums
 
 
 def _f32(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -45,7 +46,7 @@ def speed_sum(f: torch.Tensor, obstacles: torch.Tensor) -> torch.Tensor:
 
 def av_velocity(f: torch.Tensor, obstacles: torch.Tensor,
                 params: LBMParams) -> torch.Tensor:
-    return speed_sum(f, obstacles) * _f32(params.free_cells_inv, f)
+    return scale_sums(speed_sum(f, obstacles), params)
 
 
 def reynolds_of(av: torch.Tensor, params: LBMParams) -> torch.Tensor:

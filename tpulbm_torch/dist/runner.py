@@ -77,24 +77,20 @@ chunk before it read (``ops.kstep.output``), so a run holds two states,
 the least with K4, whose output must lie apart from its source. The
 caller must not read its input after the call.
 
-Backends (the single-device routing of tpulbm/dist/runner.py:1720-1801):
+Backends (the single-device route, ``kernel_plan``):
 
-- ``cuda``: the hand-written kernels, on the family that ``dist.tiers``
-  names for the grid. ``"resident"`` runs ``resident.resident_chunk``
-  (K2, which measured faster than K5, ``cluster.cluster_resident_chunk``,
-  at every shape K5 holds; K5 is on no route), in chunks of
+- ``cuda``: the hand-written kernels. A grid that passes
+  ``resident_route`` runs ``resident.resident_chunk`` (K2) in chunks of
   ``resident.RESIDENT_K`` steps plus a remainder, as
-  ``_make_resident_runner``; ``"fused"`` (``_make_skew_runner``) and
-  ``"tile"`` (the fold, 2-D skew and 2-D K-step runners) run K6's grid
-  kind, ``ring_p2p.grid_p2p_chunks``: up to ``ring_p2p.MAX_OUTER`` 8-step
-  chunks of the whole periodic grid in one persistent launch, the tiles
-  handing off between chunks through epoch flags, then one launch of the
-  remainder; it computes the bits of K4's whole-grid chunks
-  (``kstep_tile.tile_chunk``), which stay its reference, off the route.
-  The kernels take any shape, so the TPU tiers' 8/128 alignment conditions
-  only choose the route. K1 (``kstep.skew_chunk``, ``kstep.kstep_chunk``)
-  is on no route: it is the one-pass-per-step kernel that ``chip_smoke.py``
-  holds K4 against.
+  ``_make_resident_runner``. Every other grid runs K6's grid kind,
+  ``ring_p2p.grid_p2p_chunks``: up to ``ring_p2p.MAX_OUTER`` 8-step chunks
+  of the whole periodic grid in one persistent launch, the tiles handing
+  off between chunks through epoch flags, then one launch of the
+  remainder. The grid kind computes the bits of K4's whole-grid chunks
+  (``kstep_tile.tile_chunk``), which stay off the route as its reference;
+  K1 (``kstep.skew_chunk``, ``kstep.kstep_chunk``) is on no route either:
+  it is the one-pass-per-step kernel that ``chip_smoke.py`` holds K4
+  against.
 - ``torch``: the plain oracle ``ops.step_torch`` (canonical equilibrium, as
   the JAX package's ``jnp`` backend), on any device.
 - ``auto``: ``cuda`` on a CUDA device, ``torch`` on the CPU.
@@ -125,7 +121,7 @@ import torch
 import torch.nn.functional as F
 
 from tpulbm_torch.core.params import LBMParams
-from tpulbm_torch.dist import multihost, tiers
+from tpulbm_torch.dist import multihost
 from tpulbm_torch.dist.sharding import block_shape, ring_rows
 from tpulbm_torch.ops import kstep, kstep_tile, resident, ring_p2p, step_torch
 from tpulbm_torch.utils.profiling import span, spanned, totals
@@ -164,15 +160,25 @@ def _grouped(k: int, n_steps: int, per: int) -> list:
     return launches + ([(rem, 1)] if rem else [])
 
 
+def resident_route(ny: int, nx: int) -> bool:
+    """Whether a one-card (ny, nx) grid runs on K2; every other grid runs
+    on K6's grid kind. This is the JAX package's resident gate,
+    ``pallas_resident.supported`` or ``supported_hbm``
+    (tpulbm/ops/pallas_resident.py:35-60): 8/128-aligned grids of at most
+    135K cells, whatever the step count. K2 takes any grid of at least h
+    rows and columns a CTA; the gate is kept so that the port routes a grid
+    to K2 exactly where the JAX router picks its resident tier."""
+    return nx % 128 == 0 and ny % 8 == 0 and ny >= 8 and ny * nx <= 135 * 1024
+
+
 def kernel_plan(params: LBMParams, n_steps: int) -> list:
     """The ``cuda`` backend's launches: [(fn, k, n), ...], n chunks of k
-    steps a call of fn, covering n_steps. The resident family: K2's chunks
-    (``resident.resident_chunk``, n = 1). The fused and tile families: the
-    grid kind of K6 (``ring_p2p.grid_p2p_chunks``), up to
+    steps a call of fn, covering n_steps. Where ``resident_route`` holds:
+    K2's chunks (``resident.resident_chunk``, n = 1). Elsewhere: the grid
+    kind of K6 (``ring_p2p.grid_p2p_chunks``), up to
     ``ring_p2p.outer_per_launch`` chunks of 8 steps a launch, then one
     launch of the remainder."""
-    route = tiers.family(params.ny, params.nx, n_steps)
-    if route == "resident":
+    if resident_route(params.ny, params.nx):
         return _chunks(resident.resident_chunk,
                        min(n_steps, resident.RESIDENT_K), n_steps)
     k = min(kstep_tile.TILE_K, n_steps)
@@ -213,9 +219,7 @@ def run_plan(plan, f, obst_f, params: LBMParams):
     if grid and f.device.type == "cuda":
         ring_p2p.grid_exchange(f.device, params.ny, params.nx).check()
     with span("lbm.dist.sums"):
-        free_inv = torch.tensor(params.free_cells_inv, dtype=torch.float32,
-                                device=f.device)
-        return f, torch.cat(sums) * free_inv
+        return f, step_torch.scale_sums(torch.cat(sums), params)
 
 
 def make_runner(params: LBMParams, n_steps: int, backend: str = "auto",
@@ -386,8 +390,7 @@ def _deferred_sum(sums, device, params: LBMParams, transport):
     for s in transport.all_gather([torch.cat(s) for s in sums]):
         s = s.to(device)
         av = s if av is None else av + s
-    return av * torch.tensor(params.free_cells_inv, dtype=torch.float32,
-                             device=device)
+    return step_torch.scale_sums(av, params)
 
 
 def _seconds(name: str) -> float:

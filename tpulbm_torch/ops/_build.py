@@ -49,14 +49,13 @@ LAUNCHES = {
     "tile_chunk": 0,        # K4 launches made by ops.kstep_tile.tile_chunk
     "ring_chunk": 0,        # K4 launches made by ops.kstep_tile.ring_chunk
     "torus_chunk": 0,       # K4 launches made by ops.kstep_tile.torus_chunk
-    "cluster_resident": 0,  # K5 launches made by cluster_resident_chunk
     "ring_p2p": 0,          # K6 launches (one a card) made by ring_p2p
     "torus_p2p": 0,         # K6 torus-mode launches (one a card) made by
                             # ring_p2p.torus_p2p_chunks
     "grid_p2p": 0,          # K6 grid-kind launches made by
                             # ring_p2p.grid_p2p_chunks
     # Chunks whose per-step sums the stepping kernels' epilogue reduced
-    # (one per K1 chunk and K2, K4 or K5 launch, one per chunk and shard of
+    # (one per K1 chunk and K2 or K4 launch, one per chunk and shard of
     # a K6 launch, one per chunk of a grid-kind launch): the former K3 pass
     "reduce_partials": 0,
 }
@@ -87,10 +86,6 @@ _SIGNATURES = {
     "lbm_kstep_tile_torus": (
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I,
          _I, _I, _I, _P], _I),
-    "lbm_cluster_resident_smem": ([], _I),
-    "lbm_cluster_resident_clusters": ([_I], _I),
-    "lbm_cluster_resident": (
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P], _I),
     "lbm_ring_p2p_words": ([], _I),
     "lbm_ring_p2p_max_local": ([], _I),
     "lbm_ring_p2p_max_outer": ([], _I),

@@ -3,9 +3,9 @@
 ``resident_chunk`` is the counterpart of
 ``tpulbm.ops.pallas_resident._kernel`` (``make_resident_step``) and of its
 HBM-edge variant ``_kernel_hbm`` (``make_resident_step_hbm``): up to
-``RESIDENT_K`` steps per call of a grid that ``dist.tiers`` routes here
-(8/128-aligned, at most 135K cells; K2 itself takes any grid of at least
-h rows and columns a CTA). K2 (``csrc/resident.cu::lbm_resident_chunk``)
+``RESIDENT_K`` steps per call of a grid that
+``dist.runner.resident_route`` sends here (8/128-aligned, at most 135K
+cells; K2 itself takes any grid of at least h rows and columns a CTA). K2 (``csrc/resident.cu::lbm_resident_chunk``)
 is one cooperative launch of about one CTA per SM, the CTAs a cy x cx grid
 of blocks of the lattice: each CTA holds its block and ``h`` halo cells a
 side in its shared memory for the whole chunk, runs ``h`` steps on a
@@ -27,8 +27,9 @@ and models the schedule).
 
 Its role: ``dist.runner.kernel_plan`` sends every resident grid here:
 the 128^2, 128x256 and 256^2 decks and the 100K-135K-cell shapes of
-``_kernel_hbm`` (256x512). K5 (``ops.cluster``), one cluster of 16 CTAs,
-measured slower at every shape it holds and is on no route.
+``_kernel_hbm`` (256x512). Its plain version is ``resident_chunk_ref``;
+on the card its state is held bitwise against K4's whole-grid chunks
+(``kstep_tile.tile_chunk``), which run the same cell code.
 
 The slots (zeroed when made, never cleared) and the next launch's base
 epoch live as long as the process, one set per device: launches that

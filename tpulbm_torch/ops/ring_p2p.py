@@ -56,8 +56,8 @@ edges and corners into its eight neighbours' slots before a call's first
 launch.
 
 The grid kind (``grid_p2p_chunks``, ``GridExchange``) runs the same
-pipeline over the whole periodic grid of one card, the one-card wide route
-(``dist.runner.kernel_plan``): up to ``MAX_OUTER`` chunks a launch, the
+pipeline over the whole periodic grid of one card, the one-card route of
+every grid outside the resident gate (``dist.runner.resident_route``): up to ``MAX_OUTER`` chunks a launch, the
 tiles handing off between chunks through their flags alone (no slots, no
 pushes), the bits of K4's whole-grid chunks (``kstep_tile.tile_chunk``),
 which stay its reference; on CPU tensors, ``grid_p2p_chunks_ref``.
@@ -1341,7 +1341,7 @@ def _torus_entry(ex: TorusExchange, states, spares, bands, partials, sums,
 
 
 # The grid kind (csrc/ring_p2p.cu::lbm_grid_p2p): the whole periodic
-# (ny, nx) grid of one card, the one-card wide route.
+# (ny, nx) grid of one card, the one-card route outside the resident gate.
 
 
 def grid_graph(ny: int, nx: int, k: int, t: int = TILE):

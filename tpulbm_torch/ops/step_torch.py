@@ -90,7 +90,7 @@ def lbm_step(
     f, tot_u = collide_stream(
         accelerate(f, obstacles, params), obstacles, params, pair_symmetric
     )
-    return f, tot_u * _f32(params.free_cells_inv, f.device)
+    return f, scale_sums(tot_u, params)
 
 
 def run_sums(
@@ -122,8 +122,13 @@ def run_steps(
 ):
     """n_steps of lbm_step; returns (final state, av_vels series)."""
     f, sums = run_sums(f, obstacles, params, n_steps, pair_symmetric)
-    return f, sums * _f32(params.free_cells_inv, f.device)
+    return f, scale_sums(sums, params)
 
 
-def _f32(value: float, device) -> torch.Tensor:
-    return torch.tensor(value, dtype=torch.float32, device=device)
+def scale_sums(sums: torch.Tensor, params: LBMParams) -> torch.Tensor:
+    """Raw sums of |u| over the free cells as average velocities: times the
+    float32 ``free_cells_inv`` (tpulbm/core/params.py:32), on the sums'
+    device. The one statement of the av series' scale, which every route
+    keeps bitwise."""
+    return sums * torch.tensor(params.free_cells_inv, dtype=torch.float32,
+                               device=sums.device)

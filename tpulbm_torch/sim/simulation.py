@@ -75,6 +75,7 @@ from tpulbm_torch.dist.sharding import (
 from tpulbm_torch.io.obstacles import read_obstacles
 from tpulbm_torch.io.params_file import read_params
 from tpulbm_torch.io.writers import write_av_vels, write_final_state
+from tpulbm_torch.ops.step_torch import scale_sums
 from tpulbm_torch.sim import checkpoint as ckpt
 from tpulbm_torch.utils.profiling import span, spanned
 
@@ -408,9 +409,7 @@ class Simulation:
 
     # -- observables ------------------------------------------------------
     def _av_velocity(self) -> torch.Tensor:
-        return self._shard_sum(speed_sum) * torch.tensor(
-            self.params.free_cells_inv, dtype=torch.float32,
-            device=self.device)
+        return scale_sums(self._shard_sum(speed_sum), self.params)
 
     @spanned("lbm.sim.reynolds")
     def reynolds(self) -> float:

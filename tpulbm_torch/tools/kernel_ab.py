@@ -9,12 +9,10 @@ imported beside this one, with its own wrappers, C signatures and build
 directory, and both kernel libraries are built at once. Each case calls a
 public chunk function of each side (``resident_chunk``, ``skew_chunk``,
 ``tile_chunk``, ``ring_chunk``, as the main path calls them, sums
-included; this tree's K2 ``resident_chunk`` at 128^2 against the base
-tree's K5 ``cluster_resident_chunk``, and this tree's K4 ``tile_chunk``
-at 1024^2 against the base tree's K1 chunks, and this tree's K6 grid kind,
-``grid_p2p_chunks``, over a launch of chunks at 1024^2, 2048^2 and 8192^2
-against the base tree's K4 ``tile_chunk`` chunk by chunk, where each took
-the route from them) on the same input,
+included; this tree's K6 grid kind, ``grid_p2p_chunks``, over a launch of
+chunks at 1024^2, 2048^2 and 8192^2 against the base tree's K4
+``tile_chunk`` chunk by chunk, which it took the route from) on the same
+input,
 a perturbed rest state drawn from a seed on the card, at the shapes of the
 main path; the states must be bitwise equal and the sums within 3e-4 (the
 kernels may sum the same values in another order). Times are CUDA-event ms
@@ -43,12 +41,11 @@ from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.core.state import initial_state
 from tpulbm_torch.io.obstacles import read_obstacles
 from tpulbm_torch.io.params_file import read_params
-from tpulbm_torch.ops import (_build, cluster, kstep, kstep_tile, resident,
-                              ring_p2p)
+from tpulbm_torch.ops import _build, kstep, kstep_tile, resident, ring_p2p
 
 ROOT = Path(__file__).resolve().parents[2]
 PKG = "tpulbm_torch"
-OPS = ("_build", "cluster", "kstep", "kstep_tile", "resident", "ring_p2p")
+OPS = ("_build", "kstep", "kstep_tile", "resident", "ring_p2p")
 SEED = 20260
 SUMS_RTOL = 3e-4
 
@@ -185,17 +182,6 @@ def cases():
 def _route_cases():
     """This tree's kernels against the base tree's kernels that the same
     route ran there (``--match route``)."""
-    rk = resident.RESIDENT_K
-    p, o, f = _deck("128x128", SEED)
-    yield ("route: K2 128x128, 512 steps vs base K5",
-           ("base", "cluster", "cluster_resident_chunk", (f, o, p, rk)),
-           ("this", "resident", "resident_chunk", (f, o, p, rk)))
-    p, o, f = _deck("1024x1024", SEED + 1)
-    for k, fn, args in ((8, "skew_chunk", (f, o, p)),
-                        (3, "kstep_chunk", (f, o, p, 3))):
-        yield (f"route: K4 1024x1024, {k} steps vs base K1",
-               ("base", "kstep", fn, args),
-               ("this", "kstep_tile", "tile_chunk", (f, o, p, k)))
     k = kstep_tile.TILE_K
     for deck, seed in (("1024x1024", SEED + 1), ("2048x2048", SEED + 6),
                        ("8192x8192", SEED + 7)):
@@ -282,9 +268,8 @@ def main(argv=None) -> int:
                          text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     base = import_tree(args.base)
-    this = {"_build": _build, "cluster": cluster, "kstep": kstep,
-            "kstep_tile": kstep_tile, "resident": resident,
-            "ring_p2p": ring_p2p}
+    this = {"_build": _build, "kstep": kstep, "kstep_tile": kstep_tile,
+            "resident": resident, "ring_p2p": ring_p2p}
     sides = {"base": base, "this": this}
 
     def resolve(side, mod, fn):
