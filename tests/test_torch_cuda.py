@@ -151,25 +151,48 @@ def _k4_chain(f, o, p, k, n):
     return f, torch.cat(sums)
 
 
-# The runner's steps a call at each shape: full launches of outer_per_launch
-# chunks (64; 8 at 8192^2), a shorter one and a remainder launch
+def _grid_model_av(p, f, o, plan):
+    """The av series of the grid kind over ``plan`` (kernel_plan's) from
+    state f, in the grid kind's own order: each launch's partials, reduced
+    by ring_p2p.grid_sums_ref chunk by chunk, then the av scale. Returns
+    (the state, the av series)."""
+    from tpulbm_torch.ops import ring_p2p, step_torch
+
+    sums, spare = [], torch.empty_like(f)
+    for _, k, n in plan:
+        _, parts = ring_p2p._grid_launch(f, spare, o, p, k, n)
+        parts = parts.cpu().numpy()
+        sums += [ring_p2p.grid_sums_ref(parts[c * k:(c + 1) * k])
+                 for c in range(n)]
+        if n % 2:
+            f, spare = spare, f
+    ring_p2p.grid_exchange(f.device, p.ny, p.nx).check()
+    flat = torch.tensor(np.concatenate(sums), device=f.device)
+    return f, step_torch.scale_sums(flat, p)
+
+
+# The runner's steps a call at each shape: full launches of
+# grid_outer_per_launch chunks (64), a shorter one and a remainder launch
 GRID_STEPS = {(100, 130): 8 * 66 + 3, (1024, 1024): 8 * 66 + 3,
-              (2048, 2048): 8 * 66 + 3, (8192, 8192): 8 * 9 + 5}
+              (2048, 2048): 8 * 66 + 3, (8192, 8192): 8 * 66 + 3}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", list(GRID_STEPS),
                          ids=[f"{y}x{x}" for y, x in GRID_STEPS])
 def test_grid_p2p_is_k4s_whole_grid_chain(shape):
-    """K6's grid kind, the one-card wide route, bitwise K4's whole-grid
-    chunks at 100 x 130 (ragged tiles, 4-byte window loads), 1024^2,
-    2048^2 and 8192^2: one launch of 3 chunks at each k of 1-8 (state and
-    sums bitwise the K4 chain's, each chunk's sums the reduction of its
-    partials within K3_RTOL); then two runner calls of make_runner (the
+    """K6's grid kind, the one-card wide route, against K4's whole-grid
+    chunks at 100 x 130 (ragged items, 4-byte row copies), 1024^2, 2048^2
+    and 8192^2: one launch of 3 chunks at each k of 1-8, its state bitwise
+    the K4 chain's, the error word clear and the ticket counter 0; its sums
+    bitwise grid_sums_ref of its partials (the grid kind's own order of
+    summing, its items and not K4's tiles), chunk by chunk, and within
+    K3_RTOL of the K4 chain's; then two runner calls of make_runner (the
     epoch carried across them, launches of several chunks and a
-    remainder): the state, the av series and the Reynolds number bitwise
-    those of the same calls run on K4 (run_plan over tile_chunk), grid_p2p
-    launches alone, the error word clear and the ticket counter 0."""
+    remainder): the state and the Reynolds number bitwise those of the
+    same calls run on K4 (run_plan over tile_chunk), the av series bitwise
+    the grid kind's own order of the same launches (_grid_model_av) and
+    within K3_RTOL of K4's, grid_p2p launches alone."""
     from tpulbm_torch.diag.observables import calc_reynolds
     from tpulbm_torch.dist.runner import _chunks, kernel_plan, run_plan
     from tpulbm_torch.ops import ring_p2p
@@ -185,11 +208,15 @@ def test_grid_p2p_is_k4s_whole_grid_chain(shape):
         want, want_sums = _k4_chain(f0, o, p, k, 3)
         torch.cuda.synchronize()
         _counter_is_zero(f0.device)
-        assert torch.equal(spare, want) and torch.equal(sums, want_sums)
-        for c in range(3):
-            ref = kstep.reduce_partials_ref(partials[c * k:(c + 1) * k])
-            got = sums[c * k:(c + 1) * k]
-            assert ((got - ref).abs() / ref.abs()).max().item() <= K3_RTOL
+        assert torch.equal(spare, want)
+        parts = partials.cpu().numpy()
+        model = np.concatenate([ring_p2p.grid_sums_ref(parts[c * k:(c + 1)
+                                                             * k])
+                                for c in range(3)])
+        assert np.array_equal(sums.cpu().numpy(), model)
+        assert ((sums - want_sums).abs() / want_sums.abs()).max().item() \
+            <= K3_RTOL
+        assert ring_p2p.grid_exchange(f0.device, ny, nx).words[0].item() == 0
         del f, spare, want, partials
     n = GRID_STEPS[shape]
     plan = kernel_plan(p, n)
@@ -197,16 +224,53 @@ def test_grid_p2p_is_k4s_whole_grid_chain(shape):
     assert len(plan) == 3 and plan[-1][1:] == (n % 8, 1)
     run = make_runner(p, n, "cuda", "cuda")
     k4 = _chunks(kstep_tile.tile_chunk, kstep_tile.TILE_K, n)
-    f, g = f0.clone(), f0.clone()
+    f, g, h = f0.clone(), f0.clone(), f0.clone()
     _build.reset_launches()
     for _ in range(2):
         f, av = run(f, mask)
         g, av_k4 = run_plan(k4, g, o, p)
+        h, av_model = _grid_model_av(p, h, o, plan)
         torch.cuda.synchronize()
         _counter_is_zero(f0.device)
-        assert torch.equal(f, g) and torch.equal(av, av_k4)
-    assert _build.LAUNCHES["grid_p2p"] == 2 * len(plan)
+        assert torch.equal(f, g) and torch.equal(f, h)
+        assert torch.equal(av, av_model)
+        assert ((av - av_k4).abs() / av_k4.abs()).max().item() <= K3_RTOL
+    assert _build.LAUNCHES["grid_p2p"] == 4 * len(plan)
     assert calc_reynolds(f, mask, p).item() == calc_reynolds(g, mask, p).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(17, 130), (17, 2240)],
+                         ids=["17x130", "17x2240"])
+def test_grid_p2p_sums_hold_back_to_back_one_row_items(shape):
+    """At k = 1 the grid kind's items of a 17-row grid (8 x 16, its last
+    item row of one row) follow each other in the CTAs' streams, 1-row
+    items back to back (tests/test_torch_wave.py: with two sums buffers a
+    cell would leave item m + 2's sum in the wave that sums item m): four
+    launches of 64 chunks, each state bitwise K4's 64 chunks, its sums
+    bitwise grid_sums_ref of its partials and within K3_RTOL of K4's,
+    chunk by chunk; the error word clear and the ticket counter 0."""
+    from tpulbm_torch.ops import ring_p2p
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ny, nx = shape
+    assert ring_p2p.grid_item(ny, nx)[:2] == (8, 16)
+    p, f0, mask = _grid_case(ny, nx, ny * nx)
+    o = mask.float()
+    want, want_sums = _k4_chain(f0, o, p, 1, 64)
+    for _ in range(4):
+        f, spare = f0.clone(), torch.empty_like(f0)
+        sums, partials = ring_p2p._grid_launch(f, spare, o, p, 1, 64)
+        torch.cuda.synchronize()
+        _counter_is_zero(f0.device)
+        assert torch.equal(f, want)   # an even count of chunks: back in f
+        model = np.concatenate([ring_p2p.grid_sums_ref(row)
+                                for row in partials.cpu().numpy()[:, None]])
+        assert np.array_equal(sums.cpu().numpy(), model)
+        assert ((sums - want_sums).abs() / want_sums.abs()).max().item() \
+            <= K3_RTOL
+        assert ring_p2p.grid_exchange(f0.device, ny, nx).words[0].item() == 0
 
 
 @pytest.mark.cuda
@@ -215,7 +279,8 @@ def test_grid_p2p_with_a_stuck_flag_raises(case):
     the next runner call's launch waits on it, its producers give up after
     the 10 s bound, and the call raises (no hang) within a minute; the
     ticket counter is zeroed and the grid's flags dropped, so the call after
-    runs from fresh flags, bitwise K4's chunks."""
+    runs from fresh flags: its state bitwise K4's chunks, its av series
+    within K3_RTOL of theirs."""
     import time
 
     from tpulbm_torch.dist.runner import _chunks, run_plan
@@ -236,7 +301,8 @@ def test_grid_p2p_with_a_stuck_flag_raises(case):
     got, av = run(f0.clone(), mask)
     want, av_k4 = run_plan(_chunks(kstep_tile.tile_chunk, 8, 16), f0.clone(),
                            mask.float(), p)
-    assert torch.equal(got, want) and torch.equal(av, av_k4)
+    assert torch.equal(got, want)
+    assert ((av - av_k4).abs() / av_k4.abs()).max().item() <= K3_RTOL
 
 
 @pytest.mark.cuda

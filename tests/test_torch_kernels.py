@@ -135,11 +135,12 @@ def test_tile_chunks_match_pallas_skew():
      [("grid", 8, 64), ("grid", 8, 61), ("grid", 3, 1)]),
     ("1024x1024", 5, [("grid", 5, 1)]),
     ("2048x2048", 4000, [("grid", 8, 64)] * 7 + [("grid", 8, 52)]),
-    # past 1024^2 outer_per_launch caps the partials at 16 MiB a launch
-    ("4096x4096", 2000, [("grid", 8, 32)] * 7 + [("grid", 8, 26)]),
-    ("8192x8192", 1000, [("grid", 8, 8)] * 15 + [("grid", 8, 5)]),
+    # the grid kind's partials a launch are its items' (512 at 8192^2),
+    # far under grid_outer_per_launch's 16 MiB: 64 chunks at every deck
+    ("4096x4096", 2000, [("grid", 8, 64)] * 3 + [("grid", 8, 58)]),
+    ("8192x8192", 1000, [("grid", 8, 64), ("grid", 8, 61)]),
     ("4096x4096", 1003,
-     [("grid", 8, 32)] * 3 + [("grid", 8, 29), ("grid", 3, 1)]),
+     [("grid", 8, 64), ("grid", 8, 61), ("grid", 3, 1)]),
     ((256, 512), 1030, [("resident", 512, 1)] * 2 + [("resident", 6, 1)]),
 ])
 def test_kernel_plan_routes_like_the_jax_runner(deck, n, expect):
@@ -147,8 +148,8 @@ def test_kernel_plan_routes_like_the_jax_runner(deck, n, expect):
     256^2; 256x512, the _kernel_hbm shape), in 512-step chunks plus a
     remainder; the 1-D skew's grids (runner.py:1741-1746) and the wide
     tiers' grids (fold, 2-D skew, runner.py:1749-1777) -> K6's grid kind in
-    launches of up to 64 chunks of 8 steps (fewer where the partials would
-    pass 16 MiB) plus one launch of a shorter chunk."""
+    launches of up to 64 chunks of 8 steps (fewer only where its items'
+    partials would pass 16 MiB) plus one launch of a shorter chunk."""
     if isinstance(deck, tuple):
         p = LBMParams(nx=deck[1], ny=deck[0], max_iters=n, reynolds_dim=10,
                       density=0.1, accel=0.005, omega=1.85)

@@ -383,12 +383,17 @@ def decode_graph(cards, rows, nx, k, t=MODEL_TILE):
     return deps, header
 
 
+def _shape(t):
+    """A tile or item shape (rows, columns) from an edge or a pair."""
+    return (t, t) if isinstance(t, int) else tuple(t)
+
+
 def decode_grid(ny, nx, k, t=MODEL_TILE):
-    """ring_p2p.grid_graph's records decoded: ({tile: [tiles it waits on,
-    in record order]}, {tile: its header}); every dependency a flag of this
-    card."""
+    """ring_p2p.grid_graph's records for items of shape t (an edge or
+    (rows, columns)) decoded: ({item: [items it waits on, in record
+    order]}, {item: its header}); every dependency a flag of this card."""
     deps, header = {}, {}
-    for i, rec in enumerate(ring_p2p.grid_graph(ny, nx, k, t)):
+    for i, rec in enumerate(ring_p2p.grid_graph(ny, nx, k, _shape(t))):
         n_local, n_remote = rec[7] & 255, rec[7] >> 8
         assert n_remote == 0
         got = [int(e) for e in rec[ring_p2p.REC_DEPS:ring_p2p.REC_DEPS
@@ -406,8 +411,8 @@ def _grid_relation(ny, nx, k, t):
 
 def grid_graph_deps(rows, nx, d, tile, k, t):
     """The model's relation from the grid kind's graph (one shard, d = 0,
-    of rows[0] rows)."""
-    return [(0, u) for u in _grid_relation(rows[0], nx, k, t)[tile]]
+    of rows[0] rows; items of shape t)."""
+    return [(0, u) for u in _grid_relation(rows[0], nx, k, _shape(t))[tile]]
 
 
 def graph_deps(cards):
@@ -459,20 +464,23 @@ class FlagModel:
     pushed; its chunk 0 then reads the slots. ``grid``: the grid kind, one
     shard (the whole grid) on one card, its window rows wrapping into the
     state itself, no slots, no pushes and no pull0 (the relation, where
-    ``deps`` is None, ring_p2p.grid_graph's)."""
+    ``deps`` is None, ring_p2p.grid_graph's), each chunk's walk starting
+    one item row further down. ``t``: the tiles' edge, or (rows, columns)
+    of the grid kind's items."""
 
     def __init__(self, params, rows, offsets, cards, mask, states, k,
                  deps=None, t=MODEL_TILE, early_release=False,
                  processes=False, entry_order=True, grid=False):
         self.p, self.rows, self.offsets, self.cards = params, rows, offsets, cards
         self.k, self.t, self.grid = k, t, grid
+        self.th, self.tw = _shape(t)
         if deps is None:
             deps = grid_graph_deps if grid else graph_deps(cards)
         self.deps = deps
         self.early_release = early_release
         self.processes, self.entry_order = processes, entry_order
         self.nx = params.nx
-        self.tiles_x = -(-self.nx // t)
+        self.tiles_x = -(-self.nx // self.tw)
         n = len(rows)
         nan = float("nan")
         self.buf = [[s.clone(), torch.full_like(s, nan)] for s in states]
@@ -484,7 +492,8 @@ class FlagModel:
                       for side in ("lo", "hi")}
         self.slot_tag = {side: [[np.full((k, self.nx), -1) for _ in range(2)]
                                 for _ in range(n)] for side in ("lo", "hi")}
-        self.flags = [np.zeros(-(-h // t) * self.tiles_x, int) for h in rows]
+        self.flags = [np.zeros(-(-h // self.th) * self.tiles_x, int)
+                      for h in rows]
         full = torch.tensor(mask, dtype=torch.float32)
         self.bands = [full[torch.arange(o - k, o + h + k) % params.ny]
                       for o, h in zip(offsets, rows)]
@@ -503,6 +512,8 @@ class FlagModel:
 
     def locate(self, launch, item):
         c, r = divmod(item, launch["items"])
+        if self.grid:   # chunk c's walk starts at item row c
+            r = (r + c * self.tiles_x) % launch["items"]
         for d in launch["shards"]:
             if r < self.ntiles(d):
                 return c, d, r
@@ -533,11 +544,11 @@ class FlagModel:
         returning (c, d, tile, band (9, own + 2k, nx))); records a stale
         cell."""
         c, d, tile = self.locate(launch, item)
-        k, t, e = self.k, self.t, launch["base"] + c
+        k, th, tw, e = self.k, self.th, self.tw, launch["base"] + c
         ty, tx = divmod(tile, self.tiles_x)
-        y0, x0 = ty * t, tx * t
-        own = min(t, self.rows[d] - y0)
-        cols = np.arange(x0 - k, x0 + min(t, self.nx - x0) + k) % self.nx
+        y0, x0 = ty * th, tx * tw
+        own = min(th, self.rows[d] - y0)
+        cols = np.arange(x0 - k, x0 + min(tw, self.nx - x0) + k) % self.nx
         band = torch.full((9, own + 2 * k, self.nx), float("nan"))
         for i, r in enumerate(range(y0 - k, y0 + own + k)):
             vals, tags = self.source(launch, c, d, r)
@@ -556,12 +567,12 @@ class FlagModel:
         """Step the window's tile, write its owned cells and slabs row by
         row, record its speeds."""
         c, d, tile, band = window
-        k, t, n = self.k, self.t, len(self.rows)
+        k, th, tw, n = self.k, self.th, self.tw, len(self.rows)
         e, h = launch["base"] + c, self.rows[d]
         ty, tx = divmod(tile, self.tiles_x)
-        y0, x0 = ty * t, tx * t
-        own = min(t, h - y0)
-        cols = slice(x0, x0 + min(t, self.nx - x0))
+        y0, x0 = ty * th, tx * tw
+        own = min(th, h - y0)
+        cols = slice(x0, x0 + min(tw, self.nx - x0))
         ob = self.bands[d][y0:y0 + own + 2 * k]
         f, speeds = _band_steps(band[:, :k], band[:, k:k + own],
                                 band[:, k + own:], ob, self.p, k,
@@ -954,25 +965,26 @@ def test_flag_model_catches_a_prologue_without_the_entry_order():
 
 
 def _brute_cone(rows, nx, k, t):
-    """The cone by cells: per shard and tile, the tiles that own a cell
-    within k cells (rows modulo the ring, columns modulo nx) of one of its
-    own."""
-    ny, tiles_x = sum(rows), -(-nx // t)
+    """The cone by cells: per shard and tile (of shape t: an edge, or rows
+    and columns), the tiles that own a cell within k cells (rows modulo the
+    ring, columns modulo nx) of one of its own."""
+    th, tw = _shape(t)
+    ny, tiles_x = sum(rows), -(-nx // tw)
     owner = np.zeros((ny, nx), dtype=object)
     off = 0
     for d, h in enumerate(rows):
         for y in range(h):
             for x in range(nx):
-                owner[off + y, x] = (d, (y // t) * tiles_x + x // t)
+                owner[off + y, x] = (d, (y // th) * tiles_x + x // tw)
         off += h
     out, off = [], 0
     for d, h in enumerate(rows):
         out.append([])
-        for tile in range(-(-h // t) * tiles_x):
+        for tile in range(-(-h // th) * tiles_x):
             ty, tx = divmod(tile, tiles_x)
-            y0, x0 = off + ty * t, tx * t
-            ys = np.arange(y0 - k, y0 + min(t, h - ty * t) + k) % ny
-            xs = np.arange(x0 - k, x0 + min(t, nx - x0) + k) % nx
+            y0, x0 = off + ty * th, tx * tw
+            ys = np.arange(y0 - k, y0 + min(th, h - ty * th) + k) % ny
+            xs = np.arange(x0 - k, x0 + min(tw, nx - x0) + k) % nx
             out[d].append(sorted(set(owner[np.ix_(ys, xs)].ravel())))
         off += h
     return out
@@ -1055,6 +1067,14 @@ def test_tile_graph_at_the_kernel_tile():
 GRID_CALLS = [[(3, False), (1, False)], [(2, False), (3, False)]]
 
 
+# Item shapes of the model's grid (rows, columns): square 8 x 8 tiles, and
+# tall and wide items (the kernel's items are up to 64 columns wide and as
+# tall as the grid allows, ring_p2p.grid_item)
+GRID_SHAPES = [(8, 8), (12, 4), (5, 12)]
+
+
+@pytest.mark.parametrize("shape", GRID_SHAPES,
+                         ids=[f"{h}x{w}" for h, w in GRID_SHAPES])
 @pytest.mark.parametrize("ny,nx", [
     (44, 36), (51, 36), (51, 45),   # even, and ragged last tile rows, columns
     (6, 36), (8, 29),               # one tile row (6 rows: fewer than k)
@@ -1062,16 +1082,17 @@ GRID_CALLS = [[(3, False), (1, False)], [(2, False), (3, False)]]
     (7, 5),                         # one tile, its own neighbour every way
 ])
 @pytest.mark.parametrize("k", range(1, 9))
-def test_grid_graph_is_the_cone(ny, nx, k):
-    """The grid kind's tile graph, decoded from its records: every tile
-    waits on exactly the tiles with owned cells within k of its own, both
+def test_grid_graph_is_the_cone(ny, nx, k, shape):
+    """The grid kind's item graph, decoded from its records: every item
+    waits on exactly the items with owned cells within k of its own, both
     axes wrapping (by cells, _brute_cone of one shard of ny rows), itself
-    included (a grid of one tile row or column is its own neighbour across
+    included (a grid of one item row or column is its own neighbour across
     the wrap), a symmetric relation; headers in row-major walk order,
     duties 0, no flag of another card."""
-    t, tiles_x = MODEL_TILE, -(-nx // MODEL_TILE)
-    deps, header = decode_grid(ny, nx, k)
-    cone = _brute_cone([ny], nx, k, t)[0]
+    th, tw = shape
+    tiles_x = -(-nx // tw)
+    deps, header = decode_grid(ny, nx, k, shape)
+    cone = _brute_cone([ny], nx, k, shape)[0]
     assert len(deps) == len(cone)
     for tile, want in enumerate(cone):
         assert sorted((0, u) for u in deps[tile]) == want
@@ -1080,18 +1101,23 @@ def test_grid_graph_is_the_cone(ny, nx, k):
             assert tile in deps[u]
         ty, tx = divmod(tile, tiles_x)
         assert header[tile] == dict(
-            shard=0, tile=tile, y0=ty * t, x0=tx * t,
-            own_rows=min(t, ny - ty * t), own_cols=min(t, nx - tx * t),
+            shard=0, tile=tile, y0=ty * th, x0=tx * tw,
+            own_rows=min(th, ny - ty * th), own_cols=min(tw, nx - tx * tw),
             duties=0, counts=len(deps[tile]))
 
 
-def test_grid_graph_at_the_kernel_tile():
-    """At the kernel's 32 x 32 tiles and k = 8: 9 tiles a tile at 1024^2;
-    on a ragged 100 x 130 grid (a 4-row last tile row, a 2-column last tile
-    column) a corner tile waits on 4 x 4; both the cone by cells."""
+@pytest.mark.parametrize("shape", [(32, 32), None], ids=["tile", "item"])
+def test_grid_graph_at_the_kernel_tile(shape):
+    """At k = 8, the cone by cells at 1024^2 and on a ragged 100 x 130 grid,
+    for K4's 32 x 32 tiles (9 a tile at 1024^2; at 100 x 130, a 4-row last
+    tile row and a 2-column last tile column, a corner tile waits on 4 x 4)
+    and for the kernel's items (ring_p2p.grid_item: 61 x 64 at 1024^2, 9
+    an item; 8 x 16 at 100 x 130, a 4-row last item row and a 2-column
+    last item column, the corner waits on 4 x 4 too)."""
     for ny, nx in ((1024, 1024), (100, 130)):
-        deps, _ = decode_grid(ny, nx, 8, ring_p2p.TILE)
-        cone = _brute_cone([ny], nx, 8, ring_p2p.TILE)[0]
+        t = shape or ring_p2p.grid_item(ny, nx)[:2]
+        deps, _ = decode_grid(ny, nx, 8, t)
+        cone = _brute_cone([ny], nx, 8, t)[0]
         for tile, want in enumerate(cone):
             assert sorted((0, u) for u in deps[tile]) == want
         if ny == 1024:
@@ -1112,28 +1138,30 @@ def _plain_grid_calls(p, mask, f, k, calls):
     return f, sums
 
 
-def _grid_model(ny=51, nx=36, k=5, seed=3, **kw):
-    """The model of the grid kind on a ny x nx grid (8 x 8 model tiles, k =
-    5: at 51 x 36 a 3-row last tile row and a 4-column last tile column,
-    narrower than k), and its first state."""
+def _grid_model(ny=51, nx=36, k=5, seed=3, shape=MODEL_TILE, **kw):
+    """The model of the grid kind on a ny x nx grid (8 x 8 model tiles, or
+    items of ``shape``; k = 5: at 51 x 36 a 3-row last tile row and a
+    4-column last tile column, narrower than k), and its first state."""
     p, mask, f0 = _case(ny, nx, seed)
     state = torch.tensor(f0)
     return (FlagModel(p, [ny], [0], ["a"], mask, [state], k, grid=True,
-                      **kw), p, mask, state)
+                      t=shape, **kw), p, mask, state)
 
 
+@pytest.mark.parametrize("shape", GRID_SHAPES,
+                         ids=[f"{h}x{w}" for h, w in GRID_SHAPES])
 @pytest.mark.parametrize("ny,nx,grid", [
     (51, 36, 1), (51, 36, 7), (51, 36, 29), (44, 36, None), (6, 36, 3),
     (44, 5, 4),
 ])
-def test_flag_model_on_the_grid_graph(ny, nx, grid):
+def test_flag_model_on_the_grid_graph(ny, nx, grid, shape):
     """The model of the grid kind (the whole grid one shard on one card,
     window rows wrapping into the state itself) on the grid graph, for
-    grids of 1 CTA to every tile of a chunk, grids of one tile row (fewer
-    rows than k) or column: it finishes, reads no stale cell and ends
-    bitwise equal to grid_p2p_chunks_ref over the same calls, state and
-    per-step sums."""
-    model, p, mask, state = _grid_model(ny, nx)
+    grids of 1 CTA to every item of a chunk, grids of one item row (fewer
+    rows than k) or column, items square, tall or wide: it finishes, reads
+    no stale cell and ends bitwise equal to grid_p2p_chunks_ref over the
+    same calls, state and per-step sums."""
+    model, p, mask, state = _grid_model(ny, nx, shape=shape)
     rng = np.random.RandomState(ny * 100 + nx + (grid or 0))
     for launches in GRID_CALLS:
         model.call(launches, grid or model.ntiles(0), rng)
@@ -1152,7 +1180,8 @@ def _narrow_grid(axis):
     (1) next to the tile's own: where the last tile row or column is
     narrower than k, the cone reaches one further."""
     def deps(rows, nx, d, tile, k, t):
-        shape = (-(-rows[0] // t), -(-nx // t))
+        th, tw = _shape(t)
+        shape = (-(-rows[0] // th), -(-nx // tw))
         own = divmod(tile, shape[1])[axis]
         n = shape[axis]
         return [(e, u) for e, u in grid_graph_deps(rows, nx, d, tile, k, t)
@@ -1161,8 +1190,9 @@ def _narrow_grid(axis):
 
 
 def _caught_grid(deps, grid, seeds=4, **kw):
-    """The seeds of 4 whose run of the grid kind's model (51 x 36,
-    GRID_CALLS) with ``deps`` read a stale cell or deadlocked."""
+    """The seeds of 4 whose run of the grid kind's model (51 x 36 unless
+    ``kw`` says otherwise, GRID_CALLS) with ``deps`` read a stale cell or
+    deadlocked."""
     caught = 0
     for seed in range(seeds):
         model = _grid_model(deps=deps, **kw)[0]
@@ -1175,18 +1205,25 @@ def _caught_grid(deps, grid, seeds=4, **kw):
     return caught
 
 
-@pytest.mark.parametrize("axis", [0, 1], ids=["three_rows", "three_cols"])
-def test_flag_model_on_the_grid_catches_a_narrow_neighbourhood(axis):
+@pytest.mark.parametrize("axis,nx,grid", [(0, 36, 26), (1, 44, 37)],
+                         ids=["three_rows", "three_cols"])
+def test_flag_model_on_the_grid_catches_a_narrow_neighbourhood(axis, nx,
+                                                               grid):
     """On the grid graph, a relation cut to the next tile row or column
-    each way reads a stale cell: every seed, at 23 CTAs (at 29, the rows'
-    cut on every seed and the columns' on 2 of 4)."""
-    assert _caught_grid(_narrow_grid(axis), 23) == 4
+    each way reads a stale cell: every seed, the rows' cut on the 51 x 36
+    grid at 26 CTAs (also at 25-28, 34 and 35), the columns' on a 51 x 44
+    grid at 37 CTAs (its last tile column 4 wide; with each chunk's walk
+    starting one tile row further down, a tile's neighbours lie further
+    back in the walk, and fewer CTAs than these catch the cuts on some
+    seeds only)."""
+    assert _caught_grid(_narrow_grid(axis), grid, nx=nx) == 4
 
 
 def test_flag_model_on_the_grid_catches_an_early_release():
     """On the grid graph, a producer that releases a tile's flag once its
-    window is loaded reads a stale cell: every seed, at 7 CTAs."""
-    assert _caught_grid(None, 7, early_release=True) == 4
+    window is loaded reads a stale cell: every seed, at 13 CTAs (at 11 to
+    29 alike)."""
+    assert _caught_grid(None, 13, early_release=True) == 4
 
 
 def test_grid_p2p_chunks_ref_is_k4s_plain_chain():

@@ -258,6 +258,28 @@ def test_cli_k6_wait_line(capsys, monkeypatch):
                      "(7.5 % on other cards')"]
 
 
+def test_cli_grid_item_line(capsys, monkeypatch):
+    """The CLI's line of the grid kind's items: none where the run launched
+    no grid kind (the CPU), one stderr line of the deck's item shape and
+    its updates computed an owned one where it did (a count of grid-kind
+    launches in LAUNCHES, as a card's run leaves it)."""
+    from tpulbm_torch.ops import _build, ring_p2p
+
+    args = [str(PF), str(OF), "--device", "cpu", "--max-iters", "4",
+            "--no-output"]
+    monkeypatch.setitem(_build.LAUNCHES, "grid_p2p", 0)
+    assert cli.main(args) == 0
+    assert "grid kind" not in capsys.readouterr().err
+    monkeypatch.setitem(_build.LAUNCHES, "grid_p2p", 2)
+    assert cli.main(args) == 0
+    lines = [s for s in capsys.readouterr().err.splitlines()
+             if "grid kind" in s]
+    h, w, ratio = ring_p2p.grid_item(128, 128)
+    assert (h, w) == (8, 16)
+    assert lines == [f"grid kind: 128 x 128 in 8 x 16 items, {ratio:.3f} "
+                     f"updates computed an owned one"]
+
+
 @pytest.mark.parametrize("layout", list(MESHES))
 def test_run_hands_its_shards_to_the_runner(layout):
     """Simulation.run keeps no reference to the shards it hands a runner

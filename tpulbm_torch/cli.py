@@ -279,11 +279,19 @@ def _main(args) -> int:
               f"({remote:.1f} % on other cards'){where}", file=sys.stderr,
               flush=True)
 
+    # The grid kind's item shape (the one-card route outside the resident
+    # gate): which items the run's launches stepped
+    from tpulbm_torch.ops import _build
+
+    if sim.output and _build.LAUNCHES["grid_p2p"]:
+        p = sim.params
+        h, w, ratio = ring_p2p.grid_item(p.ny, p.nx)
+        print(f"grid kind: {p.ny} x {p.nx} in {h} x {w} items, {ratio:.3f} "
+              f"updates computed an owned one", file=sys.stderr, flush=True)
+
     if not args.no_output:
         sim.write_outputs(args.out_dir)
     if args.launch_counts:
-        from tpulbm_torch.ops import _build
-
         path = args.launch_counts
         if args.multihost:
             path = f"{path}.{tr.rank}"

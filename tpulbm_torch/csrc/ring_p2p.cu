@@ -161,19 +161,40 @@
 //     (ops/ring_p2p.py::TorusExchange.enter), which then runs with
 //     pull0 = 0.
 //
-// Grid kind (lbm_grid_p2p, grid_p2p_kernel) runs the same pipeline over the
+// Grid kind (lbm_grid_p2p, grid_p2p_kernel) runs the same protocol over the
 // whole periodic (ny, nx) grid of one card: the one-card wide route
 // (dist/runner.py::kernel_plan), in place of one launch of K4's whole-grid
-// mode (kstep_tile.cu::lbm_kstep_tile) a chunk, whose bits it computes:
-// the same tiles, window, tile step and sums.
-//   Window: K4's whole-grid window, its rows and columns wrapping modulo
-//     (ny, nx), loaded by the copy group straight from the state (16-B
-//     copies where nx % 4 == 0, as K4). No landing slots, pushes, pull0,
-//     peers or system-scope fences: chunk c reads state[c & 1] and writes
-//     state[(c + 1) & 1], and the cone relation (ops/ring_p2p.py::
-//     grid_graph, the periodic grid's, both axes wrapping) orders each
-//     write after every read of the buffer it overwrites.
-//   Flags: one int a tile of this card, never reset, the epoch carried
+// mode (kstep_tile.cu::lbm_kstep_tile) a chunk, whose state it computes to
+// the bit, with its own items and step (wave_step.cuh).
+//   Items: h x w owned cells (w <= 64 columns), from the grid's shape alone
+//     (ops/ring_p2p.py::grid_item), row-major, one flag each; the cone
+//     relation (ops/ring_p2p.py::grid_graph, both axes wrapping) orders
+//     each write after every read of the buffer it overwrites, as above.
+//     No landing slots, pushes, pull0, peers or system-scope fences: chunk
+//     c reads state[c & 1] and writes state[(c + 1) & 1].
+//   Walk: chunk c's walk starts at item row c (rot items on), so that an
+//     item's dependencies in chunk c - 1 lie more than two item rows'
+//     items before it in the walk; started at row 0, the first items of a
+//     chunk waited on the last ones of the chunk before (the rows wrap),
+//     a round of CTAs after them.
+//   Step: the stepping warps step the CTA's items as one row wavefront
+//     over the k levels that streams from one item into the next
+//     (wave_step.cuh::step_stream), one named barrier a wave; the copy
+//     warps stream the items' window rows ahead of it (copy_stream); the
+//     producer posts up to kJobs items, each once its flags are done, and
+//     releases each item's flag once it is stored (produce_stream).
+//   Bound and design. A chunk moves the state in and out once and does 94
+//     fp32 operations an owned update (0.0118 ms at 1024^2, operations).
+//     The square window of the other kinds computes 1.51 updates an owned
+//     one at k = 8 and takes two barriers a step; a larger square does not
+//     fit beside a second stage. The wavefront's shared memory grows with
+//     the width alone, so the item can be tall: 1.242 updates an owned one
+//     at 1024^2's 61 x 64 items, 1.113 at 8192^2's 2048 x 64.
+//   Sums: each item's k partials in wave_step.cuh's fixed order, reduced by
+//     reduce_rows: the grid kind's own bits, not K4's order of 32 x 32
+//     tiles (ops/ring_p2p.py::grid_sums_ref is the plain version of the
+//     reduction).
+//   Flags: one int an item of this card, never reset, the epoch carried
 //     across launches and runner calls (ops/ring_p2p.py::GridExchange).
 //   Not torus mode over a 1 x 1 block: that would push four edge slabs
 //     and the corners every chunk into slots only the block itself reads.
@@ -187,10 +208,16 @@
 #include "async_copy.cuh"
 #include "lbm_cell.cuh"
 #include "tile_step.cuh"
+#include "wave_step.cuh"
 
 namespace {
 
 using namespace tpulbm::tile;
+using tpulbm::mbar_arrive;
+using tpulbm::mbar_arrive_copies;
+using tpulbm::mbar_init;
+using tpulbm::mbar_test;
+using tpulbm::mbar_wait;
 
 constexpr int kMaxLocal = 16;       // shards of one launch
 constexpr int kMaxOuter = 64;       // chunks of one launch
@@ -216,6 +243,7 @@ constexpr int kReadRemote = 2;      // duty: a tile on another card waits
 constexpr int kCopyWarps = 4;
 constexpr int kBlock = kThreads + 32 * kCopyWarps;
 constexpr int kStepBar = 1;         // named barrier of the stepping warps
+constexpr int kCopyBar = 2;         // ... of the grid kind's copy warps
 constexpr long long kSpinNs = 10000000000LL;
 constexpr int kErrTimeout = 1;      // the error word: a wait ran out
 // The counter words (unsigned long long): the CTAs' lives, their producers'
@@ -291,14 +319,16 @@ struct TorusLaunch {
   long long xstride, ystride;
 };
 
-// Grid kind: the whole (ny, nx) grid, its tiles row-major. state[0] holds
-// the state at the launch's first epoch, as a ring shard's.
+// Grid kind: the whole (ny, nx) grid, its items of w columns row-major.
+// state[0] holds the state at the launch's first epoch, as a ring shard's.
 struct GridLaunch {
   Protocol<1> p;
   const float* obst;       // (ny, nx) mask
   float* state[2];
   float* partials;         // (n_outer k, items)
   float* sums;             // (n_outer k,)
+  int w;                   // item columns
+  int rot;                 // items a row: chunk c's walk starts at item c rot
 };
 
 // The stepped tile of a stage, written by the producer before it arrives
@@ -324,68 +354,12 @@ struct TorusJob {
   int live;
 };
 
-// Grid kind's stepped tile: as Job, with no pushes.
-struct GridJob {
-  float* out;              // the grid's next state, (9, ny, nx)
-  float* partials;
-  int y0, x0, own_rows, own_cols, ntiles;
-  int live;
-};
-
 // The producer's view of an item; lane l holds dependency l.
 struct Item {
   int c, r, j, tile, y0, x0, own_rows, own_cols, duties;
   const int* flag;         // this lane's dependency, or null
   bool sys;                // it lies on another card
 };
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(b)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(unsigned long long* b) {
-  asm volatile(
-      "{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}" ::"r"(
-          smem_u32(b))
-      : "memory");
-}
-
-// An arrive on b once every cp.async this thread issued before has landed
-// (the pending count is raised now and lowered then).
-__device__ __forceinline__ void mbar_arrive_copies(unsigned long long* b) {
-  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];" ::"r"(
-                   smem_u32(b))
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_test(unsigned long long* b, int parity) {
-  unsigned ok;
-  asm volatile(
-      "{\n .reg .pred p;\n mbarrier.test_wait.parity.shared::cta.b64 p, [%1], "
-      "%2;\n selp.u32 %0, 1, 0, p;\n}"
-      : "=r"(ok)
-      : "r"(smem_u32(b)), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned long long* b, int parity) {
-  unsigned ok;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, "
-        "[%1], %2;\n selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(ok)
-        : "r"(smem_u32(b)), "r"(parity)
-        : "memory");
-  } while (!ok);
-}
 
 __device__ __forceinline__ int load_acquire(const int* p, bool sys) {
   int v;
@@ -541,53 +515,8 @@ __device__ __forceinline__ void copy_window(float* stage, unsigned char* acc,
   }
 }
 
-// Grid kind's window source: the (9, ny, nx) state src and the (ny, nx)
-// mask; window row wy of a tile at (y0, x0) is grid row y0 - k + wy and
-// window column wc grid column x0 - kx + wc, both wrapping, as in K4's
-// whole-grid mode.
-struct GridWindow {
-  const float* src;
-  const float* obst;
-  int y0, x0, live;
-};
-
-// Copy-group thread t's part of grid window W, as copy_window: with nx % 4
-// == 0 every 4-column segment starts at a multiple of 4 and lies in one
-// row of the grid.
-template <int kK, int kSeg>
-__device__ __forceinline__ void copy_window(float* stage, unsigned char* acc,
-                                            const GridWindow& W,
-                                            const tpulbm::LbmArgs& a, int t) {
-  constexpr int k = kK;
-  constexpr int kx = col_margin(k);
-  constexpr int wh = kTile + 2 * k;
-  constexpr int w = kTile + 2 * kx;
-  constexpr int plane = wh * w;
-  constexpr int segs = w / kSeg;
-  const size_t gplane = (size_t)a.ny * a.nx;
-  for (int s = t; s < wh * segs; s += 32 * kCopyWarps) {
-    const int wy = s / segs, wc = (s - wy * segs) * kSeg;
-    const int r = wrap(W.y0 - k + wy, a.ny);
-    if (wc == 0) acc[wy] = r == a.accel_row;
-    const int col = wrap(W.x0 - kx + wc, a.nx);
-    const float* g = W.src + (size_t)r * a.nx + col;
-    const float* m = W.obst + (size_t)r * a.nx + col;
-    float* d = stage + wy * w + wc;
-    if constexpr (kSeg == 4) {
-#pragma unroll
-      for (int q = 0; q < 9; ++q)
-        tpulbm::cp_async16(d + q * plane, g + q * gplane);
-      tpulbm::cp_async16(d + 9 * plane, m);
-    } else {
-#pragma unroll
-      for (int q = 0; q < 9; ++q) d[q * plane] = __ldcg(g + q * gplane);
-      d[9 * plane] = __ldcg(m);
-    }
-  }
-}
-
-// Copy-group thread t's part of stage st's window (a Window, TorusWindow
-// or GridWindow), then its arrivals on full: once for its stores, once
+// Copy-group thread t's part of stage st's window (a Window or
+// TorusWindow), then its arrivals on full: once for its stores, once
 // (cp.async.mbarrier.arrive) when its copies land.
 template <int kK, class Win>
 __device__ __forceinline__ void copy_part(float* stage, unsigned char* acc,
@@ -718,25 +647,22 @@ __device__ __forceinline__ void post(const TorusLaunch& L, const Item& it,
   W.live = 1;
 }
 
-// Grid kind's post: the job and the window, state[c & 1] read and
-// state[(c + 1) & 1] written.
+// Grid kind's post: the item's job, state[c & 1] read and state[(c + 1) &
+// 1] written, its flag and the epoch it finishes.
 template <int kK>
 __device__ __forceinline__ void post(const GridLaunch& L, const Item& it,
-                                     GridJob& J, GridWindow& W,
-                                     const tpulbm::LbmArgs&) {
+                                     tpulbm::wave::Job& J) {
+  J.src = L.state[it.c & 1];
   J.out = L.state[(it.c + 1) & 1];
   J.partials = L.partials + (size_t)it.c * kK * L.p.items + it.tile;
   J.y0 = it.y0;
   J.x0 = it.x0;
   J.own_rows = it.own_rows;
   J.own_cols = it.own_cols;
-  J.ntiles = L.p.items;
+  J.items = L.p.items;
   J.live = 1;
-  W.src = L.state[it.c & 1];
-  W.obst = L.obst;
-  W.y0 = it.y0;
-  W.x0 = it.x0;
-  W.live = 1;
+  J.rec = it.r;
+  J.epoch = L.p.base + it.c + 1;
 }
 
 // Torus mode's store of owned cell (oy, ox) of job J's tile: the block's
@@ -773,270 +699,168 @@ __device__ __forceinline__ void torus_store(const TorusLaunch& L,
   }
 }
 
-// The kernel of every kind (LaunchT: Launch, TorusLaunch or GridLaunch),
-// one CTA.
-template <int kK, class LaunchT>
-__device__ __forceinline__ void p2p_body(const LaunchT& L,
-                                         const tpulbm::LbmArgs& a,
-                                         int vec16) {
-  constexpr bool kTorus = std::is_same_v<LaunchT, TorusLaunch>;
-  constexpr bool kGrid = std::is_same_v<LaunchT, GridLaunch>;
-  using JobT = std::conditional_t<
-      kTorus, TorusJob, std::conditional_t<kGrid, GridJob, Job>>;
-  using WinT = std::conditional_t<
-      kTorus, TorusWindow, std::conditional_t<kGrid, GridWindow, Window>>;
-  extern __shared__ __align__(16) float smem[];
-  __shared__ float warp_sums[kMaxK][kWarps];
-  __shared__ unsigned char acc_rows[2][kMaxW];
-  __shared__ JobT job[2];
-  __shared__ WinT win[2];
-  // posted[s]: win[s] is set (the producer's arrival); full[s]: stage s's
-  // window and job are in (the copy group's arrivals and copies); done[s]:
-  // its tile is stored (one arrival)
-  __shared__ unsigned long long posted[2], full[2], done[2];
-  __shared__ int go;
-  // the CTA's entry in both clocks; its producer's waits (cycles): all,
-  // and those on another card
-  __shared__ long long t_entry, c_entry;
-  __shared__ unsigned long long waited[2];
-  constexpr int k = kK;
-  constexpr int sfloats = stage_floats(k);
-  const int total = L.p.items * L.p.n_outer;
-  if (threadIdx.x == 0) {
-    t_entry = globaltimer();
-    c_entry = clock64();
-    for (int s = 0; s < 2; ++s) {
-      mbar_init(&posted[s], 1);
-      mbar_init(&full[s], 32 * kCopyWarps);
-      mbar_init(&done[s], 1);
-    }
-  }
-  __syncthreads();
+// Record r of the graph as item (c, r), read by the producer warp: lane l
+// holds dependency l.
+template <class LaunchT>
+__device__ __forceinline__ Item read_item(const LaunchT& L, int c, int r) {
+  const int lane = threadIdx.x & 31;
+  Item it;
+  it.c = c;
+  it.r = r;
+  const int* rec = L.p.graph + (size_t)r * kRec;
+  const int hdr = __ldg(rec + (lane & (kRecDeps - 1)));
+  const int dep = __ldg(rec + kRecDeps + lane);
+  it.j = __shfl_sync(0xffffffffu, hdr, 0);
+  it.tile = __shfl_sync(0xffffffffu, hdr, 1);
+  it.y0 = __shfl_sync(0xffffffffu, hdr, 2);
+  it.x0 = __shfl_sync(0xffffffffu, hdr, 3);
+  it.own_rows = __shfl_sync(0xffffffffu, hdr, 4);
+  it.own_cols = __shfl_sync(0xffffffffu, hdr, 5);
+  it.duties = __shfl_sync(0xffffffffu, hdr, 6);
+  const int counts = __shfl_sync(0xffffffffu, hdr, 7);
+  const int local = counts & 255, deps = local + (counts >> 8);
+  it.flag = lane < deps ? L.p.peer_flags[dep >> kPeerShift] +
+                              (dep & ((1 << kPeerShift) - 1))
+                        : nullptr;
+  it.sys = lane >= local;
+  return it;
+}
 
-  if (threadIdx.x < kThreads) {
-    // The stepping warps: tile n of this CTA in stage n & 1, the
-    // (n >> 1)-th use of the stage.
-    const Cells<kK> cells;
-    for (int n = 0;; ++n) {
-      const int st = n & 1;
-      mbar_wait(&full[st], (n >> 1) & 1);
-      const JobT& J = job[st];
-      if (!J.live) break;
-      auto partial = [&](int s, float v) {
-        J.partials[(size_t)s * J.ntiles] = v;
-      };
-      if constexpr (kTorus) {
-        step_tile<kK, kStepBar>(
-            smem + st * sfloats, acc_rows[st], J.own_rows, J.own_cols, cells,
-            warp_sums, a,
-            [&](int oy, int ox, const float* res) {
-              torus_store<kK>(L, J, oy, ox, res);
-            },
-            partial);
-      } else if constexpr (kGrid) {
-        step_tile<kK, kStepBar>(
-            smem + st * sfloats, acc_rows[st], J.own_rows, J.own_cols, cells,
-            warp_sums, a,
-            [&](int oy, int ox, const float* res) {
-              float* o = J.out + (size_t)(J.y0 + oy) * a.nx + J.x0 + ox;
-              const size_t oplane = (size_t)a.ny * a.nx;
-#pragma unroll
-              for (int q = 0; q < 9; ++q) o[q * oplane] = res[q];
-            },
-            partial);
-      } else {
-        step_tile<kK, kStepBar>(
-            smem + st * sfloats, acc_rows[st], J.own_rows, J.own_cols, cells,
-            warp_sums, a,
-            [&](int oy, int ox, const float* res) {
-              const int row = J.y0 + oy, col = J.x0 + ox, h = J.h;
-              float* o = J.out + (size_t)row * a.nx + col;
-              const size_t oplane = (size_t)h * a.nx;
-              const size_t slab_plane = (size_t)k * a.nx;
-#pragma unroll
-              for (int q = 0; q < 9; ++q) o[q * oplane] = res[q];
-              if (row >= h - k) {
-                float* p = J.push_lo + (size_t)(row - (h - k)) * a.nx + col;
-#pragma unroll
-                for (int q = 0; q < 9; ++q) p[q * slab_plane] = res[q];
-              }
-              if (row < k) {
-                float* p = J.push_hi + (size_t)row * a.nx + col;
-#pragma unroll
-                for (int q = 0; q < 9; ++q) p[q * slab_plane] = res[q];
-              }
-            },
-            partial);
+// One poll of the item's flags (ld.acquire, one lane a flag): in every
+// lane, the lanes whose flag has not finished the epoch before the item's
+// (0: all done).
+template <class LaunchT>
+__device__ __forceinline__ unsigned poll_item(const LaunchT& L,
+                                              const Item& it) {
+  const int ok = !it.flag || load_acquire(it.flag, it.sys) >= L.p.base + it.c;
+  const unsigned pending = __ballot_sync(0xffffffffu, !ok);
+  __syncwarp();
+  return pending;
+}
+
+// The producer warp of every kind (LaunchT: Launch, TorusLaunch or
+// GridLaunch): walks the CTA's items blockIdx.x, + gridDim.x, ... of the
+// launch's chunks in order. For each it polls the dependencies' flags, hands
+// the item on (issue(it, st): its job into stage st, the (n >> 1)-th use of
+// stage st = n & 1), waits until it is stored (done[st]) and releases its
+// flag. While item n steps it polls the next item's flags and issues it as
+// soon as they are done; otherwise it releases item n's flag first and then
+// waits. stop(st): no more items in stage st. Leaves its blocked waits (SM
+// cycles: all, and those on another card) in waited[0], waited[1].
+template <class LaunchT, class Issue, class Stop>
+__device__ __forceinline__ void produce(const LaunchT& L,
+                                        unsigned long long* done,
+                                        unsigned long long* waited,
+                                        Issue issue, Stop stop) {
+  const int lane = threadIdx.x & 31;
+  const int total = L.p.items * L.p.n_outer;
+
+  auto fetch = [&](int item) {
+    const int c = item / L.p.items;
+    return read_item(L, c, item - c * L.p.items);
+  };
+  auto poll = [&](const Item& it) { return poll_item(L, it); };
+
+  // The blocked waits (SM cycles): all of them, and those that found a
+  // flag of another card not done at their first poll.
+  unsigned long long wait_cyc = 0, remote_cyc = 0;
+
+  // Polls until the item's flags are done: false where the card's error
+  // word is set (this or another CTA gave up) or the bound ran out. A
+  // wait whose first poll fails is timed into wait_cyc (and remote_cyc).
+  auto wait = [&](const Item& it) {
+    const unsigned pending = poll(it);
+    if (!pending) return true;
+    const bool remote = (pending & __ballot_sync(0xffffffffu, it.sys)) != 0;
+    const long long t0 = globaltimer(), c0 = clock64();
+    bool ok = false;
+    for (int n = 1;; ++n) {
+      if ((n & 31) == 0) {
+        int bad = 0;
+        if (lane == 0) {
+          bad = *(volatile int*)L.p.error;
+          if (!bad && globaltimer() - t0 > kSpinNs) {
+            atomicExch(L.p.error, kErrTimeout);
+            bad = 1;
+          }
+        }
+        if (__shfl_sync(0xffffffffu, bad, 0)) break;
       }
-      if constexpr (!kGrid) {
-        if (J.push_remote) __threadfence_system();
-      }
-      // every stepping thread's stores (and sys fence) and reads of job[st]
-      // are done: the producer may release the tile and refill the stage
-      step_sync<kStepBar>();
-      if (threadIdx.x == 0) mbar_arrive(&done[st]);
-    }
-  } else if (threadIdx.x >= kThreads + 32) {
-    // The copy warps: window n into stage n & 1, once the producer set it.
-    const int t = threadIdx.x - kThreads;
-    for (int n = 0;; ++n) {
-      const int st = n & 1;
-      mbar_wait(&posted[st], (n >> 1) & 1);
-      if (!win[st].live) {
-        mbar_arrive(&full[st]);
+      __nanosleep(100);
+      if (!poll(it)) {
+        ok = true;
         break;
       }
-      copy_part<kK>(smem + st * sfloats, acc_rows[st], win[st], &full[st], a,
-                    vec16, t);
     }
-    tpulbm::cp_async_wait<0>();
+    const unsigned long long dc = clock64() - c0;
+    wait_cyc += dc;
+    if (remote) remote_cyc += dc;
+    return ok;
+  };
+
+  // The item's flag, after its stores (done): epoch + 1.
+  auto release = [&](const Item& it) {
+    if (lane == 0)
+      store_release(L.p.flags + it.r, L.p.base + it.c + 1,
+                    it.duties & kReadRemote);
+    __syncwarp();
+  };
+
+  int item = blockIdx.x;   // < total: the grid is at most total
+  Item it = fetch(item);
+  if (!wait(it)) {
+    stop(0);
   } else {
-    // The producer warp.
-    const int lane = threadIdx.x & 31;
-
-    auto fetch = [&](int item) {
-      Item it;
-      it.c = item / L.p.items;
-      it.r = item - it.c * L.p.items;
-      const int* rec = L.p.graph + (size_t)it.r * kRec;
-      const int hdr = __ldg(rec + (lane & (kRecDeps - 1)));
-      const int dep = __ldg(rec + kRecDeps + lane);
-      it.j = __shfl_sync(0xffffffffu, hdr, 0);
-      it.tile = __shfl_sync(0xffffffffu, hdr, 1);
-      it.y0 = __shfl_sync(0xffffffffu, hdr, 2);
-      it.x0 = __shfl_sync(0xffffffffu, hdr, 3);
-      it.own_rows = __shfl_sync(0xffffffffu, hdr, 4);
-      it.own_cols = __shfl_sync(0xffffffffu, hdr, 5);
-      it.duties = __shfl_sync(0xffffffffu, hdr, 6);
-      const int counts = __shfl_sync(0xffffffffu, hdr, 7);
-      const int local = counts & 255, deps = local + (counts >> 8);
-      it.flag = lane < deps ? L.p.peer_flags[dep >> kPeerShift] +
-                                  (dep & ((1 << kPeerShift) - 1))
-                            : nullptr;
-      it.sys = lane >= local;
-      return it;
-    };
-
-    // One poll of the item's flags (ld.acquire, one lane a flag): in every
-    // lane, the lanes whose flag has not finished the epoch before the
-    // item's (0: all done).
-    auto poll = [&](const Item& it) {
-      const int ok =
-          !it.flag || load_acquire(it.flag, it.sys) >= L.p.base + it.c;
-      const unsigned pending = __ballot_sync(0xffffffffu, !ok);
-      __syncwarp();
-      return pending;
-    };
-
-    // The blocked waits (SM cycles): all of them, and those that found a
-    // flag of another card not done at their first poll.
-    unsigned long long wait_cyc = 0, remote_cyc = 0;
-
-    // Polls until the item's flags are done: false where the card's error
-    // word is set (this or another CTA gave up) or the bound ran out. A
-    // wait whose first poll fails is timed into wait_cyc (and remote_cyc).
-    auto wait = [&](const Item& it) {
-      const unsigned pending = poll(it);
-      if (!pending) return true;
-      const bool remote = (pending & __ballot_sync(0xffffffffu, it.sys)) != 0;
-      const long long t0 = globaltimer(), c0 = clock64();
-      bool ok = false;
-      for (int n = 1;; ++n) {
-        if ((n & 31) == 0) {
-          int bad = 0;
-          if (lane == 0) {
-            bad = *(volatile int*)L.p.error;
-            if (!bad && globaltimer() - t0 > kSpinNs) {
-              atomicExch(L.p.error, kErrTimeout);
-              bad = 1;
-            }
-          }
-          if (__shfl_sync(0xffffffffu, bad, 0)) break;
+    issue(it, 0);
+    for (int n = 0;; ++n) {
+      const int st = n & 1, phase = (n >> 1) & 1;
+      const int next = item + gridDim.x;
+      Item nt;
+      bool have = false;
+      if (next < total) {
+        // While item n steps: the next one, once its flags are done.
+        nt = fetch(next);
+        while (!(have = !poll(nt)) && !mbar_test(&done[st], phase)) {
         }
-        __nanosleep(100);
-        if (!poll(it)) {
-          ok = true;
-          break;
-        }
+        if (have) issue(nt, st ^ 1);
       }
-      const unsigned long long dc = clock64() - c0;
-      wait_cyc += dc;
-      if (remote) remote_cyc += dc;
-      return ok;
-    };
-
-    // The item's job and window into stage st: win[st] for the copy
-    // warps (posted), this warp's part of the copy, the arrivals on full.
-    auto issue = [&](const Item& it, int st) {
-      if (lane == 0) {
-        post<kK>(L, it, job[st], win[st], a);
-        mbar_arrive(&posted[st]);
+      mbar_wait(&done[st], phase);
+      release(it);
+      if (next >= total) {
+        stop(st ^ 1);
+        break;
       }
-      __syncwarp();
-      copy_part<kK>(smem + st * sfloats, acc_rows[st], win[st], &full[st], a,
-                    vec16, lane);
-    };
-
-    // The stepping and copy warps find no more tiles in stage st.
-    auto stop = [&](int st) {
-      if (lane == 0) {
-        job[st].live = 0;
-        win[st].live = 0;
-        mbar_arrive(&posted[st]);
-      }
-      mbar_arrive(&full[st]);
-    };
-
-    // The tile's flag, after its stores (done): epoch + 1.
-    auto release = [&](const Item& it) {
-      if (lane == 0)
-        store_release(L.p.flags + it.r, L.p.base + it.c + 1,
-                      it.duties & kReadRemote);
-      __syncwarp();
-    };
-
-    int item = blockIdx.x;   // < total: the grid is at most total
-    Item it = fetch(item);
-    if (!wait(it)) {
-      stop(0);
-    } else {
-      issue(it, 0);
-      for (int n = 0;; ++n) {
-        const int st = n & 1, phase = (n >> 1) & 1;
-        const int next = item + gridDim.x;
-        Item nt;
-        bool have = false;
-        if (next < total) {
-          // While tile n steps: the next window, once its flags are done.
-          nt = fetch(next);
-          while (!(have = !poll(nt)) && !mbar_test(&done[st], phase)) {
-          }
-          if (have) issue(nt, st ^ 1);
-        }
-        mbar_wait(&done[st], phase);
-        release(it);
-        if (next >= total) {
+      if (!have) {
+        if (!wait(nt)) {
           stop(st ^ 1);
           break;
         }
-        if (!have) {
-          if (!wait(nt)) {
-            stop(st ^ 1);
-            break;
-          }
-          issue(nt, st ^ 1);
-        }
-        item = next;
-        it = nt;
+        issue(nt, st ^ 1);
       }
+      item = next;
+      it = nt;
     }
-    if (lane == 0) {
-      waited[0] = wait_cyc;
-      waited[1] = remote_cyc;
-    }
-    tpulbm::cp_async_wait<0>();
   }
+  if (lane == 0) {
+    waited[0] = wait_cyc;
+    waited[1] = remote_cyc;
+  }
+}
 
+// The end of every kind's CTA, all threads: where the card's error word is
+// clear, the CTA that draws the launch's last ticket reduces each (chunk,
+// shard or block)'s k rows of partials in reduce_rows's order; then each
+// CTA adds its life (from t_entry, c_entry) and its producer's waited
+// cycles, converted to ns, into the card's counter words, and CTA 0 counts
+// the launch.
+template <int kK, class LaunchT>
+__device__ __forceinline__ void finish(const LaunchT& L, long long t_entry,
+                                       long long c_entry,
+                                       const unsigned long long* waited) {
+  constexpr bool kTorus = std::is_same_v<LaunchT, TorusLaunch>;
+  constexpr bool kGrid = std::is_same_v<LaunchT, GridLaunch>;
+  constexpr int k = kK;
+  __shared__ int go;
   __syncthreads();
   if (threadIdx.x == 0) go = *(volatile int*)L.p.error == 0;
   __syncthreads();
@@ -1077,6 +901,265 @@ __device__ __forceinline__ void p2p_body(const LaunchT& L,
   }
 }
 
+// The kernel of ring and torus mode (LaunchT: Launch or TorusLaunch), one
+// CTA.
+template <int kK, class LaunchT>
+__device__ __forceinline__ void p2p_body(const LaunchT& L,
+                                         const tpulbm::LbmArgs& a,
+                                         int vec16) {
+  constexpr bool kTorus = std::is_same_v<LaunchT, TorusLaunch>;
+  using JobT = std::conditional_t<kTorus, TorusJob, Job>;
+  using WinT = std::conditional_t<kTorus, TorusWindow, Window>;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float warp_sums[kMaxK][kWarps];
+  __shared__ unsigned char acc_rows[2][kMaxW];
+  __shared__ JobT job[2];
+  __shared__ WinT win[2];
+  // posted[s]: win[s] is set (the producer's arrival); full[s]: stage s's
+  // window and job are in (the copy group's arrivals and copies); done[s]:
+  // its tile is stored (one arrival)
+  __shared__ unsigned long long posted[2], full[2], done[2];
+  // the CTA's entry in both clocks; its producer's waits (cycles): all,
+  // and those on another card
+  __shared__ long long t_entry, c_entry;
+  __shared__ unsigned long long waited[2];
+  constexpr int k = kK;
+  constexpr int sfloats = stage_floats(k);
+  if (threadIdx.x == 0) {
+    t_entry = globaltimer();
+    c_entry = clock64();
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&posted[s], 1);
+      mbar_init(&full[s], 32 * kCopyWarps);
+      mbar_init(&done[s], 1);
+    }
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kThreads) {
+    // The stepping warps: tile n of this CTA in stage n & 1, the
+    // (n >> 1)-th use of the stage.
+    const Cells<kK> cells;
+    for (int n = 0;; ++n) {
+      const int st = n & 1;
+      mbar_wait(&full[st], (n >> 1) & 1);
+      const JobT& J = job[st];
+      if (!J.live) break;
+      auto partial = [&](int s, float v) {
+        J.partials[(size_t)s * J.ntiles] = v;
+      };
+      if constexpr (kTorus) {
+        step_tile<kK, kStepBar>(
+            smem + st * sfloats, acc_rows[st], J.own_rows, J.own_cols, cells,
+            warp_sums, a,
+            [&](int oy, int ox, const float* res) {
+              torus_store<kK>(L, J, oy, ox, res);
+            },
+            partial);
+      } else {
+        step_tile<kK, kStepBar>(
+            smem + st * sfloats, acc_rows[st], J.own_rows, J.own_cols, cells,
+            warp_sums, a,
+            [&](int oy, int ox, const float* res) {
+              const int row = J.y0 + oy, col = J.x0 + ox, h = J.h;
+              float* o = J.out + (size_t)row * a.nx + col;
+              const size_t oplane = (size_t)h * a.nx;
+              const size_t slab_plane = (size_t)k * a.nx;
+#pragma unroll
+              for (int q = 0; q < 9; ++q) o[q * oplane] = res[q];
+              if (row >= h - k) {
+                float* p = J.push_lo + (size_t)(row - (h - k)) * a.nx + col;
+#pragma unroll
+                for (int q = 0; q < 9; ++q) p[q * slab_plane] = res[q];
+              }
+              if (row < k) {
+                float* p = J.push_hi + (size_t)row * a.nx + col;
+#pragma unroll
+                for (int q = 0; q < 9; ++q) p[q * slab_plane] = res[q];
+              }
+            },
+            partial);
+      }
+      if (J.push_remote) __threadfence_system();
+      // every stepping thread's stores (and sys fence) and reads of job[st]
+      // are done: the producer may release the tile and refill the stage
+      step_sync<kStepBar>();
+      if (threadIdx.x == 0) mbar_arrive(&done[st]);
+    }
+  } else if (threadIdx.x >= kThreads + 32) {
+    // The copy warps: window n into stage n & 1, once the producer set it.
+    const int t = threadIdx.x - kThreads;
+    for (int n = 0;; ++n) {
+      const int st = n & 1;
+      mbar_wait(&posted[st], (n >> 1) & 1);
+      if (!win[st].live) {
+        mbar_arrive(&full[st]);
+        break;
+      }
+      copy_part<kK>(smem + st * sfloats, acc_rows[st], win[st], &full[st], a,
+                    vec16, t);
+    }
+    tpulbm::cp_async_wait<0>();
+  } else {
+    // The producer warp: the item's job and window into stage st, win[st]
+    // for the copy warps (posted), this warp's part of the copy, the
+    // arrivals on full.
+    const int lane = threadIdx.x & 31;
+    auto issue = [&](const Item& it, int st) {
+      if (lane == 0) {
+        post<kK>(L, it, job[st], win[st], a);
+        mbar_arrive(&posted[st]);
+      }
+      __syncwarp();
+      copy_part<kK>(smem + st * sfloats, acc_rows[st], win[st], &full[st], a,
+                    vec16, lane);
+    };
+    // The stepping and copy warps find no more tiles in stage st.
+    auto stop = [&](int st) {
+      if (lane == 0) {
+        job[st].live = 0;
+        win[st].live = 0;
+        mbar_arrive(&posted[st]);
+      }
+      mbar_arrive(&full[st]);
+    };
+    produce(L, done, waited, issue, stop);
+    tpulbm::cp_async_wait<0>();
+  }
+  finish<kK>(L, t_entry, c_entry, waited);
+}
+
+// The grid kind's block: its stepping warps, the producer, and kGridCopy
+// threads that only copy (a row's copies are few since wave_step.cuh's
+// RowCopy sets them once an item).
+constexpr int kGridCopy = 96;
+constexpr int kGridBlock = tpulbm::wave::kThreads + 32 + kGridCopy;
+
+// The grid kind's producer warp: posts the CTA's items (walk index
+// blockIdx.x + n gridDim.x, chunk c = index / items starting its walk at
+// item row c: record (index + c rot) % items) into the stream's kJobs slots
+// in order, each once its flags are done and its slot is free; releases
+// each item's flag once it is done, in order; then posts the stop item. A
+// wait counts (waited[0], SM cycles) while the CTA has no item in flight
+// and the next item's flags are not done; past kSpinNs, or where the card's
+// error word is set, the producer gives up: it posts the stop at once.
+template <int kK>
+__device__ __forceinline__ void produce_stream(const GridLaunch& L,
+                                               tpulbm::wave::Stream& S,
+                                               unsigned long long* waited) {
+  namespace wv = tpulbm::wave;
+  const int lane = threadIdx.x & 31;
+  const int total = L.p.items * L.p.n_outer;
+  const int mine = (total - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
+  int posted = 0, released = 0, polls = 0;
+  bool have = false, bad = false, stopped = false;
+  long long t0 = -1, idle0 = -1;
+  unsigned long long wait_cyc = 0;
+  Item it;
+  for (;;) {
+    while (released < posted &&
+           mbar_test(&S.done[released & (wv::kJobs - 1)],
+                     (released / wv::kJobs) & 1)) {
+      const wv::Job& J = S.job[released & (wv::kJobs - 1)];
+      if (lane == 0) store_release(L.p.flags + J.rec, J.epoch, false);
+      __syncwarp();
+      ++released;
+    }
+    if (stopped) {
+      if (released == posted) break;
+      continue;
+    }
+    if (posted - released >= wv::kJobs) continue;   // every slot in flight
+    if (bad || posted == mine) {
+      if (lane == 0) {
+        S.job[posted & (wv::kJobs - 1)].live = 0;
+        mbar_arrive(&S.posted[posted & (wv::kJobs - 1)]);
+      }
+      __syncwarp();
+      stopped = true;
+      continue;
+    }
+    if (!have) {
+      const int w = blockIdx.x + posted * gridDim.x;
+      const int c = w / L.p.items;
+      it = read_item(L, c, (w - c * L.p.items + c * L.rot) % L.p.items);
+      have = true;
+    }
+    if (!poll_item(L, it)) {
+      if (idle0 >= 0) wait_cyc += clock64() - idle0;
+      idle0 = t0 = -1;
+      if (lane == 0) {
+        post<kK>(L, it, S.job[posted & (wv::kJobs - 1)]);
+        mbar_arrive(&S.posted[posted & (wv::kJobs - 1)]);
+      }
+      __syncwarp();
+      ++posted;
+      have = false;
+      continue;
+    }
+    if (t0 < 0) {
+      t0 = globaltimer();
+      polls = 0;
+    }
+    if (idle0 < 0 && released == posted) idle0 = clock64();
+    if ((++polls & 31) == 0) {
+      int err = 0;
+      if (lane == 0) {
+        err = *(volatile int*)L.p.error;
+        if (!err && globaltimer() - t0 > kSpinNs) {
+          atomicExch(L.p.error, kErrTimeout);
+          err = 1;
+        }
+      }
+      bad = __shfl_sync(0xffffffffu, err, 0) != 0;
+    }
+    __nanosleep(100);
+  }
+  if (idle0 >= 0) wait_cyc += clock64() - idle0;
+  if (lane == 0) {
+    waited[0] = wait_cyc;
+    waited[1] = 0;
+  }
+}
+
+// The grid kind's kernel, one CTA: the stepping warps step the CTA's items
+// as one row wavefront (wave_step.cuh::step_stream), the copy warps stream
+// their window rows ahead of it (copy_stream), and the producer posts them
+// and releases their flags (produce_stream).
+template <int kK>
+__device__ __forceinline__ void grid_body(const GridLaunch& L,
+                                          const tpulbm::LbmArgs& a,
+                                          int vec16) {
+  namespace wv = tpulbm::wave;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ wv::Stream S;
+  __shared__ long long t_entry, c_entry;
+  __shared__ unsigned long long waited[2];
+  if (threadIdx.x == 0) {
+    t_entry = globaltimer();
+    c_entry = clock64();
+    for (int j = 0; j < wv::kJobs; ++j) {
+      mbar_init(&S.posted[j], 1);
+      mbar_init(&S.done[j], 1);
+      S.job[j].seq = -1;
+    }
+    for (int r = 0; r < wv::kRing; ++r) {
+      mbar_init(&S.full[r], kGridCopy);
+      mbar_init(&S.empty[r], 1);
+    }
+    S.finished = -1;
+  }
+  __syncthreads();
+  if (threadIdx.x < wv::kThreads)
+    wv::step_stream<kK, kStepBar>(smem, S, L.w, a);
+  else if (threadIdx.x >= wv::kThreads + 32)
+    wv::copy_stream<kK, kGridCopy, kCopyBar>(
+        smem, S, L.obst, L.w, vec16, a, threadIdx.x - wv::kThreads - 32);
+  else
+    produce_stream<kK>(L, S, waited);
+  finish<kK>(L, t_entry, c_entry, waited);
+}
+
 template <int kK>
 __global__ void __launch_bounds__(kBlock, 1)
     ring_p2p_kernel(const __grid_constant__ Launch L, tpulbm::LbmArgs a,
@@ -1092,19 +1175,30 @@ __global__ void __launch_bounds__(kBlock, 1)
 }
 
 template <int kK>
-__global__ void __launch_bounds__(kBlock, 1)
+__global__ void __launch_bounds__(kGridBlock, 1)
     grid_p2p_kernel(const __grid_constant__ GridLaunch L, tpulbm::LbmArgs a,
                     int vec16) {
-  p2p_body<kK>(L, a, vec16);
+  grid_body<kK>(L, a, vec16);
 }
 
 int smem_bytes(int k) { return 2 * stage_floats(k) * (int)sizeof(float); }
+
+// The grid kind's rings (wave_step.cuh).
+int grid_smem_bytes(int k) {
+  return tpulbm::wave::smem_floats(k) * (int)sizeof(float);
+}
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<size_t>(p) & 15) == 0;
 }
 
 enum class Kind { kRing, kTorus, kGrid };
+
+// Dynamic shared memory of a kind's k-step instance.
+template <Kind kKind>
+int smem_of(int k) {
+  return kKind == Kind::kGrid ? grid_smem_bytes(k) : smem_bytes(k);
+}
 
 // The kernel of a kind and k.
 template <Kind kKind, int kK>
@@ -1132,12 +1226,13 @@ cudaError_t configure(int* grid_cap) {
     int sms = 0, per_sm = 0;
     e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes(kK));
+                             smem_of<kKind>(kK));
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kernel, kBlock, smem_bytes(kK));
+          &per_sm, kernel, kKind == Kind::kGrid ? kGridBlock : kBlock,
+          smem_of<kKind>(kK));
     if (e != cudaSuccess) return e;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     cap[dev] = per_sm * sms;
@@ -1181,8 +1276,8 @@ int launch_kind(const LaunchT& l, const tpulbm::LbmArgs& a, int vec16,
     torus_p2p_kernel<kK><<<grid, kBlock, smem_bytes(kK), stream>>>(l, a,
                                                                    vec16);
   else
-    grid_p2p_kernel<kK><<<grid, kBlock, smem_bytes(kK), stream>>>(l, a,
-                                                                  vec16);
+    grid_p2p_kernel<kK><<<grid, kGridBlock, grid_smem_bytes(kK), stream>>>(
+        l, a, vec16);
   return (int)cudaGetLastError();
 }
 
@@ -1238,6 +1333,7 @@ int lbm_ring_p2p_words() { return kWords; }
 int lbm_ring_p2p_max_local() { return kMaxLocal; }
 int lbm_ring_p2p_max_outer() { return kMaxOuter; }
 int lbm_ring_p2p_smem(int k) { return smem_bytes(k); }
+int lbm_grid_p2p_smem(int k) { return grid_smem_bytes(k); }
 
 // CTAs of a k-step launch on the current device (its co-resident grid); a
 // negative CUDA error code on failure.
@@ -1455,19 +1551,21 @@ int lbm_torus_p2p(const long long* host_table, const long long* table,
 // state at epoch base, chunk c reads state[c % 2] and writes
 // state[(c + 1) % 2] (state0, state1 (9, ny, nx), distinct); obst the
 // (ny, nx) float32 mask; partials (n_outer k, items), sums (n_outer k,);
-// graph the card's (items, kRec) int32 tile graph of the grid, items its
-// tiles (ops/ring_p2p.py::grid_graph); flags its flag array (one int a
-// tile). The rest as lbm_ring_p2p.
+// graph the card's (items, kRec) int32 item graph of the grid, items its
+// items of item_h x item_w cells (item_w a multiple of 4, at most 64,
+// wave_step.cuh::kMaxW; ops/ring_p2p.py::grid_graph); flags its
+// flag array (one int an item). The rest as lbm_ring_p2p.
 int lbm_grid_p2p(float* state0, float* state1, const float* obst,
                  float* partials, float* sums, const int* graph, int items,
-                 int* flags, int n_outer, int base, int* error,
-                 unsigned long long* waits, unsigned int* counter, int ny,
-                 int nx, int accel_row, float omega, float w1, float w2, int k,
-                 cudaStream_t stream) {
+                 int item_h, int item_w, int* flags, int n_outer, int base,
+                 int* error, unsigned long long* waits, unsigned int* counter,
+                 int ny, int nx, int accel_row, float omega, float w1,
+                 float w2, int k, cudaStream_t stream) {
   if (k < 1 || k > kMaxK || n_outer < 1 || n_outer > kMaxOuter || ny < 1 ||
       nx < 1 || base < 0 || !graph || !flags || !waits || !error ||
-      state0 == state1 ||
-      items != ((ny + kTile - 1) / kTile) * ((nx + kTile - 1) / kTile))
+      state0 == state1 || item_h < 1 || item_w < 4 ||
+      item_w > tpulbm::wave::kMaxW || item_w % 4 ||
+      items != ((ny + item_h - 1) / item_h) * ((nx + item_w - 1) / item_w))
     return (int)cudaErrorInvalidValue;
   GridLaunch l{};
   l.p.n_local = 1;
@@ -1485,6 +1583,8 @@ int lbm_grid_p2p(float* state0, float* state1, const float* obst,
   l.state[1] = state1;
   l.partials = partials;
   l.sums = sums;
+  l.w = item_w;
+  l.rot = (nx + item_w - 1) / item_w;
   const bool vec16 = nx % 4 == 0 && aligned16(state0) && aligned16(state1) &&
                      aligned16(obst);
   const tpulbm::LbmArgs a{ny, nx, accel_row, omega, w1, w2};

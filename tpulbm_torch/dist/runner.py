@@ -84,10 +84,11 @@ Backends (the single-device route, ``kernel_plan``):
   ``resident.RESIDENT_K`` steps plus a remainder, as
   ``_make_resident_runner``. Every other grid runs K6's grid kind,
   ``ring_p2p.grid_p2p_chunks``: up to ``ring_p2p.MAX_OUTER`` 8-step chunks
-  of the whole periodic grid in one persistent launch, the tiles handing
+  of the whole periodic grid in one persistent launch, its items handing
   off between chunks through epoch flags, then one launch of the
-  remainder. The grid kind computes the bits of K4's whole-grid chunks
-  (``kstep_tile.tile_chunk``), which stay off the route as its reference;
+  remainder. The grid kind computes the state bits of K4's whole-grid
+  chunks (``kstep_tile.tile_chunk``), which stay off the route as its
+  reference (the per-step sums it adds in its own order);
   K1 (``kstep.skew_chunk``, ``kstep.kstep_chunk``) is on no route either:
   it is the one-pass-per-step kernel that ``chip_smoke.py`` holds K4
   against.
@@ -176,13 +177,13 @@ def kernel_plan(params: LBMParams, n_steps: int) -> list:
     steps a call of fn, covering n_steps. Where ``resident_route`` holds:
     K2's chunks (``resident.resident_chunk``, n = 1). Elsewhere: the grid
     kind of K6 (``ring_p2p.grid_p2p_chunks``), up to
-    ``ring_p2p.outer_per_launch`` chunks of 8 steps a launch, then one
+    ``ring_p2p.grid_outer_per_launch`` chunks of 8 steps a launch, then one
     launch of the remainder."""
     if resident_route(params.ny, params.nx):
         return _chunks(resident.resident_chunk,
                        min(n_steps, resident.RESIDENT_K), n_steps)
     k = min(kstep_tile.TILE_K, n_steps)
-    per = ring_p2p.outer_per_launch([params.ny], params.nx, k)
+    per = ring_p2p.grid_outer_per_launch(params.ny, params.nx, k)
     return [(ring_p2p.grid_p2p_chunks, kk, n)
             for kk, n in _grouped(k, n_steps, per)]
 

@@ -104,9 +104,10 @@ _SIGNATURES = {
     "lbm_torus_p2p": (
         [_P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _F,
          _F, _F, _I, _I, _I, _P], _I),
+    "lbm_grid_p2p_smem": ([_I], _I),
     "lbm_grid_p2p": (
-        [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F,
-         _F, _F, _I, _P], _I),
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I,
+         _I, _F, _F, _F, _I, _P], _I),
     "lbm_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -12,7 +12,7 @@ sums stay on the device; the caller scales them by ``free_cells_inv``.
 
 Its role: no route takes K1; ``dist.runner.kernel_plan`` sends these
 grids to K6's grid kind (``ops.ring_p2p.grid_p2p_chunks``), which computes
-K4's bits (``ops.kstep_tile.tile_chunk``). K1 is the one-pass-per-step
+K4's state bits (``ops.kstep_tile.tile_chunk``). K1 is the one-pass-per-step
 kernel, the simplest of the port, that ``chip_smoke.py`` holds the
 temporally blocked K4 against, state bitwise.
 

@@ -15,8 +15,8 @@ that epilogue). The sums stay on the device; the caller scales them by
   ``pallas_kstep_skew._fix_tiled_kernel`` (8192^2) and
   ``pallas_kstep2d._kernel`` (their sub-8-step remainder). Off the route:
   K6's grid kind (``ops.ring_p2p.grid_p2p_chunks``) runs these grids many
-  chunks a launch, and ``tile_chunk`` chunk by chunk is its bitwise
-  reference.
+  chunks a launch, and ``tile_chunk`` chunk by chunk is the bitwise
+  reference of its state.
 - ``ring_chunk`` runs one shard of the 1-D ring (``dist.runner``): the band
   of its rows and the k-row slabs of its two neighbours, passed as three
   tensors. It computes what every ring tier of the JAX package computes on

@@ -56,11 +56,16 @@ edges and corners into its eight neighbours' slots before a call's first
 launch.
 
 The grid kind (``grid_p2p_chunks``, ``GridExchange``) runs the same
-pipeline over the whole periodic grid of one card, the one-card route of
-every grid outside the resident gate (``dist.runner.resident_route``): up to ``MAX_OUTER`` chunks a launch, the
-tiles handing off between chunks through their flags alone (no slots, no
-pushes), the bits of K4's whole-grid chunks (``kstep_tile.tile_chunk``),
-which stay its reference; on CPU tensors, ``grid_p2p_chunks_ref``.
+protocol over the whole periodic grid of one card, the one-card route of
+every grid outside the resident gate (``dist.runner.resident_route``): up
+to ``MAX_OUTER`` chunks a launch, its items handing off between chunks
+through their flags alone (no slots, no pushes). Its items are taller
+than the other kinds' tiles (``grid_item``) and step as row wavefronts
+over the k time levels (``csrc/wave_step.cuh``). The state is the bits of
+K4's whole-grid chunks (``kstep_tile.tile_chunk``), which stay its
+reference; the per-step sums are summed in the grid kind's own order
+(``grid_sums_ref`` the plain version of its reduction). On CPU tensors,
+``grid_p2p_chunks_ref``.
 
 ``p2p_chunks`` runs one launch a card; on CPU tensors it takes the plain
 version, ``p2p_chunks_ref``: ``n_outer`` chunks of ``ring_chunk_ref`` over
@@ -131,11 +136,11 @@ def ntiles(h: int, nx: int) -> int:
     return -(-h // TILE) * -(-nx // TILE)
 
 
-def outer_per_launch(rows, nx: int, k: int) -> int:
+def outer_per_launch(rows, nx: int, k: int, items: int | None = None) -> int:
     """Chunks a launch: MAX_OUTER, fewer where the largest shard's (or
-    torus block's: ``rows`` its height, ``nx`` its width) partials would
-    pass PARTIALS_BYTES."""
-    per_chunk = 4 * k * ntiles(max(rows), nx)
+    torus block's: ``rows`` its height, ``nx`` its width; or the grid
+    kind's ``items``) partials would pass PARTIALS_BYTES."""
+    per_chunk = 4 * k * (items or ntiles(max(rows), nx))
     return max(1, min(MAX_OUTER, PARTIALS_BYTES // per_chunk))
 
 
@@ -149,8 +154,8 @@ def _touch(a0, alen, b0, blen, n: int, k: int):
 
 
 def _tile_rows(rows, t):
-    """Every tile row of the ring: (shard, row in shard, first global row,
-    rows owned)."""
+    """Every tile row of the ring (tiles of t rows): (shard, row in shard,
+    first global row, rows owned)."""
     out, off = [], 0
     for d, h in enumerate(rows):
         for ty in range(-(-h // t)):
@@ -159,19 +164,21 @@ def _tile_rows(rows, t):
     return np.array(out, dtype=np.int64).reshape(-1, 4)
 
 
-def _reach(rows, nx: int, k: int, t: int):
-    """The cone relation in factors: (tile rows, R, C), R[a, b] where tile
-    row b has owned rows within k of tile row a's (across shard edges,
-    modulo the ring's rows), C[x, y] where tile column y has owned columns
-    within k of tile column x's (modulo nx)."""
+def _reach(rows, nx: int, k: int, t: int, tw: int):
+    """The cone relation in factors for tiles of t rows and tw columns:
+    (tile rows, R, C), R[a, b] where tile row b has owned rows within k of
+    tile row a's (across shard edges, modulo the ring's rows), C[x, y]
+    where tile column y has owned columns within k of tile column x's
+    (modulo nx)."""
     tr = _tile_rows(rows, t)
     r = _touch(tr[:, 2], tr[:, 3], tr[:, 2], tr[:, 3], sum(rows), k)
-    x0 = np.arange(0, nx, t)
-    xl = np.minimum(t, nx - x0)
+    x0 = np.arange(0, nx, tw)
+    xl = np.minimum(tw, nx - x0)
     return tr, r, _touch(x0, xl, x0, xl, nx, k)
 
 
-def tile_graph(mesh, rows, nx: int, k: int, t: int = TILE):
+def tile_graph(mesh, rows, nx: int, k: int, t: int = TILE,
+               tw: int | None = None):
     """Each card's tile graph for K6: {card: (records, peers)}. A tile
     waits on every tile with owned cells within k cells of its own, itself
     included (a symmetric relation; _reach). records (items, REC) int32
@@ -183,10 +190,11 @@ def tile_graph(mesh, rows, nx: int, k: int, t: int = TILE):
     peers.index(card) << PEER_SHIFT | index. A card's flag array holds its
     shards' tiles in walk order, so a tile's own flag is its record's
     index. peers: the cards whose flag arrays the records name, this
-    card's first."""
+    card's first. Tiles are t x t cells, or t rows of tw columns."""
+    tw = tw or t
     cards = list(dict.fromkeys(mesh))
     local = {c: [d for d in range(len(rows)) if mesh[d] == c] for c in cards}
-    tr, r, c = _reach(rows, nx, k, t)
+    tr, r, c = _reach(rows, nx, k, t, tw)
     tiles_x = c.shape[0]
     card_of, flag0, where = {}, {}, {}
     for card in cards:
@@ -197,7 +205,7 @@ def tile_graph(mesh, rows, nx: int, k: int, t: int = TILE):
     ys = [np.flatnonzero(c[x]) for x in range(tiles_x)]
     width = max(map(len, ys))
     ypad = np.array([list(y) + [-1] * (width - len(y)) for y in ys])
-    x0 = np.arange(tiles_x) * t
+    x0 = np.arange(tiles_x) * tw
     out = {}
     for card in cards:
         peers = [card]
@@ -234,7 +242,7 @@ def tile_graph(mesh, rows, nx: int, k: int, t: int = TILE):
                 rec[:, 2] = ty * t
                 rec[:, 3] = x0
                 rec[:, 4] = min(t, h - ty * t)
-                rec[:, 5] = np.minimum(t, nx - x0)
+                rec[:, 5] = np.minimum(tw, nx - x0)
                 n = len(rows)
                 push = ((ty * t + rec[:, 4] > h - k)
                         & (card_of[(d + 1) % n] != card)) | (
@@ -1342,24 +1350,116 @@ def _torus_entry(ex: TorusExchange, states, spares, bands, partials, sums,
 
 # The grid kind (csrc/ring_p2p.cu::lbm_grid_p2p): the whole periodic
 # (ny, nx) grid of one card, the one-card route outside the resident gate.
+# A CTA steps its items as one row wavefront (csrc/wave_step.cuh), items of
+# grid_item's shape, at most ITEM_W columns.
+ITEM_W = 64             # csrc/wave_step.cuh::kMaxW
+# The item shape's rule (grid_item): a chunk of at least GRID_ITEMS items,
+# two a CTA of an H100's GRID_CTAS = 132, and of more than GRID_CTAS + 2
+# item rows' items, so that in the walk (each chunk starting one item row
+# further down) an item's dependencies lie more than a round of GRID_CTAS
+# items before it; items of at least MIN_ITEM_H rows and MIN_ITEM_W
+# columns. The rule reads the grid's shape alone, so that the item graph
+# and the flags are those of the grid on any card.
+GRID_CTAS = 132
+GRID_ITEMS = 2 * GRID_CTAS
+MIN_ITEM_H = 8
+MIN_ITEM_W = 16
 
 
-def grid_graph(ny: int, nx: int, k: int, t: int = TILE):
-    """The grid kind's tile graph of the whole periodic (ny, nx) grid:
-    (items, REC) int32 records of its tiles, row-major (the kernel's walk
-    and the flag array's order), a tile waiting on every tile with owned
-    cells within k cells of its own, both axes wrapping (a symmetric
-    relation), duties 0. It is ``tile_graph``'s of a ring of one shard on
-    one card, whose rows wrap modulo ny as its columns modulo nx."""
-    return tile_graph([0], [ny], nx, k, t)[0][0]
+def item_ratio(h: int, w: int, k: int) -> float:
+    """Cell updates computed a cell update owned, for an item of h x w
+    owned cells at k steps: level s computes h + 2k - 2s rows of
+    w + 2k - 2s columns (csrc/wave_step.cuh). 1.506 for a 32 x 32 tile at
+    k = 8, the square window's cone too; 1.236 for 64 x 64."""
+    done = sum((h + 2 * k - 2 * s) * (w + 2 * k - 2 * s)
+               for s in range(1, k + 1))
+    return done / (k * h * w)
+
+
+def grid_item(ny: int, nx: int, k: int = kstep_tile.TILE_K):
+    """The grid kind's item shape for a (ny, nx) grid, from its shape
+    alone: (h, w, the updates computed an owned one, item_ratio). Items are
+    ITEM_W columns wide where nx allows, and as tall as a chunk of at least
+    GRID_ITEMS and more than GRID_CTAS + 2 item rows' items allows: the
+    fewest item rows n that give that many, h = ceil(ny / n), so that the
+    rows split evenly. Where even items of MIN_ITEM_H rows give fewer, h
+    stays at MIN_ITEM_H and w halves, down to MIN_ITEM_W columns."""
+    w = ITEM_W
+    while True:
+        cols = -(-nx // w)
+        want = max(GRID_ITEMS, GRID_CTAS + 2 * cols + 1)
+        n = max(1, -(-want // cols))
+        h = max(MIN_ITEM_H, -(-ny // n))
+        if -(-ny // h) * cols >= want or w <= MIN_ITEM_W:
+            break
+        w //= 2
+    return h, w, item_ratio(h, w, k)
+
+
+def grid_items(ny: int, nx: int) -> int:
+    """Items of the grid kind's (ny, nx) grid: the length of its flag array
+    and of a row of its partials."""
+    h, w, _ = grid_item(ny, nx)
+    return -(-ny // h) * -(-nx // w)
+
+
+def grid_outer_per_launch(ny: int, nx: int, k: int) -> int:
+    """Chunks a grid-kind launch of the (ny, nx) grid (outer_per_launch of
+    its items)."""
+    return outer_per_launch([ny], nx, k, items=grid_items(ny, nx))
+
+
+def grid_graph(ny: int, nx: int, k: int, shape=None):
+    """The grid kind's item graph of the whole periodic (ny, nx) grid:
+    (items, REC) int32 records of its items of ``shape`` (h, w) cells
+    (``grid_item``'s where None), row-major (the kernel's walk and the flag
+    array's order), an item waiting on every item with owned cells within k
+    cells of its own, both axes wrapping (a symmetric relation), duties 0.
+    It is ``tile_graph``'s of a ring of one shard on one card, whose rows
+    wrap modulo ny as its columns modulo nx."""
+    h, w = shape or grid_item(ny, nx)[:2]
+    return tile_graph([0], [ny], nx, k, h, w)[0][0]
+
+
+def grid_sums_ref(partials) -> np.ndarray:
+    """Plain version of the grid kind's reduction: each row of the
+    (rows, items) float32 ``partials`` (one row a step) summed in the order
+    of ``csrc/lbm_cell.cuh::reduce_rows``, so the kernel's sums are these
+    bits of its partials. Thread i of kReduceThreads = 256 adds entries i,
+    i + 256, ... in turn; warps of 32 threads sum by shuffles (lane l adds
+    lane l + 16, then l + 8, ... 1); one warp sums the warp sums alike.
+    Returns a (rows,) float32 array. (K4 reduces its tiles' partials in the
+    same order.)"""
+    p = np.asarray(partials, dtype=np.float32)
+    rows, n = p.shape
+    threads = 256
+    v = np.zeros((rows, threads), dtype=np.float32)
+    for j in range(0, n, threads):
+        part = p[:, j:j + threads]
+        v[:, :part.shape[1]] += part
+    return _warp_tree(_warp_tree(v.reshape(rows, -1, 32))[..., 0]
+                      .reshape(rows, 1, -1))[:, 0, 0]
+
+
+def _warp_tree(v: np.ndarray) -> np.ndarray:
+    """__shfl_down_sync's tree over the last axis (lanes, padded with zeros
+    to 32): lane l adds lane l + d for d = 16, 8, 4, 2, 1 (a lane past the
+    warp adds its own value, as shfl_down leaves it). Lane 0 holds the
+    sum."""
+    v = np.concatenate([v, np.zeros(v.shape[:-1] + (32 - v.shape[-1],),
+                                    dtype=np.float32)], axis=-1)
+    for d in (16, 8, 4, 2, 1):
+        v = v + np.concatenate([v[..., d:], v[..., 32 - d:]], axis=-1)
+    return v
 
 
 class GridExchange:
-    """What the grid kind keeps on one card for one (ny, nx) grid: the flag
-    array, one int32 a tile (row-major); one int64 tensor of the error word
-    (word 0) and K6's counter words (``WAIT_WORDS`` after it, at byte
-    ``WAITS_AT``, as a card's exchange block holds them); each k's tile
-    graph on the card (``grid_graph``, made on first use); and the epoch.
+    """What the grid kind keeps on one card for one (ny, nx) grid: its item
+    shape (``grid_item``: ``h``, ``w``, ``items``); the flag array, one
+    int32 an item (row-major); one int64 tensor of the error word (word 0)
+    and K6's counter words (``WAIT_WORDS`` after it, at byte ``WAITS_AT``,
+    as a card's exchange block holds them); each k's item graph on the card
+    (``grid_graph``, made on first use); and the epoch.
     No flag is ever reset: the epoch rises across launches and runner
     calls, so every runner of the grid on the card shares one
     (``grid_exchange``). Its launches run on the card's current stream, as
@@ -1367,7 +1467,9 @@ class GridExchange:
 
     def __init__(self, device, ny: int, nx: int):
         self.device, self.ny, self.nx = device, ny, nx
-        self.flags = torch.zeros(ntiles(ny, nx), dtype=torch.int32,
+        self.h, self.w, _ = grid_item(ny, nx)
+        self.items = grid_items(ny, nx)
+        self.flags = torch.zeros(self.items, dtype=torch.int32,
                                  device=device)
         self.words = torch.zeros(1 + len(WAIT_WORDS), dtype=torch.int64,
                                  device=device)
@@ -1378,7 +1480,8 @@ class GridExchange:
     def graph(self, k: int) -> torch.Tensor:
         if k not in self.graphs:
             self.graphs[k] = torch.from_numpy(
-                grid_graph(self.ny, self.nx, k)).to(self.device)
+                grid_graph(self.ny, self.nx, k, (self.h, self.w))).to(
+                    self.device)
         return self.graphs[k]
 
     def check(self) -> None:
@@ -1450,7 +1553,8 @@ def grid_p2p_chunks(f, spare, obst_f, params: LBMParams, k: int,
 
 def _grid_launch(f, spare, obst_f, params: LBMParams, k: int, n_outer: int):
     """The grid kind of K6 on CUDA tensors: (the (n_outer k,) sums, the
-    (n_outer k, ntiles) partials that the kernel reduced into them)."""
+    (n_outer k, items) partials that the kernel reduced into them,
+    ``grid_sums_ref``'s bits chunk by chunk)."""
     check_chunk(f, obst_f, params, k)
     _build.require_cuda(f, spare)
     if not (1 <= k <= kstep_tile.TILE_K and 1 <= n_outer <= MAX_OUTER
@@ -1464,7 +1568,7 @@ def _grid_launch(f, spare, obst_f, params: LBMParams, k: int, n_outer: int):
     ex = grid_exchange(f.device, ny, nx)
     lib = _build.library()
     with _build.on_device(f):
-        items = ntiles(ny, nx)
+        items = ex.items
         partials = torch.empty((n_outer * k, items), dtype=torch.float32,
                                device=f.device)
         sums = torch.empty(n_outer * k, dtype=torch.float32, device=f.device)
@@ -1475,13 +1579,14 @@ def _grid_launch(f, spare, obst_f, params: LBMParams, k: int, n_outer: int):
             lib.lbm_grid_p2p(
                 f.data_ptr(), spare.data_ptr(), obst_f.data_ptr(),
                 partials.data_ptr(), sums.data_ptr(), ex.graph(k).data_ptr(),
-                items, ex.flags.data_ptr(), n_outer, ex.epoch, words,
-                words + WAITS_AT, _build.ticket_counter(f.device).data_ptr(),
+                items, ex.h, ex.w, ex.flags.data_ptr(), n_outer, ex.epoch,
+                words, words + WAITS_AT,
+                _build.ticket_counter(f.device).data_ptr(),
                 ny, nx, params.accel_row, params.omega, params.accel_w1,
                 params.accel_w2, k,
                 torch.cuda.current_stream(f.device).cuda_stream),
-            f"lbm_grid_p2p ({k} steps, {n_outer} chunks, {ny} x {nx} on "
-            f"{f.device}, {lib.lbm_ring_p2p_smem(k)} B of dynamic shared "
-            f"memory)")
+            f"lbm_grid_p2p ({k} steps, {n_outer} chunks, {ny} x {nx} in "
+            f"{ex.h} x {ex.w} items on {f.device}, "
+            f"{lib.lbm_grid_p2p_smem(k)} B of dynamic shared memory)")
     ex.epoch += n_outer
     return sums, partials

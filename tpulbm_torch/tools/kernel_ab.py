@@ -10,9 +10,9 @@ directory, and both kernel libraries are built at once. Each case calls a
 public chunk function of each side (``resident_chunk``, ``skew_chunk``,
 ``tile_chunk``, ``ring_chunk``, as the main path calls them, sums
 included; this tree's K6 grid kind, ``grid_p2p_chunks``, over a launch of
-chunks at 1024^2, 2048^2 and 8192^2 against the base tree's K4
-``tile_chunk`` chunk by chunk, which it took the route from) on the same
-input,
+chunks at 1024^2, 2048^2, 4096^2, 8192^2 and 100 x 130 against the base
+tree's grid kind over the same chunks, where the base has one, and against
+the base tree's K4 ``tile_chunk`` chunk by chunk) on the same input,
 a perturbed rest state drawn from a seed on the card, at the shapes of the
 main path; the states must be bitwise equal and the sums within 3e-4 (the
 kernels may sum the same values in another order). Times are CUDA-event ms
@@ -157,12 +157,12 @@ def _k4_chain(n):
 
 
 def _grid(n):
-    """A side's grid-kind launch of n chunks (``grid_p2p_chunks``), as
-    _k4_chain; it takes f over (f holds a later state after the call)."""
+    """A side's grid-kind launch of n chunks (``grid_p2p_chunks``) on a
+    copy of f (the launch takes its input over), as _k4_chain."""
     def make(mods):
         def run(f, o, p, k):
             g, _, s = mods["ring_p2p"].grid_p2p_chunks(
-                f, torch.empty_like(f), o, p, k, n)
+                f.clone(), torch.empty_like(f), o, p, k, n)
             return g, s
         return run
     return make
@@ -179,16 +179,22 @@ def cases():
     yield from _route_cases()
 
 
+
 def _route_cases():
-    """This tree's kernels against the base tree's kernels that the same
-    route ran there (``--match route``)."""
+    """This tree's grid kind against the base tree's grid kind and K4 over
+    the chunks of one of this tree's launches (``--match route``; the
+    base's grid kind only where the base has one)."""
     k = kstep_tile.TILE_K
     for deck, seed in (("1024x1024", SEED + 1), ("2048x2048", SEED + 6),
-                       ("8192x8192", SEED + 7)):
-        p, o, f = _deck(deck, seed)
-        n = ring_p2p.outer_per_launch([p.ny], p.nx, k)
-        yield (f"route: K6 grid kind {deck}, {n} chunks of {k} steps in a "
-               f"launch vs base K4",
+                       ("4096x4096", SEED + 8), ("8192x8192", SEED + 7),
+                       (None, SEED + 130)):
+        p, o, f = _deck(deck, seed) if deck else _random(100, 130, seed)
+        n = ring_p2p.grid_outer_per_launch(p.ny, p.nx, k)
+        what = f"{p.ny}x{p.nx}, {n} chunks of {k} steps in a launch"
+        yield (f"route: K6 grid kind {what} vs base grid kind",
+               ("base", None, _grid(n), (f, o, p, k)),
+               ("this", None, _grid(n), (f, o, p, k)))
+        yield (f"route: K6 grid kind {what} vs base K4",
                ("base", None, _k4_chain(n), (f, o, p, k)),
                ("this", None, _grid(n), (f, o, p, k)))
 
