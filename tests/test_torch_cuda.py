@@ -750,6 +750,45 @@ def test_k6_counts_its_waits_and_launches(case, torus):
 
 
 @pytest.mark.cuda
+def test_grid_kind_counts_its_row_waits_at_8192(case):
+    """The grid kind's word of its stepping warps' waits for the rows its
+    copy group loads (ring_p2p.WAITS' fill_ns): one 8192^2 runner call of
+    64 steps (one launch of 8 chunks, then the call's check) counts it, 0 <
+    fill_ns <= cta_ns and wait_ns <= cta_ns, one launch, its state bitwise
+    the same call run on K4's whole-grid chunks (run_plan over tile_chunk);
+    a ring-mode call of K6 over 4 row shards of the 200 x 136 case leaves
+    fill_ns 0 (its tile step counts none)."""
+    from tpulbm_torch.dist import runner, sharding
+    from tpulbm_torch.dist.mesh import get_mesh
+    from tpulbm_torch.dist.runner import _chunks, run_plan
+    from tpulbm_torch.ops import ring_p2p
+
+    p, f0, mask = _grid_case(8192, 8192, 8192)
+    card = f0.device.index or 0
+    ring_p2p.reset_waits()
+    run = make_runner(p, 64, "cuda", "cuda")
+    f, _ = run(f0.clone(), mask)
+    w = ring_p2p.WAITS[card]
+    assert w["launches"] == 1
+    assert 0 < w["fill_ns"] <= w["cta_ns"]
+    assert 0 <= w["wait_ns"] <= w["cta_ns"]
+    want, _ = run_plan(_chunks(kstep_tile.tile_chunk, 8, 64), f0,
+                       mask.float(), p)
+    assert torch.equal(f, want)
+    del f, want, f0, mask
+
+    p, f0, mask = case
+    mesh = get_mesh(4)
+    fs, obs = sharding.shard_rows(f0.clone(), mask, mesh)
+    ring_p2p.reset_waits()
+    runner.make_p2p_runner(p, 8, mesh)(fs, obs)
+    for c in sorted({d.index for d in mesh}):
+        assert ring_p2p.WAITS[c]["cta_ns"] > 0
+        assert ring_p2p.WAITS[c]["fill_ns"] == 0
+    _counter_is_zero(f0.device)
+
+
+@pytest.mark.cuda
 def test_torus_past_64_blocks_a_card_is_k4_torus_mode(case, capfd):
     """136 blocks of 25 x 8 (8x17) on one card, past torus mode's 64 a
     card: make_runner builds K4's torus mode and says so on stderr; 21

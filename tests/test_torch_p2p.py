@@ -243,7 +243,7 @@ def test_outer_per_launch_and_the_table():
         field = re.sub(r"(\w+?)(\d)$", r"\1[\2]", name)
         assert re.search(rf"s\.{re.escape(field)} = [^;]*"
                          rf"(ptr\({i}\)|t\[{i}\])", src), (i, name)
-    words = ("kCtaNs", "kWaitNs", "kRemoteNs", "kLaunches")
+    words = ("kCtaNs", "kWaitNs", "kRemoteNs", "kLaunches", "kFillNs")
     assert len(words) == len(ring_p2p.WAIT_WORDS)
     for i, word in enumerate(words):
         assert re.search(rf"\b{word} = {i}\b", src), word
@@ -252,6 +252,50 @@ def test_outer_per_launch_and_the_table():
         assert layout["error"] == 0 and layout["waits"] % 8 == 0
         assert 4 <= layout["waits"] == ring_p2p.WAITS_AT
         assert layout["waits"] + 8 * len(words) <= layout["flags"]
+
+
+def test_fill_word_is_the_kernels_and_has_its_place():
+    """The grid kind's word of waits for the rows it loads: fill_ns last in
+    WAIT_WORDS, csrc/ring_p2p.cu's kFillNs at the same index (the words
+    before it where they were), added into only where the launch is the
+    grid kind's (ring and torus mode leave it 0), from the stepping warps'
+    count that wave_step.cuh's step_stream returns; its word lies between
+    the error word and the flags in the ring's and the torus's exchange
+    blocks, and inside the grid kind's words tensor."""
+    src = (_build.CSRC / "ring_p2p.cu").read_text()
+    wave = (_build.CSRC / "wave_step.cuh").read_text()
+    assert ring_p2p.WAIT_WORDS[:4] == ("cta_ns", "wait_ns", "remote_ns",
+                                       "launches")
+    assert ring_p2p.WAIT_WORDS.index("fill_ns") == 4
+    assert re.search(r"constexpr int kFillNs = 4;", src)
+    assert re.search(r"if constexpr \(kGrid\)\s+atomicAdd\(L\.p\.waits "
+                     r"\+ kFillNs, [^;]*waited\[2\]", src)
+    assert re.search(r"waited\[2\] = fill;", src)
+    assert re.search(r"unsigned long long step_stream\(", wave)
+    assert re.search(r"\bfill \+= clock64\(\) - c0;", wave)
+    assert "return fill;" in wave
+    at = ring_p2p.WAITS_AT + 8 * ring_p2p.WAIT_WORDS.index("fill_ns")
+    for layout, _ in (ring_p2p.block_layout([2048] * 4, [0, 1, 2, 3], 8192),
+                      ring_p2p.torus_block_layout([0, 1, 2, 3], 4096, 4096)):
+        assert layout["error"] + 4 <= layout["waits"] <= at
+        assert at + 8 <= layout["flags"]
+    ex = ring_p2p.GridExchange(torch.device("cpu"), 64, 64)
+    assert ex.words.dtype == torch.int64
+    assert ex.words.numel() * 8 == at + 8
+    assert ex.counted.shape == (len(ring_p2p.WAIT_WORDS),)
+
+
+def test_count_waits_adds_fill_ns_per_card(monkeypatch):
+    """_count_waits, as Exchange.check and GridExchange.check call it: what
+    each word gained since the last read, fill_ns too, into WAITS of the
+    card's index."""
+    monkeypatch.setattr(ring_p2p, "WAITS", {})
+    first = np.array([1000, 10, 0, 1, 300], dtype=np.uint64)
+    counted = ring_p2p._count_waits(0, first, np.zeros(5, dtype=np.uint64))
+    second = np.array([3000, 30, 0, 2, 700], dtype=np.uint64)
+    ring_p2p._count_waits(0, second, counted)
+    assert ring_p2p.WAITS == {0: dict(cta_ns=3000, wait_ns=30, remote_ns=0,
+                                      launches=2, fill_ns=700)}
 
 
 def test_p2p_route(capsys):

@@ -239,8 +239,8 @@ def test_cli_profile_dir_leaves_a_trace(tmp_path, capsys):
 def test_cli_k6_wait_line(capsys, monkeypatch):
     """The CLI's line of K6's wait counters (ring_p2p.WAITS): none on the
     CPU, where no K6 runs; with counts of two cards in WAITS (as a cuda-p2p
-    or torus run leaves them, one card counting no CTA yet), one stderr
-    line of the mean share over the cards that counted."""
+    or torus run leaves them, fill_ns 0, one card counting no CTA yet), one
+    stderr line of the mean share over the cards that counted."""
     from tpulbm_torch.ops import ring_p2p
 
     args = [str(PF), str(OF), "--device", "cpu", "--max-iters", "4",
@@ -249,13 +249,31 @@ def test_cli_k6_wait_line(capsys, monkeypatch):
     assert cli.main(args) == 0
     assert "K6" not in capsys.readouterr().err
     monkeypatch.setattr(ring_p2p, "WAITS", {
-        0: dict(cta_ns=1000, wait_ns=200, remote_ns=150, launches=2),
-        1: dict(cta_ns=3000, wait_ns=300, remote_ns=0, launches=2),
-        2: dict(cta_ns=0, wait_ns=0, remote_ns=0, launches=0)})
+        0: dict(cta_ns=1000, wait_ns=200, remote_ns=150, launches=2,
+                fill_ns=0),
+        1: dict(cta_ns=3000, wait_ns=300, remote_ns=0, launches=2,
+                fill_ns=0),
+        2: dict(cta_ns=0, wait_ns=0, remote_ns=0, launches=0, fill_ns=0)})
     assert cli.main(args) == 0
     lines = [s for s in capsys.readouterr().err.splitlines() if "K6" in s]
     assert lines == ["K6 waited 15.0 % of its CTA time on neighbours' flags "
                      "(7.5 % on other cards')"]
+
+
+def test_cli_k6_wait_line_of_the_grid_kind(capsys, monkeypatch):
+    """The CLI's K6 line where the grid kind counted waits for the rows its
+    copy group loads (fill_ns, as a one-card wide run leaves WAITS): the
+    share of CTA time after the flags' share."""
+    from tpulbm_torch.ops import ring_p2p
+
+    args = [str(PF), str(OF), "--device", "cpu", "--max-iters", "4",
+            "--no-output"]
+    monkeypatch.setattr(ring_p2p, "WAITS", {0: dict(
+        cta_ns=4000, wait_ns=40, remote_ns=0, launches=3, fill_ns=500)})
+    assert cli.main(args) == 0
+    lines = [s for s in capsys.readouterr().err.splitlines() if "K6" in s]
+    assert lines == ["K6 waited 1.0 % of its CTA time on neighbours' flags "
+                     "(0.0 % on other cards'), 12.5 % on the rows it loads"]
 
 
 def test_cli_grid_item_line(capsys, monkeypatch):

@@ -261,9 +261,11 @@ def wave_chunk(f, obst, p, k, shape, ctas, c=0, seed=0, gapped=0.5,
 # item column); a 40 x 136 grid of 64-column items (an 8-column last item
 # column) and 24-row items (a 16-row last item row); a 20 x 70 grid whose
 # single item row is the whole grid, its window rows crossing the
-# accelerated row twice.
+# accelerated row twice; a 136 x 12 grid of 64 x 4 items, 16 times taller
+# than wide as 8192^2's 2048 x 64 (an 8-row last item row, window rows
+# 4 + 2 col_margin(k) wide, wider than the grid at k = 8).
 WAVE_CASES = [((100, 130), None, 3), ((40, 136), (24, 64), 2),
-              ((20, 70), (20, 64), 1)]
+              ((20, 70), (20, 64), 1), ((136, 12), (64, 4), 2)]
 
 
 @pytest.mark.parametrize("k", [1, 3, 8])

@@ -268,16 +268,19 @@ def _main(args) -> int:
               file=sys.stderr, flush=True)
     from tpulbm_torch.ops import ring_p2p
 
-    # K6's own wait counters (cuda-p2p and the torus), the mean over this
-    # process's cards
+    # K6's own wait counters (cuda-p2p, the torus and the grid kind), the
+    # mean over this process's cards; the grid kind's waits for the rows
+    # it loads where it counted any
     waits = [w for w in ring_p2p.WAITS.values() if w["cta_ns"]]
     if sim.output and waits:
-        wait, remote = (100 * sum(w[key] / w["cta_ns"] for w in waits)
-                        / len(waits) for key in ("wait_ns", "remote_ns"))
+        wait, remote, fill = (
+            100 * sum(w[key] / w["cta_ns"] for w in waits) / len(waits)
+            for key in ("wait_ns", "remote_ns", "fill_ns"))
+        rows = f", {fill:.1f} % on the rows it loads" if fill else ""
         where = " (process 0's cards)" if args.multihost else ""
         print(f"K6 waited {wait:.1f} % of its CTA time on neighbours' flags "
-              f"({remote:.1f} % on other cards'){where}", file=sys.stderr,
-              flush=True)
+              f"({remote:.1f} % on other cards'){rows}{where}",
+              file=sys.stderr, flush=True)
 
     # The grid kind's item shape (the one-card route outside the resident
     # gate): which items the run's launches stepped

@@ -100,7 +100,7 @@
 //     there, used at once, cost the ring 3.5 % at 1024^2 over four H100s
 //     (PERF.md); the CTA's life in both clocks converts them to ns at its
 //     exit. Then the CTA adds them into the card's counter words (kCtaNs
-//     ... kLaunches, u64, after the error word in the card's exchange
+//     ... kFillNs, u64, after the error word in the card's exchange
 //     block), and CTA 0 counts the launch. The runner reads them with the
 //     error word (ops/ring_p2p.py::WAITS). Nothing else in the step, the
 //     copies or the flags changes: the same bits.
@@ -196,6 +196,11 @@
 //     reduction).
 //   Flags: one int an item of this card, never reset, the epoch carried
 //     across launches and runner calls (ops/ring_p2p.py::GridExchange).
+//   Counters: as above, the producer's wait counts only while the CTA has
+//     no item in flight; and thread 0 of the stepping warps times each of
+//     its awaits of a level-0 ring row whose first test fails (kFillNs):
+//     the wavefront blocked on the copy group's loads, or on an item not
+//     yet posted.
 //   Not torus mode over a 1 x 1 block: that would push four edge slabs
 //     and the corners every chunk into slots only the block itself reads.
 
@@ -247,8 +252,11 @@ constexpr int kCopyBar = 2;         // ... of the grid kind's copy warps
 constexpr long long kSpinNs = 10000000000LL;
 constexpr int kErrTimeout = 1;      // the error word: a wait ran out
 // The counter words (unsigned long long): the CTAs' lives, their producers'
-// blocked waits, the part of those that waited on another card, launches.
+// blocked waits, the part of those that waited on another card, launches,
+// and the grid kind's stepping warps' blocked waits for level-0 ring rows
+// (0 in ring and torus mode).
 constexpr int kCtaNs = 0, kWaitNs = 1, kRemoteNs = 2, kLaunches = 3;
+constexpr int kFillNs = 4;
 constexpr int kMaxDevices = 64;
 // Words of a shard's entry in the host table (lbm_ring_p2p): 15 pointers,
 // then h, h_prev, h_next, row_base.
@@ -851,8 +859,9 @@ __device__ __forceinline__ void produce(const LaunchT& L,
 // clear, the CTA that draws the launch's last ticket reduces each (chunk,
 // shard or block)'s k rows of partials in reduce_rows's order; then each
 // CTA adds its life (from t_entry, c_entry) and its producer's waited
-// cycles, converted to ns, into the card's counter words, and CTA 0 counts
-// the launch.
+// cycles (and, in the grid kind, its stepping warps' in waited[2]),
+// converted to ns, into the card's counter words, and CTA 0 counts the
+// launch.
 template <int kK, class LaunchT>
 __device__ __forceinline__ void finish(const LaunchT& L, long long t_entry,
                                        long long c_entry,
@@ -897,6 +906,8 @@ __device__ __forceinline__ void finish(const LaunchT& L, long long t_entry,
     atomicAdd(L.p.waits + kCtaNs, (unsigned long long)life);
     atomicAdd(L.p.waits + kWaitNs, (unsigned long long)(waited[0] * ns));
     atomicAdd(L.p.waits + kRemoteNs, (unsigned long long)(waited[1] * ns));
+    if constexpr (kGrid)
+      atomicAdd(L.p.waits + kFillNs, (unsigned long long)(waited[2] * ns));
     if (blockIdx.x == 0) atomicAdd(L.p.waits + kLaunches, 1ull);
   }
 }
@@ -1134,7 +1145,9 @@ __device__ __forceinline__ void grid_body(const GridLaunch& L,
   extern __shared__ __align__(16) float smem[];
   __shared__ wv::Stream S;
   __shared__ long long t_entry, c_entry;
-  __shared__ unsigned long long waited[2];
+  // the producer's waits with no item in flight; the stepping warps' on
+  // level-0 ring rows (SM cycles)
+  __shared__ unsigned long long waited[3];
   if (threadIdx.x == 0) {
     t_entry = globaltimer();
     c_entry = clock64();
@@ -1150,13 +1163,16 @@ __device__ __forceinline__ void grid_body(const GridLaunch& L,
     S.finished = -1;
   }
   __syncthreads();
-  if (threadIdx.x < wv::kThreads)
-    wv::step_stream<kK, kStepBar>(smem, S, L.w, a);
-  else if (threadIdx.x >= wv::kThreads + 32)
+  if (threadIdx.x < wv::kThreads) {
+    const unsigned long long fill =
+        wv::step_stream<kK, kStepBar>(smem, S, L.w, a);
+    if (threadIdx.x == 0) waited[2] = fill;
+  } else if (threadIdx.x >= wv::kThreads + 32) {
     wv::copy_stream<kK, kGridCopy, kCopyBar>(
         smem, S, L.obst, L.w, vec16, a, threadIdx.x - wv::kThreads - 32);
-  else
+  } else {
     produce_stream<kK>(L, S, waited);
+  }
   finish<kK>(L, t_entry, c_entry, waited);
 }
 
@@ -1439,7 +1455,7 @@ int lbm_ring_p2p_copy(void* dst, long long dpitch, const void* src,
 // items the shards' tiles; peer_flags: n_peers (<= kMaxPeers) flag arrays
 // that the graph names, this card's first; pull0: chunk 0 reads prev_in /
 // next_in, not the slots; error: the device's error word; waits: the
-// device's 4 counter words (kCtaNs ...), added to; counter: a zeroed
+// device's 5 counter words (kCtaNs ... kFillNs), added to; counter: a zeroed
 // unsigned int of the device, left zeroed (the last CTA resets it), not
 // shared with a launch that may run at the same time. Launches on the
 // current device and stream; returns cudaGetLastError(), or the error of

@@ -212,10 +212,12 @@ __device__ __forceinline__ void copy_stream(float* smem, Stream& S,
 // until the stop item is reached and every item is summed. Stores level
 // k's owned cells into each item's output state, its step-s partial into
 // partials[(s - 1) items], and arrives on the item's `done` once both are
-// written.
+// written. Returns, in thread 0, the SM cycles it was blocked awaiting
+// level-0 ring rows that the copy group had not landed (0 elsewhere).
 template <int kK, int kBar>
-__device__ __forceinline__ void step_stream(float* smem, Stream& S, int w,
-                                            const LbmArgs& a);
+__device__ __forceinline__ unsigned long long step_stream(float* smem,
+                                                          Stream& S, int w,
+                                                          const LbmArgs& a);
 
 // ---------------------------------------------------------------------------
 
@@ -343,8 +345,9 @@ __device__ __forceinline__ void copy_stream(float* smem, Stream& S,
 }
 
 template <int kK, int kBar>
-__device__ __forceinline__ void step_stream(float* smem, Stream& S, int w,
-                                            const LbmArgs& a) {
+__device__ __forceinline__ unsigned long long step_stream(float* smem,
+                                                          Stream& S, int w,
+                                                          const LbmArgs& a) {
   constexpr int k = kK;
   constexpr int kx = col_margin(k);
   constexpr int cm = kx - k;
@@ -398,13 +401,22 @@ __device__ __forceinline__ void step_stream(float* smem, Stream& S, int w,
   bool mpend = true;
   for (int s = 1; s < ls && s <= k; ++s) off += level_cells(w, k, s);
   int waited = 0;   // positions [0, waited) are in (thread 0's count)
+  unsigned long long fill = 0;   // thread 0's blocked awaits, SM cycles
   // Thread 0 waits for the positions level 1 reads in the next wave, and a
   // barrier hands them to every stepping thread: level 1 reads positions
-  // [kRows i, kRows i + kRows + 2) in wave i.
+  // [kRows i, kRows i + kRows + 2) in wave i. A wait whose first test
+  // fails is timed into `fill`: the rows' loads, or an item the copy group
+  // has not been handed yet.
   auto await = [&](int i) {
     if (threadIdx.x == 0)
-      for (; waited < kRows * i + kRows + 2; ++waited)
-        mbar_wait(&S.full[waited & (kRing - 1)], (waited / kRing) & 1);
+      for (; waited < kRows * i + kRows + 2; ++waited) {
+        unsigned long long* b = &S.full[waited & (kRing - 1)];
+        const int phase = (waited / kRing) & 1;
+        if (mbar_test(b, phase)) continue;
+        const long long c0 = clock64();
+        mbar_wait(b, phase);
+        fill += clock64() - c0;
+      }
   };
   await(0);
   sync<kBar>();
@@ -506,6 +518,7 @@ __device__ __forceinline__ void step_stream(float* smem, Stream& S, int w,
       for (int q = kRows * i; q < kRows * i + kRows; ++q)
         mbar_arrive(&S.empty[q & (kRing - 1)]);
   }
+  return fill;
 }
 
 }  // namespace wave

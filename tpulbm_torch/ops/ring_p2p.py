@@ -44,7 +44,9 @@ on a neighbour tile's flag (and the part of them that found a flag of
 another card not done) in SM cycles, and its own life by
 ``%globaltimer``, which converts the cycles to ns, and adds them into
 counter words of its card's block (``WAIT_WORDS``, after the error word),
-with a count of launches. ``Exchange.check`` reads them in
+with a count of launches; the grid kind's CTAs also time the waits of
+their stepping warps for level-0 ring rows (``fill_ns``, 0 in ring and
+torus mode). ``Exchange.check`` reads them in
 the same copy as the error word and adds what each card counted since
 its last read to ``WAITS[card index]``, this process's cards only;
 ``reset_waits`` clears it.
@@ -117,9 +119,11 @@ MAX_TORUS_PEERS = 16    # ... in torus mode (kMaxTorusPeers)
 PUSH_REMOTE = 1     # duty: the tile pushes an edge row onto another card
 READ_REMOTE = 2     # duty: a tile on another card waits on its flag
 # K6's counter words, uint64 from byte WAITS_AT of a card's exchange block
-# (csrc/ring_p2p.cu::kCtaNs ... kLaunches): the CTAs' lives, their blocked
-# waits, the part of those that waited on another card (ns), and launches.
-WAIT_WORDS = ("cta_ns", "wait_ns", "remote_ns", "launches")
+# (csrc/ring_p2p.cu::kCtaNs ... kFillNs): the CTAs' lives, their blocked
+# waits, the part of those that waited on another card (ns), launches, and
+# the grid kind's stepping warps' blocked waits for the rows the copy group
+# loads (ns; 0 in ring and torus mode).
+WAIT_WORDS = ("cta_ns", "wait_ns", "remote_ns", "launches", "fill_ns")
 WAITS_AT = 8
 # What K6 counted on each card of this process since the last
 # reset_waits(): {card index: {word: count}} (in the style of
