@@ -750,6 +750,84 @@ def test_k6_counts_its_waits_and_launches(case, torus):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ring4", "torus2x2", "grid"])
+def test_k6_counts_its_look_ahead(case, kind):
+    """K6's counts of its producer's look-ahead (ring_p2p.WAITS' next_n and
+    ahead_n), two runner calls of 64 steps (one launch of 8 chunks a card,
+    then the call's check): in ring mode over 4 row shards and torus mode
+    over 2x2 blocks of the 200 x 136 case, all on one card, next_n is every
+    item a CTA took after its first, the launch's items less its CTAs, and
+    0 <= ahead_n <= next_n; the grid kind (a 1024^2 grid) counts neither."""
+    from tpulbm_torch.dist import runner, sharding
+    from tpulbm_torch.dist.mesh import get_mesh, get_mesh_2d
+    from tpulbm_torch.ops import ring_p2p
+
+    if kind == "grid":
+        p, f0, mask = _grid_case(1024, 1024, 23)
+        run, fs, obs = make_runner(p, 64, "cuda", "cuda"), f0, mask
+        items = None
+    else:
+        p, f0, mask = case
+        if kind == "torus2x2":
+            mesh = get_mesh_2d(2, 2)
+            run = runner.make_torus_p2p_runner(p, 64, mesh)
+            fs, obs = sharding.shard_blocks(f0.clone(), mask, mesh)
+            items = 4 * ring_p2p.ntiles(p.ny // 2, p.nx // 2)
+        else:
+            mesh = get_mesh(4)
+            run = runner.make_p2p_runner(p, 64, mesh)
+            fs, obs = sharding.shard_rows(f0.clone(), mask, mesh)
+            items = 4 * ring_p2p.ntiles(p.ny // 4, p.nx)
+    card = f0.device.index or 0
+    ctas = _build.library().lbm_ring_p2p_ctas(8)
+    ring_p2p.reset_waits()
+    for call in range(1, 3):
+        fs, _ = run(fs, obs)
+        w = ring_p2p.WAITS[card]
+        assert w["launches"] == call and w["cta_ns"] > 0
+        if items is None:
+            assert w["next_n"] == w["ahead_n"] == 0
+        else:
+            assert w["next_n"] == call * (8 * items - min(8 * items, ctas))
+            assert 0 <= w["ahead_n"] <= w["next_n"]
+    _counter_is_zero(f0.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["200x136/3", "1024x1024/4"])
+def test_p2p_runner_is_bitwise_the_cuda_ring(case, shape):
+    """K6's ring mode (make_p2p_runner) against the cuda ring
+    (make_ring_runner over ring_chunk), all shards on one card, over two
+    runner calls of 539 steps: 67 chunks of 8 (a launch of 64 and a tail
+    launch of 3) and a 3-step remainder, on 3 shards of the 200 x 136 case
+    (3 tile rows a shard) and on 4 shards of a 1024^2 grid (8 tile rows a
+    shard). 67 is a multiple of neither 64 nor a shard's tile rows, so the
+    rotation of each chunk's walk crosses the tail launch and the call's
+    end (each launch's first chunk starts at tile row 0). States and av
+    series bitwise, each call's."""
+    from tpulbm_torch.dist import runner, sharding
+    from tpulbm_torch.dist.mesh import get_mesh
+
+    n = int(shape.split("/")[1])
+    p, f0, mask = case if n == 3 else _grid_case(1024, 1024, 29)
+    mesh = get_mesh(n)
+    got = {}
+    for name, run in (
+            ("p2p", runner.make_p2p_runner(p, 539, mesh)),
+            ("ring", runner.make_ring_runner(p, 539, mesh,
+                                             kstep_tile.ring_chunk))):
+        fs, obs = sharding.shard_rows(f0.clone(), mask, mesh)
+        got[name] = []
+        for _ in range(2):
+            fs, av = run(fs, obs)
+            got[name].append((sharding.gather_rows(fs, "cuda"), av))
+    for (f, av), (g, bv) in zip(got["p2p"], got["ring"]):
+        assert torch.equal(f, g)
+        assert torch.equal(av, bv)
+    _counter_is_zero(f0.device)
+
+
+@pytest.mark.cuda
 def test_grid_kind_counts_its_row_waits_at_8192(case):
     """The grid kind's word of its stepping warps' waits for the rows its
     copy group loads (ring_p2p.WAITS' fill_ns): one 8192^2 runner call of

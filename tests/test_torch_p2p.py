@@ -243,7 +243,8 @@ def test_outer_per_launch_and_the_table():
         field = re.sub(r"(\w+?)(\d)$", r"\1[\2]", name)
         assert re.search(rf"s\.{re.escape(field)} = [^;]*"
                          rf"(ptr\({i}\)|t\[{i}\])", src), (i, name)
-    words = ("kCtaNs", "kWaitNs", "kRemoteNs", "kLaunches", "kFillNs")
+    words = ("kCtaNs", "kWaitNs", "kRemoteNs", "kLaunches", "kFillNs",
+             "kNextN", "kAheadN")
     assert len(words) == len(ring_p2p.WAIT_WORDS)
     for i, word in enumerate(words):
         assert re.search(rf"\b{word} = {i}\b", src), word
@@ -255,7 +256,7 @@ def test_outer_per_launch_and_the_table():
 
 
 def test_fill_word_is_the_kernels_and_has_its_place():
-    """The grid kind's word of waits for the rows it loads: fill_ns last in
+    """The grid kind's word of waits for the rows it loads: fill_ns fifth in
     WAIT_WORDS, csrc/ring_p2p.cu's kFillNs at the same index (the words
     before it where they were), added into only where the launch is the
     grid kind's (ring and torus mode leave it 0), from the stepping warps'
@@ -281,21 +282,76 @@ def test_fill_word_is_the_kernels_and_has_its_place():
         assert at + 8 <= layout["flags"]
     ex = ring_p2p.GridExchange(torch.device("cpu"), 64, 64)
     assert ex.words.dtype == torch.int64
-    assert ex.words.numel() * 8 == at + 8
+    assert at + 8 <= ex.words.numel() * 8 == (
+        ring_p2p.WAITS_AT + 8 * len(ring_p2p.WAIT_WORDS))
     assert ex.counted.shape == (len(ring_p2p.WAIT_WORDS),)
+
+
+def test_ahead_words_are_the_kernels_and_have_their_place():
+    """Ring and torus mode's counts of the producer's look-ahead: next_n
+    and ahead_n after fill_ns in WAIT_WORDS, csrc/ring_p2p.cu's kNextN and
+    kAheadN at the same indices. produce leaves the items it took after
+    the first (its loop's count, n) in waited[2] and counts those it issued
+    only after the item before was stored (after wait, not under the step:
+    the have branch counts nothing) in waited[0] from bit kLateShift, above
+    its wait cycles; finish adds n to next_n and n less that count to
+    ahead_n, and the cycles below the bit to wait_ns, only where the launch
+    is not the grid kind's (its produce_stream counts neither: both 0, its
+    waited[0] all cycles); both words lie between the error word and the
+    flags in the ring's and the torus's exchange blocks, and inside the
+    grid kind's words tensor."""
+    src = (_build.CSRC / "ring_p2p.cu").read_text()
+    assert ring_p2p.WAIT_WORDS[4:] == ("fill_ns", "next_n", "ahead_n")
+    assert re.search(r"constexpr int kNextN = 5;", src)
+    assert re.search(r"constexpr int kAheadN = 6;", src)
+    assert re.search(r"constexpr int kLateShift = 40;", src)
+    produce = src[src.index("void produce("):src.index("void finish(")]
+    assert re.search(r"int n = 0;[^\n]*\n(.*\n){1,8}\s*for \(;; \+\+n\)",
+                     produce)
+    assert "if (have) issue(nt, st ^ 1);" in produce
+    assert re.search(r"if \(!wait\(nt\)\) \{\s*stop\(st \^ 1\);\s*break;"
+                     r"\s*\}\s*wait_cyc \+= 1ull << kLateShift;\s*"
+                     r"issue\(nt, st \^ 1\);", produce)
+    assert produce.count("kLateShift") == 2   # the comment's and the count
+    assert re.search(r"waited\[0\] = wait_cyc;\s*waited\[1\] = remote_cyc;"
+                     r"\s*waited\[2\] = n;", produce)
+    finish = src[src.index("void finish("):src.index("void p2p_body(")]
+    assert re.search(r"wait_cyc =\s*kGrid \? waited\[0\] : waited\[0\] & "
+                     r"kCycles;", finish)
+    assert re.search(r"late = kGrid \? 0 : waited\[0\] >> kLateShift;",
+                     finish)
+    assert re.search(r"atomicAdd\(L\.p\.waits \+ kWaitNs, [^;]*wait_cyc \* "
+                     r"ns\)\);", finish)
+    assert re.search(r"if constexpr \(kGrid\)\s+atomicAdd\(L\.p\.waits "
+                     r"\+ kFillNs, [^;]*;\s*else \{\s*"
+                     r"atomicAdd\(L\.p\.waits \+ kNextN, waited\[2\]\);\s*"
+                     r"atomicAdd\(L\.p\.waits \+ kAheadN, waited\[2\] - "
+                     r"late\);", finish)
+    stream = src[src.index("void produce_stream("):
+                 src.index("void grid_body(")]
+    assert "kLateShift" not in stream
+    at = ring_p2p.WAITS_AT + 8 * ring_p2p.WAIT_WORDS.index("ahead_n")
+    assert at == ring_p2p.WAITS_AT + 8 * ring_p2p.WAIT_WORDS.index(
+        "next_n") + 8
+    for layout, _ in (ring_p2p.block_layout([2048] * 4, [0, 1, 2, 3], 8192),
+                      ring_p2p.torus_block_layout([0, 1, 2, 3], 4096, 4096)):
+        assert layout["waits"] < at and at + 8 <= layout["flags"]
+    ex = ring_p2p.GridExchange(torch.device("cpu"), 64, 64)
+    assert ex.words.numel() * 8 == at + 8
 
 
 def test_count_waits_adds_fill_ns_per_card(monkeypatch):
     """_count_waits, as Exchange.check and GridExchange.check call it: what
-    each word gained since the last read, fill_ns too, into WAITS of the
-    card's index."""
+    each word gained since the last read, fill_ns, next_n and ahead_n too,
+    into WAITS of the card's index."""
     monkeypatch.setattr(ring_p2p, "WAITS", {})
-    first = np.array([1000, 10, 0, 1, 300], dtype=np.uint64)
-    counted = ring_p2p._count_waits(0, first, np.zeros(5, dtype=np.uint64))
-    second = np.array([3000, 30, 0, 2, 700], dtype=np.uint64)
+    first = np.array([1000, 10, 0, 1, 300, 40, 30], dtype=np.uint64)
+    counted = ring_p2p._count_waits(0, first, np.zeros(7, dtype=np.uint64))
+    second = np.array([3000, 30, 0, 2, 700, 90, 80], dtype=np.uint64)
     ring_p2p._count_waits(0, second, counted)
     assert ring_p2p.WAITS == {0: dict(cta_ns=3000, wait_ns=30, remote_ns=0,
-                                      launches=2, fill_ns=700)}
+                                      launches=2, fill_ns=700, next_n=90,
+                                      ahead_n=80)}
 
 
 def test_p2p_route(capsys):
@@ -350,16 +406,19 @@ def test_p2p_route(capsys):
 # its launches in order; a launch's CTAs are two Python generators each, the
 # stepping warps and the producer warp, interleaved by a seeded random
 # scheduler with every other card's. The producer walks the CTA's items
-# (chunk, shard, tile) chunk-major with the grid's stride and does what the
-# kernel's does: wait for the first item's flags and load its window into
-# stage 0; then, while the stepping warps step tile n, poll the next item's
-# flags and load its window into the other stage where they are done; wait
-# until tile n is stored, release its flag; where the next window is not
-# loaded yet, wait for its flags (after the release) and load it; after the
-# last item, a stop. The stepping warps take the stages in turn, step the
-# window, write the owned rows into the other state buffer and the edge
-# rows into the neighbours' landing slots of the next epoch's parity, row
-# by row, and signal the stage done. Loads go row by row too. A tile waits
+# (chunk, shard, tile) chunk-major with the grid's stride, each chunk's
+# walk starting one tile row further down as the kernel's ring mode and
+# grid kind do (walk_record; the plain walk, record order in every chunk,
+# is torus mode's), and does what the kernel's does: wait for the first
+# item's flags and load its window into stage 0; then, while the stepping
+# warps step tile n, poll the next item's flags and load its window into
+# the other stage where they are done; wait until tile n is stored,
+# release its flag; where the next window is not loaded yet, wait for its
+# flags (after the release) and load it; after the last item, a stop. The
+# stepping warps take the stages in turn, step the window, write the owned
+# rows into the other state buffer and the edge rows into the neighbours'
+# landing slots of the next epoch's parity, row by row, and signal the
+# stage done. Loads go row by row too. A tile waits
 # on the tiles of the host-built tile graph (ring_p2p.tile_graph, decoded
 # from its records by graph_deps) unless a test gives another relation.
 # Every cell of every buffer carries the epoch of the state it holds, and a
@@ -373,6 +432,12 @@ MODEL_TILE = 8
 # Across processes, the most scheduler steps a process's host takes to
 # reach a prologue (FlagModel.prologue)
 HOST_DELAY = 500
+
+
+def walk_record(c, i, items, rot):
+    """The record that walk index i of chunk c takes (ring mode and the
+    grid kind: rot the tiles or items of a tile row; 0 the plain walk)."""
+    return (i + c * rot) % items
 
 
 def model_deps(rows, nx, d, tile, k, t=MODEL_TILE, cross=True):
@@ -508,13 +573,14 @@ class FlagModel:
     pushed; its chunk 0 then reads the slots. ``grid``: the grid kind, one
     shard (the whole grid) on one card, its window rows wrapping into the
     state itself, no slots, no pushes and no pull0 (the relation, where
-    ``deps`` is None, ring_p2p.grid_graph's), each chunk's walk starting
-    one item row further down. ``t``: the tiles' edge, or (rows, columns)
-    of the grid kind's items."""
+    ``deps`` is None, ring_p2p.grid_graph's). ``rotate``: each chunk's walk
+    starts one tile or item row further down (the kernel's ring mode and
+    grid kind; False: the plain walk, in the grid kind too). ``t``: the
+    tiles' edge, or (rows, columns) of the grid kind's items."""
 
     def __init__(self, params, rows, offsets, cards, mask, states, k,
                  deps=None, t=MODEL_TILE, early_release=False,
-                 processes=False, entry_order=True, grid=False):
+                 processes=False, entry_order=True, grid=False, rotate=True):
         self.p, self.rows, self.offsets, self.cards = params, rows, offsets, cards
         self.k, self.t, self.grid = k, t, grid
         self.th, self.tw = _shape(t)
@@ -525,6 +591,7 @@ class FlagModel:
         self.processes, self.entry_order = processes, entry_order
         self.nx = params.nx
         self.tiles_x = -(-self.nx // self.tw)
+        self.rot = self.tiles_x if rotate else 0
         n = len(rows)
         nan = float("nan")
         self.buf = [[s.clone(), torch.full_like(s, nan)] for s in states]
@@ -556,8 +623,7 @@ class FlagModel:
 
     def locate(self, launch, item):
         c, r = divmod(item, launch["items"])
-        if self.grid:   # chunk c's walk starts at item row c
-            r = (r + c * self.tiles_x) % launch["items"]
+        r = walk_record(c, r, launch["items"], self.rot)
         for d in launch["shards"]:
             if r < self.ntiles(d):
                 return c, d, r
@@ -840,18 +906,20 @@ CALLS = [[(3, True), (1, False)], [(2, True), (3, False)]]
     (3, ["a", "b"], 7, 51),   # 17-row shards: a last tile row of 1 row
     (2, ["a"], None, 44),     # one CTA a tile of a chunk
 ])
+@pytest.mark.parametrize("rotate", [True, False], ids=["rotated", "plain"])
 def test_flag_model_reads_nothing_stale_and_is_the_plain_version(
-        n_shards, cards, grid, ny):
+        n_shards, cards, grid, ny, rotate):
     """The model of K6 over 2-4 shards (ny x 36 grid, 8 x 8 model tiles,
     k = 5: ragged tile rows and a last tile column of 4 columns, so the
     slabs and the x margins reach across two tiles) on 1-3 cards, for grids
-    of 1 CTA to every tile of a chunk: it finishes, reads no stale cell,
-    and ends bitwise equal to p2p_chunks_ref over the same calls, state and
-    per-step sums (the speeds of every tile stitched and summed as the
-    plain chunk sums them)."""
+    of 1 CTA to every tile of a chunk, each chunk's walk rotated (ring
+    mode's) or plain: it finishes, reads no stale cell, and ends bitwise
+    equal to p2p_chunks_ref over the same calls, state and per-step sums
+    (the speeds of every tile stitched and summed as the plain chunk sums
+    them)."""
     p, mask, rows, offsets, states, on, k = _model_case(n_shards, cards,
                                                         ny=ny)
-    model = FlagModel(p, rows, offsets, on, mask, states, k)
+    model = FlagModel(p, rows, offsets, on, mask, states, k, rotate=rotate)
     total_tiles = sum(model.ntiles(d) for d in range(n_shards))
     rng = np.random.RandomState(n_shards * 100 + (grid or 0))
     for launches in CALLS:
@@ -910,13 +978,14 @@ def _caught(deps, grid, seeds=4, cards=("a", "b"), calls=None, **kw):
 _GRAPH = graph_deps(["a", "b", "a"])
 
 
-def test_flag_model_catches_a_missing_cross_shard_wait():
+@pytest.mark.parametrize("rotate", [True, False], ids=["rotated", "plain"])
+def test_flag_model_catches_a_missing_cross_shard_wait(rotate):
     """Without the waits on the other shards' tiles, the model reads a
-    stale slab (or state): every seed, at 7 CTAs."""
+    stale slab (or state): every seed, at 7 CTAs, either walk."""
     def no_cross(rows, nx, d, tile, k, t):
         return [(e, u) for e, u in _GRAPH(rows, nx, d, tile, k, t) if e == d]
 
-    assert _caught(no_cross, 7) == 4
+    assert _caught(no_cross, 7, rotate=rotate) == 4
 
 
 def _one_prev_row(rows, nx, d, tile, k, t):
@@ -938,19 +1007,24 @@ def _three_cols(rows, nx, d, tile, k, t):
 
 
 @pytest.mark.parametrize("deps", [_one_prev_row, _three_cols])
-def test_flag_model_catches_a_narrow_neighbourhood(deps):
+@pytest.mark.parametrize("rotate,ctas", [(True, 28), (False, 29)],
+                         ids=["rotated", "plain"])
+def test_flag_model_catches_a_narrow_neighbourhood(deps, rotate, ctas):
     """The cone's reach past the next tile row or column is needed where the
     last tile row or column is narrower than k: without it, the model reads
-    a stale cell (every seed, at 29 CTAs: with the producer's early loads,
-    20 CTAs caught _three_cols on 3 seeds of 4)."""
-    assert _caught(deps, 29) == 4
+    a stale cell (every seed, at 29 CTAs in the plain walk: with the
+    producer's early loads, 20 CTAs caught _three_cols on 3 seeds of 4; at
+    28 in the rotated walk, where a tile's neighbours lie further back: 29
+    CTAs caught _three_cols there on 2 seeds of 4, 28 on 8 of 8)."""
+    assert _caught(deps, ctas, rotate=rotate) == 4
 
 
-def test_flag_model_catches_an_early_release():
+@pytest.mark.parametrize("rotate", [True, False], ids=["rotated", "plain"])
+def test_flag_model_catches_an_early_release(rotate):
     """A producer that releases a tile's flag once its window is loaded,
     before the stepping warps' stores: the model reads a stale cell (every
-    seed, at 7 CTAs)."""
-    assert _caught(None, 7, early_release=True) == 4
+    seed, at 7 CTAs, either walk)."""
+    assert _caught(None, 7, early_release=True, rotate=rotate) == 4
 
 
 def _cross_calls(states):
@@ -968,18 +1042,20 @@ def _cross_calls(states):
     ([(0, "a"), (1, "b"), (2, "c"), (3, "d")], 11, 51),     # 4 x 1
     ([(0, "a"), (1, "a"), (2, "b")], None, 51),
 ])
-def test_flag_model_across_processes(cards, grid, ny):
+@pytest.mark.parametrize("rotate", [True, False], ids=["rotated", "plain"])
+def test_flag_model_across_processes(cards, grid, ny, rotate):
     """The model of K6 across processes (cards keyed by (process, card),
-    two processes on one card included): every pull0 launch runs the
-    prologue's pushes and the entry order, and its chunk 0 reads the
-    pushed slots; over calls with pull0 launches between others and a
+    two processes on one card included), either walk: every pull0 launch
+    runs the prologue's pushes and the entry order, and its chunk 0 reads
+    the pushed slots; over calls with pull0 launches between others and a
     resumed state, it reads no stale cell and ends bitwise equal to
     p2p_chunks_ref, whose chunk 0 reads the neighbours' states, state and
     per-step sums."""
     n_shards = len(cards)
     p, mask, rows, offsets, states, on, k = _model_case(n_shards, cards,
                                                         ny=ny)
-    model = FlagModel(p, rows, offsets, on, mask, states, k, processes=True)
+    model = FlagModel(p, rows, offsets, on, mask, states, k, processes=True,
+                      rotate=rotate)
     total_tiles = sum(model.ntiles(d) for d in range(n_shards))
     calls = _cross_calls(states)
     _run_model(model, calls, grid or total_tiles, n_shards * 10 + (grid or 0))
@@ -995,17 +1071,18 @@ def test_flag_model_across_processes(cards, grid, ny):
             assert torch.equal(got, s[d])
 
 
-def test_flag_model_catches_a_prologue_without_the_entry_order():
+@pytest.mark.parametrize("rotate", [True, False], ids=["rotated", "plain"])
+def test_flag_model_catches_a_prologue_without_the_entry_order(rotate):
     """Across processes, a card that starts a launch once its own pushes
     are done, without waiting for the other processes' pushes: chunk 0
     reads a slot before its neighbour's push (the first call's empty slot,
     or one that holds the edge of the state before a resume), a stale
-    read: every seed, at 7 CTAs."""
+    read: every seed, at 7 CTAs, either walk."""
     cards = [(0, "a"), (1, "a"), (1, "b")]
     assert _caught(None, 7, cards=cards, calls=_cross_calls, processes=True,
-                   entry_order=False) == 4
-    assert _caught(None, 7, cards=cards, calls=_cross_calls,
-                   processes=True) == 0
+                   entry_order=False, rotate=rotate) == 4
+    assert _caught(None, 7, cards=cards, calls=_cross_calls, processes=True,
+                   rotate=rotate) == 0
 
 
 def _brute_cone(rows, nx, k, t):
@@ -1103,6 +1180,36 @@ def test_tile_graph_at_the_kernel_tile():
         for tile, want in enumerate(cone[d]):
             assert sorted(deps[d, tile]) == want
             assert len(want) == 9
+
+
+def test_the_rotated_walk_waits_on_no_tile_of_its_round():
+    """The benchmark's solve-1024-rows4 layout: 4 cards of one 256-row
+    shard of the 1024^2 grid (8 x 32 kernel tiles), k = 8, 132 CTAs (an
+    H100's SMs), one launch of 64 chunks. Over chunks 1-63, the items one
+    of whose dependencies (in the chunk before, at its place in its own
+    card's walk) lies in the item's round of CTAs (walk index // 132),
+    being stepped beside it: in the plain walk 6,400 of 64,512 (9.9 %),
+    each a shard's first tile row waiting across the seam on the previous
+    card's last, which that card walked last; with each chunk's walk
+    starting one tile row further down, the kernel's ring mode
+    (csrc/ring_p2p.cu: walk_record's rule, rot the tiles of a tile row),
+    none."""
+    src = (_build.CSRC / "ring_p2p.cu").read_text()
+    assert "if constexpr (kRing) r = (r + c * L.rot) % L.p.items;" in src
+    assert "l.rot = tiles_x;" in src
+    cards, items, ctas, n_outer = [0, 1, 2, 3], 8 * 32, 132, 64
+    deps, _ = decode_graph(cards, [256] * 4, 1024, 8, ring_p2p.TILE)
+    for rot, want in ((0, 6400), (32, 0)):
+        at = [{walk_record(c, i, items, rot): c * items + i
+               for i in range(items)} for c in range(n_outer)]
+        hit = 0
+        for c in range(1, n_outer):
+            for (d, r), of in deps.items():
+                same = [e for e, u in of
+                        if at[c - 1][u] // ctas == at[c][r] // ctas]
+                assert all(e != d for e in same)
+                hit += bool(same)
+        assert hit == want
 
 
 # The grid kind (ring_p2p.grid_p2p_chunks, the one-card wide route): one

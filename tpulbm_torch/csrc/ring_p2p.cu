@@ -19,11 +19,25 @@
 // (lbm_cell.cuh::reduce_rows).
 //
 // Design.
-//   Work items (c, r), chunk-major: item c * items + r, r a tile of one of
-//     this launch's shards (their tiles in shard order). A persistent grid
-//     (one CTA a SM, co-resident by construction:
+//   Work items (c, r), r a tile of one of this launch's shards (their tiles
+//     in shard order), walked chunk-major: walk index c * items + i. A
+//     persistent grid (one CTA a SM, co-resident by construction:
 //     cudaOccupancyMaxActiveBlocksPerMultiprocessor) walks them, CTA b
-//     taking items b, b + grid, ... in order.
+//     taking walk indices b, b + grid, ... in order.
+//   Walk: chunk c's walk starts one tile row further down: index i of
+//     chunk c is record (i + c rot) % items, rot the tiles of a tile row.
+//     Started at record 0, a shard's first tile row came first in every
+//     chunk, and it waits on the previous shard's last tile row of the
+//     chunk before, which that shard's card walked last: 1-63 indices
+//     earlier at 1024^2 over four cards, in the same round of CTAs, so the
+//     CTA waited about a whole tile and the tiles after it in turn. Rotated,
+//     where a card's shards are consecutive in the ring (one a card, or all
+//     on one), every dependency of an item lies at least items - 2 rot - 1
+//     indices before it (191 at 1024^2 over four cards, more than the 132
+//     CTAs of an H100). Any walk that keeps each chunk's items inside the
+//     chunk's index range keeps the protocol: every dependency of a chunk-c
+//     item is a chunk c - 1 item, of a smaller index on every card. Torus
+//     mode walks each chunk from its first record (rot 0).
 //   The tile graph, built once on the host (ops/ring_p2p.py::tile_graph)
 //     and kept on the card for the ring's life (only the epoch changes
 //     between launches): record r (kRec ints) holds tile r's shard, tile,
@@ -99,11 +113,15 @@
 //     is on the path of the next tile's issue, and a %globaltimer read
 //     there, used at once, cost the ring 3.5 % at 1024^2 over four H100s
 //     (PERF.md); the CTA's life in both clocks converts them to ns at its
-//     exit. Then the CTA adds them into the card's counter words (kCtaNs
-//     ... kFillNs, u64, after the error word in the card's exchange
-//     block), and CTA 0 counts the launch. The runner reads them with the
-//     error word (ops/ring_p2p.py::WAITS). Nothing else in the step, the
-//     copies or the flags changes: the same bits.
+//     exit. The producer also counts the items it took after its first
+//     (kNextN) and, of those, the ones it issued while the item before was
+//     still stepping (kAheadN: the window flew under the step; the others
+//     are counted in the wait cycles' high bits). Then the CTA adds them
+//     into the card's counter words (kCtaNs ... kAheadN, u64, after the
+//     error word in the card's exchange block), and CTA 0 counts the
+//     launch. The runner reads them with the error word
+//     (ops/ring_p2p.py::WAITS). Nothing else in the step, the copies or the
+//     flags changes: the same bits.
 //   One instance per k (1 to 8), as K4.
 //   Across processes each process launches on its own shards; a card's
 //     landing slots, flag array, error word and counter words lie in one
@@ -253,10 +271,16 @@ constexpr long long kSpinNs = 10000000000LL;
 constexpr int kErrTimeout = 1;      // the error word: a wait ran out
 // The counter words (unsigned long long): the CTAs' lives, their producers'
 // blocked waits, the part of those that waited on another card, launches,
-// and the grid kind's stepping warps' blocked waits for level-0 ring rows
-// (0 in ring and torus mode).
+// the grid kind's stepping warps' blocked waits for level-0 ring rows
+// (0 in ring and torus mode), and the items a ring or torus producer took
+// after its first and those of them it issued ahead (0 in the grid kind).
 constexpr int kCtaNs = 0, kWaitNs = 1, kRemoteNs = 2, kLaunches = 3;
 constexpr int kFillNs = 4;
+constexpr int kNextN = 5;
+constexpr int kAheadN = 6;
+// Bits of a producer's blocked-wait cycles below its count of items issued
+// after the step before (produce): 2^40 cycles are ~10 minutes.
+constexpr int kLateShift = 40;
 constexpr int kMaxDevices = 64;
 // Words of a shard's entry in the host table (lbm_ring_p2p): 15 pointers,
 // then h, h_prev, h_next, row_base.
@@ -314,6 +338,7 @@ struct Protocol {
 struct Launch {
   Shard shard[kMaxLocal];
   Protocol<kMaxPeers> p;
+  int rot;                 // tiles a tile row: chunk c's walk starts at c rot
 };
 
 // Torus mode: the (h, w) blocks of the launch in `table` (kTorusWords int64
@@ -746,31 +771,43 @@ __device__ __forceinline__ unsigned poll_item(const LaunchT& L,
   return pending;
 }
 
-// The producer warp of every kind (LaunchT: Launch, TorusLaunch or
-// GridLaunch): walks the CTA's items blockIdx.x, + gridDim.x, ... of the
-// launch's chunks in order. For each it polls the dependencies' flags, hands
-// the item on (issue(it, st): its job into stage st, the (n >> 1)-th use of
-// stage st = n & 1), waits until it is stored (done[st]) and releases its
-// flag. While item n steps it polls the next item's flags and issues it as
-// soon as they are done; otherwise it releases item n's flag first and then
-// waits. stop(st): no more items in stage st. Leaves its blocked waits (SM
-// cycles: all, and those on another card) in waited[0], waited[1].
+// The producer warp of ring and torus mode (LaunchT: Launch or
+// TorusLaunch): walks the CTA's walk indices blockIdx.x, + gridDim.x, ... of
+// the launch's chunks in order (ring mode's chunk c starting at record
+// c rot, torus mode's at 0). For each it polls the dependencies' flags,
+// hands the item on (issue(it, st): its job into stage st, the (n >> 1)-th
+// use of stage st = n & 1), waits until it is stored (done[st]) and
+// releases its flag. While item n steps it polls the next item's flags and
+// issues it as soon as they are done; otherwise it releases item n's flag
+// first and then waits. stop(st): no more items in stage st. Leaves its
+// blocked waits (SM cycles: all, and those on another card) in waited[0]'s
+// low kLateShift bits and waited[1], the items it took after its first in
+// waited[2], and those of them it issued after the item before was stored
+// in waited[0]'s high bits (finish unpacks them): a counter of their own,
+// or unpacking them here, cost ring mode 2.5-3.4 % a chunk at 8192^2 over 4
+// shards and 128^2 over 2 on one H100 (PERF.md). The step's code follows
+// this code in the kernel and moved with its length, whatever the
+// registers.
 template <class LaunchT, class Issue, class Stop>
 __device__ __forceinline__ void produce(const LaunchT& L,
                                         unsigned long long* done,
                                         unsigned long long* waited,
                                         Issue issue, Stop stop) {
+  constexpr bool kRing = std::is_same_v<LaunchT, Launch>;
   const int lane = threadIdx.x & 31;
   const int total = L.p.items * L.p.n_outer;
 
   auto fetch = [&](int item) {
     const int c = item / L.p.items;
-    return read_item(L, c, item - c * L.p.items);
+    int r = item - c * L.p.items;
+    if constexpr (kRing) r = (r + c * L.rot) % L.p.items;
+    return read_item(L, c, r);
   };
   auto poll = [&](const Item& it) { return poll_item(L, it); };
 
   // The blocked waits (SM cycles): all of them, and those that found a
-  // flag of another card not done at their first poll.
+  // flag of another card not done at their first poll. wait_cyc also
+  // counts, from bit kLateShift, the items issued after the step before.
   unsigned long long wait_cyc = 0, remote_cyc = 0;
 
   // Polls until the item's flags are done: false where the card's error
@@ -815,12 +852,13 @@ __device__ __forceinline__ void produce(const LaunchT& L,
   };
 
   int item = blockIdx.x;   // < total: the grid is at most total
+  int n = 0;               // at the end: the items taken after the first
   Item it = fetch(item);
   if (!wait(it)) {
     stop(0);
   } else {
     issue(it, 0);
-    for (int n = 0;; ++n) {
+    for (;; ++n) {
       const int st = n & 1, phase = (n >> 1) & 1;
       const int next = item + gridDim.x;
       Item nt;
@@ -843,6 +881,7 @@ __device__ __forceinline__ void produce(const LaunchT& L,
           stop(st ^ 1);
           break;
         }
+        wait_cyc += 1ull << kLateShift;
         issue(nt, st ^ 1);
       }
       item = next;
@@ -852,6 +891,7 @@ __device__ __forceinline__ void produce(const LaunchT& L,
   if (lane == 0) {
     waited[0] = wait_cyc;
     waited[1] = remote_cyc;
+    waited[2] = n;
   }
 }
 
@@ -860,8 +900,9 @@ __device__ __forceinline__ void produce(const LaunchT& L,
 // shard or block)'s k rows of partials in reduce_rows's order; then each
 // CTA adds its life (from t_entry, c_entry) and its producer's waited
 // cycles (and, in the grid kind, its stepping warps' in waited[2]),
-// converted to ns, into the card's counter words, and CTA 0 counts the
-// launch.
+// converted to ns, into the card's counter words, in ring and torus mode
+// its producer's counts of items (waited[2], and waited[0]'s high bits:
+// produce), and CTA 0 counts the launch.
 template <int kK, class LaunchT>
 __device__ __forceinline__ void finish(const LaunchT& L, long long t_entry,
                                        long long c_entry,
@@ -903,11 +944,19 @@ __device__ __forceinline__ void finish(const LaunchT& L, long long t_entry,
     const long long life = globaltimer() - t_entry;
     const long long cycles = clock64() - c_entry;
     const double ns = cycles > 0 ? (double)life / (double)cycles : 0.0;
+    constexpr unsigned long long kCycles = (1ull << kLateShift) - 1;
+    const unsigned long long wait_cyc =
+        kGrid ? waited[0] : waited[0] & kCycles;
+    const unsigned long long late = kGrid ? 0 : waited[0] >> kLateShift;
     atomicAdd(L.p.waits + kCtaNs, (unsigned long long)life);
-    atomicAdd(L.p.waits + kWaitNs, (unsigned long long)(waited[0] * ns));
+    atomicAdd(L.p.waits + kWaitNs, (unsigned long long)(wait_cyc * ns));
     atomicAdd(L.p.waits + kRemoteNs, (unsigned long long)(waited[1] * ns));
     if constexpr (kGrid)
       atomicAdd(L.p.waits + kFillNs, (unsigned long long)(waited[2] * ns));
+    else {
+      atomicAdd(L.p.waits + kNextN, waited[2]);
+      atomicAdd(L.p.waits + kAheadN, waited[2] - late);
+    }
     if (blockIdx.x == 0) atomicAdd(L.p.waits + kLaunches, 1ull);
   }
 }
@@ -931,9 +980,9 @@ __device__ __forceinline__ void p2p_body(const LaunchT& L,
   // its tile is stored (one arrival)
   __shared__ unsigned long long posted[2], full[2], done[2];
   // the CTA's entry in both clocks; its producer's waits (cycles): all,
-  // and those on another card
+  // and those on another card; its items after the first (produce)
   __shared__ long long t_entry, c_entry;
-  __shared__ unsigned long long waited[2];
+  __shared__ unsigned long long waited[3];
   constexpr int k = kK;
   constexpr int sfloats = stage_floats(k);
   if (threadIdx.x == 0) {
@@ -1452,10 +1501,11 @@ int lbm_ring_p2p_copy(void* dst, long long dpitch, const void* src,
 // table: kWords int64 words a shard (the Shard fields in order, pointers
 // then ints; see ops/ring_p2p.py), all shards of the launch on the current
 // device; graph: the card's (items, kRec) int32 tile graph on the device,
-// items the shards' tiles; peer_flags: n_peers (<= kMaxPeers) flag arrays
+// items the shards' tiles (chunk c's walk starts c tile rows on,
+// wrapping); peer_flags: n_peers (<= kMaxPeers) flag arrays
 // that the graph names, this card's first; pull0: chunk 0 reads prev_in /
 // next_in, not the slots; error: the device's error word; waits: the
-// device's 5 counter words (kCtaNs ... kFillNs), added to; counter: a zeroed
+// device's 7 counter words (kCtaNs ... kAheadN), added to; counter: a zeroed
 // unsigned int of the device, left zeroed (the last CTA resets it), not
 // shared with a launch that may run at the same time. Launches on the
 // current device and stream; returns cudaGetLastError(), or the error of
@@ -1506,6 +1556,7 @@ int lbm_ring_p2p(const long long* table, int n_local, const int* graph,
   }
   if (items != tiles) return (int)cudaErrorInvalidValue;
   l.p.items = items;
+  l.rot = tiles_x;
   const tpulbm::LbmArgs a{ny, nx, accel_row, omega, w1, w2};
   return kLaunch[k - 1](l, a, stream);
 }

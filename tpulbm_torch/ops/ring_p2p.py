@@ -46,7 +46,10 @@ another card not done) in SM cycles, and its own life by
 counter words of its card's block (``WAIT_WORDS``, after the error word),
 with a count of launches; the grid kind's CTAs also time the waits of
 their stepping warps for level-0 ring rows (``fill_ns``, 0 in ring and
-torus mode). ``Exchange.check`` reads them in
+torus mode), and a ring or torus CTA's producer counts the items it took
+after its first (``next_n``) and those of them it issued while the item
+before was still stepping (``ahead_n``; both 0 in the grid kind).
+``Exchange.check`` reads them in
 the same copy as the error word and adds what each card counted since
 its last read to ``WAITS[card index]``, this process's cards only;
 ``reset_waits`` clears it.
@@ -119,11 +122,14 @@ MAX_TORUS_PEERS = 16    # ... in torus mode (kMaxTorusPeers)
 PUSH_REMOTE = 1     # duty: the tile pushes an edge row onto another card
 READ_REMOTE = 2     # duty: a tile on another card waits on its flag
 # K6's counter words, uint64 from byte WAITS_AT of a card's exchange block
-# (csrc/ring_p2p.cu::kCtaNs ... kFillNs): the CTAs' lives, their blocked
+# (csrc/ring_p2p.cu::kCtaNs ... kAheadN): the CTAs' lives, their blocked
 # waits, the part of those that waited on another card (ns), launches, and
 # the grid kind's stepping warps' blocked waits for the rows the copy group
-# loads (ns; 0 in ring and torus mode).
-WAIT_WORDS = ("cta_ns", "wait_ns", "remote_ns", "launches", "fill_ns")
+# loads (ns; 0 in ring and torus mode), and the items a ring or torus
+# producer took after its first and those of them it issued ahead, under
+# the step of the item before (kNextN, kAheadN; 0 in the grid kind).
+WAIT_WORDS = ("cta_ns", "wait_ns", "remote_ns", "launches", "fill_ns",
+              "next_n", "ahead_n")
 WAITS_AT = 8
 # What K6 counted on each card of this process since the last
 # reset_waits(): {card index: {word: count}} (in the style of
@@ -187,12 +193,14 @@ def tile_graph(mesh, rows, nx: int, k: int, t: int = TILE,
     waits on every tile with owned cells within k cells of its own, itself
     included (a symmetric relation; _reach). records (items, REC) int32
     holds a record a tile of the card's shards (in mesh order, tiles
-    row-major), the kernel's walk within a chunk: HEADER (shard as the
+    row-major), the kernel's walk within a chunk from the record where
+    the chunk starts (chunk c's at tile row c, wrapping: ring mode and the
+    grid kind, csrc/ring_p2p.cu): HEADER (shard as the
     launch's index, tile, window origin y0 and x0, owned rows and columns,
     duties, local | remote << 8 dependency counts), then its dependencies
     as flag indices, this card's first, those on another card as
     peers.index(card) << PEER_SHIFT | index. A card's flag array holds its
-    shards' tiles in walk order, so a tile's own flag is its record's
+    shards' tiles in record order, so a tile's own flag is its record's
     index. peers: the cards whose flag arrays the records name, this
     card's first. Tiles are t x t cells, or t rows of tw columns."""
     tw = tw or t
@@ -283,7 +291,7 @@ def block_layout(rows, shards, nx: int):
     """Byte offsets in a card's exchange block (one of each process and
     card, ``lbm_ring_p2p_alloc``): the error word at 0, K6's counter words
     (``WAIT_WORDS``) at "waits", the flag array (one int a tile of
-    ``shards``, in walk order) at "flags", then each shard d's lo and hi
+    ``shards``, in record order) at "flags", then each shard d's lo and hi
     landing buffers, two slots each, at layout[d]. Returns (layout,
     bytes); every process computes any block's."""
     buf = _up(2 * SLOT_BYTES * nx)
