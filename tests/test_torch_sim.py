@@ -67,14 +67,26 @@ def test_plan_chunks_equals_jax(cadence):
                                                               chunk)
 
 
-def test_port_checkpoint_resumes_in_jax(tmp_path):
-    """25 steps in the port, saved; the JAX Simulation resumes the file and
-    runs 15 more: its state and av series those of an uninterrupted JAX
-    run, within the tolerance tier."""
+@pytest.mark.parametrize("writer", ["save_checkpoint", "run_keep2"])
+def test_port_checkpoint_resumes_in_jax(tmp_path, writer):
+    """25 steps in the port, saved (by ``save_checkpoint``, or by the
+    writer thread of a run that checkpoints every 10 steps and keeps 2);
+    the file holds the history of the 25 steps alone; the JAX Simulation
+    resumes it and runs 15 more: its state and av series those of an
+    uninterrupted JAX run, within the tolerance tier."""
     port = _sim()
-    port.run(n_steps=25)
-    path = port.save_checkpoint(tmp_path)
+    if writer == "save_checkpoint":
+        port.run(n_steps=25)
+        path = port.save_checkpoint(tmp_path)
+    else:
+        port.run(n_steps=25, checkpoint_every=10,
+                 checkpoint_dir=str(tmp_path), checkpoint_keep=2)
+        assert sorted(os.listdir(tmp_path)) == ["ckpt_00000020.npz",
+                                                "ckpt_00000025.npz"]
+        path = ckpt.latest(tmp_path)
     assert os.path.basename(path) == "ckpt_00000025.npz"
+    with np.load(path) as z:
+        assert z["av_vels"].tobytes() == port.av_vels[:25].tobytes()
     resumed = _jsim()
     resumed.restore_checkpoint(tmp_path)
     assert resumed.step_count == 25

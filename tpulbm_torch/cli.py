@@ -27,6 +27,11 @@ import sys
 import time
 
 
+# the main thread's spans of the checkpoint path (lbm.ckpt.wait nests in
+# lbm.ckpt.copy where a save waits on the one before)
+CKPT_SPANS = ("lbm.ckpt.copy", "lbm.ckpt.wait")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tpulbm_torch",
@@ -89,6 +94,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--checkpoint-dir", default=None, help="checkpoint directory"
+    )
+    p.add_argument(
+        "--checkpoint-keep", type=int, default=None, metavar="N",
+        help="after each checkpoint, delete the directory's oldest complete "
+             "checkpoints until N remain (default: keep every one)",
     )
     p.add_argument(
         "--ckpt-backend", choices=("npz", "dcp"), default="npz",
@@ -195,6 +205,7 @@ def _main(args) -> int:
     from tpulbm_torch.dist.mesh import get_mesh, get_mesh_2d
     from tpulbm_torch.io.obstacles import ObstacleFileError
     from tpulbm_torch.io.params_file import ParamFileError
+    from tpulbm_torch.sim import checkpoint as ckpt
     from tpulbm_torch.sim.simulation import Simulation
     from tpulbm_torch.utils.profiling import totals, trace_region
 
@@ -234,6 +245,8 @@ def _main(args) -> int:
 
     sim.settle()
     before = totals().get("lbm.dist.exchange", (0, 0.0))
+    ckpt_before = (dict(ckpt.STATS), *(totals().get(name, (0, 0.0))[1]
+                                       for name in CKPT_SPANS))
     tic = time.time()
     try:
         with trace_region("mainloop",
@@ -242,6 +255,7 @@ def _main(args) -> int:
                 chunk=args.chunk,
                 checkpoint_every=args.checkpoint_every,
                 checkpoint_dir=args.checkpoint_dir,
+                checkpoint_keep=args.checkpoint_keep,
                 progress=args.progress,
                 debug=args.debug,
                 metrics_file=args.metrics_file,
@@ -266,6 +280,21 @@ def _main(args) -> int:
         print(f"multihost: transport {tr.backend}, {chunks} chunks, "
               f"host exchange {seconds / chunks * 1e6:.1f} us a chunk",
               file=sys.stderr, flush=True)
+    # the checkpoint path's cost: the writer thread's saves (checkpoint.STATS)
+    # and the main thread's time in its spans
+    stats, *spent = ckpt_before
+    saves = ckpt.STATS["saves"] - stats["saves"]
+    if sim.output and saves:
+        copy, wait = (totals().get(name, (0, 0.0))[1] - s
+                      for name, s in zip(CKPT_SPANS, spent))
+        write_ms = (ckpt.STATS["write_ns"] - stats["write_ns"]) / saves / 1e6
+        mb = (ckpt.STATS["bytes"] - stats["bytes"]) / 1e6
+        print(f"checkpoints: {saves} written ({mb:.1f} MB), "
+              f"{ckpt.STATS['removed'] - stats['removed']} removed, "
+              f"{write_ms:.1f} ms a write on the writer thread; the main "
+              f"thread {1e3 * copy:.1f} ms in lbm.ckpt.copy, "
+              f"{1e3 * wait:.1f} ms in lbm.ckpt.wait", file=sys.stderr,
+              flush=True)
     from tpulbm_torch.ops import ring_p2p
 
     # K6's own wait counters (cuda-p2p, the torus and the grid kind), the

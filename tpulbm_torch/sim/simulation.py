@@ -39,12 +39,18 @@ runner call at a time, ``lbm.dist.make_runner`` (on the runner's first
 call), ``lbm.dist.call``, ``lbm.sim.readback`` and ``lbm.sim.record`` (the
 bookkeeping between calls), then ``lbm.sim.result`` (the history copy and
 ``lbm.sim.reynolds``); ``lbm.io.write`` holds ``lbm.diag.planes`` and the
-writers' ``lbm.io.final_state`` and ``lbm.io.av_vels``.
+writers' ``lbm.io.final_state`` and ``lbm.io.av_vels``. A run that
+checkpoints adds ``lbm.ckpt.copy`` in ``lbm.sim.record`` (the host copies
+of the state and the history prefix, and the hand-off to the writer
+thread) and ``lbm.ckpt.wait`` (a join of that thread, inside a save
+before its copy or at the run's end); ``restore_checkpoint`` is
+``lbm.ckpt.restore``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import sys
@@ -146,6 +152,7 @@ class Simulation:
         self.av_vels = np.zeros((params.max_iters,), dtype=np.float32)
         self._runners = {}
         self._async_ckpt = ckpt.AsyncCheckpointer(ckpt_backend)
+        self._host_f = None   # _host_state's buffer, made at the first save
 
     @classmethod
     def from_files(
@@ -295,9 +302,14 @@ class Simulation:
         progress: bool = False,
         debug: bool = False,
         metrics_file: Optional[str] = None,
+        checkpoint_keep: Optional[int] = None,
     ) -> SimulationResult:
         """Advance ``n_steps`` (default: the deck's maxIters minus steps
-        already taken), returning the accumulated result."""
+        already taken), returning the accumulated result. With
+        ``checkpoint_every`` a checkpoint is written at every multiple of
+        it and at the end, on a thread that the run joins before it
+        returns; ``checkpoint_keep`` N then keeps the newest N complete
+        checkpoints of the directory (``checkpoint.prune``), None all."""
         remaining = self.params.max_iters - self.step_count
         total = remaining if n_steps is None else n_steps
         if total > remaining:
@@ -307,6 +319,11 @@ class Simulation:
             )
         if checkpoint_every and not checkpoint_dir:
             raise ValueError("checkpoint_every requires checkpoint_dir")
+        if checkpoint_keep is not None and checkpoint_keep < 1:
+            raise ValueError(f"checkpoint_keep must be at least 1, got "
+                             f"{checkpoint_keep}")
+        submit = functools.partial(self._async_ckpt.submit,
+                                   keep=checkpoint_keep)
         if chunk is None:
             chunk = total if checkpoint_every is None else checkpoint_every
             if metrics_file and chunk == total:
@@ -380,8 +397,8 @@ class Simulation:
                         # the write overlaps the next chunk on a thread, from
                         # a host copy (the next chunk reuses the state's
                         # storage)
-                        self._checkpoint(checkpoint_dir,
-                                         self._async_ckpt.submit)
+                        with span("lbm.ckpt.copy"):
+                            self._checkpoint(checkpoint_dir, submit)
         finally:
             # join the in-flight checkpoint (surfacing its errors) and close
             # the metrics file even when a chunk raised
@@ -448,9 +465,16 @@ class Simulation:
 
     def _host_state(self) -> Optional[np.ndarray]:
         """A host copy of the gathered state, which no later chunk writes
-        (None but on process 0)."""
+        (None but on process 0). On one region it is one pageable buffer
+        kept for the Simulation's life, refilled by a synchronous copy once
+        the writer thread is done with the last save (a fresh 37.7 MB
+        tensor at 1024² costs its page faults on every save)."""
         if len(self.regions) == 1:
-            return self.shards[0].to("cpu", copy=True).numpy()
+            if self._host_f is None:
+                self._host_f = torch.empty_like(self.shards[0],
+                                                device="cpu")
+            self._async_ckpt.wait()
+            return self._host_f.copy_(self.shards[0]).numpy()
         f = self._gather(self.shards, "cpu")
         return None if f is None else f.numpy()
 
@@ -459,19 +483,21 @@ class Simulation:
         ``AsyncCheckpointer.submit``, or the backend's own writer
         (``ckpt.save_dcp``, ``ckpt.save``). For ``dcp`` every process hands
         over host copies of its own shards, for ``npz`` process 0 the
-        gathered state (the others return None)."""
+        gathered state (the others return None); the history as far as this
+        step, a view (later chunks write only past it)."""
+        av_vels = self.av_vels[: self.step_count]
         if self.ckpt_backend == "dcp":
             pieces = {(r0, c0): self.shards[j].to("cpu", copy=True)
                       for j, (r0, _, c0, _) in enumerate(
                           self.regions[d] for d in self.transport.local)}
             group = (multihost.checkpoint_group()
                      if self.transport.world > 1 else None)
-            return save(directory, self.step_count, pieces, self.av_vels,
+            return save(directory, self.step_count, pieces, av_vels,
                         self.params, group=group)
         f = self._host_state()
         if f is None:
             return None
-        return save(directory, self.step_count, f, self.av_vels, self.params)
+        return save(directory, self.step_count, f, av_vels, self.params)
 
     def save_checkpoint(self, directory: str | os.PathLike) -> Optional[str]:
         """Write a checkpoint of this step now; returns its path (None on
@@ -480,6 +506,7 @@ class Simulation:
             directory, ckpt.save_dcp if self.ckpt_backend == "dcp"
             else ckpt.save)
 
+    @spanned("lbm.ckpt.restore")
     def restore_checkpoint(self, path_or_dir: str | os.PathLike) -> None:
         """Resume from a checkpoint of either package, written on any mesh
         and process count: each process takes its shards' rows (from a dcp
@@ -517,6 +544,7 @@ class Simulation:
         self.epoch += 1
         self.shards = [torch.as_tensor(p).to(tr.devices[d]).contiguous()
                        for d, p in zip(tr.local, pieces)]
+        ckpt.count(restores=1)
 
 
 def _attempt(fn, *args):
