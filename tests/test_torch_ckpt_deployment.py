@@ -182,6 +182,124 @@ def test_one_writer_thread_serves_every_save(tmp_path, monkeypatch):
     assert len(set(threads)) == 1 and threads[0] != threading.get_ident()
 
 
+def _slow_writes(monkeypatch, seconds, fail_at=None):
+    """The writes, as (step, the state's first value read at write time),
+    in the order written: each write first sleeps ``seconds``; the one at
+    step ``fail_at`` then raises."""
+    done, save, save_dcp = [], ckpt.save, ckpt.save_dcp
+
+    def slow(write):
+        def wrapped(directory, step, f, *args):
+            time.sleep(seconds)
+            if step == fail_at:
+                raise OSError(f"disk full at {step}")
+            first = (next(iter(f.values())) if isinstance(f, dict)
+                     else f).reshape(-1)[0]
+            done.append((step, float(first)))
+            return write(directory, step, f, *args)
+        return wrapped
+
+    monkeypatch.setattr(ckpt, "save", slow(save))
+    monkeypatch.setattr(ckpt, "save_dcp", slow(save_dcp))
+    return done
+
+
+@pytest.mark.parametrize("backend,ahead", [("npz", 0), ("dcp", 1)])
+def test_npz_writes_queue_in_order_and_dcp_joins_before_each(
+        tmp_path, monkeypatch, backend, ahead):
+    """Two npz saves queue on the writer thread without a join and are
+    written in the order submitted; dcp joins the last write before each
+    submit (its writer runs collectives), so one is in flight at most.
+    ``wait`` joins them all."""
+    done = _slow_writes(monkeypatch, 0.3)
+    writer = ckpt.AsyncCheckpointer(backend)
+    av = np.ones(4, np.float32)
+    for step in (1, 2):
+        f = np.full((9, 4, 4), step, np.float32)
+        writer.submit(tmp_path, step, f if backend == "npz"
+                      else {(0, 0): torch.from_numpy(f)}, av, _params())
+    assert len(done) == ahead
+    writer.wait()
+    assert done == [(1, 1.0), (2, 2.0)]
+    assert _names(tmp_path) == [f"ckpt_{s:08d}.{backend}" for s in (1, 2)]
+
+
+def test_a_save_joins_the_write_that_holds_its_buffer(tmp_path,
+                                                      monkeypatch):
+    """Saves that take two host buffers in turn (as ``HostStage`` does)
+    before a slowed writer: the third and fourth each join the write still
+    reading the buffer they refill, two saves back, and ``STATS['held']``
+    counts them; every file holds its own save's state."""
+    done = _slow_writes(monkeypatch, 0.2)
+    ckpt.reset_stats()
+    writer = ckpt.AsyncCheckpointer()
+    buffers = [np.zeros((9, 4, 4), np.float32) for _ in range(2)]
+    for step in range(1, 5):
+        buf = buffers[step % 2]
+        writer.release(buf)
+        buf[...] = step
+        writer.submit(tmp_path, step, buf, np.ones(step, np.float32),
+                      _params())
+    writer.wait()
+    assert ckpt.STATS["held"] == 2
+    assert done == [(s, float(s)) for s in range(1, 5)]
+    for step in range(1, 5):
+        with np.load(tmp_path / f"ckpt_{step:08d}.npz") as z:
+            assert (z["f"] == step).all()
+
+
+def test_the_end_joins_every_write_and_raises_its_error(tmp_path,
+                                                        monkeypatch):
+    """``wait`` joins every queued write, the ones after a failed write
+    too, then raises the failure; a checkpointing ``run()`` raises its
+    writer's error."""
+    _slow_writes(monkeypatch, 0.1, fail_at=1)
+    writer = ckpt.AsyncCheckpointer()
+    for step in (1, 2):
+        writer.submit(tmp_path, step, np.zeros((9, 4, 4), np.float32),
+                      np.ones(4, np.float32), _params())
+    with pytest.raises(OSError, match="disk full at 1"):
+        writer.wait()
+    assert _names(tmp_path) == ["ckpt_00000002.npz"]
+    assert writer.wait() is None
+    _slow_writes(monkeypatch, 0.0, fail_at=3 * EVERY)
+    with pytest.raises(OSError, match=f"disk full at {3 * EVERY}"):
+        _sim().run(n_steps=STEPS, checkpoint_every=EVERY,
+                   checkpoint_dir=str(tmp_path / "run"))
+
+
+class _Copied:
+    """A stand-in for the CUDA event that ends a host copy."""
+
+    def __init__(self):
+        self.waits = 0
+
+    def synchronize(self):
+        self.waits += 1
+
+
+@pytest.mark.parametrize("ready", [None, _Copied()], ids=["cpu", "event"])
+def test_a_queued_file_is_save_checkpoints_byte_for_byte(
+        tmp_path, monkeypatch, ready):
+    """A file the writer thread writes from a handed-over buffer, with or
+    without a copy's event to wait on, is byte for byte the one
+    ``save_checkpoint()`` writes of the same state; the writer waits on
+    the event once, before the write."""
+    monkeypatch.setattr(time, "time", lambda: 1.7e9)
+    sim = _sim()
+    sim.run(n_steps=EVERY + 3)
+    path = sim.save_checkpoint(tmp_path / "sync")
+    writer = ckpt.AsyncCheckpointer()
+    writer.submit(tmp_path / "queued", sim.step_count, sim.f.numpy().copy(),
+                  sim.av_vels[:sim.step_count], sim.params, ready=ready)
+    writer.wait()
+    name = os.path.basename(path)
+    assert (tmp_path / "queued" / name).read_bytes() == (
+        tmp_path / "sync" / name).read_bytes()
+    if ready is not None:
+        assert ready.waits == 1
+
+
 def test_a_torn_tmp_is_neither_latest_nor_deleted(tmp_path):
     """A torn write left by a killed process (a ``….npz.tmp.npz`` file at a
     later step, a ``.dcp.tmp`` directory) is not the latest checkpoint

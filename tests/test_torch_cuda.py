@@ -1091,3 +1091,59 @@ def test_f64_oracle_on_the_card_matches_the_cpu():
     f_g, av_g = v.run_f64(p, obst, 250, device="cuda")
     f_e, av_e = v.run_f64(p, obst, 250, device="cuda", graph=False)
     assert np.array_equal(f_g, f_e) and np.array_equal(av_g, av_e)
+
+
+@pytest.mark.cuda
+def test_checkpoint_through_the_pinned_stage_is_the_states_file(
+        tmp_path, monkeypatch):
+    """npz checkpoints of a state on the card go through a device snapshot
+    and pinned buffers that a side stream fills (``checkpoint.HostStage``).
+    With each copy on the side stream held back ~0.1 s, the first save's
+    copy lands after the next runner call has overwritten the state's
+    storage, the second save's snapshot waits for it, and the writer waits
+    for each. Each file, and ``save_checkpoint()``'s at step 0, is byte for
+    byte the one ``checkpoint.save`` writes from ``f.cpu()`` of the same
+    state, and a Simulation resumed from the first continues bit for
+    bit."""
+    import contextlib
+    import os
+    import time
+
+    from tpulbm_torch.sim import checkpoint as ckpt
+    from tpulbm_torch.sim.simulation import Simulation
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    monkeypatch.setattr(time, "time", lambda: 1.7e9)
+    mask = np.random.RandomState(9).rand(200, 136) < 0.1
+    p = LBMParams(nx=136, ny=200, max_iters=96, reynolds_dim=10,
+                  density=0.1, accel=0.005, omega=1.85)
+    ref = Simulation(p, mask, device="cuda")
+    want = {0: (ref.f.cpu().numpy(), ref.av_vels[:0].copy())}
+    for _ in range(2):
+        ref.run(n_steps=32)
+        want[ref.step_count] = (ref.f.cpu().numpy(),
+                                ref.av_vels[:ref.step_count].copy())
+    side = torch.cuda.stream
+
+    @contextlib.contextmanager
+    def held(stream):
+        with side(stream):
+            torch.cuda._sleep(200_000_000)
+            yield
+
+    monkeypatch.setattr(torch.cuda, "stream", held)
+    sim = Simulation(p, mask, device="cuda")
+    sim.save_checkpoint(tmp_path / "ck")
+    sim.run(n_steps=64, checkpoint_every=32,
+            checkpoint_dir=str(tmp_path / "ck"))
+    for step, (f, av) in want.items():
+        name = os.path.basename(
+            ckpt.save(tmp_path / "plain", step, f, av, sim.params))
+        assert (tmp_path / "ck" / name).read_bytes() == (
+            tmp_path / "plain" / name).read_bytes(), step
+    resumed = Simulation(p, mask, device="cuda")
+    resumed.restore_checkpoint(tmp_path / "ck" / "ckpt_00000032.npz")
+    resumed.run(n_steps=32)
+    assert torch.equal(resumed.f, ref.f)
+    assert resumed.av_vels[:64].tobytes() == ref.av_vels[:64].tobytes()

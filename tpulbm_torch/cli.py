@@ -293,8 +293,9 @@ def _main(args) -> int:
               f"{ckpt.STATS['removed'] - stats['removed']} removed, "
               f"{write_ms:.1f} ms a write on the writer thread; the main "
               f"thread {1e3 * copy:.1f} ms in lbm.ckpt.copy, "
-              f"{1e3 * wait:.1f} ms in lbm.ckpt.wait", file=sys.stderr,
-              flush=True)
+              f"{1e3 * wait:.1f} ms in lbm.ckpt.wait, "
+              f"{ckpt.STATS['held'] - stats['held']} held",
+              file=sys.stderr, flush=True)
     from tpulbm_torch.ops import ring_p2p
 
     # K6's own wait counters (cuda-p2p, the torus and the grid kind), the

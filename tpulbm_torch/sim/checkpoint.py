@@ -35,6 +35,10 @@ by rename and never fsynced: a killed process leaves the newest complete
 checkpoint in place, a host that loses power may not. The thread adds
 what it did to ``STATS``; ``Simulation.restore_checkpoint`` adds its
 restores.
+
+``HostStage`` makes an npz save's host copy of a state on a CUDA device
+off the main thread: a device snapshot, then a copy on a side stream into
+one of two pinned host buffers, which the writer thread waits for.
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ import time
 import warnings
 import zipfile
 import zlib
-from concurrent.futures import Future, ThreadPoolExecutor
+from concurrent import futures
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -70,9 +74,10 @@ BACKENDS = ("npz", "dcp")
 # reset_stats(): checkpoints the writer thread wrote, their bytes (an npz
 # file's size; the tensors a dcp writer handed over) and its time in them
 # (ns, perf_counter_ns inside the thread, retention included), the
-# checkpoints retention deleted, and restores.
+# checkpoints retention deleted, restores, and the saves whose host buffer
+# a queued write still read, so the main thread blocked on its join.
 STATS: dict = dict.fromkeys(("saves", "bytes", "write_ns", "removed",
-                             "restores"), 0)
+                             "restores", "held"), 0)
 _STATS_LOCK = threading.Lock()
 
 
@@ -90,7 +95,11 @@ def count(**adds) -> None:
 
 
 def save(directory, step: int, f: np.ndarray, av_vels: np.ndarray,
-         params: LBMParams) -> str:
+         params: LBMParams, ready=None) -> str:
+    """Write ``ckpt_<step>.npz``; with ``ready`` (a CUDA event, as
+    ``HostStage.copy`` returns) once the copy into ``f`` has landed."""
+    if ready is not None:
+        ready.synchronize()
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, f"ckpt_{step:08d}.npz")
     tmp = path + ".tmp.npz"
@@ -202,38 +211,44 @@ def prune(directory, keep: int, step: int) -> int:
 
 class AsyncCheckpointer:
     """Overlaps checkpoint serialization with the next compute chunk:
-    ``submit`` hands the write to the checkpointer's one writer thread,
+    ``submit`` queues the write on the checkpointer's one writer thread,
     started at its first write and kept (a thread started a save cost the
-    main thread 1.0-1.6 ms on an H100 host); ``wait`` joins the
-    in-flight write (called before the next submit and at shutdown). At
-    most one write is in flight, so checkpoints are never reordered. The
-    caller hands over host arrays that nothing writes until the write is
+    main thread 1.0-1.6 ms on an H100 host), which writes in the order
+    submitted, so checkpoints are never reordered and retention runs after
+    each rename. ``wait`` joins every queued write and raises the first
+    error among them (at a run's end); ``release`` joins those up to the
+    last that reads a host buffer its caller is about to refill. The caller
+    hands over host arrays that nothing writes until their write is
     joined: the gathered state for ``npz``, this process's pieces for
-    ``dcp`` (whose save runs the collectives of ``group``, a group that
-    only checkpoint writers use), and the history so far, which a run only
-    appends to (no copy of it is made: a copy a save grows with the solve,
-    and its fresh pages cost milliseconds on the main thread). With
-    ``keep`` the thread prunes the directory after the rename
-    (for ``dcp`` process 0 alone, which renames). A blocking join is the
-    span ``lbm.ckpt.wait``; the thread opens no span and adds to
-    ``STATS``."""
+    ``dcp``, and the history so far, which a run only appends to (no copy
+    of it is made: a copy a save grows with the solve, and its fresh pages
+    cost milliseconds on the main thread). ``dcp`` joins the last write
+    before each submit, so one is in flight at most: its save runs the
+    collectives of ``group``, a group that only checkpoint writers use.
+    With ``ready``, a CUDA event, the thread first waits for the host copy
+    the event ends, outside its clock (``STATS['write_ns']`` times the
+    file, the rename and retention alone). With ``keep`` the thread prunes
+    the directory after the rename (for ``dcp`` process 0 alone, which
+    renames). A join that finds a write queued is the span
+    ``lbm.ckpt.wait``; the thread opens no span and adds to ``STATS``."""
 
     def __init__(self, backend: str = "npz"):
         if backend not in BACKENDS:
             raise ValueError(f"unknown checkpoint backend {backend!r} "
                              f"(choose from {BACKENDS})")
         self.backend = backend
-        self._pool: Optional[ThreadPoolExecutor] = None
-        self._pending: Optional[Future] = None
+        self._pool: Optional[futures.ThreadPoolExecutor] = None
+        # (write, the npz state it reads) in the order submitted
+        self._pending: list = []
         self._result: Optional[str] = None
-        self._error: Optional[BaseException] = None
 
     def submit(self, directory, step, f, av_vels, params,
-               group=None, keep: Optional[int] = None) -> None:
-        self.wait()
+               group=None, keep: Optional[int] = None, ready=None) -> None:
+        reads = None
         if self.backend == "dcp":
             import torch.distributed as dist
 
+            self.wait()
             lead = group is None or dist.get_rank(group) == 0
             nbytes = av_vels.nbytes + sum(p.nbytes for p in f.values())
 
@@ -242,35 +257,88 @@ class AsyncCheckpointer:
                 return path, nbytes
         else:
             lead = True
-            f = np.asarray(f)
+            f = reads = np.asarray(f)
 
             def write():
                 path = save(directory, step, f, av_vels, params)
                 return path, os.path.getsize(path)
 
         def work():
-            try:
-                t0 = time.perf_counter_ns()
-                self._result, nbytes = write()
-                removed = prune(directory, keep, step) if keep and lead else 0
-                count(saves=1, bytes=nbytes, removed=removed,
-                      write_ns=time.perf_counter_ns() - t0)
-            except BaseException as e:  # surfaced on the next wait()
-                self._error = e
+            if ready is not None:
+                ready.synchronize()
+            t0 = time.perf_counter_ns()
+            path, nbytes = write()
+            removed = prune(directory, keep, step) if keep and lead else 0
+            count(saves=1, bytes=nbytes, removed=removed,
+                  write_ns=time.perf_counter_ns() - t0)
+            return path
 
         if self._pool is None:
-            self._pool = ThreadPoolExecutor(1, "lbm-ckpt")
-        self._pending = self._pool.submit(work)
+            self._pool = futures.ThreadPoolExecutor(1, "lbm-ckpt")
+        self._pending.append((self._pool.submit(work), reads))
+
+    def release(self, buf: np.ndarray) -> None:
+        """Join the queued writes up to the last one that reads ``buf``;
+        ``STATS['held']`` counts it where it had not ended."""
+        last = [n for n, (_, reads) in enumerate(self._pending)
+                if reads is not None and np.may_share_memory(reads, buf)]
+        if last:
+            if not self._pending[last[-1]][0].done():
+                count(held=1)
+            self._join(last[-1] + 1)
 
     def wait(self) -> Optional[str]:
-        if self._pending is not None:
-            with span("lbm.ckpt.wait"):
-                self._pending.result()
-            self._pending = None
-        if self._error is not None:
-            err, self._error = self._error, None
-            raise err
+        self._join(len(self._pending))
         return self._result
+
+    def _join(self, n: int) -> None:
+        """Join the first ``n`` queued writes, all of them even where one
+        raised, then raise the first error."""
+        joined, self._pending = self._pending[:n], self._pending[n:]
+        if not joined:
+            return
+        with span("lbm.ckpt.wait"):
+            futures.wait([write for write, _ in joined])
+        for write, _ in joined:
+            self._result = write.result()
+
+
+class HostStage:
+    """The host copy of an npz save of a state on a CUDA device, made off
+    the main thread. ``copy`` copies the state on the current stream into a
+    device snapshot kept for the stage's life (the next runner call
+    overwrites the state's own storage in its first launch), after the
+    side stream's last copy out of it; a side stream then copies the
+    snapshot into one of two pinned host buffers, in turn, and records an
+    event that the writer waits on. Before a buffer is refilled, its
+    caller's writer joins the write that last read it (two saves back).
+    The pinned buffers come from PyTorch's caching host allocator, so a
+    later stage of the same shape takes them over. A stage holds one more
+    device state and two pinned host buffers of the state's size."""
+
+    def __init__(self, f: torch.Tensor):
+        self.stream = torch.cuda.Stream(f.device)
+        self.snapshot = torch.empty_like(f)
+        self.snapshot.record_stream(self.stream)
+        self.hosts = [torch.empty(f.shape, dtype=f.dtype, pin_memory=True)
+                      for _ in range(2)]
+        self.copied = [torch.cuda.Event(blocking=True) for _ in range(2)]
+        self.turn = 0
+
+    def copy(self, f: torch.Tensor, writer: AsyncCheckpointer):
+        """(the host buffer that will hold ``f``, the event that ends its
+        copy)."""
+        i, self.turn = self.turn, 1 - self.turn
+        host = self.hosts[i].numpy()
+        writer.release(host)
+        main = torch.cuda.current_stream(f.device)
+        main.wait_stream(self.stream)
+        self.snapshot.copy_(f)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            self.hosts[i].copy_(self.snapshot, non_blocking=True)
+            self.copied[i].record(self.stream)
+        return host, self.copied[i]
 
 
 def latest(directory) -> str | None:

@@ -40,11 +40,11 @@ call), ``lbm.dist.call``, ``lbm.sim.readback`` and ``lbm.sim.record`` (the
 bookkeeping between calls), then ``lbm.sim.result`` (the history copy and
 ``lbm.sim.reynolds``); ``lbm.io.write`` holds ``lbm.diag.planes`` and the
 writers' ``lbm.io.final_state`` and ``lbm.io.av_vels``. A run that
-checkpoints adds ``lbm.ckpt.copy`` in ``lbm.sim.record`` (the host copies
-of the state and the history prefix, and the hand-off to the writer
-thread) and ``lbm.ckpt.wait`` (a join of that thread, inside a save
-before its copy or at the run's end); ``restore_checkpoint`` is
-``lbm.ckpt.restore``.
+checkpoints adds ``lbm.ckpt.copy`` in ``lbm.sim.record`` (the host copy
+of the state, or on a CUDA device the launch of its copies, the history's
+view and the hand-off to the writer thread) and ``lbm.ckpt.wait`` (a join
+of that thread, inside a save before its copy or at the run's end);
+``restore_checkpoint`` is ``lbm.ckpt.restore``.
 """
 
 from __future__ import annotations
@@ -153,6 +153,7 @@ class Simulation:
         self._runners = {}
         self._async_ckpt = ckpt.AsyncCheckpointer(ckpt_backend)
         self._host_f = None   # _host_state's buffer, made at the first save
+        self._stage = None    # the HostStage of a CUDA state's npz saves
 
     @classmethod
     def from_files(
@@ -465,10 +466,10 @@ class Simulation:
 
     def _host_state(self) -> Optional[np.ndarray]:
         """A host copy of the gathered state, which no later chunk writes
-        (None but on process 0). On one region it is one pageable buffer
-        kept for the Simulation's life, refilled by a synchronous copy once
-        the writer thread is done with the last save (a fresh 37.7 MB
-        tensor at 1024² costs its page faults on every save)."""
+        (None but on process 0), made once the writer thread is done with
+        the last save's. On one region it is one pageable buffer kept for
+        the Simulation's life, refilled by a synchronous copy (a fresh
+        37.7 MB tensor at 1024² costs its page faults on every save)."""
         if len(self.regions) == 1:
             if self._host_f is None:
                 self._host_f = torch.empty_like(self.shards[0],
@@ -476,6 +477,7 @@ class Simulation:
             self._async_ckpt.wait()
             return self._host_f.copy_(self.shards[0]).numpy()
         f = self._gather(self.shards, "cpu")
+        self._async_ckpt.wait()
         return None if f is None else f.numpy()
 
     def _checkpoint(self, directory, save):
@@ -484,7 +486,11 @@ class Simulation:
         (``ckpt.save_dcp``, ``ckpt.save``). For ``dcp`` every process hands
         over host copies of its own shards, for ``npz`` process 0 the
         gathered state (the others return None); the history as far as this
-        step, a view (later chunks write only past it)."""
+        step, a view (later chunks write only past it). An npz save of one
+        region on a CUDA device hands over a pinned buffer that a side
+        stream fills (``ckpt.HostStage``) and the event its writer waits
+        on, so up to two writes queue; the main thread only queues the
+        copies."""
         av_vels = self.av_vels[: self.step_count]
         if self.ckpt_backend == "dcp":
             pieces = {(r0, c0): self.shards[j].to("cpu", copy=True)
@@ -494,6 +500,12 @@ class Simulation:
                      if self.transport.world > 1 else None)
             return save(directory, self.step_count, pieces, av_vels,
                         self.params, group=group)
+        if len(self.regions) == 1 and self.shards[0].device.type == "cuda":
+            if self._stage is None:
+                self._stage = ckpt.HostStage(self.shards[0])
+            f, ready = self._stage.copy(self.shards[0], self._async_ckpt)
+            return save(directory, self.step_count, f, av_vels, self.params,
+                        ready=ready)
         f = self._host_state()
         if f is None:
             return None
