@@ -386,6 +386,68 @@ def test_resident_chunk_is_bitwise_k4(ny, nx):
     assert torch.equal(resident.resident_chunk(f0, o, p, k)[0], f)
 
 
+K2_SHAPES = [(128, 128), (256, 128), (256, 256), (256, 512)]
+K2_IDS = ["128x128", "128x256", "256x256", "256x512"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ny,nx", K2_SHAPES, ids=K2_IDS)
+def test_resident_counting_instance_is_the_plain_one_and_counts(ny, nx):
+    """K2's counting instance gives the plain instance's state and sums bit
+    for bit for 1, 4, 5 (h at these shapes), 64, 392 and 512 steps; it
+    counts each launch and its steps exactly, its warps' shares lie in
+    [0, 100], and its cells, fills, barrier waits and ends add up to at
+    most its warps' time (100.5 %: a warp's first and last clock readings
+    lie inside its CTA's)."""
+    p, o, f0 = _random_state(ny, nx, seed=3 * ny + nx)
+    gy, gx, h, _, threads, _ = resident.launch_plan(ny, nx, f0.device)
+    warps = gy * gx * threads // 32
+    card = f0.device.index
+    for k in (1, 4, 5, 64, 392, 512):
+        resident.reset_counters()
+        plain = resident._resident_launch(f0, o, p, k, count=False)
+        assert resident.counters().get(card, {"launches": 0})[
+            "launches"] == 0
+        counted = resident._resident_launch(f0, o, p, k, count=True)
+        assert torch.equal(plain[0], counted[0])
+        assert torch.equal(plain[1], counted[1])
+        resident._resident_launch(f0, o, p, k, count=True)
+        w = resident.counters()[card]
+        assert (w["launches"], w["steps"], w["warp_steps"]) == (
+            2, 2 * k, 2 * k * warps)
+        assert w["warp_ns"] > 0 and w["cell_ns"] > 0
+        for key in ("cell_ns", "fill_ns", "spin_ns", "barrier_ns",
+                    "ends_ns"):
+            assert 0 <= 100 * w[key] / w["warp_ns"] <= 100, (k, key, w)
+        assert w["spin_ns"] <= w["fill_ns"]
+        assert (k > h) == (w["fill_ns"] > 0)   # an edge step after h steps
+        parts = sum(w[key] for key in ("cell_ns", "fill_ns", "barrier_ns",
+                                       "ends_ns"))
+        assert parts <= 1.005 * w["warp_ns"], (k, w)
+
+
+@pytest.mark.cuda
+def test_resident_counts_only_while_a_profiler_session_is_open():
+    """The main path's K2 launches its plain instance with no profiler
+    session open and counts exactly the launches made inside one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    p, o, f0 = _random_state(128, 128, seed=17)
+    card = f0.device.index
+    resident.reset_counters()
+    resident.resident_chunk(f0, o, p, 64)
+    assert resident.counters().get(card, {"launches": 0})["launches"] == 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        got = resident.resident_chunk(f0, o, p, 64)
+        resident.resident_chunk(f0, o, p, 32)
+        torch.cuda.synchronize()
+    w = resident.counters()[card]
+    assert (w["launches"], w["steps"]) == (2, 96)
+    again = resident.resident_chunk(f0, o, p, 64)
+    assert resident.counters()[card]["launches"] == 2
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
 @pytest.mark.cuda
 def test_ring_chunk_matches_plain_and_repeats_bitwise(case):
     """K4 ring mode on a 100-row shard whose band holds the accelerated

@@ -146,6 +146,28 @@ def die(message: str) -> "int":
     return 1
 
 
+def k2_line(counted: dict):
+    """The line of K2's own counters (``ops.resident.counters()``): a
+    step's time and the shares of its warps' time, the mean over the cards
+    that counted a launch; None where none did."""
+    cards = [w for w in counted.values() if w["launches"] and w["warp_ns"]]
+    if not cards:
+        return None
+
+    def mean(value):
+        return sum(value(w) for w in cards) / len(cards)
+
+    step = mean(lambda w: (w["warp_ns"] - w["ends_ns"]) / w["warp_steps"])
+    cell, barrier, fill, spin, ends = (
+        mean(lambda w, key=key: 100 * w[key] / w["warp_ns"])
+        for key in ("cell_ns", "barrier_ns", "fill_ns", "spin_ns",
+                    "ends_ns"))
+    return (f"K2: {step:.0f} ns a step; its warps {cell:.1f} % on cells, "
+            f"{barrier:.1f} % at the step barrier, {fill:.1f} % on "
+            f"neighbours' edges ({spin:.1f} % spinning), {ends:.1f} % "
+            f"loading and reducing")
+
+
 def _mesh_shape(text):
     dy, sep, dx = text.partition("x")
     if not sep or not dy.isdigit() or not dx.isdigit():
@@ -311,6 +333,12 @@ def _main(args) -> int:
         print(f"K6 waited {wait:.1f} % of its CTA time on neighbours' flags "
               f"({remote:.1f} % on other cards'){rows}{where}",
               file=sys.stderr, flush=True)
+    from tpulbm_torch.ops import resident
+
+    # K2's own counters, where it counted (a --profile-dir run)
+    line = k2_line(resident.counters())
+    if sim.output and line:
+        print(line, file=sys.stderr, flush=True)
 
     # The grid kind's item shape (the one-card route outside the resident
     # gate): which items the run's launches stepped

@@ -82,6 +82,23 @@
 // A step costs at least ~1.4 us (~2,770 cycles at 1980 MHz) even at a few
 // hundred cells a CTA: one cell update's dependent chain a thread; without
 // the barrier, the sums or the handoff a step is only 2-7 % shorter.
+//
+// Counting. Each instance has a twin, kCount = true, that the entry point
+// launches where it is given counter words (ops/resident.py does while a
+// torch.profiler session is open): the same steps, stores and sums, bit for
+// bit, and each warp timing its own step in SM cycles (clock64's counter;
+// every lane keeps the totals in registers, lane 0's count): its cells and
+// warp sum from the step's start (the barrier's release before it; the last
+// warp's sum of the step before's partial included), the halo fill of an
+// edge step from its first load to its last word taken (and, of that, the
+// slowest lane's polls of words not yet carrying the epoch), its wait at
+// the step barrier, and the launch's ends (the window's load before the
+// first step; the last partial, the grid barrier and the epilogue after the
+// last). A CTA times its life in %globaltimer and clock64 from entry to
+// exit, converts its warps' cycles to ns at that ratio once, at exit, and
+// adds them to the words (namespace count). No step reads %globaltimer.
+// Every counting line is behind `if constexpr`, so the plain instance's
+// code is the kernel's without them.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -97,6 +114,17 @@ constexpr int kMaxSmem = 231424;          // dynamic shared memory a CTA
 constexpr int kMaxK = 512;                // steps of a launch
 constexpr int kMaxDevices = 64;
 constexpr long long kSpinNs = 10000000000LL;   // a wait's bound, 10 s
+
+// The counting instance's words (ops/resident.py's COUNTERS, in this
+// order): the CTAs' lives times their warps, the warps' time on cells, on
+// halo fills, spinning in them, at the step barrier and at the launch's
+// ends (ns); steps times warps, over the CTAs; steps and launches.
+namespace count {
+enum : int {
+  kWarpNs, kCellNs, kFillNs, kSpinNs, kBarrierNs, kEndsNs, kWarpSteps,
+  kSteps, kLaunches
+};
+}  // namespace count
 
 // The kernel's instances, (cells a thread, threads a CTA), smallest first:
 // a step's cells one a thread where they fit (fewer threads, cheaper
@@ -186,6 +214,47 @@ __device__ __forceinline__ long long globaltimer() {
   return t;
 }
 
+// The low 32 bits of the SM's cycle counter (clock64's). Read as %clock64
+// instead, the counting cost less, but the warps' wait at the step barrier
+// read 1-3 % at every shape, below the share of warps with no cell in the
+// step, which wait for all of it: that read does not keep its place.
+__device__ __forceinline__ unsigned clock32() {
+  unsigned c;
+  asm volatile("mov.u32 %0, %%clock;" : "=r"(c) :: "memory");
+  return c;
+}
+
+// A warp's step totals in the counting instance, in SM cycles (far below
+// 2^32 in a launch, 2 s): add(to) gives `to` the cycles since the last
+// add. Every lane keeps them; lane 0's count.
+struct Tally {
+  unsigned mark = 0, cell = 0, fill = 0, spin = 0, barrier = 0;
+  __device__ __forceinline__ void add(unsigned& to) {
+    const unsigned now = clock32();
+    to += now - mark;
+    mark = now;
+  }
+};
+
+// The counting instance's words of a CTA in shared memory: its entry in
+// %globaltimer and clock64, each warp's cycles before its first step (the
+// window's load: held in a register through the steps, it came out past
+// 2^32 in the 64-register instances), and the sums of its warps' totals at
+// exit (count::kCellNs order). A template, so that only the counting
+// instances hold them.
+template <int kNW>
+struct CtaWords {
+  long long t_entry, c_entry;
+  unsigned long long total[5];
+  unsigned load[kNW];
+};
+
+template <int kNW>
+__device__ __forceinline__ CtaWords<kNW>& cta_words() {
+  __shared__ CtaWords<kNW> w;
+  return w;
+}
+
 // A CTA's slots: 4 strips (its first h rows, last h rows, first h columns,
 // last h columns) x 2 parities, each nine planes of `plane` words; strip
 // element (a, b): row strips a * cols + b (a < h, b < cols), column strips
@@ -199,14 +268,15 @@ struct Slots {
   }
 };
 
-template <int kCells, int kNT>
+template <int kCells, int kNT, bool kCount>
 __global__ void __launch_bounds__(kNT, 1)
     resident_kernel(const float* __restrict__ f_in,
                     const float* __restrict__ obst, float* __restrict__ out,
                     unsigned long long* __restrict__ slot_words,
                     float* __restrict__ partials, float* __restrict__ sums,
                     int k_steps, int cy, int cx, int h,
-                    unsigned long long base, tpulbm::LbmArgs a) {
+                    unsigned long long base, tpulbm::LbmArgs a,
+                    unsigned long long* __restrict__ counts) {
   constexpr int kNW = kNT / 32;
   extern __shared__ __align__(16) float win[];
   __shared__ float warp_sums[2][kNW];
@@ -226,6 +296,16 @@ __global__ void __launch_bounds__(kNT, 1)
   float* nxt = win + wsize;   // where it writes
   unsigned* const accb = reinterpret_cast<unsigned*>(win + 2 * wsize);
   const Slots slots{slot_words, (size_t)h * (rmax > cmax ? rmax : cmax)};
+  [[maybe_unused]] Tally tally;   // the counting instance's
+  if constexpr (kCount) {
+    tally.mark = clock32();
+    if (t == 0) {
+      CtaWords<kNW>& w = cta_words<kNW>();
+      w.t_entry = globaltimer();
+      w.c_entry = clock64();
+      for (int i = 0; i < 5; ++i) w.total[i] = 0;
+    }
+  }
 
   // The window, once: nine planes and the mask, halos included (the mask
   // in both buffers).
@@ -253,6 +333,11 @@ __global__ void __launch_bounds__(kNT, 1)
     cj[q] = c - li[q] * w1;
   }
   __syncthreads();
+  if constexpr (kCount) {
+    const unsigned now = clock32();
+    if (lane == 0) cta_words<kNW>().load[warp] = now - tally.mark;
+    tally.mark = now;
+  }
 
   int s = 0;
   for (unsigned long long e = 0;; ++e) {
@@ -305,12 +390,14 @@ __global__ void __launch_bounds__(kNT, 1)
       }
       acc = warp_sum(acc);
       if (lane == 0) warp_sums[s & 1][warp] = acc;
+      if constexpr (kCount) tally.add(tally.cell);
       if (edge) {
         // Exchange e: the halo of the next state from the neighbours'
         // strips, each word taken once it carries this epoch. Halo cell
         // (by, bx) (block coordinates, outside [0, rows) x [0, cols)) lies
         // in neighbour (dy, dx); a row strip of it where dy != 0 (corners
         // too), else a column strip.
+        [[maybe_unused]] unsigned spun = 0;   // this lane's failed polls
         for (int i = t; i < nrow * ncol; i += kNT) {
           const int wr = i / ncol, wc = i - wr * ncol;
           const int by = wr - h, bx = wc - h;
@@ -330,6 +417,7 @@ __global__ void __launch_bounds__(kNT, 1)
                        : slots.at(n, 2, par) + ly * h + lx;
           unsigned long long word[9];
           long long t0 = 0;
+          [[maybe_unused]] unsigned c0 = 0;
           for (;;) {
             bool ready = true;
 #pragma unroll
@@ -338,16 +426,28 @@ __global__ void __launch_bounds__(kNT, 1)
               ready &= (unsigned)(word[v] >> 32) == tag;
             }
             if (ready) break;
-            if (t0 == 0) t0 = globaltimer();
-            else if (globaltimer() - t0 > kSpinNs) __trap();
+            if (t0 == 0) {
+              if constexpr (kCount) c0 = clock32();
+              t0 = globaltimer();
+            } else if (globaltimer() - t0 > kSpinNs) {
+              __trap();
+            }
           }
+          if constexpr (kCount)
+            if (t0 != 0) spun += clock32() - c0;
           float* dst = nxt + (size_t)i * kStride;
 #pragma unroll
           for (int v = 0; v < 9; ++v)
             dst[v] = __uint_as_float((unsigned)word[v]);
         }
+        if constexpr (kCount) {
+          __syncwarp();
+          tally.add(tally.fill);
+          tally.spin += __reduce_max_sync(0xffffffffu, spun);
+        }
       }
       __syncthreads();   // state s + 1 is in nxt, the halo too
+      if constexpr (kCount) tally.add(tally.barrier);
       // The partial of step s, off the next step's path: the last warp
       // sums the warp sums (kept two steps, so the next step's never
       // overwrite them first).
@@ -364,10 +464,34 @@ __global__ void __launch_bounds__(kNT, 1)
   cg::this_grid().sync();   // every partial is written
   for (int q = r; q < k_steps; q += ctas)
     tpulbm::reduce_row(partials, sums, q, ctas, warp_sums[0]);
+  if constexpr (kCount) {
+    CtaWords<kNW>& w = cta_words<kNW>();
+    if (lane == 0) {
+      const unsigned mine[5] = {tally.cell, tally.fill, tally.spin,
+                                tally.barrier,
+                                clock32() - tally.mark + w.load[warp]};
+      for (int i = 0; i < 5; ++i) atomicAdd(&w.total[i], mine[i]);
+    }
+    __syncthreads();
+    if (t == 0) {
+      const long long life = globaltimer() - w.t_entry;
+      const long long cycles = clock64() - w.c_entry;
+      const double ns = cycles > 0 ? (double)life / (double)cycles : 0.0;
+      atomicAdd(counts + count::kWarpNs, (unsigned long long)life * kNW);
+      for (int i = 0; i < 5; ++i)
+        atomicAdd(counts + count::kCellNs + i,
+                  (unsigned long long)((double)w.total[i] * ns));
+      atomicAdd(counts + count::kWarpSteps, (unsigned long long)k_steps * kNW);
+      if (r == 0) {
+        atomicAdd(counts + count::kSteps, (unsigned long long)k_steps);
+        atomicAdd(counts + count::kLaunches, 1ull);
+      }
+    }
+  }
 }
 
 // The instance's shared-memory limit, set once per device.
-template <int kCells, int kNT>
+template <int kCells, int kNT, bool kCount>
 cudaError_t prepare() {
   static bool done[kMaxDevices];
   int dev = 0;
@@ -375,7 +499,7 @@ cudaError_t prepare() {
   if (e != cudaSuccess) return e;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!done[dev]) {
-    e = cudaFuncSetAttribute(resident_kernel<kCells, kNT>,
+    e = cudaFuncSetAttribute(resident_kernel<kCells, kNT, kCount>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kMaxSmem);
     if (e != cudaSuccess) return e;
@@ -387,7 +511,7 @@ cudaError_t prepare() {
 template <int kCells, int kNT>
 cudaError_t max_ctas(int smem, int* n) {
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t e = prepare<kCells, kNT>();
+  cudaError_t e = prepare<kCells, kNT, false>();
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
@@ -396,26 +520,28 @@ cudaError_t max_ctas(int smem, int* n) {
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, resident_kernel<kCells, kNT>, kNT, smem);
+        &per_sm, resident_kernel<kCells, kNT, false>, kNT, smem);
   if (e == cudaSuccess && per_sm < 1) e = cudaErrorCooperativeLaunchTooLarge;
   if (e == cudaSuccess) *n = per_sm * sms;
   return e;
 }
 
-template <int kCells, int kNT>
+template <int kCells, int kNT, bool kCount>
 int launch(const float* f_in, const float* obst, float* out,
            unsigned long long* slots, float* partials, float* sums, int cy,
            int cx, int h, unsigned long long base, int k_steps,
-           tpulbm::LbmArgs a, cudaStream_t stream) {
-  cudaError_t e = prepare<kCells, kNT>();
+           tpulbm::LbmArgs a, unsigned long long* counts,
+           cudaStream_t stream) {
+  cudaError_t e = prepare<kCells, kNT, kCount>();
   if (e != cudaSuccess) return (int)e;
   void* args[] = {(void*)&f_in,    (void*)&obst,  (void*)&out,
                   (void*)&slots,   (void*)&partials, (void*)&sums,
                   (void*)&k_steps, (void*)&cy,    (void*)&cx,
-                  (void*)&h,       (void*)&base,  (void*)&a};
+                  (void*)&h,       (void*)&base,  (void*)&a,
+                  (void*)&counts};
   e = cudaLaunchCooperativeKernel(
-      (const void*)resident_kernel<kCells, kNT>, dim3(cy * cx), dim3(kNT),
-      args, (size_t)window_smem(a.ny, a.nx, cy, cx, h), stream);
+      (const void*)resident_kernel<kCells, kNT, kCount>, dim3(cy * cx),
+      dim3(kNT), args, (size_t)window_smem(a.ny, a.nx, cy, cx, h), stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -458,21 +584,28 @@ int lbm_resident_max_ctas(int cells, int threads, int smem) {
 // cy cx) floats; sums the k_steps per-step sums. Returns the launch's
 // error code (cudaErrorInvalidValue where the plan does not hold the grid
 // or names no instance, cudaErrorCooperativeLaunchTooLarge where the CTAs
-// cannot all be resident).
+// cannot all be resident). counts: null launches the plain instance;
+// else the counting instance, which adds to these count::kLaunches + 1
+// words (zeroed by the caller before its first launch).
 int lbm_resident_chunk(const float* f_in, const float* obst, float* out,
                        unsigned long long* slots, float* partials,
                        float* sums, int cy, int cx, int h, int cells,
                        int threads, unsigned long long base, int ny, int nx,
                        int k_steps, int accel_row, float omega, float w1,
-                       float w2, cudaStream_t stream) {
+                       float w2, unsigned long long* counts,
+                       cudaStream_t stream) {
   const tpulbm::LbmArgs a{ny, nx, accel_row, omega, w1, w2};
   if (k_steps < 1 || k_steps > kMaxK ||
       !holds(ny, nx, cy, cx, h, cells, threads))
     return (int)cudaErrorInvalidValue;
-#define TPULBM_LAUNCH(C, T)                                              \
-  if (cells == C && threads == T)                                        \
-    return launch<C, T>(f_in, obst, out, slots, partials, sums, cy, cx, h, \
-                        base, k_steps, a, stream);
+#define TPULBM_LAUNCH(C, T)                                                \
+  if (cells == C && threads == T)                                          \
+    return counts ? launch<C, T, true>(f_in, obst, out, slots, partials,   \
+                                       sums, cy, cx, h, base, k_steps, a,  \
+                                       counts, stream)                     \
+                  : launch<C, T, false>(f_in, obst, out, slots, partials,  \
+                                        sums, cy, cx, h, base, k_steps, a, \
+                                        counts, stream);
   TPULBM_RESIDENT_INSTANCES(TPULBM_LAUNCH)
 #undef TPULBM_LAUNCH
   return (int)cudaErrorInvalidValue;

@@ -74,7 +74,7 @@ _SIGNATURES = {
     "lbm_resident_max_ctas": ([_I, _I, _I], _I),
     "lbm_resident_chunk": (
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _I, _I, _F,
-         _F, _F, _P], _I),
+         _F, _F, _P, _P], _I),
     "lbm_kstep_tile_blocks": ([_I, _I], _I),
     "lbm_kstep_tile_smem": ([_I], _I),
     "lbm_kstep_tile_ctas_per_sm": ([_I], _I),

@@ -40,6 +40,24 @@ The wrapper takes the plain version (``resident_chunk_ref``) only when the
 state lies on the CPU. On a CUDA tensor it launches K2 or raises — also
 when no plan holds the grid or the device refuses the cooperative launch;
 it never falls back to another kernel.
+
+Counting. Each launch checks whether a ``torch.profiler`` session is open
+(``torch._C._autograd._profiler_enabled()``, the test that
+``utils.profiling.span`` makes). Where none is, it launches the plain
+kernel, and counting costs that check alone. Where one is, it launches K2's
+counting instance (``resident_kernel<cells, threads, true>`` in a trace):
+the same state and sums, bit for bit, each warp timing its own step in SM
+cycles, converted to ns by its CTA's life at exit (``csrc/resident.cu``).
+So a benchmark's ``--trace 1`` run counts its traced sub-window, and the
+CLI's ``--profile-dir`` run its main loop; the profiled time includes what
+the counting costs. The counting instance adds to int64 counter words, one
+set per device, zeroed when made on first use, as the slots are.
+``counters()`` reads them: ``{card: {name: value}}`` with the names of
+``COUNTERS`` (the CTAs' lives times their warps, the warps' time on cells,
+on halo fills, spinning in them, at the step barrier and at the launch's
+ends, in ns; the steps times warps over the CTAs; the steps and the
+launches), one copy from each device that counted, only when called, never
+on a run's path. ``reset_counters()`` zeroes them.
 """
 
 from __future__ import annotations
@@ -48,6 +66,7 @@ import functools
 import threading
 
 import torch
+from torch._C._autograd import _profiler_enabled
 
 from tpulbm_torch.core.params import LBMParams
 from tpulbm_torch.ops import _build, step_torch
@@ -65,10 +84,15 @@ RESIDENT_INSTANCES = ((1, 512), (1, 768), (1, 1024), (2, 1024))
 # tools/resident_sweep.py on the H100).
 RESIDENT_CTAS = 128
 RESIDENT_H = 5
+# The counting instance's counter words, in csrc/resident.cu's order
+# (namespace count).
+COUNTERS = ("warp_ns", "cell_ns", "fill_ns", "spin_ns", "barrier_ns",
+            "ends_ns", "warp_steps", "steps", "launches")
 
 _lock = threading.Lock()
 _slots: dict = {}   # device index -> [slot words, next base epoch]
 _most: dict = {}    # (device index, cells, threads, smem) -> CTAs
+_counts: dict = {}  # device index -> the counter words
 
 
 def band_start(i: int, n: int, c: int) -> int:
@@ -165,6 +189,38 @@ def _exchange(device, words: int, phases: int):
         return entry[0], base
 
 
+def _counter_words(device):
+    """The device's counter words, zeroed where new."""
+    with _lock:
+        words = _counts.get(device.index)
+        if words is None:
+            words = _counts[device.index] = torch.zeros(
+                len(COUNTERS), dtype=torch.int64, device=device)
+        return words
+
+
+def _counting(device):
+    """The counter words a launch on ``device`` adds to: the device's
+    while a torch.profiler session is open, else None (the plain
+    kernel)."""
+    return _counter_words(device) if _profiler_enabled() else None
+
+
+def counters() -> dict:
+    """{card: {name: value}} of every device's counter words (names
+    ``COUNTERS``): one copy a device, made here."""
+    with _lock:
+        items = list(_counts.items())
+    return {card: dict(zip(COUNTERS, words.tolist()))
+            for card, words in items}
+
+
+def reset_counters() -> None:
+    with _lock:
+        for words in _counts.values():
+            words.zero_()
+
+
 def launch_plan(ny: int, nx: int, device, ctas: int = RESIDENT_CTAS,
                 h: int = RESIDENT_H, cy: int = 0):
     """(cy, cx, h, cells a thread, threads a CTA, shared-memory bytes a
@@ -191,10 +247,12 @@ def launch_plan(ny: int, nx: int, device, ctas: int = RESIDENT_CTAS,
 
 def _resident_launch(f, obst_f, params: LBMParams, k: int, out=None,
                      ctas: int = RESIDENT_CTAS, h: int = RESIDENT_H,
-                     cy: int = 0):
+                     cy: int = 0, count=None):
     """K2 on a CUDA state, its plan ``launch_plan(..., ctas, h, cy)``: (f',
     sums[k], the (k, CTAs) partials that its epilogue reduced into
-    sums)."""
+    sums). ``count``: the counting instance (True) or the plain one
+    (False); None, the main path's, counts while a profiler session is
+    open."""
     check_chunk(f, obst_f, params, k)
     if k > RESIDENT_K:
         raise ValueError(f"K2 runs at most {RESIDENT_K} steps a launch")
@@ -209,6 +267,8 @@ def _resident_launch(f, obst_f, params: LBMParams, k: int, out=None,
                                device=f.device)
         sums = torch.empty(k, dtype=torch.float32, device=f.device)
         out = output(out, f, f.shape)
+        counts = (_counting(f.device) if count is None
+                  else _counter_words(f.device) if count else None)
         _build.LAUNCHES["resident_chunk"] += 1
         _build.LAUNCHES["reduce_partials"] += 1
         _build.check(
@@ -217,8 +277,9 @@ def _resident_launch(f, obst_f, params: LBMParams, k: int, out=None,
                 slots.data_ptr(), partials.data_ptr(), sums.data_ptr(), gy,
                 gx, hh, cells, threads, base, ny, nx, k, params.accel_row,
                 params.omega, params.accel_w1, params.accel_w2,
+                None if counts is None else counts.data_ptr(),
                 torch.cuda.current_stream(f.device).cuda_stream),
             f"lbm_resident_chunk ({gy} x {gx} CTAs of {threads} threads, h = "
             f"{hh}, {cells} cell(s) a thread, {smem} B of shared memory a "
-            f"CTA)")
+            f"CTA{', counting' if counts is not None else ''})")
     return out, sums, partials

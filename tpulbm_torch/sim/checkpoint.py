@@ -33,8 +33,7 @@ oldest complete checkpoints below the one it wrote (``prune``) until
 or one that a killed process left torn is never deleted. Files are atomic
 by rename and never fsynced: a killed process leaves the newest complete
 checkpoint in place, a host that loses power may not. The thread adds
-what it did to ``STATS``; ``Simulation.restore_checkpoint`` adds its
-restores.
+what it did to ``STATS``.
 
 ``HostStage`` makes an npz save's host copy of a state on a CUDA device
 off the main thread: a device snapshot, then a copy on a side stream into
@@ -74,10 +73,10 @@ BACKENDS = ("npz", "dcp")
 # reset_stats(): checkpoints the writer thread wrote, their bytes (an npz
 # file's size; the tensors a dcp writer handed over) and its time in them
 # (ns, perf_counter_ns inside the thread, retention included), the
-# checkpoints retention deleted, restores, and the saves whose host buffer
-# a queued write still read, so the main thread blocked on its join.
+# checkpoints retention deleted, and the saves whose host buffer a queued
+# write still read, so the main thread blocked on its join.
 STATS: dict = dict.fromkeys(("saves", "bytes", "write_ns", "removed",
-                             "restores", "held"), 0)
+                             "held"), 0)
 _STATS_LOCK = threading.Lock()
 
 

@@ -556,7 +556,6 @@ class Simulation:
         self.epoch += 1
         self.shards = [torch.as_tensor(p).to(tr.devices[d]).contiguous()
                        for d, p in zip(tr.local, pieces)]
-        ckpt.count(restores=1)
 
 
 def _attempt(fn, *args):

@@ -18,10 +18,12 @@ main path; the states must be bitwise equal and the sums within 3e-4 (the
 kernels may sum the same values in another order). Times are CUDA-event ms
 a call, in turns base, this, this, base, and the device time a call from
 ``torch.profiler`` (kernels, copies and fills), which leaves out the host's
-launch path: below ~0.1 ms a call the events time the host. Prints the card's name and power limit, one line
-per case (``--match``: only the cases whose label holds the text), then
-one JSON line of the cases. Exits 1 if a case disagrees.
-Needs a CUDA device.
+launch path: below ~0.1 ms a call the events time the host. Under the
+profiler a K2 that counts (``ops/resident.py``) runs its counting
+instance, so its device time there includes the counters' cost. Prints
+the card's name and power limit, one line per case (``--match``: only the
+cases whose label holds the text), then one JSON line of the cases. Exits
+1 if a case disagrees. Needs a CUDA device.
 """
 
 from __future__ import annotations
